@@ -6,18 +6,28 @@
 Phases, each printed on its own line; any failure exits non-zero with no result line:
 
 1. device  - a CUDA card must be present; prints nvidia-smi's name and power limit.
-2. build   - compiles goal_force_tpu_torch/csrc/*.cu with nvcc for sm_90a.
+2. build   - compiles goal_force_tpu_torch/csrc/*.cu with nvcc for sm_90a (one nvcc per
+             source, started together) and prints each kernel's ptxas report.
 3. kernels - holds K1/K2 against their plain torch versions on the card (small shapes,
-             saturation, per-batch kv_len, and the main-path shapes), and times kernel,
-             plain version and SDPA (as a yardstick only) at the main-path shapes.
+             saturation, per-batch kv_len, and the main-path shapes), and K3/K4/K5 (o and
+             lse, dk and dv, dq) in float32 and bf16 at 1000x777 and at the training
+             self and cross shapes; times kernel, plain version and SDPA (as a yardstick
+             only) at the path shapes.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
-5. main    - GoalForcePipeline at full A14B width (depth cut to 4 DiT + 2 ControlNet
+5. small_train - one training loss + backward at that size, kernels vs plain attention
+             (loss and every ControlNet gradient), and the launch counts of the rule.
+6. main    - GoalForcePipeline at full A14B width (depth cut to 4 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
              are reset just before and read just after.
-6. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
+7. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
              so the runtime logit bound routes self-attention to K2.
+8. train   - frees the serving pipeline and trains the ControlNet at full A14B width
+             (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
+             steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
+             the frozen models, the checkpoint and the launches per step, and logs the
+             stage split and peak memory.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; before it, one JSON line
 lists each kernel's launches, error and times; the last line is the result JSON.
@@ -27,6 +37,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -39,6 +51,8 @@ PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bandwidth
 SELF = (2, 32760, 40, 128)      # main-path self-attention q/k/v
 CROSS_KV = (2, 512, 40, 128)    # main-path cross-attention text keys
+TRAIN_SELF = (1, 32760, 40, 128)     # training (B = 1) self-attention q/k/v
+TRAIN_CROSS_KV = (1, 512, 40, 128)   # training cross-attention text keys
 STEPS = 4
 K1_PER_REQUEST = 2 * (4 + 2) * STEPS
 
@@ -52,8 +66,13 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T0 = time.perf_counter()
+
+
 def log(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; "t" is seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0, 3), **fields}),
+          flush=True)
 
 
 def sync_time(fn):
@@ -102,14 +121,54 @@ def phase_device():
 def phase_build():
     from goal_force_tpu_torch.ops import _build
 
-    _, secs = sync_time(lambda: _build.load("flash_attention"))
-    ptxas = [ln.strip() for log_ in _build.build_log.values() for ln in log_.splitlines()
-             if "registers" in ln or "spill" in ln or "error" in ln.lower()]
-    log("build", seconds=round(secs, 3), nvcc=_build.nvcc_path(), ptxas=ptxas)
+    _, secs = sync_time(_build.load_all)      # one nvcc per source, started together
+    check(set(_build.stems()) == {"flash_attention", "flash_attention_bwd"},
+          f"unexpected CUDA sources {_build.stems()}")
+    for stem, log_ in sorted(_build.build_log.items()):
+        ptxas = [ln.strip() for ln in log_.splitlines() if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln or "error" in ln.lower()]
+        log("build", source=f"{stem}.cu", ptxas=ptxas)
+    log("build", seconds=round(secs, 3), nvcc=_build.nvcc_path())
 
 
 def _rand(shape, gen, dtype, mult=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * mult).to(dtype)
+
+
+# Mean error along the reference's sign, over mean |ref|: rounding errors of a right
+# kernel average out (~1e-5), while p rounded towards zero instead of to nearest
+# shrinks every output by ~2e-3, far below one ulp of any single element.
+MAX_BIAS = 5e-4
+
+
+def compare(name, got, ref, atol, rtol, phase="kernels"):
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    lim = atol + rtol * r.abs()
+    bias = float(((g - r) * r.sign()).mean() / r.abs().mean().clamp(min=1e-30))
+    ok = (bool(torch.isfinite(g).all()) and bool((err <= lim).all())
+          and abs(bias) <= MAX_BIAS)
+    log(phase, case=name, max_abs_err=float(err.max()), atol=atol, rtol=rtol,
+        rel_bias=bias, max_rel_bias=MAX_BIAS, ok=ok)
+    check(ok, f"kernel check failed: {name}")
+    return float(err.max())
+
+
+def only(**counts):
+    """The full launch-count dict with the given kernels' counts and 0 elsewhere."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    return {k: counts.get(k, 0) for k in fa.launch_counts}
+
+
+def picked(fn):
+    """fn's result and the launches it made (synchronised)."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    before = dict(fa.launch_counts)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: fa.launch_counts[k] - before[k] for k in before}
 
 
 def phase_kernels():
@@ -129,28 +188,6 @@ def phase_kernels():
     bf16_tol = dict(atol=5e-3, rtol=0.0)
     bf16_tol_shape = {"self": dict(atol=1e-3, rtol=0.0), "cross": dict(atol=1e-2, rtol=0.0)}
 
-    # Mean error along the reference's sign, over mean |ref|: rounding errors of a right
-    # kernel average out (~1e-5), while p rounded towards zero instead of to nearest
-    # shrinks every output by ~2e-3, far below one ulp of any single element.
-    max_bias = 5e-4
-
-    def compare(name, got, ref, atol, rtol):
-        g, r = got.float(), ref.float()
-        err = (g - r).abs()
-        lim = atol + rtol * r.abs()
-        bias = float(((g - r) * r.sign()).mean() / r.abs().mean().clamp(min=1e-30))
-        ok = (bool(torch.isfinite(g).all()) and bool((err <= lim).all())
-              and abs(bias) <= max_bias)
-        log("kernels", case=name, max_abs_err=float(err.max()), atol=atol, rtol=rtol,
-            rel_bias=bias, max_rel_bias=max_bias, ok=ok)
-        check(ok, f"kernel check failed: {name}")
-        return float(err.max())
-
-    def picked(fn):
-        before = dict(fa.launch_counts)
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: fa.launch_counts[k] - before[k] for k in before}
 
     for dtype, tol in ((torch.float32, f32_tol), (torch.bfloat16, bf16_tol)):
         tag = str(dtype).split(".")[-1]
@@ -160,12 +197,12 @@ def phase_kernels():
         compare(f"K1 clamp {tag} (1,1000,4,128)x(1,777,4,128)", got,
                 fa.flash_attention_nomax_plain(q, k, v, scale), **tol)
         got, n = picked(lambda: fa.flash_attention(q, k, v, scale, dispatch="auto"))
-        check(n == {"K1": 1, "K2": 0}, f"auto dispatch on bounded inputs launched {n}")
+        check(n == only(K1=1), f"auto dispatch on bounded inputs launched {n}")
         compare(f"K1 no clamp via auto {tag}", got,
                 fa.flash_attention_nomax_plain(q, k, v, scale, clamp=None), **tol)
         q40, k40 = q * 40, k * 40
         got, n = picked(lambda: fa.flash_attention(q40, k40, v, scale, dispatch="auto"))
-        check(n == {"K1": 0, "K2": 1}, f"auto dispatch on x40 inputs launched {n}")
+        check(n == only(K2=1), f"auto dispatch on x40 inputs launched {n}")
         compare(f"K2 via auto x40 {tag}", got, fa.flash_attention_max_plain(q40, k40, v, scale),
                 atol=2e-3 if dtype == torch.float32 else 2e-2, rtol=0.0)
         sat = fa.flash_attention(q40, k40, v, scale, dispatch="nomax")
@@ -214,6 +251,105 @@ def phase_kernels():
         out[kname] = rec
     del q, k, v, ck, cv
     torch.cuda.empty_cache()
+    out.update(_training_kernels())
+    return out
+
+
+def bf16_limit(ref) -> float:
+    """Two bf16 ulps at the largest |ref|: kernel and plain version round float32 sums
+    that differ only in summation order to bf16, so a right kernel is within one ulp."""
+    top = float(ref.float().abs().max())
+    return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 1e-30
+
+
+def kernel_bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """K3/K4/K5 vs their plain versions in float32 and bf16, at a shape with a padded q
+    tile and a partly masked kv tile and at the training path's self and cross shapes;
+    times kernel, plain version and SDPA (a yardstick only) at the bf16 path shapes."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(4321)
+    scale = 128**-0.5
+    tols = {torch.float32: dict(atol=2e-5, rtol=2e-5)}  # float32: another summation order
+    grad_f32 = dict(atol=1e-4, rtol=1e-4)               # sums of up to 32,760 such terms
+    lse_tol = dict(atol=1e-5, rtol=1e-5)                # float32 logs of float32 sums
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = (("small", (1, 1000, 4, 128), (1, 777, 4, 128)),
+              ("self", TRAIN_SELF, TRAIN_SELF), ("cross", TRAIN_SELF, TRAIN_CROSS_KV))
+    out = {"K3": {}, "K4": {}, "K5": {}}
+    for dtype in dtypes:
+        tag = str(dtype).split(".")[-1]
+        for sname, q_shape, kv_shape in shapes:
+            q, do = _rand(q_shape, gen, dtype), _rand(q_shape, gen, dtype)
+            k, v = _rand(kv_shape, gen, dtype), _rand(kv_shape, gen, dtype)
+            case = f"{tag} {sname} {q_shape}x{kv_shape}"
+
+            def tol(ref, grad=False):
+                if dtype == torch.bfloat16:
+                    return dict(atol=bf16_limit(ref), rtol=0.0)
+                return grad_f32 if grad else tols[dtype]
+
+            (o, lse), n = picked(lambda: fa.flash_attention_fwd_lse(q, k, v, scale))
+            check(n == only(K3=1), f"K3 {case} launched {n}")
+            o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+            err = {"K3": compare(f"K3 o {case}", o, o_ref, **tol(o_ref))}
+            compare(f"K3 lse {case}", lse, lse_ref, **lse_tol)
+            del o, lse
+            # The backward kernels get the plain forward's o and lse, so each is held
+            # against its plain version on exactly the same inputs.
+            (dk, dv), n = picked(lambda: fa.flash_attention_bwd_dkv(q, k, v, o_ref, do,
+                                                                    lse_ref, scale))
+            check(n == only(K4=1), f"K4 {case} launched {n}")
+            dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, o_ref, do, lse_ref, scale)
+            err["K4"] = max(compare(f"K4 dk {case}", dk, dk_ref, **tol(dk_ref, True)),
+                            compare(f"K4 dv {case}", dv, dv_ref, **tol(dv_ref, True)))
+            del dk, dv, dk_ref, dv_ref
+            dq, n = picked(lambda: fa.flash_attention_bwd_dq(q, k, v, o_ref, do, lse_ref, scale))
+            check(n == only(K5=1), f"K5 {case} launched {n}")
+            dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o_ref, do, lse_ref, scale)
+            err["K5"] = compare(f"K5 dq {case}", dq, dq_ref, **tol(dq_ref, True))
+            del dq, dq_ref
+            torch.cuda.empty_cache()
+            if not timed or dtype != torch.bfloat16 or sname == "small":
+                continue
+            b, sq, nh, hd = q_shape
+            skv = kv_shape[1]
+            mm = b * nh * sq * skv * hd                 # one Sq x Skv x 128 product per head
+            qb, kvb, lseb = q.numel() * 2, k.numel() * 2, b * nh * sq * 4
+            args = (q, k, v, o_ref, do, lse_ref, scale)
+            runs = {
+                "K3": (lambda: fa.flash_attention_fwd_lse(q, k, v, scale),
+                       lambda: fa.flash_attention_fwd_lse_plain(q, k, v, scale),
+                       kernel_bound_ms(4 * mm, 2 * qb + 2 * kvb + lseb)),
+                "K4": (lambda: fa.flash_attention_bwd_dkv(*args),
+                       lambda: fa.flash_attention_bwd_dkv_plain(*args),
+                       kernel_bound_ms(8 * mm, 3 * qb + 4 * kvb + lseb)),
+                "K5": (lambda: fa.flash_attention_bwd_dq(*args),
+                       lambda: fa.flash_attention_bwd_dq_plain(*args),
+                       kernel_bound_ms(6 * mm, 4 * qb + 2 * kvb + lseb))}
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa_fwd = event_ms(lambda: sdpa(qt, kt, vt))
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+            dot = do.transpose(1, 2)
+            sdpa_fb = event_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), dot))
+            del qg, kg, vg
+            for kname, (kern, plain, (bound, by)) in runs.items():
+                rec = dict(max_abs_err=err[kname], ms=event_ms(kern),
+                           plain_ms=event_ms(plain, iters=1, warmup=0), bound_ms=bound,
+                           bound_by=by, library_ms=sdpa_fwd if kname == "K3" else None,
+                           shape=f"{q_shape}x{kv_shape}")
+                if kname != "K3":   # SDPA's backward computes dq, dk and dv in one call
+                    rec["sdpa_bwd_ms"] = sdpa_fb - sdpa_fwd
+                out[kname][sname] = rec
+                log("kernels", case=f"{kname} {sname} timing", **rec)
+                torch.cuda.empty_cache()
+            del q, k, v, do, o_ref, lse_ref, args, runs
+            torch.cuda.empty_cache()
     return out
 
 
@@ -245,10 +381,7 @@ def phase_small():
     from goal_force_tpu_torch.ops import flash_attention as fa
     from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
 
-    _, t5_cfg, vae_cfg, cn_cfg = C.tiny_pipeline_configs()
-    dit_cfg = C.WanDiTConfig(dim=256, in_dim=2 * vae_cfg.z_dim + 4, ffn_dim=512,
-                             out_dim=vae_cfg.z_dim, text_dim=t5_cfg.dim, freq_dim=32,
-                             num_heads=2, num_layers=2, rope_max_len=64)
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = _small_configs()
     pipe = GoalForcePipeline.init_random(seed=5, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=vae_cfg,
                                          cn_cfg=cn_cfg, dtype=torch.float32, device="cuda")
     for cn in ("controlnet", "controlnet2"):   # non-identity ControlNets
@@ -296,7 +429,7 @@ def phase_small():
         step_atol=1e-4, launches=n, frames_max_abs_err=err, frames_atol=1e-3,
         plain_rerun_max_abs_diff=rerun, cudnn_tf32_frames_max_abs_err=tf32_err,
         ok=step_err <= 1e-4 and err <= 1e-3)
-    check(n_step == {"K1": 6, "K2": 0} and n == {"K1": 2 * (2 + 1) * 4, "K2": 0},
+    check(n_step == only(K1=6) and n == only(K1=2 * (2 + 1) * 4),
           f"small path launched {n_step} / {n}")
     check(step_err <= 1e-4, f"small path: one step differs by {step_err}")
     check(err <= 1e-3, f"small path: kernels vs plain attention differ by {err}")
@@ -355,7 +488,7 @@ def phase_main():
               f"request {r}: frames shape {frames.shape}")
         check(bool(np.isfinite(frames).all()), f"request {r}: non-finite frames")
         check(frames.min() >= 0.0 and frames.max() <= 1.0, f"request {r}: frames outside [0, 1]")
-        check(counts == {"K1": K1_PER_REQUEST * (r + 1), "K2": 0},
+        check(counts == only(K1=K1_PER_REQUEST * (r + 1)),
               f"request {r}: launch counts {counts}, expected K1={K1_PER_REQUEST * (r + 1)}")
         log("main", stage=f"request{r}", seconds=total, stages=dict(stage_times),
             launches=counts, frames_mean=float(frames.mean()), frames_std=float(frames.std()))
@@ -399,8 +532,197 @@ def phase_unbounded(pipe):
         pipe.dit_cfg = saved_cfg
     check(tuple(out.shape) == tuple(lat.shape) and bool(torch.isfinite(out.float()).all()),
           "unbounded step: bad output")
-    check(launches == {"K1": 6, "K2": 6}, f"unbounded step launched {launches}")
+    check(launches == only(K1=6, K2=6), f"unbounded step launched {launches}")
     log("unbounded", seconds=secs, launches=launches)
+    return launches
+
+
+def _small_configs():
+    """The small phases' configs: a head_dim-128 DiT (2 heads) over the tiny T5/VAE/CN."""
+    from goal_force_tpu_torch import configs as C
+
+    _, t5_cfg, vae_cfg, cn_cfg = C.tiny_pipeline_configs()
+    dit_cfg = C.WanDiTConfig(dim=256, in_dim=2 * vae_cfg.z_dim + 4, ffn_dim=512,
+                             out_dim=vae_cfg.z_dim, text_dim=t5_cfg.dim, freq_dim=32,
+                             num_heads=2, num_layers=2, rope_max_len=64)
+    return dit_cfg, t5_cfg, vae_cfg, cn_cfg
+
+
+def _perturb_zero_convs(cn, seed):
+    """N(0, 0.02) zero convs, seeded: at their zero init the ControlNet blocks get exactly
+    zero gradient and add nothing, so a check could not see them."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        for zc in cn.controlnet_zero_convs_after:
+            zc.weight.copy_(torch.randn(zc.weight.shape, generator=gen, device="cuda") * 0.02)
+            zc.bias.copy_(torch.randn(zc.bias.shape, generator=gen, device="cuda") * 0.02)
+
+
+def phase_small_train():
+    """One training_loss + backward at the small head_dim-128 float32 config (640
+    tokens), with nonzero zero convs: the kernels (K3/K4/K5 under grad, K1 for DiT block
+    0) against plain attention, for the loss and every ControlNet gradient."""
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.training import train_step as tts
+
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = _small_configs()
+    gen = torch.Generator("cuda").manual_seed(6)
+    dit = wan_dit.init_wan_dit(dit_cfg, gen, torch.float32, device="cuda")
+    cn = cnm.init_from_dit(dit, dit_cfg, cn_cfg, gen, torch.float32, device="cuda",
+                           requires_grad=True)
+    _perturb_zero_convs(cn, 9)
+    z, (f, h, w) = vae_cfg.z_dim, (5, 16, 32)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    inputs = dict(x0=rnd(1, f, h, w, z), noise=rnd(1, f, h, w, z), sigma=0.93,
+                  timestep=torch.full((1,), 930.0, device="cuda"), weight=1.7,
+                  context=rnd(1, t5_cfg.text_len, t5_cfg.dim), y=rnd(1, f, h, w, 4 + z),
+                  control_latents=rnd(1, f, h, w, z))
+    params = tts.trainable_params(cn)
+
+    def loss_and_grads(impl):
+        loss = tts.training_loss(dit, cn, dit_cfg, cn_cfg, **inputs, attn_impl=impl)
+        return float(loss.detach()), torch.autograd.grad(loss, list(params.values()))
+
+    (loss, grads), n = picked(lambda: loss_and_grads("auto"))
+    ref_loss, ref_grads = loss_and_grads("plain")
+    # float32 on both sides with another summation order (~1e-6 relative): the loss to
+    # 1e-5 relative, each gradient to 1e-4 of that parameter's largest gradient.
+    rel = {name: float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+           for name, g, r in zip(params, grads, ref_grads)}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    expected = only(K1=2, K3=8, K4=3, K5=4)
+    log("small_train", tokens=f * (h // 2) * (w // 2), loss=loss, plain_loss=ref_loss,
+        loss_rel_err=loss_rel, loss_rtol=1e-5, worst_param=worst, worst_grad_rel_err=rel[worst],
+        grad_rtol=1e-4, launches=n, expected_launches=expected,
+        nonzero_block_grads=all(float(g.abs().max()) > 0 for g in grads))
+    check(loss_rel <= 1e-5, f"small_train: loss {loss} vs plain {ref_loss}")
+    check(rel[worst] <= 1e-4, f"small_train: gradient of {worst} off by {rel[worst]}")
+    check(all(float(g.abs().max()) > 0 for g in grads), "small_train: a zero gradient")
+    # DiT block 0 needs no gradient (K1 x2); the ControlNet block and DiT block 1 make 4
+    # grad-requiring calls, each run forward twice (remat): K3 8, K5 4, K4 3 (DiT block
+    # 1's cross-attention keys come from the frozen text path).
+    check(n == expected, f"small_train launched {n}, expected {expected}")
+    del dit, cn, grads, ref_grads
+    torch.cuda.empty_cache()
+
+
+class _SyntheticClips:
+    """Training samples at the pipeline's size: a drifting gradient image as the video
+    and a control video rendered by render_control_video, made from each index's seed."""
+
+    def __init__(self, n, pipe_cfg):
+        self.n, self.pc = n, pipe_cfg
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        pc = self.pc
+        image, control = _request_inputs(100 + i, pc.num_frames, pc.height, pc.width, pc)
+        video = np.stack([np.roll(image, 4 * t, axis=1) for t in range(pc.num_frames)])
+        return {"video": video, "control_video": control,
+                "prompt": f"a ball is pushed across the table, clip {i}"}
+
+
+def phase_train():
+    """ControlNet training at full WAN22_A14B width (4 DiT + 2 ControlNet layers, umt5 at
+    2 layers, the full Wan2.1 VAE), bf16, B = 1, 81x480x832: two steps, a checkpoint at
+    step 2, a full-state resume and a third step. The zero convs start at N(0, 0.02)
+    (seeded) instead of 0, so the ControlNet blocks get a gradient at step 1."""
+    import gc
+    import shutil
+    import tempfile
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.io import safetensors_io as sio
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models import vae as vaem
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.models.tokenizer import load_tokenizer
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.training.trainer import TrainerConfig, train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4)
+    t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
+    cn_cfg = C.ControlNetConfig(num_layers=2, in_channels=C.WAN21_VAE.z_dim)
+    pc = C.PipelineConfig()
+    gen = torch.Generator("cuda").manual_seed(0)
+    frozen = {"dit": wan_dit.init_wan_dit(dit_cfg, gen, torch.bfloat16, device="cuda"),
+              "t5": t5m.init_t5(t5_cfg, gen, torch.bfloat16, device="cuda"),
+              "vae": vaem.init_vae(C.WAN21_VAE, gen, torch.bfloat16, device="cuda")}
+    cn0 = cnm.init_from_dit(frozen["dit"], dit_cfg, cn_cfg, gen, torch.bfloat16,
+                            device="cuda", requires_grad=True)
+    _perturb_zero_convs(cn0, 7)
+    frozen_host = {k: {n: p.to("cpu", copy=True) for n, p in m.state_dict().items()}
+                   for k, m in frozen.items()}
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in
+                (*frozen.items(), ("controlnet", cn0))}
+    out_dir = tempfile.mkdtemp(prefix="gf_train_")
+    log("train", stage="init", params=n_params, memory_gb=torch.cuda.memory_allocated() / 2**30,
+        checkpoint_dir_free_gb=shutil.disk_usage(out_dir).free / 2**30)
+    cfg = TrainerConfig(output_dir=out_dir, save_steps=2, log_every=1, num_epochs=1,
+                        keep_last_states=1, num_frames=pc.num_frames, height=pc.height,
+                        width=pc.width)
+    data = _SyntheticClips(3, pc)
+    tok = load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len)
+    run = lambda **kw: train(cfg, dit_cfg, t5_cfg, C.WAN21_VAE, cn_cfg, frozen, cn0, data, tok,
+                             device="cuda", history=history, **kw)
+    history = []
+    try:
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (state2, secs2) = sync_time(lambda: run(max_steps=2))
+        at_step2 = {n: p.to("cpu", copy=True) for n, p in state2.params.state_dict().items()}
+        del state2
+        gc.collect()
+        (state3, secs3) = sync_time(lambda: run(resume=True, max_steps=1))
+        launches = dict(fa.launch_counts)
+        # the step's stages reset the peak counter: the run's peak is the largest of theirs
+        peak_gb = max([torch.cuda.max_memory_allocated() / 2**30] +
+                      [v for h in history for k, v in h.items() if k.endswith("_peak_gb")])
+        for h in history:
+            log("train", stage=f"step{h['step']}", **h)
+        # 3 steps x (K1 2: DiT block 0; K3 20: 10 grad-requiring calls run twice under
+        # remat; K5 10; K4 7: DiT blocks 1-3 cross-attention need no dk/dv).
+        expected = only(K1=6, K3=60, K4=21, K5=30)
+        log("train", stage="done", seconds_steps_1_2=secs2, seconds_resume_step_3=secs3,
+            launches=launches, expected_launches=expected, max_memory_allocated_gb=peak_gb,
+            files=sorted(os.listdir(out_dir)))
+        check([h["step"] for h in history] == [1, 2, 3], f"steps run: {history}")
+        check(all(math.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in history),
+              "train: non-finite loss or zero gradient")
+        check(launches == expected, f"train launched {launches}, expected {expected}")
+        for k, m in frozen.items():
+            same = all(torch.equal(p.cpu(), frozen_host[k][n]) for n, p in m.state_dict().items())
+            check(same, f"train: the frozen {k} changed")
+        # Every ControlNet tensor got a gradient (nonzero first moment), and every tensor
+        # that 3 AdamW steps of ~lr can move in bf16 moved: one with an element below
+        # 2^8 * 3 * lr, where such a step exceeds half a bf16 ulp. Norm weights at
+        # exactly 1.0 cannot move (half an ulp of 1.0 is 2^-8 = 3.9e-3).
+        init = cn0.state_dict()
+        after = state3.params.state_dict()
+        no_grad = [n for n in init if not bool(state3.opt_state[f"exp_avg.{n}"].any())]
+        movable = {n for n, p in init.items() if bool((p.float().abs() < 256 * 3 * cfg.lr).any())}
+        moved = {n for n in init if not torch.equal(after[n], init[n])}
+        check(not no_grad, f"train: ControlNet tensors without gradient: {no_grad}")
+        check(movable <= moved, f"train: tensors that should move did not: {movable - moved}")
+        fresh = wan_dit.empty_module(cnm.GoalForceControlNet, dit_cfg, cn_cfg,
+                                     dtype=torch.bfloat16, device="cuda")
+        fresh.load_state_dict(sio.load_goalforce_controlnet(os.path.join(out_dir,
+                                                                         "step-2.safetensors")))
+        same = all(torch.equal(p.cpu(), at_step2[n]) for n, p in fresh.state_dict().items())
+        check(same, "train: step-2.safetensors does not reload to the step-2 ControlNet")
+        log("train", stage="checks", frozen_unchanged=True, controlnet_tensors=len(init),
+            with_gradient=len(init), movable=len(movable), changed=len(moved),
+            unchanged=sorted(set(init) - moved), step2_checkpoint_reloads=True, ok=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     return launches
 
 
@@ -409,22 +731,33 @@ def main() -> int:
     phase_build()
     measured = phase_kernels()
     phase_small()
+    phase_small_train()
     pipe, main_launches = phase_main()
     unb_launches = phase_unbounded(pipe)
-    src = "goal_force_tpu_torch/csrc/flash_attention.cu"
+    del pipe
+    train_launches = phase_train()
+    fwd = "goal_force_tpu_torch/csrc/flash_attention.cu"
+    train_src = "goal_force_tpu_torch/csrc/flash_attention_bwd.cu"
+    tpu = "goal_force_tpu/ops/flash_attention.py"
     kernels = []
-    for name, replaces, launches, extra in (
-            ("K1 flash_attention_nomax", "goal_force_tpu/ops/flash_attention.py:241",
-             main_launches["K1"], {"cross": measured["K1"]["cross"]}),
-            ("K2 flash_attention_max", "goal_force_tpu/ops/flash_attention.py:154",
-             unb_launches["K2"], {"path": "unbounded (qk_bounded=False, q-norm x8)"})):
-        key = name.split()[0]
-        rec = measured[key]["self"]
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        "shape": rec["shape"], **extra})
+    for name, src, line, launches, extra in (
+            ("K1 flash_attention_nomax", fwd, 241, main_launches["K1"],
+             {"cross": measured["K1"]["cross"]}),
+            ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
+             {"path": "unbounded (qk_bounded=False, q-norm x8)"}),
+            ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
+             {"cross": measured["K3"]["cross"], "path": "train"}),
+            ("K4 flash_attention_bwd_dkv", train_src, 76, train_launches["K4"],
+             {"cross": measured["K4"]["cross"], "path": "train"}),
+            ("K5 flash_attention_bwd_dq", train_src, 118, train_launches["K5"],
+             {"cross": measured["K5"]["cross"], "path": "train"})):
+        rec = measured[name.split()[0]]["self"]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": f"{tpu}:{line}", "launches": launches,
+                        **{k: rec.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms", "shape")},
+                        **({"sdpa_bwd_ms": rec["sdpa_bwd_ms"]} if "sdpa_bwd_ms" in rec else {}),
+                        **extra})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of goal_force_tpu for NVIDIA Hopper (H100).
 
-Goal-force image-to-video inference: ``pipelines.goal_force.GoalForcePipeline``.
-Attention runs through hand-written CUDA kernels (``csrc/flash_attention.cu``) on the
-card; the package imports torch, numpy and the standard library only.
+Goal-force image-to-video inference (``pipelines.goal_force.GoalForcePipeline``) and
+ControlNet-only training (``training.trainer.train``). Attention runs through
+hand-written CUDA kernels on the card: K1/K2 (``csrc/flash_attention.cu``) for inference,
+K3/K4/K5 (``csrc/flash_attention_bwd.cu``) for every attention that needs a gradient.
+The package imports torch, numpy and the standard library only.
 """

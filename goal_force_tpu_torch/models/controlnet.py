@@ -14,6 +14,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from goal_force_tpu_torch.configs import ControlNetConfig, WanDiTConfig
 from goal_force_tpu_torch.models.wan_dit import (
@@ -50,9 +51,11 @@ class GoalForceControlNet(nn.Module):
 
 @torch.no_grad()
 def init_from_dit(dit, dit_cfg: WanDiTConfig, cfg: ControlNetConfig, gen: torch.Generator,
-                  dtype=torch.bfloat16, *, device) -> GoalForceControlNet:
+                  dtype=torch.bfloat16, *, device, requires_grad: bool = False
+                  ) -> GoalForceControlNet:
     """Copy blocks i*stride of the expert DiT, draw a fresh patch embedding, and zero the
-    zero convs (so the ControlNet starts as the identity)."""
+    zero convs (so the ControlNet starts as the identity). requires_grad=True returns it
+    trainable (the training path); by default it is frozen, as for serving."""
     stride = cfg.stride or 1
     cn = empty_module(GoalForceControlNet, dit_cfg, cfg, dtype=dtype, device=device)
     init_patch_embedding_(cn.controlnet_patch_embedding.patch_embedding, gen)
@@ -61,23 +64,33 @@ def init_from_dit(dit, dit_cfg: WanDiTConfig, cfg: ControlNetConfig, gen: torch.
     for zc in cn.controlnet_zero_convs_after:
         zc.weight.zero_()
         zc.bias.zero_()
-    return cn.eval().requires_grad_(False)
+    return cn.eval().requires_grad_(requires_grad)
+
+
+def _block_and_zero_conv(blk, zc, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl):
+    c = dit_block(blk, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
+    return c, F.linear(c, zc.weight[:, :, 0].to(c.dtype), zc.bias.to(c.dtype))
 
 
 def controlnet_injections(cn: GoalForceControlNet, dit_cfg: WanDiTConfig, control_latents,
                           context, t_mod, rope_cos, rope_sin,
-                          attn_impl: str = "auto") -> List[torch.Tensor]:
+                          attn_impl: str = "auto", remat: bool = False) -> List[torch.Tensor]:
     """Run the side stack and return the per-layer injections, each (B, S, D).
 
     control_latents: (B, F, H, W, C) VAE latents of the control video. Each block's state
     goes through its 1x1 zero conv as soon as it is computed, so only the injections are
-    kept.
+    kept. remat: one non-reentrant checkpoint per block with its zero conv fused in, as
+    JAX checkpoints each body of its side-stack scan.
     """
     tokens, _ = patchify(cn.controlnet_patch_embedding.patch_embedding, control_latents,
                          dit_cfg.patch_size)
     out = []
     c = tokens
     for blk, zc in zip(cn.controlnet_dit.blocks, cn.controlnet_zero_convs_after):
-        c = dit_block(blk, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
-        out.append(F.linear(c, zc.weight[:, :, 0].to(c.dtype), zc.bias.to(c.dtype)))
+        args = (blk, zc, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
+        if remat:
+            c, inj = checkpoint(_block_and_zero_conv, *args, use_reentrant=False)
+        else:
+            c, inj = _block_and_zero_conv(*args)
+        out.append(inj)
     return out

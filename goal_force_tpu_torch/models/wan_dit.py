@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from goal_force_tpu_torch.configs import WanDiTConfig
 from goal_force_tpu_torch.ops.attention import attention
@@ -206,12 +207,22 @@ def dit_block(p: WanBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig,
 
 
 def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,
-               injections: Optional[List[torch.Tensor]] = None, attn_impl: str = "auto"):
+               injections: Optional[List[torch.Tensor]] = None, attn_impl: str = "auto",
+               remat: bool = False):
     """Run x through the blocks; injections[i] (the ControlNet outputs) is added after
-    block i for every i < len(injections)."""
+    block i for every i < len(injections).
+
+    remat: recompute each block in the backward pass instead of keeping its activations
+    (one non-reentrant checkpoint per block, as JAX checkpoints each scan body). The
+    forward then already sees grad-requiring inputs, so attention takes K3 there too.
+    """
     n_inj = 0 if injections is None else len(injections)
     for i, blk in enumerate(blocks):
-        x = dit_block(blk, x, context, t_mod, cos, sin, cfg, attn_impl)
+        if remat:
+            x = checkpoint(dit_block, blk, x, context, t_mod, cos, sin, cfg, attn_impl,
+                           use_reentrant=False)
+        else:
+            x = dit_block(blk, x, context, t_mod, cos, sin, cfg, attn_impl)
         if i < n_inj:
             x = x + injections[i].to(x.dtype)
     return x

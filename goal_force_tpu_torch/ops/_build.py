@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` compiles with ``nvcc -shared -Xcompiler -fPIC`` into a shared
 with a plain C interface, under ``build/torch_ext/`` at the repository root, named by a
 hash of the source and the flags, so an unchanged source is never rebuilt. This route
 needs neither ``ninja`` nor PyTorch's headers (``torch.utils.cpp_extension.load`` needs
-both, and including the headers costs minutes of compile time). A failed build
-raises; nothing falls back.
+both, and including the headers costs minutes of compile time). ``load_all`` starts one
+``nvcc`` per source at once. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -44,23 +44,43 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def load(stem: str) -> ctypes.CDLL:
-    """The loaded library built from csrc/<stem>.cu, compiling it on first use."""
+def stems() -> List[str]:
+    """Every CUDA source of the port, by file stem."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def load_all(names=None) -> Dict[str, ctypes.CDLL]:
+    """Build (all nvcc processes started together) and load the given sources."""
+    names = list(names or stems())
     with _lock:
-        lib = _libs.get(stem)
-        if lib is None:
+        procs = {}
+        for stem in names:
+            if stem in _libs:
+                continue
             src = CSRC / f"{stem}.cu"
             out = _target(src)
             if not out.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, str(src), "-o", str(tmp)],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                build_log[stem] = proc.stdout
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-                                       f"{proc.stdout}")
+                procs[stem] = (subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, str(src), "-o", str(tmp)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        failed = []
+        for stem, (proc, tmp, out) in procs.items():
+            build_log[stem] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {stem}.cu (exit {proc.returncode}):\n"
+                              f"{build_log[stem]}")
+            else:
                 os.replace(tmp, out)
-            lib = ctypes.CDLL(str(out))
-            _libs[stem] = lib
-        return lib
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for stem in names:
+            if stem not in _libs:
+                _libs[stem] = ctypes.CDLL(str(_target(CSRC / f"{stem}.cu")))
+        return {stem: _libs[stem] for stem in names}
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library built from csrc/<stem>.cu, compiling it on first use."""
+    return load_all([stem])[stem]

@@ -37,7 +37,9 @@ def attention(q, k, v, impl: str = "auto", scale: float | None = None,
     """q: (B, Sq, N, H); k/v: (B, Skv, N, H) -> (B, Sq, N, H).
 
     impl: "auto" | "plain" | "flash". "flash" always calls the flash wrappers (which
-    compute their plain versions on CPU tensors); "plain" always the einsum path.
+    compute their plain versions on CPU tensors); under grad they go through
+    ``FlashAttentionFn`` (K3 forward, K4/K5 backward). "plain" always the einsum path,
+    differentiated by autograd.
     bounded: the caller's logits are small by construction, so the flash path takes
     K1 with its saturating clamp and skips the runtime bound.
     """

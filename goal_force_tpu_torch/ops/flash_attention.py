@@ -1,9 +1,21 @@
-"""Flash-attention forward: the CUDA kernels K1 and K2 and their plain versions.
+"""Flash attention: the CUDA kernels K1-K5, their plain versions and the autograd rule.
 
 K1 (``flash_attention_nomax``) replaces ``goal_force_tpu/ops/flash_attention.py::
 _fa_kernel_nomax`` and K2 (``flash_attention_max``) replaces ``_fa_kernel``; both
 kernels live in ``csrc/flash_attention.cu``. Layout (B, S, N, 128) in and out,
 non-causal, with an optional per-batch count of valid (prefix) keys ``kv_len``.
+
+The training kernels live in ``csrc/flash_attention_bwd.cu``: K3
+(``flash_attention_fwd_lse``, replaces ``_fa_kernel_fwd``) returns o and the
+logsumexp (B, N, Sq) f32, K4 (``flash_attention_bwd_dkv``, replaces ``_fa_kernel_dkv``)
+dK and dV, K5 (``flash_attention_bwd_dq``, replaces ``_fa_kernel_dq``) dQ. They follow
+the JAX kernels' arithmetic: s = (q.k^T)*scale in f32 with no fold, natural exp,
+lse = m + log(max(l, 1e-30)); p = exp(s - lse); di = rowsum(o*do) in f32;
+dv += bf16(p)^T.do; ds = p*(do.v^T - di)*scale, rounded to q's dtype for dk and to
+k's dtype for dq; sums in f32, outputs in the input dtypes. ``FlashAttentionFn`` is
+the autograd rule of ``jax.custom_vjp`` ``_flash``: ``flash_attention`` takes it
+whenever grad mode is on and q, k or v requires grad (K3 forward, K4 + K5 backward);
+otherwise K1/K2 as below. K4 is skipped when neither k nor v needs a gradient.
 
 Semantics shared by the kernels and their plain versions:
   - scale*log2(e) is rounded to q's dtype, multiplied into q and the product rounded
@@ -34,7 +46,7 @@ NOMAX_BOUND = 100.0         # "auto" takes K1 only below this Cauchy-Schwarz log
 LOG2E = 1.4426950408889634
 DTYPES = (torch.float32, torch.bfloat16)
 
-launch_counts = {"K1": 0, "K2": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 
 def reset_launch_counts() -> None:
@@ -180,6 +192,161 @@ def flash_attention_max(q, k, v, scale: float, kv_len=None) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training: K3 (forward with logsumexp), K4 (dK, dV), K5 (dQ)
+# ---------------------------------------------------------------------------
+
+def flash_attention_fwd_lse_plain(q, k, v, scale: float):
+    """Plain torch version of K3: (o, lse) with lse (B, N, Sq) float32. The max is
+    taken over the whole row at once; the kernel's running max gives the same function."""
+    b, sq, n, _ = q.shape
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    step = _row_chunk(b, n, k.shape[1])
+    for s0 in range(0, sq, step):
+        s = torch.einsum("bsnh,btnh->bnst", q[:, s0:s0 + step].float(), kf) * scale
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1)                                               # (B,N,s)
+        acc = torch.einsum("bnst,btnh->bsnh", p.to(v.dtype).float(), vf)
+        inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l).permute(0, 2, 1)
+        out[:, s0:s0 + step] = (acc * inv[..., None]).to(q.dtype)
+        lse[:, :, s0:s0 + step] = m[..., 0] + torch.log(torch.clamp(l, min=1e-30))
+    return out, lse
+
+
+def _bwd_plain(q, k, v, o, do, lse, scale: float, dkv: bool):
+    """Plain torch version of K4 (dkv=True: returns dk, dv) or K5 (returns dq)."""
+    b, sq, n, _ = q.shape
+    kf, vf = k.float(), v.float()
+    di = (o.float() * do.float()).sum(dim=-1).permute(0, 2, 1)        # (B,N,Sq)
+    if dkv:
+        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    else:
+        dq = torch.empty_like(q)
+    step = _row_chunk(b, n, k.shape[1])
+    for s0 in range(0, sq, step):
+        qs, dos = q[:, s0:s0 + step].float(), do[:, s0:s0 + step]
+        s = torch.einsum("bsnh,btnh->bnst", qs, kf) * scale
+        p = torch.exp(s - lse[:, :, s0:s0 + step, None])
+        dp = torch.einsum("bsnh,btnh->bnst", dos.float(), vf)
+        ds = p * (dp - di[:, :, s0:s0 + step, None]) * scale
+        if dkv:
+            dv += torch.einsum("bnst,bsnh->btnh", p.to(do.dtype).float(), dos.float())
+            dk += torch.einsum("bnst,bsnh->btnh", ds.to(q.dtype).float(), qs)
+        else:
+            dq[:, s0:s0 + step] = torch.einsum(
+                "bnst,btnh->bsnh", ds.to(k.dtype).float(), kf).to(q.dtype)
+    return (dk.to(k.dtype), dv.to(v.dtype)) if dkv else dq
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, o, do, lse, scale: float):
+    """Plain torch version of K4: (dk, dv)."""
+    return _bwd_plain(q, k, v, o, do, lse, scale, dkv=True)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale: float):
+    """Plain torch version of K5: dq."""
+    return _bwd_plain(q, k, v, o, do, lse, scale, dkv=False)
+
+
+def _check_bwd(q, k, v, o, do, lse):
+    _check(q, k, v)
+    b, sq, n, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must match q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(o.shape)} {o.dtype} and {tuple(do.shape)} {do.dtype}")
+    if tuple(lse.shape) != (b, n, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(b, n, sq)}, got {lse.dtype} {tuple(lse.shape)}")
+    if any(t.device != q.device for t in (o, do, lse)):
+        raise ValueError("all flash-attention operands must lie on one device")
+
+
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    if not getattr(lib, "_gf_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gf_fa_fwd_lse.argtypes = [i, p, p, p, p, p, i, i, i, i, f, p]
+        lib.gf_fa_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.gf_fa_bwd_dq.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, f, p]
+        for fn in (lib.gf_fa_fwd_lse, lib.gf_fa_bwd_dkv, lib.gf_fa_bwd_dq):
+            fn.restype = i
+        lib._gf_typed = True
+    return lib
+
+
+def _launch(name: str, fn, tensors, q, k, scale: float) -> None:
+    """Calls a C entry point of flash_attention_bwd.cu on contiguous CUDA tensors."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash attention kernels run on CUDA tensors, got {q.device}")
+    b, sq, n, _ = q.shape
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(int(q.dtype == torch.bfloat16), *[ctypes.c_void_p(t.data_ptr()) for t in tensors],
+            b, sq, k.shape[1], n, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} flash-attention launch failed: CUDA error {rc}")
+    launch_counts[name] += 1
+
+
+def flash_attention_fwd_lse(q, k, v, scale: float):
+    """K3: (o, lse) with o like q and lse (B, N, Sq) float32."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_lse_plain(q, k, v, scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
+    _launch("K3", _bwd_lib().gf_fa_fwd_lse, (q, k, v, o, lse), q, k, scale)
+    return o, lse
+
+
+def flash_attention_bwd_dkv(q, k, v, o, do, lse, scale: float):
+    """K4: (dk, dv) in k's and v's dtype."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, o, do, lse, scale)
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("K4", _bwd_lib().gf_fa_bwd_dkv, (q, k, v, o, do, lse, dk, dv), q, k, scale)
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, o, do, lse, scale: float):
+    """K5: dq in q's dtype."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq = torch.empty_like(q)
+    _launch("K5", _bwd_lib().gf_fa_bwd_dq, (q, k, v, o, do, lse, dq), q, k, scale)
+    return dq
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention: K3 forward saving (q, k, v, o, lse), then K4
+    (skipped when neither k nor v needs a gradient) and K5 in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        dq = dk = dv = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dk, dv = flash_attention_bwd_dkv(q, k, v, o, do, lse, ctx.scale)
+        if ctx.needs_input_grad[0]:
+            dq = flash_attention_bwd_dq(q, k, v, o, do, lse, ctx.scale)
+        return dq, dk, dv, None
+
+
 def logit_bound(q, k, v, scale: float) -> torch.Tensor:
     """Cauchy-Schwarz bound on every log2-domain logit plus log2(max|v|): below
     NOMAX_BOUND the max-free kernel provably keeps l and acc inside float32."""
@@ -193,13 +360,21 @@ def logit_bound(q, k, v, scale: float) -> torch.Tensor:
 def flash_attention(q, k, v, scale: float, dispatch: str = "auto", kv_len=None) -> torch.Tensor:
     """q: (B, Sq, N, 128); k/v: (B, Skv, N, 128) -> (B, Sq, N, 128).
 
-    dispatch "nomax": K1 with the saturating clamp (callers whose logits are bounded by
-    construction, e.g. qk-RMS-normed attention). "auto": the logit bound is computed on
-    the device (one host sync) and selects K1 without clamp below NOMAX_BOUND, else K2.
+    Under grad (grad mode on and q, k or v requiring grad) the call goes through
+    ``FlashAttentionFn`` (K3, then K4/K5 in the backward) whatever the dispatch, as the
+    JAX custom VJP's forward rule does; kv_len is then refused (inference only).
+    Otherwise, dispatch "nomax": K1 with the saturating clamp (callers whose logits are
+    bounded by construction, e.g. qk-RMS-normed attention). "auto": the logit bound is
+    computed on the device (one host sync) and selects K1 without clamp below
+    NOMAX_BOUND, else K2.
     """
     if dispatch not in ("auto", "nomax"):
         raise ValueError(f"dispatch must be 'auto' or 'nomax', got {dispatch!r}")
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if kv_len is not None:
+            raise ValueError("flash attention with kv_len is inference-only (not differentiable)")
+        return FlashAttentionFn.apply(q, k, v, scale)
     if dispatch == "nomax":
         return flash_attention_nomax(q, k, v, scale, kv_len, clamp=NOMAX_CLAMP)
     if float(logit_bound(q, k, v, scale)) < NOMAX_BOUND:

@@ -36,8 +36,10 @@ def denoise_forward(
     controlnet_cfg: Optional[ControlNetConfig] = None,
     control_latents: Optional[torch.Tensor] = None,  # (B, F, H, W, z)
     attn_impl: str = "auto",
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Velocity prediction (B, F, H, W, out_dim)."""
+    """Velocity prediction (B, F, H, W, out_dim). remat: recompute every DiT and
+    ControlNet block in the backward pass (the training path)."""
     t, t_mod = time_embed(dit, dit_cfg, timestep)
     ctx = text_embed(dit, context)
     x = latents
@@ -51,9 +53,9 @@ def denoise_forward(
         if controlnet_cfg is not None and controlnet_cfg.stride is not None:
             raise NotImplementedError("strided ControlNet injection is not ported yet")
         inj = controlnet_injections(controlnet, dit_cfg, control_latents.to(tokens.dtype),
-                                    ctx, t_mod, cos, sin, attn_impl=attn_impl)
+                                    ctx, t_mod, cos, sin, attn_impl=attn_impl, remat=remat)
     tokens = run_blocks(dit.blocks, tokens, ctx, t_mod, cos, sin, dit_cfg,
-                        injections=inj, attn_impl=attn_impl)
+                        injections=inj, attn_impl=attn_impl, remat=remat)
     del inj
     out = head(dit.head, tokens, t, dit_cfg.eps)
     return unpatchify(out, grid, dit_cfg.patch_size, dit_cfg.out_dim)

@@ -7,6 +7,8 @@ exactly; the step functions act on torch tensors.
   - shifted sigmas  sigma' = s*sigma / (1 + (s-1)*sigma)
   - Euler step      x_next = x + v * (sigma_next - sigma)
   - add_noise       x_t = (1-sigma)*x0 + sigma*eps
+  - target          v = eps - x0
+  - training weights: Gaussian bell over timestep values (``training=True``)
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ class FlowMatchSchedule:
     timesteps: np.ndarray     # (N,) float32, sigmas * num_train_timesteps
     num_train_timesteps: int
     final_sigma: float = 0.0  # 1.0 for inverse/reversed schedules
+    training_weights: np.ndarray | None = None  # (N,) float32 when training
 
     def __len__(self) -> int:
         return int(self.sigmas.shape[0])
@@ -41,6 +44,7 @@ def make_schedule(
     extra_one_step: bool = True,
     denoising_strength: float = 1.0,
     num_train_timesteps: int = 1000,
+    training: bool = False,
     exponential_shift: bool = False,
     exponential_shift_mu: float | None = None,
     shift_terminal: float | None = None,
@@ -73,11 +77,19 @@ def make_schedule(
     if reverse_sigmas:
         sigmas = 1.0 - sigmas
     timesteps = sigmas * num_train_timesteps
+    weights = None
+    if training:
+        # Gaussian bell over timestep values, normalised to sum num_steps (num_steps is
+        # also the bell's scale, as in the JAX package).
+        y = np.exp(-2.0 * ((timesteps - num_steps / 2.0) / num_steps) ** 2)
+        y_shifted = y - y.min()
+        weights = (y_shifted * (num_steps / y_shifted.sum())).astype(np.float32)
     return FlowMatchSchedule(
         sigmas=sigmas.astype(np.float32),
         timesteps=timesteps.astype(np.float32),
         num_train_timesteps=num_train_timesteps,
         final_sigma=1.0 if (inverse_timesteps or reverse_sigmas) else 0.0,
+        training_weights=weights,
     )
 
 
@@ -103,6 +115,11 @@ def add_noise(x0: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
     """x_t = (1-sigma)*x0 + sigma*eps."""
     sigma = _scalar(sigma, x0)
     return (1.0 - sigma) * x0 + sigma * noise
+
+
+def training_target(x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """v-target = eps - x0."""
+    return noise - x0
 
 
 def timestep_to_id(schedule: FlowMatchSchedule, timestep: float) -> int:

@@ -38,6 +38,13 @@ def test_every_module_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_training_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.training", "goal_force_tpu_torch.training.train_step",
+              "goal_force_tpu_torch.training.trainer", "goal_force_tpu_torch.io.safetensors_io",
+              "goal_force_tpu_torch.data.datasets"):
+        assert m in MODULES
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
 def test_no_jax_or_reference_package_imports(path):
     tree = ast.parse(path.read_text())

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1/K2 against their plain versions, on the card.
+"""The port's CUDA kernels K1-K5 against their plain versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where only the port's
 dependencies are installed. Every test needs a CUDA device and skips without one; on a
@@ -6,6 +6,8 @@ machine with a card and without JAX run it as
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
+
+import math
 
 import pytest
 import torch
@@ -54,3 +56,43 @@ def test_bounded_attention_launches_k1(cuda_device):
     ref = tfa.flash_attention_nomax_plain(q, k, v, H**-0.5)
     # 40 keys: |o| exceeds 1, where one bf16 ulp is 7.8e-3.
     torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+def _bf16_limit(ref):
+    """Two bf16 ulps at the largest |ref|: kernel and plain version round float32 sums that
+    differ only in summation order."""
+    top = float(ref.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_match_plain_on_card(cuda_device, dtype):
+    """K3 (o, lse), K4 (dk, dv) and K5 (dq) on a padded q tile and a partly masked kv tile."""
+    q, k, v = _qkv(cuda_device, dtype, 1, 1000, 777, 4, seed=2)
+    do = _qkv(cuda_device, dtype, 1, 1000, 1, 4, seed=3)[0]
+    scale = H**-0.5
+    o, lse = tfa.flash_attention_fwd_lse(q, k, v, scale)
+    o_ref, lse_ref = tfa.flash_attention_fwd_lse_plain(q, k, v, scale)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    got = [o, *tfa.flash_attention_bwd_dkv(q, k, v, o_ref, do, lse_ref, scale),
+           tfa.flash_attention_bwd_dq(q, k, v, o_ref, do, lse_ref, scale)]
+    ref = [o_ref, *tfa.flash_attention_bwd_dkv_plain(q, k, v, o_ref, do, lse_ref, scale),
+           tfa.flash_attention_bwd_dq_plain(q, k, v, o_ref, do, lse_ref, scale)]
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        # float32: another summation order over <= 1000 terms
+        tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else \
+            dict(atol=_bf16_limit(r), rtol=0)
+        torch.testing.assert_close(g.float(), r.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_grad_through_attention_launches_k3_k4_k5(cuda_device):
+    q, k, v = (t.requires_grad_(True) for t in _qkv(cuda_device, torch.bfloat16, 1, 300, 260, 2))
+    before = dict(tfa.launch_counts)
+    out = tattn.attention(q, k, v, bounded=True)
+    out.float().square().sum().backward()
+    delta = {n: tfa.launch_counts[n] - before[n] for n in before}
+    assert delta == {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 1}
+    assert all(bool(torch.isfinite(t.grad.float()).all()) for t in (q, k, v))
