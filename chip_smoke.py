@@ -9,25 +9,35 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 2. build   - compiles goal_force_tpu_torch/csrc/*.cu with nvcc for sm_90a (one nvcc per
              source, started together) and prints each kernel's ptxas report.
 3. kernels - holds K1/K2 against their plain torch versions on the card (small shapes,
-             saturation, per-batch kv_len, and the main-path shapes), and K3/K4/K5 (o and
+             saturation, per-batch kv_len, and the main-path shapes), K3/K4/K5 (o and
              lse, dk and dv, dq) in float32 and bf16 at 1000x777 and at the training
-             self and cross shapes; times kernel, plain version and SDPA (as a yardstick
-             only) at the path shapes.
+             self and cross shapes, and K6 (int8 q and k) in float32 and bf16 at 1000x777
+             with quantization tiles of 128 and 300 and at the main path's self and
+             cross shapes; times kernel, plain version, K6's quantize step and SDPA (as a
+             yardstick only) at the path shapes.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
 5. small_train - one training loss + backward at that size, kernels vs plain attention
              (loss and every ControlNet gradient), and the launch counts of the rule.
-6. main    - GoalForcePipeline at full A14B width (depth cut to 4 DiT + 2 ControlNet
+6. small_int8 - the W8A8 linears on the card, then that pipeline with W8A8 packs in its
+             four DiT/ControlNet models: K6 vs the plain int8 attention, K6 launches only.
+7. main    - GoalForcePipeline at full A14B width (depth cut to 4 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
              are reset just before and read just after.
-7. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
+8. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
              so the runtime logit bound routes self-attention to K2.
-8. train   - frees the serving pipeline and trains the ControlNet at full A14B width
+9. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
+             attn_impl="flash_int8": the same two requests, 48 K6 launches each and no
+             other, and the frames' mean distance from main's bf16 frames.
+10. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
              the frozen models, the checkpoint and the launches per step, and logs the
              stage split and peak memory.
+11. full_int8 - full A14B depth on one card (40 DiT + 10 ControlNet layers per expert,
+             24-layer umt5-xxl, full VAE), W8A8 + K6: one 2-step request across the
+             expert switch, 100 K6 launches per step; logs init, stages and peak memory.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; before it, one JSON line
 lists each kernel's launches, error and times; the last line is the result JSON.
@@ -122,7 +132,8 @@ def phase_build():
     from goal_force_tpu_torch.ops import _build
 
     _, secs = sync_time(_build.load_all)      # one nvcc per source, started together
-    check(set(_build.stems()) == {"flash_attention", "flash_attention_bwd"},
+    check(set(_build.stems()) == {"flash_attention", "flash_attention_bwd",
+                                  "flash_attention_int8"},
           f"unexpected CUDA sources {_build.stems()}")
     for stem, log_ in sorted(_build.build_log.items()):
         ptxas = [ln.strip() for ln in log_.splitlines() if "registers" in ln or "spill" in ln
@@ -252,6 +263,7 @@ def phase_kernels():
     del q, k, v, ck, cv
     torch.cuda.empty_cache()
     out.update(_training_kernels())
+    out.update(_int8_kernels())
     return out
 
 
@@ -353,6 +365,77 @@ def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
     return out
 
 
+PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak (data sheet)
+
+
+def int8_attention_bound_ms(q_shape, kv_shape, bq, bk):
+    """Least time for one K6 call: the larger of (int8 q and k codes, their scales and bf16
+    v read once, bf16 o written once) / HBM rate and 2*B*N*Sq*Skv*H int8 operations at the
+    int8 peak plus as many bf16 FLOP at the bf16 peak (both on the tensor cores)."""
+    b, sq, n, h = q_shape
+    skv = kv_shape[1]
+    nbytes = (b * sq * n * h * (1 + 2) + b * skv * n * h * (1 + 2)
+              + 4 * b * n * (-(-sq // bq) + -(-skv // bk)))
+    mm = 2 * b * n * sq * skv * h
+    t_ops = (mm / PEAK_INT8_OPS + mm / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _int8_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """K6 against its plain version on the same int8 codes and tile scales (quantize_tiles
+    runs once and feeds both): 1000x777 with quantization tiles of 128 and of 300 (a tile
+    boundary inside a 16-row fragment and inside a 64-key tile) in float32 and bf16, then
+    the main path's self (tiles 1024/1024) and cross (1024/512) shapes in bf16; times K6,
+    the quantize step, the plain version and SDPA (a yardstick only) at the path shapes."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(5678)
+    scale = 128**-0.5
+    # float32: the same integer logits and float32 arithmetic in another order (online vs
+    # whole-row max, expf vs torch.exp): 2e-5 as for K1/K2. bf16: two ulps at the largest
+    # |o| (bf16_limit) plus the mean signed error check of compare().
+    f32_tol = dict(atol=2e-5, rtol=2e-5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [("1000x777 tiles 128", (1, 1000, 4, 128), (1, 777, 4, 128), 128),
+             ("1000x777 tiles 300", (1, 1000, 4, 128), (1, 777, 4, 128), 300)]
+    path = [("self", SELF, SELF, 1024), ("cross", SELF, CROSS_KV, 1024)]
+    out = {}
+    for dtype in dtypes:
+        tag = str(dtype).split(".")[-1]
+        for name, q_shape, kv_shape, block in cases + (path if dtype == torch.bfloat16 else []):
+            q, k, v = _rand(q_shape, gen, dtype), _rand(kv_shape, gen, dtype), _rand(kv_shape, gen, dtype)
+            bq, bk = fa.int8_blocks(q_shape[1], kv_shape[1], block, block)
+            qi, sqs = fa.quantize_tiles(q, bq)
+            ki, sks = fa.quantize_tiles(k, bk)
+            got, n = picked(lambda: fa.flash_attention_int8_codes(qi, sqs, ki, sks, v, scale, bq, bk))
+            check(n == only(K6=1), f"K6 {name} {tag} launched {n}")
+            ref = fa._int8_plain(qi, sqs, ki, sks, v, scale, bq, bk)
+            tol = f32_tol if dtype == torch.float32 else dict(atol=bf16_limit(ref), rtol=0.0)
+            err = compare(f"K6 {name} {tag} {q_shape}x{kv_shape} tiles {bq}/{bk}", got, ref, **tol)
+            del got, ref
+            torch.cuda.empty_cache()
+            if not timed or name not in ("self", "cross"):
+                continue
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            bound, by = int8_attention_bound_ms(q_shape, kv_shape, bq, bk)
+            rec = dict(max_abs_err=err,
+                       ms=event_ms(lambda: fa.flash_attention_int8_codes(qi, sqs, ki, sks, v,
+                                                                         scale, bq, bk)),
+                       quantize_ms=event_ms(lambda: (fa.quantize_tiles(q, bq),
+                                                     fa.quantize_tiles(k, bk))),
+                       plain_ms=event_ms(lambda: fa.flash_attention_int8_plain(
+                           q, k, v, scale, block, block), iters=1, warmup=0),
+                       bound_ms=bound, bound_by=by, library_ms=None,
+                       sdpa_bf16_ms=event_ms(lambda: sdpa(qt, kt, vt)),
+                       shape=f"{q_shape}x{kv_shape}", tiles=[bq, bk])
+            out[name] = rec
+            log("kernels", case=f"K6 {name} timing", **rec)
+            del q, k, v, qi, ki, qt, kt, vt
+            torch.cuda.empty_cache()
+    return {"K6": out}
+
+
 def _request_inputs(seed, num_frames, height, width, pipe_cfg):
     from goal_force_tpu_torch.data import ControlSpec, render_control_video
 
@@ -437,24 +520,8 @@ def phase_small():
     torch.cuda.empty_cache()
 
 
-def phase_main():
-    from goal_force_tpu_torch import configs as C
-    from goal_force_tpu_torch.ops import flash_attention as fa
-    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
-
-    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4)
-    t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
-    cn_cfg = C.ControlNetConfig(num_layers=2, in_channels=C.WAN21_VAE.z_dim)
-    pipe, secs = sync_time(lambda: GoalForcePipeline.init_random(
-        seed=0, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=C.WAN21_VAE, cn_cfg=cn_cfg,
-        dtype=torch.bfloat16, device="cuda"))
-    pc = pipe.pipe_cfg
-    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in pipe.models.items()}
-    log("main", stage="init", seconds=secs, params=n_params, tokens=pc.tokens,
-        memory_gb=torch.cuda.memory_allocated() / 2**30)
-
-    stage_times = []
-
+def _instrument(pipe, stage_times):
+    """Wrap the pipeline's stages so each appends (name, synchronised seconds)."""
     def timed(name, fn):
         def run(*a, **k):
             out, s = sync_time(lambda: fn(*a, **k))
@@ -473,33 +540,292 @@ def phase_main():
         return timed(f"step{n_steps}", real_step)(*a, **k)
 
     pipe.denoise_step = step
+
+
+def _uninstrument(pipe):
+    for name in ("encode_prompts", "encode_first_frame", "encode_control_video",
+                 "_vae_decode_full", "denoise_step"):
+        pipe.__dict__.pop(name, None)
+
+
+PROMPTS = ("a red ball rolls across a wooden table and hits a blue cup",
+           "a marble is flicked towards a stack of dominoes")
+
+
+def _serve(pipe, phase, per_request, seeds=(11, 22), steps=STEPS):
+    """Answer one request per seed with the stages timed; checks each request's frames
+    and that it launched exactly `per_request` (a launch-count dict). The counts are set
+    to 0 just before the first request; returns the frames and the counts of the run."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    pc = pipe.pipe_cfg
+    stage_times = []
+    _instrument(pipe, stage_times)
     outputs = []
     fa.reset_launch_counts()
+    try:
+        for r, seed in enumerate(seeds):
+            image, video = _request_inputs(seed, pc.num_frames, pc.height, pc.width, pc)
+            stage_times.clear()
+            before = dict(fa.launch_counts)
+            frames, total = sync_time(lambda: pipe(PROMPTS[r % 2], image,
+                                                   control_signal_video=video, seed=seed,
+                                                   num_inference_steps=steps))
+            counts = {k: fa.launch_counts[k] - before[k] for k in before}
+            check(frames.shape == (pc.num_frames, pc.height, pc.width, 3),
+                  f"{phase} request {r}: frames shape {frames.shape}")
+            check(bool(np.isfinite(frames).all()), f"{phase} request {r}: non-finite frames")
+            check(frames.min() >= 0.0 and frames.max() <= 1.0,
+                  f"{phase} request {r}: frames outside [0, 1]")
+            check(counts == per_request,
+                  f"{phase} request {r}: launch counts {counts}, expected {per_request}")
+            log(phase, stage=f"request{r}", seconds=total, stages=dict(stage_times),
+                launches=counts, frames_mean=float(frames.mean()), frames_std=float(frames.std()))
+            outputs.append(frames)
+    finally:
+        _uninstrument(pipe)
+    run_counts = dict(fa.launch_counts)
+    if len(outputs) > 1:
+        diff = float(np.abs(outputs[0] - outputs[1]).mean())
+        check(diff > 1e-3, f"{phase}: the two requests gave the same frames (mean |diff| {diff})")
+        log(phase, stage="between_requests", mean_abs_diff=diff)
+    return outputs, run_counts
+
+
+def phase_main():
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4)
+    t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
+    cn_cfg = C.ControlNetConfig(num_layers=2, in_channels=C.WAN21_VAE.z_dim)
+    pipe, secs = sync_time(lambda: GoalForcePipeline.init_random(
+        seed=0, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=C.WAN21_VAE, cn_cfg=cn_cfg,
+        dtype=torch.bfloat16, device="cuda"))
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in pipe.models.items()}
+    log("main", stage="init", seconds=secs, params=n_params, tokens=pipe.pipe_cfg.tokens,
+        memory_gb=torch.cuda.memory_allocated() / 2**30)
     torch.cuda.reset_peak_memory_stats()
-    for r, seed in enumerate((11, 22)):
-        image, video = _request_inputs(seed, pc.num_frames, pc.height, pc.width, pc)
-        prompt = ("a red ball rolls across a wooden table and hits a blue cup",
-                  "a marble is flicked towards a stack of dominoes")[r]
-        stage_times.clear()
-        frames, total = sync_time(lambda: pipe(prompt, image, control_signal_video=video,
-                                               seed=seed, num_inference_steps=STEPS))
-        counts = dict(fa.launch_counts)
-        check(frames.shape == (pc.num_frames, pc.height, pc.width, 3),
-              f"request {r}: frames shape {frames.shape}")
-        check(bool(np.isfinite(frames).all()), f"request {r}: non-finite frames")
-        check(frames.min() >= 0.0 and frames.max() <= 1.0, f"request {r}: frames outside [0, 1]")
-        check(counts == only(K1=K1_PER_REQUEST * (r + 1)),
-              f"request {r}: launch counts {counts}, expected K1={K1_PER_REQUEST * (r + 1)}")
-        log("main", stage=f"request{r}", seconds=total, stages=dict(stage_times),
-            launches=counts, frames_mean=float(frames.mean()), frames_std=float(frames.std()))
-        outputs.append(frames)
-    diff = float(np.abs(outputs[0] - outputs[1]).mean())
-    check(diff > 1e-3, f"the two requests gave the same frames (mean |diff| {diff})")
-    launches = dict(fa.launch_counts)
-    log("main", stage="done", launches=launches, mean_abs_diff_between_requests=diff,
+    frames, launches = _serve(pipe, "main", only(K1=K1_PER_REQUEST))
+    log("main", stage="done", launches=launches,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
-    pipe.denoise_step = real_step
-    return pipe, launches
+    return pipe, launches, frames
+
+
+QPATHS = ("self_attn", "cross_attn", "ffn")     # the block linears JAX quantizes
+FP8_LINEAR_RTOL = 2e-3    # the card's fp8 sums of 5120 products: 1.2e-4 measured
+QUANTIZED = ("dit", "dit2", "controlnet", "controlnet2")
+K6_PER_STEP = 2 * (4 + 2)                       # self + cross per DiT and ControlNet block
+
+
+def _quantize(models, kind="int8"):
+    from goal_force_tpu_torch.ops import quant
+
+    for name in QUANTIZED:
+        quant.quantize_linear_modules(models[name], QPATHS, kind)
+
+
+class _PlainInt8:
+    """Within the block, ``flash_attention_int8`` computes its plain version on CUDA
+    tensors too (the same function without K6), for a path-level comparison."""
+
+    def __enter__(self):
+        from goal_force_tpu_torch.ops import flash_attention as fa
+
+        self.fa, self.saved = fa, fa.flash_attention_int8
+        fa.flash_attention_int8 = fa.flash_attention_int8_plain
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_int8 = self.saved
+
+
+def _check_linears():
+    """The packs' library products on the card against the same function with the code
+    product computed another way: the int8 pack against itself on the CPU (the int32 sum
+    is exact and the epilogue is the same float32 arithmetic: 1e-6 of the largest output),
+    the fp8 pack against its code product in float64 on the card (the e4m3 products are
+    exact; what differs is how many bits the tensor cores keep of the float32 sum of 5120
+    of them, logged)."""
+    from goal_force_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(8)
+    lin = torch.nn.Linear(5120, 1024)
+    with torch.no_grad():
+        lin.weight.normal_(generator=gen).mul_(0.02)
+        lin.bias.normal_(generator=gen)
+    x = torch.randn((2, 50, 5120), generator=gen)
+    f64 = lambda xq, wq: (xq.double() @ wq.double().t()).float()
+    res = {}
+    for kind, cls in quant.PACKS.items():
+        for rows in (50, 8):            # 100 rows, and 16 rows (padded for torch._int_mm)
+            pack = cls.from_linear(lin)
+            if kind == "int8":
+                ref = pack(x[:, :rows]).cuda()
+            got = pack.to("cuda")(x[:, :rows].cuda())
+            if kind == "fp8":
+                saved, quant._matmul_codes = quant._matmul_codes, f64
+                try:
+                    ref = pack(x[:, :rows].cuda())
+                finally:
+                    quant._matmul_codes = saved
+            err = float((got - ref).abs().max() / ref.abs().max())
+            lim = 1e-6 if kind == "int8" else FP8_LINEAR_RTOL
+            res[f"{kind} rows {2 * rows}"] = err
+            check(err <= lim, f"{kind} linear on the card: error {err} (> {lim})")
+    log("small_int8", case="linears on the card (max err / max |out|)", **res, ok=True)
+
+
+def phase_small_int8():
+    """The small head_dim-128 float32 pipeline with W8A8 packs in its four DiT/ControlNet
+    models: one merged-CFG step and a whole request through K6 against the same with the
+    plain int8 attention (the same function), and the launches (K6 only)."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+
+    _check_linears()
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = _small_configs()
+    pipe = GoalForcePipeline.init_random(seed=5, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=vae_cfg,
+                                         cn_cfg=cn_cfg, dtype=torch.float32, device="cuda")
+    for cn in ("controlnet", "controlnet2"):   # non-identity ControlNets
+        _perturb_zero_convs(pipe.models[cn], 9)
+    _quantize(pipe.models)
+    pipe.attn_impl = "flash_int8"
+    image, video = _request_inputs(1, 17, 128, 256, pipe.pipe_cfg)
+    ctx = pipe.encode_prompts(["a small check", pipe.pipe_cfg.negative_prompt])
+    y = pipe.encode_first_frame(image, 17)
+    cl = pipe.encode_control_video(video)
+    lat = torch.randn((1, 5, 16, 32, vae_cfg.z_dim), generator=torch.Generator("cuda").manual_seed(4),
+                      device="cuda")
+    step = lambda: pipe.denoise_step(pipe.models["dit"], pipe.models["controlnet"], lat, 1000.0,
+                                     1.0, 0.9375, ctx, y, cl, pipe.pipe_cfg.cfg_scale)
+    got_step, n_step = picked(step)
+    with _PlainInt8():
+        ref_step, n_plain = picked(step)
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False        # float32 convs in full float32, as in small
+    try:
+        kw = dict(seed=2, num_frames=17, num_inference_steps=4)
+        got, n = picked(lambda: pipe("a small check", image, control_signal_video=video, **kw))
+        with _PlainInt8():
+            ref = pipe("a small check", image, control_signal_video=video, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    # the step's velocity, from the Euler update latents + (0.9375 - 1.0) * v
+    v_got, v_ref = ((out - lat) / (0.9375 - 1.0) for out in (got_step, ref_step))
+    top = float(v_ref.abs().max())
+    step_err = dict(max=float((v_got - v_ref).abs().max()),
+                    mean=float((v_got - v_ref).abs().mean()))
+    err = dict(max=float(np.abs(got - ref).max()), mean=float(np.abs(got - ref).mean()))
+    # K6 and the plain version give the same attention to float32 rounding (~1e-6); an
+    # activation that lands that close to a rounding boundary of the next linear's int8
+    # quantization takes the neighbouring code, which moves that token's output by one
+    # code step: at most 1/127 of the largest output the linear can give. The bounds are
+    # those of the CPU tests that hold the port to JAX (tests/test_torch_lowp.py): one
+    # step's velocity within one code step of its largest value, and frames, whose later
+    # steps flip codes of their own, within 3e-2 (2e-3 on average).
+    step_ok = step_err["max"] <= top / 127
+    frames_ok = err["max"] <= 3e-2 and err["mean"] <= 2e-3
+    log("small_int8", tokens=5 * 8 * 16, step_launches=n_step, plain_step_launches=n_plain,
+        velocity_abs_err=step_err, velocity_limit=top / 127,
+        launches=n, frames_abs_err=err, frames_limits=dict(max=3e-2, mean=2e-3),
+        ok=step_ok and frames_ok)
+    check(n_step == only(K6=6) and n == only(K6=2 * (2 + 1) * 4) and n_plain == only(),
+          f"small_int8 launched {n_step} / {n} / plain {n_plain}")
+    check(step_ok, f"small_int8: one step differs by {step_err}")
+    check(frames_ok, f"small_int8: K6 vs plain int8 attention frames differ by {err}")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def phase_main_int8(pipe, bf16_frames):
+    """main's pipeline quantized in place (W8A8 block linears of the four DiT/ControlNet
+    models) with attn_impl="flash_int8": the same two requests, 48 K6 and nothing else
+    each, and the mean |frames - bf16 frames| of the same request."""
+    import gc
+
+    (_, secs) = sync_time(lambda: _quantize(pipe.models))
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_params = {k: sum(t.numel() for t in m.state_dict().values()) for k, m in pipe.models.items()}
+    log("main_int8", stage="quantize", seconds=secs, tensors=n_params,
+        memory_gb=torch.cuda.memory_allocated() / 2**30)
+    pipe.attn_impl = "flash_int8"
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        frames, launches = _serve(pipe, "main_int8", only(K6=K6_PER_STEP * STEPS))
+    finally:
+        pipe.attn_impl = "auto"
+    vs_bf16 = [float(np.abs(a - b).mean()) for a, b in zip(frames, bf16_frames)]
+    max_vs_bf16 = [float(np.abs(a - b).max()) for a, b in zip(frames, bf16_frames)]
+    between = float(np.abs(bf16_frames[0] - bf16_frames[1]).mean())
+    # The quality bound against bf16: each request's int8 frames stay far closer to the
+    # bf16 frames of the same request than two requests' frames are to each other.
+    ok = max(vs_bf16) <= 0.1 * between
+    log("main_int8", stage="done", launches=launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30,
+        mean_abs_diff_vs_bf16=vs_bf16, max_abs_diff_vs_bf16=max_vs_bf16,
+        bf16_mean_abs_diff_between_requests=between, limit=0.1 * between, ok=ok)
+    check(ok, f"main_int8: frames differ from bf16's by {vs_bf16} on average")
+    return launches
+
+
+def phase_full_int8():
+    """Full A14B depth on one card: 40 DiT + 10 ControlNet layers per expert, the full
+    24-layer umt5-xxl and the full Wan2.1 VAE, bf16 with W8A8 block linears and K6. Each
+    expert is built in bf16, its ControlNet copied from it, and both quantized before the
+    next expert is built. One 81x480x832 request of 2 steps: sigma 1.0 -> 0.833, so the
+    steps run t = 1000 (high-noise expert) and t = 833 (low-noise expert)."""
+    import gc
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models import vae as vaem
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.models.tokenizer import load_tokenizer
+    from goal_force_tpu_torch.ops import quant
+    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dit_cfg, t5_cfg, vae_cfg = C.WAN22_A14B, C.UMT5_XXL, C.WAN21_VAE
+    cn_cfg = C.ControlNetConfig(num_layers=10, in_channels=vae_cfg.z_dim)
+    gen = torch.Generator("cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    models = {}
+    for dit_name, cn_name in (("dit", "controlnet"), ("dit2", "controlnet2")):
+        models[dit_name] = wan_dit.init_wan_dit(dit_cfg, gen, torch.bfloat16, device="cuda")
+        models[cn_name] = cnm.init_from_dit(models[dit_name], dit_cfg, cn_cfg, gen,
+                                            torch.bfloat16, device="cuda")
+        bf16_gb = torch.cuda.memory_allocated() / 2**30
+        for name in (dit_name, cn_name):
+            quant.quantize_linear_modules(models[name], QPATHS, "int8")
+        torch.cuda.synchronize()
+        log("full_int8", stage=f"init {dit_name}+{cn_name}", memory_with_bf16_pair_gb=bf16_gb,
+            memory_gb=torch.cuda.memory_allocated() / 2**30,
+            seconds=time.perf_counter() - t0)
+    models["t5"] = t5m.init_t5(t5_cfg, gen, torch.bfloat16, device="cuda")
+    models["vae"] = vaem.init_vae(vae_cfg, gen, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = GoalForcePipeline(dit_cfg, t5_cfg, vae_cfg, cn_cfg, C.PipelineConfig(), models,
+                             load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len),
+                             torch.bfloat16, torch.device("cuda"), attn_impl="flash_int8")
+    gb = {k: sum(t.numel() * t.element_size() for t in m.state_dict().values()) / 1e9
+          for k, m in models.items()}
+    log("full_int8", stage="init", seconds=init_s, weights_gb=gb,
+        memory_gb=torch.cuda.memory_allocated() / 2**30,
+        init_peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    torch.cuda.reset_peak_memory_stats()
+    per_step = (dit_cfg.num_layers + cn_cfg.num_layers) * 2
+    frames, launches = _serve(pipe, "full_int8", only(K6=2 * per_step), seeds=(11,), steps=2)
+    log("full_int8", stage="done", launches=launches, k6_per_step=per_step,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del pipe, models, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_unbounded(pipe):
@@ -732,12 +1058,16 @@ def main() -> int:
     measured = phase_kernels()
     phase_small()
     phase_small_train()
-    pipe, main_launches = phase_main()
+    phase_small_int8()
+    pipe, main_launches, bf16_frames = phase_main()
     unb_launches = phase_unbounded(pipe)
-    del pipe
+    int8_launches = phase_main_int8(pipe, bf16_frames)
+    del pipe, bf16_frames
     train_launches = phase_train()
+    full_launches = phase_full_int8()
     fwd = "goal_force_tpu_torch/csrc/flash_attention.cu"
     train_src = "goal_force_tpu_torch/csrc/flash_attention_bwd.cu"
+    int8_src = "goal_force_tpu_torch/csrc/flash_attention_int8.cu"
     tpu = "goal_force_tpu/ops/flash_attention.py"
     kernels = []
     for name, src, line, launches, extra in (
@@ -750,12 +1080,16 @@ def main() -> int:
             ("K4 flash_attention_bwd_dkv", train_src, 76, train_launches["K4"],
              {"cross": measured["K4"]["cross"], "path": "train"}),
             ("K5 flash_attention_bwd_dq", train_src, 118, train_launches["K5"],
-             {"cross": measured["K5"]["cross"], "path": "train"})):
+             {"cross": measured["K5"]["cross"], "path": "train"}),
+            ("K6 flash_attention_int8", int8_src, 581, int8_launches["K6"],
+             {"cross": measured["K6"]["cross"], "path": "main_int8",
+              "full_int8_launches": full_launches["K6"]})):
         rec = measured[name.split()[0]]["self"]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{tpu}:{line}", "launches": launches,
                         **{k: rec.get(k) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
+                        **{k: rec[k] for k in ("quantize_ms", "sdpa_bf16_ms") if k in rec},
                         **({"sdpa_bwd_ms": rec["sdpa_bwd_ms"]} if "sdpa_bwd_ms" in rec else {}),
                         **extra})
     print(json.dumps({"kernels": kernels}))

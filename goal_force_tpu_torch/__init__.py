@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of goal_force_tpu for NVIDIA Hopper (H100).
 
 Goal-force image-to-video inference (``pipelines.goal_force.GoalForcePipeline``) and
-ControlNet-only training (``training.trainer.train``). Attention runs through
-hand-written CUDA kernels on the card: K1/K2 (``csrc/flash_attention.cu``) for inference,
-K3/K4/K5 (``csrc/flash_attention_bwd.cu``) for every attention that needs a gradient.
+ControlNet-only training (``training.trainer.train``), and low-precision serving (W8A8
+int8 or fp8 block linears from ``ops.quant``). Attention runs through hand-written CUDA
+kernels on the card: K1/K2 (``csrc/flash_attention.cu``) for inference, K3/K4/K5
+(``csrc/flash_attention_bwd.cu``) for every attention that needs a gradient, K6
+(``csrc/flash_attention_int8.cu``) for int8-QK attention (``attn_impl="flash_int8"``).
 The package imports torch, numpy and the standard library only.
 """

@@ -9,7 +9,11 @@
   - (C*pf*ph*pw, D) patch embeddings -> Conv3d (D, C, pf, ph, pw), feature order (c, dy, dx);
   - (kt, kh, kw, Cin, Cout) conv weights -> (Cout, Cin, kt, kh, kw), (kh, kw, Cin, Cout) ->
     (Cout, Cin, kh, kw);
-  - stacked zero convs (L, in, out) -> ``controlnet_zero_convs_after.{i}`` Conv1d (out, in, 1).
+  - stacked zero convs (L, in, out) -> ``controlnet_zero_convs_after.{i}`` Conv1d (out, in, 1);
+  - int8 / fp8 packs ``{"w_i8"|"w_f8", "w_scale", "b"}`` (``quantize_linear_tree[_fp8]``)
+    -> ``weight`` codes (out, in), ``weight_scale`` (out,) and ``bias``, the state dict
+    of ``ops/quant.py``'s ``Int8Linear`` / ``Fp8Linear``; the codes are carried, not
+    re-quantized.
 """
 
 from __future__ import annotations
@@ -26,8 +30,21 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a))
 
 
+def _codes(a) -> torch.Tensor:
+    """(in, out) int8 or float8_e4m3fn codes -> (out, in) tensor of the same dtype
+    (torch does not read numpy's float8 arrays: they cross as their bytes)."""
+    a = np.ascontiguousarray(np.asarray(a).T)
+    if a.dtype == np.int8:
+        return torch.from_numpy(a)
+    return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+
+
 def _lin(sd: StateDict, prefix: str, p: Mapping, bias: bool = True) -> None:
-    sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T)
+    if "w_i8" in p or "w_f8" in p:
+        sd[prefix + ".weight"] = _codes(p["w_i8"] if "w_i8" in p else p["w_f8"])
+        sd[prefix + ".weight_scale"] = _t(p["w_scale"])
+    else:
+        sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T)
     if bias:
         sd[prefix + ".bias"] = _t(p["b"])
 

@@ -1,7 +1,7 @@
 """Wan video DiT in PyTorch.
 
-Port of ``goal_force_tpu/models/wan_dit.py`` (main path: no int8/fp8 packs, no pipeline
-parallelism, no CLIP image branch). Modules hold the parameters under the reference
+Port of ``goal_force_tpu/models/wan_dit.py`` (main path and the int8/fp8 packs of
+``ops/quant.py``; no pipeline parallelism, no CLIP image branch). Modules hold the parameters under the reference
 ("civitai") state-dict names that ``goal_force_tpu/io/torch_convert.py`` reads, so a
 reference-format state dict loads directly. The computation is written as functions
 over those modules, one per JAX function, with the same dtype steps:
@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from goal_force_tpu_torch.configs import WanDiTConfig
 from goal_force_tpu_torch.ops.attention import attention
+from goal_force_tpu_torch.ops.quant import QuantLinear
 from goal_force_tpu_torch.ops.rope import apply_rope, assemble_rope, rope_tables_3d
 
 
@@ -32,7 +33,11 @@ from goal_force_tpu_torch.ops.rope import apply_rope, assemble_rope, rope_tables
 # Primitive layers
 # ---------------------------------------------------------------------------
 
-def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An ``nn.Linear``, or an int8/fp8 pack (``ops/quant.py``), as JAX's ``linear``
+    dispatches on its "w_i8"/"w_f8" leaves."""
+    if isinstance(layer, QuantLinear):
+        return layer(x)
     return F.linear(x, layer.weight, layer.bias)
 
 
@@ -202,8 +207,21 @@ def dit_block(p: WanBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig,
                             context, cfg.num_heads, cfg.eps, attn_impl,
                             bounded=cfg.qk_bounded)
     h = layer_norm(x, cfg.eps) * (1 + scale_mlp) + shift_mlp
-    h = linear(p.ffn[2], gelu_tanh(linear(p.ffn[0], h)))
-    return x + gate_mlp * h
+    return x + gate_mlp * feed_forward(p, h)
+
+
+FFN_CHUNK_TOKENS = 16384
+
+
+def feed_forward(p: WanBlock, h: torch.Tensor) -> torch.Tensor:
+    """The block's GELU(tanh) MLP, over chunks of at most FFN_CHUNK_TOKENS tokens. It acts
+    on each token alone, so the chunks compute the same function; only one chunk's float32
+    GELU temporaries are alive at a time (XLA fuses the GELU and keeps none), which at
+    65,520 tokens and ffn_dim 13,824 is 0.9 GB each instead of 3.6 GB."""
+    rows = h.reshape(-1, h.shape[-1])
+    out = [linear(p.ffn[2], gelu_tanh(linear(p.ffn[0], c)))
+           for c in rows.split(FFN_CHUNK_TOKENS)]
+    return (out[0] if len(out) == 1 else torch.cat(out)).reshape(*h.shape[:-1], -1)
 
 
 def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,

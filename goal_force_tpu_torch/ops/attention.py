@@ -6,6 +6,9 @@ the flash kernels. ``impl="auto"`` takes a kernel only where the kernel accepts 
 call: a CUDA tensor, head_dim exactly 128 (the JAX dispatch tests ``% 128``, but its
 kernel takes only 128), at least 256 queries and no bias. Everything else, such as the
 tiny test configs, uses the plain attention, as JAX uses XLA attention for them.
+
+The port names JAX's impls by what runs: JAX "xla" is "plain", "pallas" is "flash" and
+"pallas_int8" is "flash_int8" (K6, int8 q and k, inference only).
 """
 
 from __future__ import annotations
@@ -36,15 +39,17 @@ def attention(q, k, v, impl: str = "auto", scale: float | None = None,
               bias=None, bounded: bool = False, kv_len=None) -> torch.Tensor:
     """q: (B, Sq, N, H); k/v: (B, Skv, N, H) -> (B, Sq, N, H).
 
-    impl: "auto" | "plain" | "flash". "flash" always calls the flash wrappers (which
-    compute their plain versions on CPU tensors); under grad they go through
-    ``FlashAttentionFn`` (K3 forward, K4/K5 backward). "plain" always the einsum path,
-    differentiated by autograd.
+    impl: "auto" | "plain" | "flash" | "flash_int8". "flash" always calls the flash wrappers
+    (which compute their plain versions on CPU tensors); under grad they go through
+    ``FlashAttentionFn`` (K3 forward, K4/K5 backward). "flash_int8" calls
+    ``flash_attention_int8`` (K6 on CUDA tensors; raises under grad); a bias or a kv_len
+    sends it to the plain attention, as JAX sends "pallas_int8" to XLA. "plain" always the
+    einsum path, differentiated by autograd.
     bounded: the caller's logits are small by construction, so the flash path takes
     K1 with its saturating clamp and skips the runtime bound.
     """
-    if impl not in ("auto", "plain", "flash"):
-        raise ValueError(f"impl must be 'auto', 'plain' or 'flash', got {impl!r}")
+    if impl not in ("auto", "plain", "flash", "flash_int8"):
+        raise ValueError(f"impl must be 'auto', 'plain', 'flash' or 'flash_int8', got {impl!r}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if impl == "auto":
@@ -52,4 +57,6 @@ def attention(q, k, v, impl: str = "auto", scale: float | None = None,
     if impl == "flash" and bias is None:
         return fa.flash_attention(q, k, v, scale=scale,
                                   dispatch="nomax" if bounded else "auto", kv_len=kv_len)
+    if impl == "flash_int8" and bias is None and kv_len is None:
+        return fa.flash_attention_int8(q, k, v, scale=scale)
     return plain_attention(q, k, v, scale, bias, kv_len)

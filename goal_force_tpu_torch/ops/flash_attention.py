@@ -1,4 +1,4 @@
-"""Flash attention: the CUDA kernels K1-K5, their plain versions and the autograd rule.
+"""Flash attention: the CUDA kernels K1-K6, their plain versions and the autograd rule.
 
 K1 (``flash_attention_nomax``) replaces ``goal_force_tpu/ops/flash_attention.py::
 _fa_kernel_nomax`` and K2 (``flash_attention_max``) replaces ``_fa_kernel``; both
@@ -26,6 +26,12 @@ Semantics shared by the kernels and their plain versions:
   - p is cast to V's dtype before the PV product; sums are float32; the output has
     q's dtype.
 
+K6 (``flash_attention_int8``, replaces ``_fa_kernel_int8``; ``csrc/flash_attention_int8.cu``)
+is the inference-only int8-QK variant: ``quantize_tiles`` turns q and k into int8 codes
+with one float32 scale per (batch, head, tile of ``block`` rows); the kernel computes
+s = float(q_i8.k_i8) * ((scale*s_q)*s_k) per (row, key), the online max with the natural
+exp, p rounded to V's dtype, float32 sums and o = acc * (1/l).
+
 A wrapper given CPU tensors computes the plain version (that is how the CPU tests run);
 given CUDA tensors it launches its kernel or raises. ``launch_counts`` counts kernel
 launches, so a run can show that it went through the kernels.
@@ -46,7 +52,7 @@ NOMAX_BOUND = 100.0         # "auto" takes K1 only below this Cauchy-Schwarz log
 LOG2E = 1.4426950408889634
 DTYPES = (torch.float32, torch.bfloat16)
 
-launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 
 
 def reset_launch_counts() -> None:
@@ -345,6 +351,128 @@ class FlashAttentionFn(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dq = flash_attention_bwd_dq(q, k, v, o, do, lse, ctx.scale)
         return dq, dk, dv, None
+
+
+# ---------------------------------------------------------------------------
+# Inference with int8 q and k: K6
+# ---------------------------------------------------------------------------
+
+def int8_blocks(sq: int, skv: int, block_q: int = 1024, block_k: int = 1024):
+    """The quantization tiles JAX's flash_attention_int8 takes: min(block, max(128, S))."""
+    return min(block_q, max(HEAD_DIM, sq)), min(block_k, max(HEAD_DIM, skv))
+
+
+def quantize_tiles(x: torch.Tensor, block: int):
+    """(B, S, N, H) -> int8 codes (B, S, N, H) and float32 scales (B, N, ceil(S/block)).
+
+    One scale per (batch, head, tile of `block` rows): max(amax, 1e-6)/127 with the amax
+    over the tile's rows and all H lanes (rows past S are zero, as JAX pads them); codes
+    round(x / scale), half to even. The counterpart of JAX ``_quantize_tiles``."""
+    b, s, n, h = x.shape
+    t = -(-s // block)
+    xf = x.new_zeros((b, t * block, n, h), dtype=torch.float32)
+    xf[:, :s] = x
+    xt = xf.view(b, t, block, n, h)
+    amax = torch.maximum(xt.amax(dim=(2, 4)), -xt.amin(dim=(2, 4)))       # (B, T, N)
+    sc = amax.clamp(min=1e-6) / 127.0
+    xt.div_(sc[:, :, None, :, None]).round_()
+    return xf[:, :s].to(torch.int8).contiguous(), sc.transpose(1, 2).contiguous()
+
+
+def _int8_plain(qi, sqs, ki, sks, v, scale: float, block_q: int, block_k: int):
+    """Plain torch version of K6 on codes and scales: float32 einsums chunked over query
+    rows (the integer products are exact in float32)."""
+    b, sq, n, _ = qi.shape
+    skv = ki.shape[1]
+    qrow = scale * sqs[:, :, torch.arange(sq, device=qi.device) // block_q]   # (B,N,Sq)
+    kcol = sks[:, :, torch.arange(skv, device=qi.device) // block_k]         # (B,N,Skv)
+    kf, vf = ki.float(), v.float()
+    out = torch.empty(qi.shape, dtype=v.dtype, device=v.device)
+    step = _row_chunk(b, n, skv)
+    for s0 in range(0, sq, step):
+        s = torch.einsum("bsnh,btnh->bnst", qi[:, s0:s0 + step].float(), kf)
+        s = s * (qrow[:, :, s0:s0 + step, None] * kcol[:, :, None, :])
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1)                                               # (B,N,s)
+        acc = torch.einsum("bnst,btnh->bsnh", p.to(v.dtype).float(), vf)
+        inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l).permute(0, 2, 1)
+        out[:, s0:s0 + step] = (acc * inv[..., None]).to(v.dtype)
+    return out
+
+
+def _check_int8(q, k, v):
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention_int8 is inference-only (not differentiable)")
+
+
+def flash_attention_int8_plain(q, k, v, scale: float, block_q: int = 1024,
+                               block_k: int = 1024) -> torch.Tensor:
+    """Plain torch version of the int8-QK attention (the quantize step, then K6's
+    arithmetic with the max over the whole row; the kernel's running max gives the same
+    function)."""
+    _check_int8(q, k, v)
+    bq, bk = int8_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    qi, sqs = quantize_tiles(q, bq)
+    ki, sks = quantize_tiles(k, bk)
+    return _int8_plain(qi, sqs, ki, sks, v, scale, bq, bk)
+
+
+def _int8_lib():
+    lib = _build.load("flash_attention_int8")
+    if not getattr(lib, "_gf_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gf_fa_int8.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        lib.gf_fa_int8.restype = i
+        lib._gf_typed = True
+    return lib
+
+
+def flash_attention_int8_codes(qi, sqs, ki, sks, v, scale: float, block_q: int,
+                               block_k: int) -> torch.Tensor:
+    """K6 on int8 codes (B, S, N, 128) and their tile scales (B, N, T) from
+    ``quantize_tiles(., block_q|block_k)``; v (B, Skv, N, 128) f32 or bf16 -> o like v."""
+    b, sq, n, h = qi.shape
+    skv = ki.shape[1]
+    tq, tk = -(-sq // block_q), -(-skv // block_k)
+    if (qi.dtype != torch.int8 or ki.dtype != torch.int8 or h != HEAD_DIM
+            or tuple(ki.shape) != (b, skv, n, h) or v.shape != ki.shape or v.dtype not in DTYPES
+            or tuple(sqs.shape) != (b, n, tq) or tuple(sks.shape) != (b, n, tk)
+            or sqs.dtype != torch.float32 or sks.dtype != torch.float32):
+        raise ValueError(f"K6 takes int8 q {tuple(qi.shape)}, k {tuple(ki.shape)} with float32 "
+                         f"tile scales {tuple(sqs.shape)}, {tuple(sks.shape)} and f32/bf16 v "
+                         f"{tuple(v.shape)} {v.dtype}")
+    if qi.device.type == "cpu":
+        return _int8_plain(qi, sqs, ki, sks, v, scale, block_q, block_k)
+    if qi.device.type != "cuda":
+        raise RuntimeError(f"flash attention kernels run on CUDA tensors, got {qi.device}")
+    tensors = [t.contiguous() for t in (qi, ki, v)]
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("K6 loads 16-byte rows: q, k and v must be 16-byte aligned")
+    out = torch.empty(qi.shape, dtype=v.dtype, device=v.device)
+    tensors += [out, sqs.contiguous(), sks.contiguous()]
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(qi.device).cuda_stream)
+    rc = _int8_lib().gf_fa_int8(int(v.dtype == torch.bfloat16), *ptrs, b, sq, skv, n, tq, tk,
+                                block_q, block_k, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"K6 flash-attention launch failed: CUDA error {rc}")
+    launch_counts["K6"] += 1
+    return out
+
+
+def flash_attention_int8(q, k, v, scale: float, block_q: int = 1024,
+                         block_k: int = 1024) -> torch.Tensor:
+    """Int8-QK flash attention (inference only): q: (B, Sq, N, 128); k/v: (B, Skv, N, 128).
+
+    The counterpart of JAX ``flash_attention_int8``: the tiles are clamped as there
+    (``int8_blocks``), q and k are quantized with ``quantize_tiles`` (torch ops), then K6
+    runs on CUDA tensors; CPU tensors take the plain version. Raises under grad."""
+    _check_int8(q, k, v)
+    bq, bk = int8_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    qi, sqs = quantize_tiles(q, bq)
+    ki, sks = quantize_tiles(k, bk)
+    return flash_attention_int8_codes(qi, sqs, ki, sks, v, scale, bq, bk)
 
 
 def logit_bound(q, k, v, scale: float) -> torch.Tensor:

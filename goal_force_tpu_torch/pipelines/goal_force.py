@@ -7,6 +7,11 @@ loop with merged CFG (posi/nega as a batch of 2) and the expert switch at
 ``boundary * 1000`` (high-noise DiT + ControlNet above it, low-noise pair below), then
 VAE-decode. ``__call__`` returns (F, H, W, 3) float32 frames in [0, 1].
 
+Low-precision serving: pack the block linears of the four DiT/ControlNet models with
+``ops.quant.quantize_linear_modules(pipe.models[name], ("self_attn", "cross_attn",
+"ffn"))`` and set ``attn_impl="flash_int8"`` (K6); a pipeline so changed answers requests
+as before.
+
 Everything runs on the pipeline's device, which is CUDA unless the caller asks for the
 CPU. Arguments of the JAX ``_generate`` that this port does not cover raise
 ``NotImplementedError``.
@@ -33,6 +38,7 @@ from goal_force_tpu_torch.models import t5 as t5m
 from goal_force_tpu_torch.models import vae as vaem
 from goal_force_tpu_torch.models import wan_dit
 from goal_force_tpu_torch.models.tokenizer import load_tokenizer
+from goal_force_tpu_torch.ops import quant
 from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
 from goal_force_tpu_torch.schedulers import flow_match as fm
 
@@ -131,7 +137,8 @@ class GoalForcePipeline:
         device="cuda",
     ) -> "GoalForcePipeline":
         """Build from reference-format state dicts keyed dit/dit2/t5/vae
-        (+ controlnet/controlnet2)."""
+        (+ controlnet/controlnet2). Linears that a state dict holds as int8/fp8 packs
+        (``ops/quant.py``) are packed in the empty module before it loads."""
         device = resolve_device(device)
         ctors = {"dit": (wan_dit.WanDiT, dit_cfg), "dit2": (wan_dit.WanDiT, dit_cfg),
                  "t5": (t5m.T5Encoder, t5_cfg), "vae": (vaem.WanVAE, vae_cfg)}
@@ -141,6 +148,7 @@ class GoalForcePipeline:
         models = {}
         for name, (cls_, *cfgs) in ctors.items():
             mod = wan_dit.empty_module(cls_, *cfgs, dtype=dtype, device=device)
+            quant.pack_like_state_dict(mod, state_dicts[name])
             mod.load_state_dict(state_dicts[name])
             models[name] = mod.eval().requires_grad_(False)
         return cls(dit_cfg, t5_cfg, vae_cfg, cn_cfg, pipe_cfg or PipelineConfig(), models,

@@ -59,6 +59,13 @@ def test_no_jax_or_reference_package_imports(path):
             assert root not in ("jax", "jaxlib", "goal_force_tpu", "flax"), f"{path}: {name}"
 
 
+def test_low_precision_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.ops.quant", "goal_force_tpu_torch.ops.flash_attention",
+              "goal_force_tpu_torch.ops.attention"):
+        assert m in MODULES
+    assert (PKG / "csrc" / "flash_attention_int8.cu").is_file()
+
+
 @pytest.mark.parametrize("name", ["WAN22_A14B", "WAN21_1_3B", "UMT5_XXL", "WAN21_VAE"])
 def test_config_presets_equal_jax(name):
     assert dataclasses.asdict(getattr(tcfg, name)) == dataclasses.asdict(getattr(jcfg, name))

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K5 against their plain versions, on the card.
+"""The port's CUDA kernels K1-K6 against their plain versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where only the port's
 dependencies are installed. Every test needs a CUDA device and skips without one; on a
@@ -94,5 +94,37 @@ def test_grad_through_attention_launches_k3_k4_k5(cuda_device):
     out = tattn.attention(q, k, v, bounded=True)
     out.float().square().sum().backward()
     delta = {n: tfa.launch_counts[n] - before[n] for n in before}
-    assert delta == {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 1}
+    assert delta == {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 1, "K6": 0}
     assert all(bool(torch.isfinite(t.grad.float()).all()) for t in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 300])
+def test_int8_kernel_matches_plain_on_card(cuda_device, dtype, block):
+    """K6 on the same int8 codes and tile scales as its plain version; tiles of 300 put a
+    q scale boundary inside a 16-row fragment and a k scale boundary inside a key tile."""
+    q, k, v = _qkv(cuda_device, dtype, 2, 1000, 777, 4, seed=4)
+    bq, bk = tfa.int8_blocks(1000, 777, block, block)
+    qi, sq = tfa.quantize_tiles(q, bq)
+    ki, sk = tfa.quantize_tiles(k, bk)
+    got = tfa.flash_attention_int8_codes(qi, sq, ki, sk, v, H**-0.5, bq, bk)
+    ref = tfa._int8_plain(qi, sq, ki, sk, v, H**-0.5, bq, bk)
+    assert got.dtype == dtype
+    # float32: the same integer logits, float32 sums in another order
+    tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else \
+        dict(atol=_bf16_limit(ref), rtol=0)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_int8_attention_launches_k6_only(cuda_device):
+    """attention(impl="flash_int8") on CUDA tensors goes through K6 once and nothing
+    else; a kv_len takes the plain attention and launches nothing."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 300, 40, 2, seed=5)
+    before = dict(tfa.launch_counts)
+    tattn.attention(q, k, v, impl="flash_int8")
+    delta = {n: tfa.launch_counts[n] - before[n] for n in before}
+    assert delta == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 1}
+    tattn.attention(q, k, v, impl="flash_int8", kv_len=torch.tensor([20, 40]))
+    assert tfa.launch_counts["K6"] == before["K6"] + 1

@@ -2,8 +2,11 @@
 
 The port is built from the JAX pipeline's own weights (io/from_jax.py) and given the
 exact noise JAX draws, so both run the same function on the same inputs. Four steps
-cross the expert switch (t = 1000, 937.5 | 833.3, 625).
+cross the expert switch (t = 1000, 937.5 | 833.3, 625). The same holds with W8A8 packs in
+the four DiT/ControlNet models, within a bound derived from one activation code step.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -20,13 +23,16 @@ from goal_force_tpu.models import t5 as jt5
 from goal_force_tpu.models import vae as jvae
 from goal_force_tpu.models import wan_dit as jdit
 from goal_force_tpu.models.tokenizer import load_tokenizer
+from goal_force_tpu.ops.quant import quantize_linear_tree
 from goal_force_tpu.pipelines import GoalForcePipeline as JaxPipeline
 
 from goal_force_tpu_torch import configs as tcfg
 from goal_force_tpu_torch.io.from_jax import params_from_jax
+from goal_force_tpu_torch.ops.quant import Int8Linear, quantize_linear_modules
 from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
 
 FRAMES, H, W, STEPS = 9, 32, 48, 4
+QPATHS = ("self_attn", "cross_attn", "ffn")
 
 
 @pytest.fixture(scope="module")
@@ -97,6 +103,57 @@ def test_cfg_one_and_no_controlnet_match_jax(pipes, inputs):
         ref = jpipe("x", image, seed=3, num_frames=FRAMES, num_inference_steps=2, **kw)
         got = tpipe("x", image, noise=noise, num_frames=FRAMES, num_inference_steps=2, **kw)
         np.testing.assert_allclose(got, ref, atol=1e-3)
+
+
+def _quantized_jax_pipe(jpipe):
+    q = copy.copy(jpipe)
+    q.params = dict(jpipe.params)
+    for name in ("dit", "dit2", "controlnet", "controlnet2"):
+        q.params[name] = dict(jpipe.params[name],
+                              blocks=quantize_linear_tree(jpipe.params[name]["blocks"], QPATHS))
+    return q
+
+
+def test_w8a8_pipeline_frames_match_jax(pipes, inputs):
+    """The pipeline with W8A8 block linears (quantize_linear_tree, paths self_attn,
+    cross_attn and ffn) in all four DiT/ControlNet models, against JAX pipe(...) on JAX's
+    noise, by two routes that must give the same frames bit for bit: the JAX packs loaded
+    through from_state_dicts, and the port's own quantize_linear_modules on the unpacked
+    pipeline. Attention is plain on both sides (tiny head_dim 24); the packs-off pipeline
+    matches at 1e-3 (above).
+
+    Both sides compute every int8 product exactly, but float32 rounding that differs
+    between XLA and torch can put an activation on the other side of a rounding boundary
+    of the next linear's per-token quantization: that code moves by one step, which moves
+    the linear's output by up to 1/127 of its range (test_torch_lowp.py holds one step to
+    that). Every later step starts from latents that differ by that much and flips codes
+    of its own: a one-ulp move of the port's own noise moves its frames by up to 1.8e-3,
+    and runs of JAX and the port differ by up to 1.1e-2 (8e-4 on average). The frames are
+    held to 3e-2, and to 2e-3 on average."""
+    jpipe, tpipe = pipes
+    image, cv = inputs
+    kw = dict(seed=0, num_frames=FRAMES, num_inference_steps=4)
+    qj = _quantized_jax_pipe(jpipe)
+    ref = qj("a ball rolls right", image, control_signal_video=cv, **kw)
+    noise = torch.from_numpy(_jax_noise(0, tpipe.vae_cfg.z_dim))
+    loaded = GoalForcePipeline.from_state_dicts(
+        params_from_jax(jax.tree_util.tree_map(np.asarray, qj.params)),
+        *tcfg.tiny_pipeline_configs(), dtype=torch.float32, device="cpu")
+    in_place = copy.deepcopy(tpipe)
+    for name in ("dit", "dit2", "controlnet", "controlnet2"):
+        quantize_linear_modules(in_place.models[name], QPATHS)
+    frames = []
+    for pipe in (loaded, in_place):
+        assert isinstance(pipe.models["dit2"].blocks[0].cross_attn.v, Int8Linear)
+        assert isinstance(pipe.models["controlnet"].controlnet_dit.blocks[0].ffn[0],
+                          Int8Linear)
+        frames.append(pipe("a ball rolls right", image, control_signal_video=cv, noise=noise,
+                           **kw))
+    np.testing.assert_array_equal(frames[0], frames[1])
+    got = frames[0]
+    assert got.shape == ref.shape and 0.0 <= got.min() and got.max() <= 1.0
+    np.testing.assert_allclose(got, ref, atol=3e-2)
+    assert np.abs(got - ref).mean() <= 2e-3
 
 
 def test_seeded_noise_is_deterministic(pipes, inputs):
