@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Mutation check of chip_smoke.py's K3/K4/K5 and K6 checks, on one CUDA card.
+"""Mutation check of chip_smoke.py's K1, K3/K4/K5 and K6 checks, on one CUDA card.
 
     python3 chip_mutants.py
 
-Builds broken copies of goal_force_tpu_torch/csrc/flash_attention_bwd.cu and
-flash_attention_int8.cu (one nvcc per mutant, all started together, in a temporary
-directory), loads each in place of the real library and runs chip_smoke's kernel checks
-of that source with every failed check recorded instead of raised: the bf16 checks of
-K3/K4/K5 (the 1000x777, training self and training cross shapes), and the float32 and
-bf16 checks of K6 (1000x777 with tiles of 128 and of 300, the main path's self and cross
-shapes). Prints one JSON line per mutant with the checks that caught it; exits 0 when
-every mutant was caught by at least one check.
+Builds 17 broken copies of the port's kernels (5 of K1 in flash_attention.cu, 7 of K3-K5
+in flash_attention_bwd.cu, 5 of K6 in flash_attention_int8.cu; a mutant may patch the
+Hopper skeleton flash_attention_sm90.cuh instead, built into its own source only), one
+nvcc per mutant, all started together, each in a temporary directory of its own with
+copies of the headers. Loads each in place of the real library and runs chip_smoke's
+kernel checks of that source with every failed check recorded instead of raised: the
+float32 and bf16 checks of K1/K2 (small shapes, kv_len, the tile edges, the serving self
+and cross shapes), the bf16 checks of K3/K4/K5 (the 1000x777, training self and training
+cross shapes), and the float32 and bf16 checks of K6 (1000x777 and the tile edges with
+quantization tiles of 128 and of 300, the serving self and cross shapes). Prints one JSON
+line per mutant with the checks that caught it; exits 0 when every mutant was caught by at
+least one check.
 """
 
 from __future__ import annotations
@@ -27,44 +31,59 @@ import torch
 import chip_smoke as cs
 from goal_force_tpu_torch.ops import _build
 
-# name -> (source stem, text in the source, its replacement); each text occurs once.
+SM90 = "flash_attention_sm90.cuh"
+
+# name -> (source stem, file patched (None: the source itself), text in that file, its
+# replacement); each text occurs once.
 MUTANTS = {
-    "K3 no straddle mask": ("flash_attention_bwd",
+    "K1 no straddle mask": ("flash_attention", None,
+        "if (straddles) {   // only the tile that straddles `valid` pays for the mask",
+        "if (false) {"),
+    "K1 loses key tile 1": ("flash_attention", None,
+        "sc[4 * n + e] = exp2f(x);", "sc[4 * n + e] = kbase == sm90::BK ? 0.f : exp2f(x);"),
+    "K1 row r's sum for row r+8": ("flash_attention", None,
+        "inv1 = s1 == 0.f ? 1.f : 1.f / s1;", "inv1 = s0 == 0.f ? 1.f : 1.f / s0;"),
+    "K1 kv_len ignored": ("flash_attention", None,
+        "const int l = a.kv_len[b];", "const int l = a.Skv;"),
+    "K1 q fold skips the second 64-column half": ("flash_attention", None,
+        "for (int hh = 0; hh < 2; ++hh) {", "for (int hh = 0; hh < 1; ++hh) {"),
+    "K3 no straddle mask": ("flash_attention_bwd", None,
         "if (straddles && kbase + n * 8 + 2 * t + (e & 1) >= Skv) s[n][e] = MASK_VALUE;", ""),
-    "K3 loses kv tile 1": ("flash_attention_bwd",
+    "K3 loses kv tile 1": ("flash_attention_bwd", None,
         "mma_pb<4>(acc, s, Vt, lane);   // acc += bf16(p) V",
         "if (j != 1) mma_pb<4>(acc, s, Vt, lane);"),
-    "K4 ds shrunk by 0.2%": ("flash_attention_bwd",
+    "K4 ds shrunk by 0.2%": ("flash_attention_bwd", None,
         "ds[n][e] = p[n][e] * (ds[n][e] - di_s[col]) * scale;",
         "ds[n][e] = p[n][e] * (ds[n][e] - di_s[col]) * scale * 0.998f;"),
-    "K4 di over half the columns": ("flash_attention_bwd",
+    "K4 di over half the columns": ("flash_attention_bwd", None,
         "const int col = x * 8 + 2 * c;", "const int col = (x % 8) * 8 + 2 * c;"),
-    "K4 loses the last q tile": ("flash_attention_bwd",
+    "K4 loses the last q tile": ("flash_attention_bwd", None,
         "for (int i = 0; i < n_qt; ++i) {", "for (int i = 0; i < n_qt - 1; ++i) {"),
-    "K5 loses kv tile 1": ("flash_attention_bwd",
+    "K5 loses kv tile 1": ("flash_attention_bwd", None,
         "mma_pb<4>(dqa, ds, Kt, lane);   // dq += bf16(ds) K",
         "if (j != 1) mma_pb<4>(dqa, ds, Kt, lane);"),
-    "K5 row g's lse for row g+8": ("flash_attention_bwd",
+    "K5 row g's lse for row g+8": ("flash_attention_bwd", None,
         "float x = expf(p[n][e] * scale - (hi ? lse1 : lse0));",
         "float x = expf(p[n][e] * scale - lse0);"),
-    "K6 k scale per key tile, not per key column": ("flash_attention_int8",
-        "if (i < n) kc[i] = skb[min((key0 + i) / bk, Tk - 1)];",
-        "if (i < n) kc[i] = skb[min(key0 / bk, Tk - 1)];"),
-    "K6 row g's q scale for row g+8": ("flash_attention_int8",
-        "const float qs1 = scale * sqb[min(r1 / bq, Tq - 1)];",
-        "const float qs1 = scale * sqb[min(r0 / bq, Tq - 1)];"),
-    "K6 no mask on the straddling key tile": ("flash_attention_int8",
-        "if (straddles && kbase + cl >= Skv) x = MASK_VALUE;", ""),
-    "K6 exp2 in place of exp": ("flash_attention_int8",
+    "K6 k scale per key tile, not per key column": ("flash_attention_int8", None,
+        "kc[i] = skb[min((key0 + i) / a.bk, a.Tk - 1)];", "kc[i] = skb[min(key0 / a.bk, a.Tk - 1)];"),
+    "K6 row r's q scale for row r+8": ("flash_attention_int8", None,
+        "qs1 = a.scale * sqb[min((r0 + 8) / a.bq, a.Tq - 1)];",
+        "qs1 = a.scale * sqb[min(r0 / a.bq, a.Tq - 1)];"),
+    "K6 no mask on the straddling key tile": ("flash_attention_int8", None,
+        "if (straddles) {   // only the tile that straddles Skv pays for the mask",
+        "if (false) {"),
+    "K6 exp2 in place of exp": ("flash_attention_int8", None,
         "float softmax_exp(float x) { return expf(x); }",
         "float softmax_exp(float x) { return exp2f(x); }"),
-    "K6 p truncated to bf16, not rounded to nearest": ("flash_attention_int8",
+    "K6 p truncated to bf16, not rounded to nearest": ("flash_attention_int8", SM90,
         "__nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);",
         "__nv_bfloat162 v = __halves2bfloat162(__float2bfloat16_rz(lo), __float2bfloat16_rz(hi));"),
 }
 
 
 CHECKS = {
+    "flash_attention": lambda: cs._forward_kernels(timed=False),
     "flash_attention_bwd": lambda: cs._training_kernels(dtypes=(torch.bfloat16,), timed=False),
     "flash_attention_int8": lambda: cs._int8_kernels(timed=False),
 }
@@ -72,16 +91,20 @@ CHECKS = {
 
 def build_mutants(tmp: Path):
     procs = {}
-    for i, (name, (stem, old, new)) in enumerate(MUTANTS.items()):
-        source = (_build.CSRC / f"{stem}.cu").read_text()
-        if source.count(old) != 1:
-            raise RuntimeError(f"{name}: the text to mutate occurs {source.count(old)} times")
-        src = tmp / f"mutant{i}.cu"
-        src.write_text(source.replace(old, new))
-        out = tmp / f"mutant{i}.so"
-        procs[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, str(src), "-o",
-                                         str(out)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), out)
+    for i, (name, (stem, patched, old, new)) in enumerate(MUTANTS.items()):
+        d = tmp / f"mutant{i}"
+        d.mkdir()
+        for f in [_build.CSRC / f"{stem}.cu", *_build.CSRC.glob("*.cuh")]:
+            (d / f.name).write_text(f.read_text())
+        target = d / (patched or f"{stem}.cu")
+        text = target.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the text to mutate occurs {text.count(old)} times")
+        target.write_text(text.replace(old, new))
+        out = d / f"{stem}.so"
+        procs[name] = (subprocess.Popen(_build.nvcc_command(d / f"{stem}.cu", out, d),
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
     libs = {}
     for name, (proc, out) in procs.items():
         log_ = proc.communicate()[0]

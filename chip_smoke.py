@@ -7,14 +7,16 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 
 1. device  - a CUDA card must be present; prints nvidia-smi's name and power limit.
 2. build   - compiles goal_force_tpu_torch/csrc/*.cu with nvcc for sm_90a (one nvcc per
-             source, started together) and prints each kernel's ptxas report.
+             source, started together) and prints each kernel's ptxas report and the
+             Hopper kernels' SASS instruction counts by opcode.
 3. kernels - holds K1/K2 against their plain torch versions on the card (small shapes,
-             saturation, per-batch kv_len, and the main-path shapes), K3/K4/K5 (o and
-             lse, dk and dv, dq) in float32 and bf16 at 1000x777 and at the training
-             self and cross shapes, and K6 (int8 q and k) in float32 and bf16 at 1000x777
-             with quantization tiles of 128 and 300 and at the main path's self and
-             cross shapes; times kernel, plain version, K6's quantize step and SDPA (as a
-             yardstick only) at the path shapes.
+             saturation, per-batch kv_len, K1 at the Hopper tiles' edges: B = 2, Sq and
+             Skv of 127 and 129, and the main-path shapes), K3/K4/K5 (o and lse, dk and
+             dv, dq) in float32 and bf16 at 1000x777 and at the training self and cross
+             shapes, and K6 (int8 q and k) in float32 and bf16 at 1000x777 and at the
+             tile edges with quantization tiles of 128 and 300, and at the main path's
+             self and cross shapes; times kernel, plain version, K6's quantize step and
+             SDPA (as a yardstick only) at the path shapes.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
 5. small_train - one training loss + backward at that size, kernels vs plain attention
@@ -140,6 +142,33 @@ def phase_build():
                  or "Compiling entry" in ln or "error" in ln.lower()]
         log("build", source=f"{stem}.cu", ptxas=ptxas)
     log("build", seconds=round(secs, 3), nvcc=_build.nvcc_path())
+    for stem in ("flash_attention", "flash_attention_int8"):
+        log("build", source=f"{stem}.cu", sass_opcodes=_sass_counts(_build.library_path(stem)))
+
+
+def _sass_counts(lib_path):
+    """Instructions by opcode in the SASS of each Hopper kernel (fa_sm90_fwd) of a built
+    library: the softmax's share of the instruction stream beside the HGMMAs."""
+    import collections
+    import re
+
+    from goal_force_tpu_torch.ops import _build
+
+    dump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([dump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "fa_sm90_fwd" not in name:
+            continue
+        ops = collections.Counter()
+        for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.[A-Z0-9]+)?",
+                             part):
+            op, sub = m.group(1), m.group(2) or ""
+            ops[op + sub if op == "MUFU" else op] += 1
+        out["K1" if "K1Policy" in name else "K6"] = dict(ops.most_common(20))
+    return out
 
 
 def _rand(shape, gen, dtype, mult=1.0):
@@ -182,8 +211,25 @@ def picked(fn):
     return out, {k: fa.launch_counts[k] - before[k] for k in before}
 
 
+# The Hopper kernels' tile edges: 128-row q tiles and 128-key tiles, ragged at the end of
+# every batch row (Sq, Skv in {127, 129}, B = 2), and K1's kv_len (per batch row) on both
+# sides of a tile edge: no key, one short of a tile, exactly one tile, one key past it.
+EDGES = (((127, 127), (0, 127)), ((127, 129), (128, 129)), ((129, 127), (127, 1)),
+         ((129, 129), (0, 128)))
+
+
 def phase_kernels():
     """Kernel vs plain on the same inputs; returns per-kernel measurements."""
+    out = _forward_kernels()
+    out.update(_training_kernels())
+    out.update(_int8_kernels())
+    return out
+
+
+def _forward_kernels(timed=True):
+    """K1/K2 vs their plain versions in float32 and bf16 (small shapes, saturation,
+    per-batch kv_len), K1 at the tile edges (EDGES), and both at the main path's shapes;
+    times kernel, plain version and SDPA (a yardstick only) at those shapes."""
     from goal_force_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator("cuda").manual_seed(1234)
@@ -231,6 +277,17 @@ def phase_kernels():
             check(bool((got[0] == 0).all()), f"{kname} kv_len=0 row is not exactly 0")
             compare(f"{kname} kv_len=(0,300) {tag}", got, plain(qb, kb, vb, scale, kv_len=lens), **tol)
 
+    for (sq, skv), lens in EDGES:
+        q, k, v = (_rand((2, s, 2, 128), gen, torch.bfloat16) for s in (sq, skv, skv))
+        for kv_len, clamp in ((torch.tensor(lens, device="cuda"), fa.NOMAX_CLAMP), (None, None)):
+            got = fa.flash_attention_nomax(q, k, v, scale, kv_len=kv_len, clamp=clamp)
+            ref = fa.flash_attention_nomax_plain(q, k, v, scale, kv_len=kv_len, clamp=clamp)
+            if kv_len is not None and lens[0] == 0:
+                check(bool((got[0] == 0).all()), f"K1 edge {sq}x{skv}: kv_len=0 row is not 0")
+            compare(f"K1 edge (2,{sq},2,128)x(2,{skv},2,128) bf16 "
+                    f"{f'kv_len={lens}' if kv_len is not None else 'no clamp'}", got, ref,
+                    atol=bf16_limit(ref), rtol=0.0)
+
     # Main-path shapes, bf16: self-attention (K1; K2 on the unbounded path) and cross.
     out = {}
     q, k, v = (_rand(SELF, gen, torch.bfloat16) for _ in range(3))
@@ -250,6 +307,8 @@ def phase_kernels():
                           **bf16_tol_shape[sname])
             del got, ref
             torch.cuda.empty_cache()
+            if not timed:
+                continue
             plain_ms = event_ms(lambda: plain(q, kk, vv), iters=1, warmup=0)   # warm: 2nd call
             ms = event_ms(lambda: kern(q, kk, vv))
             lib_ms = event_ms(lambda: sdpa(q.transpose(1, 2), kk.transpose(1, 2),
@@ -262,8 +321,6 @@ def phase_kernels():
         out[kname] = rec
     del q, k, v, ck, cv
     torch.cuda.empty_cache()
-    out.update(_training_kernels())
-    out.update(_int8_kernels())
     return out
 
 
@@ -385,8 +442,9 @@ def int8_attention_bound_ms(q_shape, kv_shape, bq, bk):
 def _int8_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
     """K6 against its plain version on the same int8 codes and tile scales (quantize_tiles
     runs once and feeds both): 1000x777 with quantization tiles of 128 and of 300 (a tile
-    boundary inside a 16-row fragment and inside a 64-key tile) in float32 and bf16, then
-    the main path's self (tiles 1024/1024) and cross (1024/512) shapes in bf16; times K6,
+    boundary inside a 16-row fragment and inside a 128-key tile) and the tile edges of
+    EDGES with tiles of 128 and 300 (clamped to S) in float32 and bf16, then the main
+    path's self (tiles 1024/1024) and cross (1024/512) shapes in bf16; times K6,
     the quantize step, the plain version and SDPA (a yardstick only) at the path shapes."""
     from goal_force_tpu_torch.ops import flash_attention as fa
 
@@ -399,6 +457,8 @@ def _int8_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = [("1000x777 tiles 128", (1, 1000, 4, 128), (1, 777, 4, 128), 128),
              ("1000x777 tiles 300", (1, 1000, 4, 128), (1, 777, 4, 128), 300)]
+    cases += [(f"edge {sq}x{skv} tiles {block}", (2, sq, 2, 128), (2, skv, 2, 128), block)
+              for (sq, skv), _ in EDGES for block in (128, 300)]
     path = [("self", SELF, SELF, 1024), ("cross", SELF, CROSS_KV, 1024)]
     out = {}
     for dtype in dtypes:

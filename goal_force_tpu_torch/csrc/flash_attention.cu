@@ -1,40 +1,49 @@
 // Flash-attention forward kernels for Hopper (sm_90a), non-causal, head_dim 128.
 //
-// K1 `fa_nomax_*` replaces the TPU kernel goal_force_tpu/ops/flash_attention.py::
+// K1 `gf_fa_nomax` replaces the TPU kernel goal_force_tpu/ops/flash_attention.py::
 //    _fa_kernel_nomax: max-free softmax in the log2 domain, p = exp2(min(s, clamp)),
 //    l += sum(p), acc += p.V, o = acc / l.
-// K2 `fa_max_*` replaces goal_force_tpu/ops/flash_attention.py::_fa_kernel: the same
+// K2 `gf_fa_max` replaces goal_force_tpu/ops/flash_attention.py::_fa_kernel: the same
 //    with a running row max m, alpha = exp2(m_prev - m_next) rescaling l and acc.
 //
 // Both read the packed (B, S, N, 128) tensors in place: a CTA owns one
 // (q tile, head, batch) and walks the KV tiles of that head up to the batch row's
 // kv_len; tiles past kv_len are never loaded, the one that straddles it is masked
-// (masked logits add exactly 0), and a row with no valid key writes 0. The
-// softmax scale times log2(e) (rounded to q's dtype by the caller) is folded into q
-// as the tile is loaded, and the folded q is rounded back to q's dtype. p is cast
-// to V's dtype before the PV product; sums are f32; o is written in q's dtype.
+// (masked keys add exactly 0), and a row with no valid key writes 0. The softmax scale
+// times log2(e) (rounded to q's dtype by the caller) is folded into q in the kernel, and
+// the folded q is rounded back to q's dtype. p is cast to V's dtype before the PV
+// product; sums are f32; o is written in q's dtype.
 //
 // Bound on the H100: at the main-path shapes (32,760 queries against 32,760 or 512
 // keys) the kernel does 4*Sq*Skv*128 flops per (batch, head) on ~Sq*128*2 bytes of
-// q and o, so it is bound by tensor-core operations, not by memory. The bf16
-// kernels therefore run both products on the tensor cores with mma.sync m16n8k16
-// (an FA2-style loop: 4 warps, 16 query rows each, 64-key tiles double-buffered in
-// shared memory with cp.async, fragments loaded with ldmatrix). wgmma, TMA and warp
-// specialisation are later work. The f32 kernels are plain FMA loops; they exist
-// for exact checks, not for the main path.
+// q and o, so it is bound by tensor-core operations, not by memory (44.4 ms for the
+// serving self shape at 989 TFLOP/s). Only wgmma reaches that rate, so the bf16 K1
+// runs on the Hopper skeleton of csrc/flash_attention_sm90.cuh: TMA loads of 128-key K
+// and V tiles into an mbarrier ring fed by a producer warp, two consumer warpgroups of
+// 64 query rows that run QK^T (wgmma m64n128k16, Q and K in shared memory) and PV
+// (P from registers, V MN-major) with the softmax between them. K1's part is the policy
+// below: the q fold in shared memory before the first product, and the max-free
+// exponent with the straddle mask.
 //
-// C interface (loaded with ctypes): every entry point returns cudaGetLastError()
-// after its launch, so a refused launch reaches the caller.
+// K2 keeps its first design: an FA2-style mma.sync m16n8k16 loop (4 warps, 16 query rows
+// each, 64-key tiles double-buffered in shared memory with cp.async, fragments loaded
+// with ldmatrix). It runs only where the logit bound is too large for K1. The f32
+// kernels are plain FMA loops; they exist for exact checks, not for the main path.
+//
+// C interface (loaded with ctypes): every entry point returns cudaGetLastError() after
+// its launch (or the error that refused it), so a refused launch reaches the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention_sm90.cuh"
+
 namespace {
 
 constexpr int HD = 128;            // head dim
-constexpr int BQ = 64;             // query rows per CTA (bf16 kernels)
-constexpr int BK = 64;             // keys per tile (bf16 kernels)
+constexpr int BQ = 64;             // query rows per CTA (K2, bf16)
+constexpr int BK = 64;             // keys per tile (K2, bf16)
 constexpr int LDS = HD + 8;        // padded smem row (bf16 elements): conflict-free ldmatrix
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
@@ -85,12 +94,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sm, const __nv_bfloat16
   }
 }
 
-template <bool NOMAX>
+// K2, bf16: mma.sync m16n8k16, an FA2-style loop (see the note at the top).
 __global__ void __launch_bounds__(128, 2)
-fa_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+fa_max_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-            const int* __restrict__ kv_len, int Sq, int Skv, int N, float qscale,
-            int use_clamp, float clamp) {
+            const int* __restrict__ kv_len, int Sq, int Skv, int N, float qscale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BQ * LDS;       // 2 stages
@@ -132,7 +140,7 @@ fa_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 #pragma unroll
   for (int n = 0; n < 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float l0 = 0.f, l1 = 0.f;                 // partial row sums (rows g, g+8)
-  float m0 = -INFINITY, m1 = -INFINITY;     // running row max (K2 only)
+  float m0 = -INFINITY, m1 = -INFINITY;     // running row max
 
   if (n_tiles > 0) {
     load_tile(Ks, kb, 0, Skv, rs);
@@ -172,21 +180,7 @@ fa_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     const int kbase = j * BK;
     const bool straddles = kbase + BK > kvl;
     float p[8][4];
-    if (NOMAX) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e];
-          if (use_clamp) x = fminf(x, clamp);
-          float pe = exp2f(x);
-          if (straddles && kbase + n * 8 + 2 * t + (e & 1) >= kvl) pe = 0.f;
-          p[n][e] = pe;
-        }
-        l0 += p[n][0] + p[n][1];
-        l1 += p[n][2] + p[n][3];
-      }
-    } else {
+    {
       float mx0 = MASK_VALUE, mx1 = MASK_VALUE;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
@@ -353,44 +347,157 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float
   }
 }
 
-template <bool NOMAX>
-int launch(int is_bf16, const void* q, const void* k, const void* v, void* o, const int* kv_len,
-           int B, int Sq, int Skv, int N, float qscale, int use_clamp, float clamp, cudaStream_t st) {
-  if (is_bf16) {
-    const int smem = (BQ + 4 * BK) * LDS * static_cast<int>(sizeof(__nv_bfloat16));
-    cudaFuncSetAttribute(fa_fwd_bf16<NOMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    dim3 grid((Sq + BQ - 1) / BQ, N, B);
-    fa_fwd_bf16<NOMAX><<<grid, 128, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), kv_len, Sq, Skv,
-        N, qscale, use_clamp, clamp);
-  } else {
-    dim3 grid((Sq + FBQ - 1) / FBQ, N, B);
-    fa_fwd_f32<NOMAX><<<grid, 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), kv_len, Sq, Skv, N, qscale, use_clamp, clamp);
+// K1 on the Hopper skeleton: bf16 q, k, v, o.
+struct K1Policy {
+  using Acc = float;
+  static constexpr uint32_t kQBytes = 2 * sm90::HALF_BYTES;    // 128 rows x 128 bf16
+  static constexpr uint32_t kKBytes = 2 * sm90::HALF_BYTES;
+  static constexpr uint32_t kExtraBytes = 0;
+  static constexpr int kQRowBytes = 2 * sm90::HD, kKRowBytes = 2 * sm90::HD;
+
+  __device__ static int kv_valid(const sm90::Args& a, int b) {
+    const int l = a.kv_len[b];
+    return l < 0 ? 0 : (l > a.Skv ? a.Skv : l);
   }
-  return static_cast<int>(cudaGetLastError());
-}
+  __device__ static void load_q(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row0, int h,
+                                int b) {
+    sm90::load_bf16_tile(dst, m, bar, row0, h, b);
+  }
+  __device__ static void load_k(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row0, int h,
+                                int b) {
+    sm90::load_bf16_tile(dst, m, bar, row0, h, b);
+  }
+  __device__ static void produce_extra(const sm90::Args&, unsigned char*, int, int, int, int) {}
+
+  // The q fold, in place on this warpgroup's 64 rows of both halves (elementwise, so the
+  // swizzle does not matter); the generic-proxy writes are then made visible to wgmma.
+  __device__ static void prepare_q(const sm90::Args& a, unsigned char* gq, int cw, int wtid) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      uint4* p = reinterpret_cast<uint4*>(gq + hh * sm90::HALF_BYTES + cw * 64 * 128);
+#pragma unroll
+      for (int i = wtid; i < 512; i += 128) {
+        uint4 x = p[i];
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 f = __bfloat1622float2(e[c]);
+          e[c] = __floats2bfloat162_rn(f.x * a.qscale, f.y * a.qscale);
+        }
+        p[i] = x;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+  }
+
+  // Issues S = Q K^T for this warpgroup's 64 rows x 128 keys: 8 k-steps of 16 head dims,
+  // the first four in the first 64-column half of Q and K, the last four in the second.
+  __device__ static void qk_issue(float* sc, uint32_t sQ, uint32_t sK, int cw) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk >> 2) * sm90::HALF_BYTES + (kk & 3) * 32;
+      sm90::wgmma_ss_bf16(sc, sm90::kmajor_desc(sQ + cw * 64 * 128 + off),
+                          sm90::kmajor_desc(sK + off), kk > 0);
+    }
+  }
+
+  struct State {
+    float l0, l1;   // partial row sums (rows r0, r0 + 8)
+    __device__ void init(const sm90::Args&, int, int, int) { l0 = l1 = 0.f; }
+
+    // p = exp2(min(s, clamp)), 0 for keys at or past `valid`; P packed to bf16 in the
+    // A-fragment order of the PV wgmma.
+    __device__ void softmax(float* sc, uint32_t* pf, float*, const sm90::Args& a, int kbase,
+                            int valid, const float*, int t) {
+      const bool straddles = kbase + sm90::BK > valid;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * n + e];
+          if (a.use_clamp) x = fminf(x, a.clamp);
+          sc[4 * n + e] = exp2f(x);
+        }
+      }
+      if (straddles) {   // only the tile that straddles `valid` pays for the mask
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kbase + n * 8 + 2 * t + (e & 1) >= valid) sc[4 * n + e] = 0.f;
+      }
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        l0 += sc[4 * n] + sc[4 * n + 1];
+        l1 += sc[4 * n + 2] + sc[4 * n + 3];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pf[4 * kk + 0] = sm90::pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pf[4 * kk + 1] = sm90::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pf[4 * kk + 2] = sm90::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pf[4 * kk + 3] = sm90::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    }
+    __device__ void inv_l(float& inv0, float& inv1) {
+      const float s0 = sm90::quad_sum(l0), s1 = sm90::quad_sum(l1);
+      inv0 = s0 == 0.f ? 1.f : 1.f / s0;
+      inv1 = s1 == 0.f ? 1.f : 1.f / s1;
+    }
+  };
+};
 
 }  // namespace
 
 extern "C" {
 
 // K1: max-free flash attention. q/o: (B, Sq, N, 128), k/v: (B, Skv, N, 128), contiguous,
-// all bf16 (is_bf16=1) or all f32; kv_len: int32 (B,) on the device.
+// all bf16 (is_bf16=1) or all f32; kv_len: int32 (B,) on the device. bf16 takes the
+// geometry array of ops/flash_attention.py::sm90_geometry (host memory, int64); f32
+// ignores it.
 int gf_fa_nomax(int is_bf16, const void* q, const void* k, const void* v, void* o,
                 const int* kv_len, int B, int Sq, int Skv, int N, float qscale, int use_clamp,
-                float clamp, void* stream) {
-  return launch<true>(is_bf16, q, k, v, o, kv_len, B, Sq, Skv, N, qscale, use_clamp, clamp,
-                      static_cast<cudaStream_t>(stream));
+                float clamp, const long long* geom, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    sm90::Args a{};
+    a.o = o;
+    a.kv_len = kv_len;
+    a.Sq = Sq;
+    a.Skv = Skv;
+    a.N = N;
+    a.qscale = qscale;
+    a.use_clamp = use_clamp;
+    a.clamp = clamp;
+    return sm90::launch<K1Policy>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, a, B, geom, st);
+  }
+  dim3 grid((Sq + FBQ - 1) / FBQ, N, B);
+  fa_fwd_f32<true><<<grid, 128, 0, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                         static_cast<const float*>(v), static_cast<float*>(o),
+                                         kv_len, Sq, Skv, N, qscale, use_clamp, clamp);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K2: online-max flash attention, same arguments (the clamp is unused).
+// K2: online-max flash attention, same arguments (no clamp, no geometry).
 int gf_fa_max(int is_bf16, const void* q, const void* k, const void* v, void* o,
               const int* kv_len, int B, int Sq, int Skv, int N, float qscale, void* stream) {
-  return launch<false>(is_bf16, q, k, v, o, kv_len, B, Sq, Skv, N, qscale, 0, 0.f,
-                       static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    const int smem = (BQ + 4 * BK) * LDS * static_cast<int>(sizeof(__nv_bfloat16));
+    cudaFuncSetAttribute(fa_max_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    dim3 grid((Sq + BQ - 1) / BQ, N, B);
+    fa_max_bf16<<<grid, 128, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), kv_len, Sq, Skv,
+        N, qscale);
+  } else {
+    dim3 grid((Sq + FBQ - 1) / FBQ, N, B);
+    fa_fwd_f32<false><<<grid, 128, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), kv_len, Sq, Skv, N, qscale, 0, 0.f);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-Each ``csrc/*.cu`` compiles with ``nvcc -shared -Xcompiler -fPIC`` into a shared library
-with a plain C interface, under ``build/torch_ext/`` at the repository root, named by a
-hash of the source and the flags, so an unchanged source is never rebuilt. This route
+Each ``csrc/*.cu`` compiles with ``nvcc -shared -Xcompiler -fPIC`` (``-I csrc``, linked
+with ``-lcuda`` for ``cuTensorMapEncodeTiled``) into a shared library with a plain C
+interface, under ``build/torch_ext/`` at the repository root, named by a hash of the
+source, the ``csrc/*.cuh`` headers and the flags, so an unchanged source is never rebuilt
+and an edited header rebuilds every source. This route
 needs neither ``ninja`` nor PyTorch's headers (``torch.utils.cpp_extension.load`` needs
 both, and including the headers costs minutes of compile time). ``load_all`` starts one
 ``nvcc`` per source at once. A failed build raises; nothing falls back.
@@ -17,12 +19,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -39,9 +41,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+def nvcc_command(src: Path, out: Path, include_dir: Optional[Path] = None) -> List[str]:
+    """The compiler call for one source; its quoted includes resolve in the source's own
+    directory first, then in `include_dir` (csrc/ by default)."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(include_dir or CSRC), str(src), "-o", str(out)]
+
+
+def library_path(stem: str) -> Path:
+    """Where csrc/<stem>.cu builds to: named by a hash of it, the headers and the flags."""
+    h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def stems() -> List[str]:
@@ -58,12 +70,12 @@ def load_all(names=None) -> Dict[str, ctypes.CDLL]:
             if stem in _libs:
                 continue
             src = CSRC / f"{stem}.cu"
-            out = _target(src)
+            out = library_path(stem)
             if not out.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
                 procs[stem] = (subprocess.Popen(
-                    [nvcc_path(), *NVCC_FLAGS, str(src), "-o", str(tmp)],
+                    nvcc_command(src, tmp),
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
         failed = []
         for stem, (proc, tmp, out) in procs.items():
@@ -77,7 +89,7 @@ def load_all(names=None) -> Dict[str, ctypes.CDLL]:
             raise RuntimeError("\n".join(failed))
         for stem in names:
             if stem not in _libs:
-                _libs[stem] = ctypes.CDLL(str(_target(CSRC / f"{stem}.cu")))
+                _libs[stem] = ctypes.CDLL(str(library_path(stem)))
         return {stem: _libs[stem] for stem in names}
 
 

@@ -32,6 +32,12 @@ with one float32 scale per (batch, head, tile of ``block`` rows); the kernel com
 s = float(q_i8.k_i8) * ((scale*s_q)*s_k) per (row, key), the online max with the natural
 exp, p rounded to V's dtype, float32 sums and o = acc * (1/l).
 
+The bf16 K1 and K6 run on the Hopper skeleton of ``csrc/flash_attention_sm90.cuh``
+(TMA, mbarrier ring, wgmma, producer/consumer warpgroups). Its host-side geometry (tiles,
+grid, tensor maps, shared memory) is computed here by ``sm90_geometry``, where the CPU
+tests reach it, and passed to the C entry point, which only checks it, encodes the maps
+and launches.
+
 A wrapper given CPU tensors computes the plain version (that is how the CPU tests run);
 given CUDA tensors it launches its kernel or raises. ``launch_counts`` counts kernel
 launches, so a run can show that it went through the kernels.
@@ -40,7 +46,8 @@ launches, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,6 +65,79 @@ launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Host-side geometry of the Hopper kernels (bf16 K1 and K6)
+# ---------------------------------------------------------------------------
+
+SM90_TILE = 128             # query rows per CTA and keys per tile
+SM90_STAGES = 2             # K/V ring slots
+SM90_THREADS = 384          # producer warpgroup + two consumer warpgroups
+SWIZZLE_SPAN = 128          # bytes: the widest box row the 128-byte swizzle takes
+SMEM_LIMIT = 232448         # dynamic shared memory one CTA may use on an H100
+
+
+@dataclass(frozen=True)
+class TensorMap:
+    """A rank-4 TMA map over the packed (B, S, N, 128) layout, innermost first."""
+    dims: Tuple[int, int, int, int]        # (128, N, S, B)
+    strides: Tuple[int, int, int]          # bytes from one index of dims 1, 2, 3 to the next
+    box: Tuple[int, int, int, int]         # elements of one copy along each dim
+    itemsize: int
+
+    def values(self):
+        return [*self.dims, *self.strides, *self.box]
+
+
+@dataclass(frozen=True)
+class Sm90Geometry:
+    bq: int
+    bk: int
+    stages: int
+    threads: int
+    grid: Tuple[int, int, int]             # (q tiles per batch row, N, B)
+    smem_bytes: int
+    q: TensorMap
+    k: TensorMap
+    v: TensorMap
+
+    def as_array(self):
+        """The int64 array the C entry points take (layout in flash_attention_sm90.cuh)."""
+        vals = [self.bq, self.bk, self.stages, self.threads, *self.grid, self.smem_bytes,
+                *self.q.values(), *self.k.values(), *self.v.values()]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _packed_map(b: int, s: int, n: int, itemsize: int, rows: int) -> TensorMap:
+    row = HEAD_DIM * itemsize
+    return TensorMap(dims=(HEAD_DIM, n, s, b), strides=(row, n * row, s * n * row),
+                     box=(SWIZZLE_SPAN // itemsize, 1, rows, 1), itemsize=itemsize)
+
+
+def sm90_geometry(kernel: str, b: int, sq: int, skv: int, n: int) -> Sm90Geometry:
+    """Tiles, grid, tensor maps and shared memory of the Hopper K1 ("K1": bf16 q/k/v) or
+    K6 ("K6": int8 q/k codes, bf16 v). One CTA per (128 query rows, head, batch row);
+    each map is rank 4 so that TMA clips at each batch row's own end. Shared memory:
+    1024 bytes of alignment slack, the Q tile, per ring slot a K tile, a V tile and (K6)
+    a table of 128 float32 k scales, and 1 + 3 x stages mbarriers of 8 bytes."""
+    if kernel not in ("K1", "K6"):
+        raise ValueError(f"sm90_geometry: unknown kernel {kernel!r}")
+    qk_size = 2 if kernel == "K1" else 1
+    t = SM90_TILE
+    extra = 4 * t if kernel == "K6" else 0
+    q_tile, k_tile, v_tile = t * HEAD_DIM * qk_size, t * HEAD_DIM * qk_size, t * HEAD_DIM * 2
+    smem = 1024 + q_tile + SM90_STAGES * (k_tile + v_tile + extra) + 8 * (1 + 3 * SM90_STAGES)
+    return Sm90Geometry(bq=t, bk=t, stages=SM90_STAGES, threads=SM90_THREADS,
+                        grid=(-(-sq // t), n, b), smem_bytes=smem,
+                        q=_packed_map(b, sq, n, qk_size, t), k=_packed_map(b, skv, n, qk_size, t),
+                        v=_packed_map(b, skv, n, 2, t))
+
+
+def _check_tma_aligned(name: str, tensors) -> None:
+    """TMA reads from 16-byte-aligned base addresses; the kernels take no other."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} loads by TMA: q, k and v must be 16-byte aligned")
 
 
 def fold_constant(scale: float, dtype: torch.dtype) -> float:
@@ -160,7 +240,8 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_gf_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gf_fa_nomax.argtypes = [i, p, p, p, p, p, i, i, i, i, f, i, f, p]
+        g = ctypes.POINTER(ctypes.c_longlong)
+        lib.gf_fa_nomax.argtypes = [i, p, p, p, p, p, i, i, i, i, f, i, f, g, p]
         lib.gf_fa_nomax.restype = i
         lib.gf_fa_max.argtypes = [i, p, p, p, p, p, i, i, i, i, f, p]
         lib.gf_fa_max.restype = i
@@ -175,9 +256,13 @@ def flash_attention_nomax(q, k, v, scale: float, kv_len=None,
     if q.device.type == "cpu":
         return flash_attention_nomax_plain(q, k, v, scale, kv_len, clamp)
     keep, out, ptrs, dims, stream = _kernel_args(q, k, v, kv_len)
+    geom = None
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned("K1", keep[:3])
+        geom = sm90_geometry("K1", q.shape[0], q.shape[1], k.shape[1], q.shape[2]).as_array()
     rc = _lib().gf_fa_nomax(int(q.dtype == torch.bfloat16), *ptrs, *dims,
                             fold_constant(scale, q.dtype), int(clamp is not None),
-                            float(clamp or 0.0), stream)
+                            float(clamp or 0.0), geom, stream)
     if rc != 0:
         raise RuntimeError(f"K1 flash-attention launch failed: CUDA error {rc}")
     launch_counts["K1"] += 1
@@ -422,7 +507,8 @@ def _int8_lib():
     lib = _build.load("flash_attention_int8")
     if not getattr(lib, "_gf_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gf_fa_int8.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        g = ctypes.POINTER(ctypes.c_longlong)
+        lib.gf_fa_int8.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, g, p]
         lib.gf_fa_int8.restype = i
         lib._gf_typed = True
     return lib
@@ -447,14 +533,15 @@ def flash_attention_int8_codes(qi, sqs, ki, sks, v, scale: float, block_q: int,
     if qi.device.type != "cuda":
         raise RuntimeError(f"flash attention kernels run on CUDA tensors, got {qi.device}")
     tensors = [t.contiguous() for t in (qi, ki, v)]
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("K6 loads 16-byte rows: q, k and v must be 16-byte aligned")
+    _check_tma_aligned("K6", tensors)
+    geom = (sm90_geometry("K6", b, sq, skv, n).as_array() if v.dtype == torch.bfloat16
+            else None)
     out = torch.empty(qi.shape, dtype=v.dtype, device=v.device)
     tensors += [out, sqs.contiguous(), sks.contiguous()]
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
     stream = ctypes.c_void_p(torch.cuda.current_stream(qi.device).cuda_stream)
     rc = _int8_lib().gf_fa_int8(int(v.dtype == torch.bfloat16), *ptrs, b, sq, skv, n, tq, tk,
-                                block_q, block_k, float(scale), stream)
+                                block_q, block_k, float(scale), geom, stream)
     if rc != 0:
         raise RuntimeError(f"K6 flash-attention launch failed: CUDA error {rc}")
     launch_counts["K6"] += 1

@@ -1,0 +1,216 @@
+"""The Hopper K1 and K6: their host-side geometry, and their plain versions at the new
+tiles' edges against the JAX Pallas kernels (interpret mode, CPU).
+
+``sm90_geometry`` computes the tiles, grid, tensor maps and shared memory that the C
+entry points only check, encode and launch with; here a small model of a TMA box copy
+(coordinates within the map's dims, zero fill outside, byte strides) reads the packed
+layout through each map, so a wrong stride, box or rank fails on the CPU. The kernels'
+tiles are 128 query rows by 128 keys, so Sq and Skv of 127 and 129 put a ragged tile
+at every batch row's end; the plain versions are held to JAX there, with kv_len on both
+sides of a tile edge. The kernels themselves are held against the plain versions on the
+card in test_torch_kernels_cuda.py and by chip_smoke.py.
+"""
+
+import math
+import re
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from goal_force_tpu.ops.flash_attention import flash_attention as jax_flash
+from goal_force_tpu.ops.flash_attention import flash_attention_int8 as jax_int8
+
+from goal_force_tpu_torch.ops import _build
+from goal_force_tpu_torch.ops import flash_attention as tfa
+
+H = 128
+EDGES = [(127, 127), (127, 129), (129, 127), (129, 129)]
+
+
+def _rand(shape, seed, mult=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * mult).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Geometry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sq,tiles", [(127, 1), (128, 1), (129, 2), (1000, 8), (32760, 256)])
+@pytest.mark.parametrize("kernel", ["K1", "K6"])
+def test_q_tiles_per_batch_row(kernel, sq, tiles):
+    g = tfa.sm90_geometry(kernel, 2, sq, 512, 40)
+    assert g.grid == (tiles, 40, 2)
+    assert g.bq == g.bk == 128 and g.threads == 384
+
+
+@pytest.mark.parametrize("kernel,qk_size", [("K1", 2), ("K6", 1)])
+def test_maps_are_rank4_over_the_packed_layout(kernel, qk_size):
+    b, sq, skv, n = 2, 32760, 512, 40
+    g = tfa.sm90_geometry(kernel, b, sq, skv, n)
+    for m, s, size in ((g.q, sq, qk_size), (g.k, skv, qk_size), (g.v, skv, 2)):
+        row = H * size
+        assert m.itemsize == size
+        assert m.dims == (H, n, s, b)                       # rank 4: B is a dim of its own
+        assert m.strides == (row, n * row, s * n * row)     # bytes: head, row, batch row
+        assert all(st % 16 == 0 for st in m.strides)         # TMA's stride rule
+        assert m.box[0] * size == tfa.SWIZZLE_SPAN           # one 128-byte swizzle span
+        assert m.box[1:] == (1, 128, 1)
+        assert len(m.values()) == 11
+
+
+@pytest.mark.parametrize("kernel,smem", [("K1", 1024 + 32768 + 2 * 65536 + 56),
+                                         ("K6", 1024 + 16384 + 2 * (16384 + 32768 + 512) + 56)])
+def test_shared_memory_budget(kernel, smem):
+    g = tfa.sm90_geometry(kernel, 1, 300, 300, 2)
+    assert g.smem_bytes == smem <= tfa.SMEM_LIMIT
+    assert len(g.as_array()) == 8 + 3 * 11
+
+
+def test_geometry_agrees_with_the_header():
+    """The C side checks the array against its own constants: they must be the same."""
+    text = (_build.CSRC / "flash_attention_sm90.cuh").read_text()
+    const = {name: int(val) for name, val in
+             re.findall(r"constexpr (?:int|long long) (\w+) = (\d+);", text)}
+    assert const["BQ"] == const["BK"] == tfa.SM90_TILE
+    assert const["STAGES"] == tfa.SM90_STAGES
+    assert const["THREADS"] == tfa.SM90_THREADS
+    assert const["SMEM_LIMIT"] == tfa.SMEM_LIMIT
+
+
+def test_an_edited_header_rebuilds(tmp_path, monkeypatch):
+    """The library's name hashes the source, every csrc/*.cuh header and the flags; nvcc
+    finds the headers through -I csrc and links libcuda (-lcuda) for the tensor maps."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    first = _build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
+    assert _build.library_path("k").name.startswith("k-")
+    cmd = _build.nvcc_command(tmp_path / "k.cu", tmp_path / "k.so")
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path)
+    assert "-lcuda" in cmd and "arch=compute_90a,code=sm_90a" in cmd
+
+
+def test_unknown_kernel_is_refused():
+    with pytest.raises(ValueError):
+        tfa.sm90_geometry("K2", 1, 128, 128, 1)
+
+
+def _tma_box(flat: np.ndarray, m, coords):
+    """What a TMA copy of one box at `coords` (innermost first) reads from the bytes
+    `flat` through map `m`: elements at coordinates inside m.dims, zeros elsewhere."""
+    idx = np.meshgrid(*[c + np.arange(n) for c, n in zip(coords, m.box)], indexing="ij")
+    inside = np.ones(idx[0].shape, bool)
+    for i, d in zip(idx, m.dims):
+        inside &= (i >= 0) & (i < d)
+    off = idx[0] * m.itemsize + sum(i * st for i, st in zip(idx[1:], m.strides))
+    off = np.where(inside, off, 0)
+    out = np.zeros(idx[0].shape + (m.itemsize,), np.uint8)
+    for byte in range(m.itemsize):
+        out[..., byte] = np.where(inside, flat[off + byte], 0)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K6"])
+@pytest.mark.parametrize("sq,skv", [(129, 127), (127, 129)])
+def test_boxes_read_each_batch_rows_own_tiles(kernel, sq, skv):
+    """Every q, k and v box of every batch row reads exactly that batch row's rows of
+    the packed tensor, zero-filled past its end (never the next batch row's first)."""
+    b, n = 2, 3
+    g = tfa.sm90_geometry(kernel, b, sq, skv, n)
+    for m, s in ((g.q, sq), (g.k, skv), (g.v, skv)):
+        x = np.random.default_rng(s).integers(1, 255, size=(b, s, n, H * m.itemsize),
+                                              dtype=np.uint8)
+        flat = x.reshape(-1)
+        cols = m.box[0] * m.itemsize
+        for bi in range(b):
+            for h in range(n):
+                for row0 in range(0, s, 128):
+                    for c0 in range(0, H, m.box[0]):
+                        got = _tma_box(flat, m, (c0, h, row0, bi))[:, 0, :, 0]
+                        got = got.transpose(1, 0, 2).reshape(128, cols)
+                        want = np.zeros((128, cols), np.uint8)
+                        rows = x[bi, row0:row0 + 128, h, c0 * m.itemsize:c0 * m.itemsize + cols]
+                        want[:rows.shape[0]] = rows
+                        np.testing.assert_array_equal(got, want)
+
+
+def test_wrappers_check_alignment_before_launch():
+    """TMA takes 16-byte-aligned base addresses only; the check raises (no fallback)."""
+    t = torch.zeros(4 * H + 1, dtype=torch.bfloat16)[1:].view(1, 4, 1, H)
+    assert t.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_tma_aligned("K1", [t])
+    tfa._check_tma_aligned("K1", [torch.zeros(1, 4, 1, H, dtype=torch.bfloat16)])
+
+
+# ---------------------------------------------------------------------------
+# Plain versions against JAX at the tiles' edges
+# ---------------------------------------------------------------------------
+
+def _both(*arrays):
+    return [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
+
+
+def _k1_cases():
+    for sq, skv in EDGES:
+        for lens in ([(0, 127)] if skv == 127 else [(0, 129), (127, 128)]):
+            yield sq, skv, lens
+
+
+@pytest.mark.parametrize("sq,skv,lens", list(_k1_cases()))
+def test_k1_plain_matches_jax_at_tile_edges(sq, skv, lens):
+    """kv_len 0, 127, 128 and 129: no key, one short of a tile, exactly one tile, one
+    key into the next tile. Float32, the tolerance of test_torch_flash_attention.py."""
+    B, N = 2, 2
+    (q, k, v), (tq, tk, tv) = _both(_rand((B, sq, N, H), 0), _rand((B, skv, N, H), 1),
+                                    _rand((B, skv, N, H), 2))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash(q, k, v, scale=H**-0.5, block_q=128, block_k=128, dispatch="nomax",
+                        kv_len=jnp.asarray(lens, jnp.int32))
+    got = tfa.flash_attention_nomax(tq, tk, tv, H**-0.5, kv_len=torch.tensor(lens)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=2e-5)
+    if lens[0] == 0:
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("sq,skv", EDGES)
+def test_k1_plain_without_clamp_matches_jax_at_tile_edges(sq, skv):
+    """Dispatch "auto" on bounded inputs: K1 without the clamp, every key valid."""
+    B, N = 2, 2
+    (q, k, v), (tq, tk, tv) = _both(_rand((B, sq, N, H), 3), _rand((B, skv, N, H), 4),
+                                    _rand((B, skv, N, H), 5))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash(q, k, v, scale=H**-0.5, block_q=128, block_k=128)
+    got = tfa.flash_attention_nomax(tq, tk, tv, H**-0.5, clamp=None).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [128, 300])
+@pytest.mark.parametrize("sq,skv", EDGES)
+def test_k6_plain_matches_jax_at_tile_edges(sq, skv, block, dtype):
+    """Quantization tiles of 128 (clamped to S = 129 for 300): a tile edge one row from
+    the end. The tolerances of test_torch_flash_attention_int8.py: 2e-5 in float32, two
+    bf16 ulps of the largest |o| in bf16."""
+    B, N = 2, 2
+    q, k, v = _rand((B, sq, N, H), 6), _rand((B, skv, N, H), 7), _rand((B, skv, N, H), 8)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_int8(jq, jk, jv, scale=H**-0.5, block_q=block, block_k=block),
+                         np.float32)
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32)).to(tdt) for a in (jq, jk, jv))
+    got = tfa.flash_attention_int8(tq, tk, tv, H**-0.5, block_q=block, block_k=block)
+    assert got.dtype == tdt and got.shape == tq.shape
+    atol = 2e-5 if dtype == "float32" else \
+        2 * 2.0 ** (math.floor(math.log2(float(np.abs(ref).max()))) - 7)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=2e-5 if dtype == "float32" else 0,
+                               atol=atol)

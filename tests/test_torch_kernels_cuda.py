@@ -117,6 +117,41 @@ def test_int8_kernel_matches_plain_on_card(cuda_device, dtype, block):
     torch.testing.assert_close(got.float(), ref.float(), **tol)
 
 
+# The Hopper K1/K6 tiles are 128 query rows by 128 keys: Sq and Skv of 127 and 129 make
+# the last q and key tiles of every batch row ragged; kv_len lands on both sides of a
+# tile edge (no key, one short of a tile, exactly one tile, one key past it).
+EDGES = [((127, 127), (0, 127)), ((127, 129), (128, 129)), ((129, 127), (127, 1)),
+         ((129, 129), (0, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lens", EDGES)
+def test_k1_matches_plain_at_tile_edges(cuda_device, shape, lens):
+    sq, skv = shape
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, sq, skv, 2, seed=6)
+    kv_len = torch.tensor(lens, device=cuda_device)
+    for kw in (dict(kv_len=kv_len), dict(clamp=None)):
+        got = tfa.flash_attention_nomax(q, k, v, H**-0.5, **kw)
+        ref = tfa.flash_attention_nomax_plain(q, k, v, H**-0.5, **kw)
+        torch.testing.assert_close(got.float(), ref.float(), atol=_bf16_limit(ref), rtol=0)
+    if lens[0] == 0:
+        assert (tfa.flash_attention_nomax(q, k, v, H**-0.5, kv_len=kv_len)[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 300])
+@pytest.mark.parametrize("shape,lens", EDGES)
+def test_k6_matches_plain_at_tile_edges(cuda_device, shape, lens, block):
+    sq, skv = shape
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, sq, skv, 2, seed=7)
+    bq, bk = tfa.int8_blocks(sq, skv, block, block)
+    qi, sq_ = tfa.quantize_tiles(q, bq)
+    ki, sk = tfa.quantize_tiles(k, bk)
+    got = tfa.flash_attention_int8_codes(qi, sq_, ki, sk, v, H**-0.5, bq, bk)
+    ref = tfa._int8_plain(qi, sq_, ki, sk, v, H**-0.5, bq, bk)
+    torch.testing.assert_close(got.float(), ref.float(), atol=_bf16_limit(ref), rtol=0)
+
+
 @pytest.mark.cuda
 def test_flash_int8_attention_launches_k6_only(cuda_device):
     """attention(impl="flash_int8") on CUDA tensors goes through K6 once and nothing
