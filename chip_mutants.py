@@ -3,15 +3,15 @@
 
     python3 chip_mutants.py
 
-Builds 17 broken copies of the port's kernels (5 of K1 in flash_attention.cu, 7 of K3-K5
-in flash_attention_bwd.cu, 5 of K6 in flash_attention_int8.cu; a mutant may patch the
-Hopper skeleton flash_attention_sm90.cuh instead, built into its own source only), one
+Builds 21 broken copies of the port's kernels (5 of K1 in flash_attention.cu, 11 of K3-K5
+in flash_attention_bwd.cu and its Hopper header flash_attention_bwd_sm90.cuh, 5 of K6 in
+flash_attention_int8.cu; a mutant may patch a header, built into its own source only), one
 nvcc per mutant, all started together, each in a temporary directory of its own with
 copies of the headers. Loads each in place of the real library and runs chip_smoke's
 kernel checks of that source with every failed check recorded instead of raised: the
 float32 and bf16 checks of K1/K2 (small shapes, kv_len, the tile edges, the serving self
 and cross shapes), the bf16 checks of K3/K4/K5 (the 1000x777, training self and training
-cross shapes), and the float32 and bf16 checks of K6 (1000x777 and the tile edges with
+cross shapes, and K4/K5 at the tile edges), and the float32 and bf16 checks of K6 (1000x777 and the tile edges with
 quantization tiles of 128 and of 300, the serving self and cross shapes). Prints one JSON
 line per mutant with the checks that caught it; exits 0 when every mutant was caught by at
 least one check.
@@ -32,6 +32,7 @@ import chip_smoke as cs
 from goal_force_tpu_torch.ops import _build
 
 SM90 = "flash_attention_sm90.cuh"
+BWD = "flash_attention_bwd_sm90.cuh"
 
 # name -> (source stem, file patched (None: the source itself), text in that file, its
 # replacement); each text occurs once.
@@ -52,19 +53,30 @@ MUTANTS = {
     "K3 loses kv tile 1": ("flash_attention_bwd", None,
         "mma_pb<4>(acc, s, Vt, lane);   // acc += bf16(p) V",
         "if (j != 1) mma_pb<4>(acc, s, Vt, lane);"),
-    "K4 ds shrunk by 0.2%": ("flash_attention_bwd", None,
-        "ds[n][e] = p[n][e] * (ds[n][e] - di_s[col]) * scale;",
-        "ds[n][e] = p[n][e] * (ds[n][e] - di_s[col]) * scale * 0.998f;"),
-    "K4 di over half the columns": ("flash_attention_bwd", None,
-        "const int col = x * 8 + 2 * c;", "const int col = (x % 8) * 8 + 2 * c;"),
-    "K4 loses the last q tile": ("flash_attention_bwd", None,
-        "for (int i = 0; i < n_qt; ++i) {", "for (int i = 0; i < n_qt - 1; ++i) {"),
-    "K5 loses kv tile 1": ("flash_attention_bwd", None,
-        "mma_pb<4>(dqa, ds, Kt, lane);   // dq += bf16(ds) K",
-        "if (j != 1) mma_pb<4>(dqa, ds, Kt, lane);"),
-    "K5 row g's lse for row g+8": ("flash_attention_bwd", None,
-        "float x = expf(p[n][e] * scale - (hi ? lse1 : lse0));",
-        "float x = expf(p[n][e] * scale - lse0);"),
+    "K4 ds shrunk by 0.2%": ("flash_attention_bwd", BWD,
+        "dpt[e] = st[e] * (dpt[e] - lds(tab + 4 * (KV_QROWS + c))) * a.scale;",
+        "dpt[e] = st[e] * (dpt[e] - lds(tab + 4 * (KV_QROWS + c))) * a.scale * 0.998f;"),
+    "K4/K5 di over half the columns": ("flash_attention_bwd", None,
+        "for (int x = 0; x < 2; ++x) {", "for (int x = 0; x < 1; ++x) {"),
+    "K4 dV loses the last q tile": ("flash_attention_bwd", BWD,
+        "pv_issue(dv, pf, sdo);", "if (i + 1 < n_qt) pv_issue(dv, pf, sdo);"),
+    "K5 loses key tile 1": ("flash_attention_bwd", BWD,
+        "pv_issue(dq, df, sk);", "if (j != 1) pv_issue(dq, df, sk);"),
+    "K5 row g's lse for row g+8": ("flash_attention_bwd", BWD,
+        "sc[i] = ex2(fmaf(sc[i], a.scale_log2, -(i & 2 ? l1 : l0)));",
+        "sc[i] = ex2(fmaf(sc[i], a.scale_log2, -l0));"),
+    "K4 dK misses scale": ("flash_attention_bwd", BWD,
+        "dpt[e] = st[e] * (dpt[e] - lds(tab + 4 * (KV_QROWS + c))) * a.scale;",
+        "dpt[e] = st[e] * (dpt[e] - lds(tab + 4 * (KV_QROWS + c)));"),
+    "K5 dQ misses scale": ("flash_attention_bwd", BWD,
+        "dp[i] = sc[i] * (dp[i] - (i & 2 ? d1 : d0)) * a.scale;",
+        "dp[i] = sc[i] * (dp[i] - (i & 2 ? d1 : d0));"),
+    "K5 reads batch row 0's lse and di in every batch row": ("flash_attention_bwd", BWD,
+        "const long long off = ((long long)b * a.N + h) * a.rows;   // r0 + 8 < rows",
+        "const long long off = (long long)h * a.rows;"),
+    "K4/K5 scratch keeps lse without the log2 e factor": ("flash_attention_bwd", None,
+        "scratch[bh * rows + r] = r < Sq ? lse[bh * Sq + r] * sm90_bwd::LOG2E : INFINITY;",
+        "scratch[bh * rows + r] = r < Sq ? lse[bh * Sq + r] : INFINITY;"),
     "K6 k scale per key tile, not per key column": ("flash_attention_int8", None,
         "kc[i] = skb[min((key0 + i) / a.bk, a.Tk - 1)];", "kc[i] = skb[min(key0 / a.bk, a.Tk - 1)];"),
     "K6 row r's q scale for row r+8": ("flash_attention_int8", None,

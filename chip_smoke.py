@@ -8,15 +8,17 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 1. device  - a CUDA card must be present; prints nvidia-smi's name and power limit.
 2. build   - compiles goal_force_tpu_torch/csrc/*.cu with nvcc for sm_90a (one nvcc per
              source, started together) and prints each kernel's ptxas report and the
-             Hopper kernels' SASS instruction counts by opcode.
+             Hopper kernels' (K1, K4, K5, K6) SASS instruction counts by opcode; each of
+             them must hold HGMMA (wgmma) and no HMMA (mma.sync).
 3. kernels - holds K1/K2 against their plain torch versions on the card (small shapes,
              saturation, per-batch kv_len, K1 at the Hopper tiles' edges: B = 2, Sq and
              Skv of 127 and 129, and the main-path shapes), K3/K4/K5 (o and lse, dk and
              dv, dq) in float32 and bf16 at 1000x777 and at the training self and cross
-             shapes, and K6 (int8 q and k) in float32 and bf16 at 1000x777 and at the
-             tile edges with quantization tiles of 128 and 300, and at the main path's
-             self and cross shapes; times kernel, plain version, K6's quantize step and
-             SDPA (as a yardstick only) at the path shapes.
+             shapes, K4/K5 in bf16 at their tiles' edges (B = 2, Sq and Skv of 127 and
+             129, and Skv = 40), and K6 (int8 q and k) in float32 and bf16 at 1000x777
+             and at the tile edges with quantization tiles of 128 and 300, and at the main
+             path's self and cross shapes; times kernel, plain version, K6's quantize step
+             and SDPA (as a yardstick only) at the path shapes.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
 5. small_train - one training loss + backward at that size, kernels vs plain attention
@@ -139,16 +141,37 @@ def phase_build():
           f"unexpected CUDA sources {_build.stems()}")
     for stem, log_ in sorted(_build.build_log.items()):
         ptxas = [ln.strip() for ln in log_.splitlines() if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln or "error" in ln.lower()]
+                 or "Compiling entry" in ln or "error" in ln.lower() or "Performance Loss" in ln]
         log("build", source=f"{stem}.cu", ptxas=ptxas)
+        # A Hopper body that spills, or whose wgmmas ptxas serializes, is not the kernel
+        # that was measured.
+        for i, ln in enumerate(ptxas):
+            if "Compiling entry" in ln and any(frag in ln for frag in SM90_BODIES):
+                spill = next((x for x in ptxas[i + 1:] if "spill" in x), "")
+                check(spill.startswith("0 bytes stack frame, 0 bytes spill stores"),
+                      f"{stem}.cu: a Hopper kernel spills: {ln} {spill}")
+        check(not any("Performance Loss" in ln and "sm90_bwd" in ln for ln in ptxas),
+              f"{stem}.cu: ptxas serialized K4's or K5's wgmma: {ptxas}")
     log("build", seconds=round(secs, 3), nvcc=_build.nvcc_path())
-    for stem in ("flash_attention", "flash_attention_int8"):
-        log("build", source=f"{stem}.cu", sass_opcodes=_sass_counts(_build.library_path(stem)))
+    found = set()
+    for stem in ("flash_attention", "flash_attention_int8", "flash_attention_bwd"):
+        counts = _sass_counts(_build.library_path(stem))
+        found |= set(counts)
+        log("build", source=f"{stem}.cu", sass_opcodes=counts)
+        for name, ops in counts.items():   # every Hopper body: wgmma only, no mma.sync
+            check(ops.get("HGMMA", 0) > 0 and ops.get("HMMA", 0) == 0,
+                  f"{name}: SASS holds {ops.get('HGMMA', 0)} HGMMA and {ops.get('HMMA', 0)} HMMA")
+    check(found == set(SM90_BODIES.values()), f"Hopper bodies found in the SASS: {found}")
+
+
+# Hopper kernel bodies in the SASS: a function-name fragment -> the kernel's name.
+SM90_BODIES = {"K1Policy": "K1", "K6Policy": "K6", "fa_sm90_bwd_dkv": "K4",
+               "fa_sm90_bwd_dq": "K5"}
 
 
 def _sass_counts(lib_path):
-    """Instructions by opcode in the SASS of each Hopper kernel (fa_sm90_fwd) of a built
-    library: the softmax's share of the instruction stream beside the HGMMAs."""
+    """Instructions by opcode in the SASS of each Hopper kernel (SM90_BODIES) of a built
+    library: the elementwise share of the instruction stream beside the HGMMAs."""
     import collections
     import re
 
@@ -160,14 +183,15 @@ def _sass_counts(lib_path):
     out = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "fa_sm90_fwd" not in name:
+        kernel = next((k for frag, k in SM90_BODIES.items() if frag in name), None)
+        if kernel is None:
             continue
         ops = collections.Counter()
         for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.[A-Z0-9]+)?",
                              part):
             op, sub = m.group(1), m.group(2) or ""
             ops[op + sub if op == "MUFU" else op] += 1
-        out["K1" if "K1Policy" in name else "K6"] = dict(ops.most_common(20))
+        out[kernel] = {**dict(ops.most_common(20)), "HGMMA": ops["HGMMA"], "HMMA": ops["HMMA"]}
     return out
 
 
@@ -338,8 +362,9 @@ def kernel_bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
 
 def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
     """K3/K4/K5 vs their plain versions in float32 and bf16, at a shape with a padded q
-    tile and a partly masked kv tile and at the training path's self and cross shapes;
-    times kernel, plain version and SDPA (a yardstick only) at the bf16 path shapes."""
+    tile and a partly masked kv tile and at the training path's self and cross shapes,
+    then (bf16) K4/K5 at their tiles' edges; times kernel, plain version and SDPA (a
+    yardstick only) at the bf16 path shapes."""
     from goal_force_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator("cuda").manual_seed(4321)
@@ -419,7 +444,35 @@ def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
                 torch.cuda.empty_cache()
             del q, k, v, do, o_ref, lse_ref, args, runs
             torch.cuda.empty_cache()
+    if torch.bfloat16 in dtypes:
+        _backward_edges(gen, scale)
     return out
+
+
+# The Hopper K4/K5 tiles: K4 takes 128 keys per CTA and walks 64-row q tiles, K5 takes 128
+# q rows per CTA and walks 64-key tiles. Sq and Skv of 127 and 129 (B = 2) leave ragged
+# tiles at every batch row's end; Skv = 40 leaves K4's second consumer warpgroup with no
+# key and K5's only key tile short.
+BWD_EDGES = tuple(shape for shape, _ in EDGES) + ((129, 40),)
+
+
+def _backward_edges(gen, scale):
+    """K4 (dk, dv) and K5 (dq) in bf16 against their plain versions at BWD_EDGES, with the
+    plain forward's o and lse, to two bf16 ulps of the largest |ref| and the bias check."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    for sq, skv in BWD_EDGES:
+        q, do = (_rand((2, sq, 2, 128), gen, torch.bfloat16) for _ in range(2))
+        k, v = (_rand((2, skv, 2, 128), gen, torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+        case = f"edge (2,{sq},2,128)x(2,{skv},2,128) bf16"
+        (dk, dv), n = picked(lambda: fa.flash_attention_bwd_dkv(q, k, v, o, do, lse, scale))
+        dq, n5 = picked(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, scale))
+        check(n == only(K4=1) and n5 == only(K5=1), f"K4/K5 {case} launched {n} / {n5}")
+        dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, o, do, lse, scale)
+        dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
+        for name, got, ref in (("K4 dk", dk, dk_ref), ("K4 dv", dv, dv_ref), ("K5 dq", dq, dq_ref)):
+            compare(f"{name} {case}", got, ref, atol=bf16_limit(ref), rtol=0.0)
 
 
 PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak (data sheet)

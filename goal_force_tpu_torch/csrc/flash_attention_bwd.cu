@@ -5,29 +5,27 @@
 //    scale is NOT folded into q), p = exp(s - m), l and acc rescaled by
 //    alpha = exp(m_prev - m_next), o = acc / l, and lse = m + log(max(l, 1e-30)),
 //    written as (B, N, Sq) f32 (the TPU's 128-lane replication is not kept).
-// K4 `fa_bwd_dkv_*` replaces _fa_kernel_dkv: one CTA per (kv tile, head, batch) walks
-//    every q tile. p = exp(s - lse), di = rowsum(o*do) recomputed per q tile,
-//    dv += bf16(p)^T do, ds = bf16(p * (do.v^T - di) * scale), dk += ds^T q.
-// K5 `fa_bwd_dq_*` replaces _fa_kernel_dq: one CTA per (q tile, head, batch) walks
-//    every kv tile; di is computed once per CTA; dq += bf16(ds) k.
+// K4 `gf_fa_bwd_dkv` replaces _fa_kernel_dkv: dk, dv. p = exp(s - lse),
+//    di = rowsum(o*do), dv += bf16(p)^T do, ds = bf16(p * (do.v^T - di) * scale),
+//    dk += ds^T q.
+// K5 `gf_fa_bwd_dq` replaces _fa_kernel_dq: dq += bf16(ds) k.
 //
-// All three read the packed (B, S, N, 128) tensors in place (row stride N*128), use no
+// All of them read the packed (B, S, N, 128) tensors in place (row stride N*128), use no
 // atomics, and keep every sum in f32. Keys at index >= Skv contribute p = 0; rows past
 // Sq are zero-filled and never written.
 //
 // Bound on the H100: at the training shapes (32,760 queries against 32,760 or 512
 // keys) K3 does 4, K4 8 and K5 6 * Sq*Skv*128 flops per (batch, head) on O(S*128)
-// bytes, so all three are bound by tensor-core operations. The bf16 kernels run every
-// product on the tensor cores with mma.sync m16n8k16 (fragments from ldmatrix,
-// transposed ldmatrix for the p^T.do, ds^T.q and ds.k products, tiles double-buffered
-// with cp.async), as K1/K2 in flash_attention.cu do; wgmma, TMA and warp
-// specialisation are later work. Register budget: K4 holds two 16x128 f32 accumulators
-// per warp (dk, dv: 128 registers), so it walks 32-row q tiles and reloads its K and V
-// fragments from shared memory instead of keeping them in registers; K5 likewise
-// reloads its Q and dO fragments. The f32 kernels are plain FMA loops for exact checks.
+// bytes, so all three are bound by tensor-core operations. The bf16 K4 and K5 run on
+// the Hopper roles of flash_attention_bwd_sm90.cuh (TMA into an mbarrier ring fed by a
+// producer warp, every product by wgmma in two consumer warpgroups; K4 key-stationary
+// with its products transposed, K5 query-stationary), after `fa_bwd_di`, a pass that
+// computes di once per call from o and do. K3's bf16 body is still an mma.sync
+// m16n8k16 loop (fragments from ldmatrix, tiles double-buffered with cp.async), as K2
+// in flash_attention.cu. The f32 kernels are plain FMA loops for exact checks.
 //
-// The small PTX helpers are repeated from flash_attention.cu so that K1/K2's source,
-// and the library built from it, stay unchanged.
+// The small PTX helpers of K3 are repeated from flash_attention.cu so that K1/K2's
+// source, and the library built from it, stay unchanged.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError()
 // after its launch, so a refused launch reaches the caller.
@@ -36,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_attention_bwd_sm90.cuh"
 
 namespace {
 
@@ -278,229 +278,67 @@ fa_fwd_lse_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K4, bf16: 4 warps x 16 keys = one 64-key tile per CTA; 32-row q tiles double-buffered.
+// The lse*log2 e / di scratch of K4 and K5, once per call: (2, B, N, rows) f32 with rows =
+// Sq rounded up to sm90_bwd::SCRATCH_ROWS; [0] = lse*log2(e), [1] = rowsum(f32(o)*f32(do)),
+// and +inf / 0 for rows >= Sq, so p = exp2(s' - inf) is exactly 0 there. 8 threads per row
+// (16 columns each), 32 rows of one head per block, so the stores are contiguous.
 // ---------------------------------------------------------------------------
-constexpr int DKV_BK = 64;
-constexpr int DKV_BQ = 32;
-
-__global__ void __launch_bounds__(128)
-fa_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ o,
-                const bf16* __restrict__ dout, const float* __restrict__ lse,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int N,
-                float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + DKV_BK * LDS;
-  bf16* Qs = Vs + DKV_BK * LDS;          // 2 stages
-  bf16* dOs = Qs + 2 * DKV_BQ * LDS;     // 2 stages
-  bf16* Os = dOs + 2 * DKV_BQ * LDS;     // 2 stages
-  float* lse_s = reinterpret_cast<float*>(Os + 2 * DKV_BQ * LDS);
-  float* di_s = lse_s + DKV_BQ;
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long rs = (long long)N * HD;
-  const long long qoff = ((long long)b * Sq * N + h) * HD;
-  const long long koff = ((long long)b * Skv * N + h) * HD;
-  const float* lseb = lse + ((long long)b * N + h) * Sq;
-  const int k0 = kt * DKV_BK;
-  const int n_qt = (Sq + DKV_BQ - 1) / DKV_BQ;
-
-  load_rows<DKV_BK>(Ks, k + koff, k0, Skv, rs);
-  load_rows<DKV_BK>(Vs, v + koff, k0, Skv, rs);
-  load_rows<DKV_BQ>(Qs, q + qoff, 0, Sq, rs);
-  load_rows<DKV_BQ>(dOs, dout + qoff, 0, Sq, rs);
-  load_rows<DKV_BQ>(Os, o + qoff, 0, Sq, rs);
-  cp_async_commit();
-
-  float dka[16][4], dva[16][4];
+__global__ void __launch_bounds__(256)
+fa_bwd_di(const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+          float* __restrict__ scratch, int B, int Sq, int N, int rows) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r = blockIdx.x * 32 + (threadIdx.x >> 3), c = threadIdx.x & 7;
+  float d = 0.f;
+  if (r < Sq) {
+    const long long off = (((long long)b * Sq + r) * N + h) * HD + c * 16;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+    for (int x = 0; x < 2; ++x) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + off + 8 * x);
+      const uint4 e = *reinterpret_cast<const uint4*>(dout + off + 8 * x);
+      const bf162* a2 = reinterpret_cast<const bf162*>(&a);
+      const bf162* e2 = reinterpret_cast<const bf162*>(&e);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const float2 fa = __bfloat1622float2(a2[i]), fe = __bfloat1622float2(e2[i]);
+        d = fmaf(fa.x, fe.x, d);
+        d = fmaf(fa.y, fe.y, d);
+      }
+    }
   }
-  const int key0 = k0 + warp * 16 + g;   // this thread's key rows: key0, key0 + 8
-  const bool kvalid0 = key0 < Skv, kvalid1 = key0 + 8 < Skv;
-
-  for (int i = 0; i < n_qt; ++i) {
-    const int st = i & 1;
-    if (i + 1 < n_qt) {
-      const int nq = (i + 1) * DKV_BQ;
-      load_rows<DKV_BQ>(Qs + (st ^ 1) * DKV_BQ * LDS, q + qoff, nq, Sq, rs);
-      load_rows<DKV_BQ>(dOs + (st ^ 1) * DKV_BQ * LDS, dout + qoff, nq, Sq, rs);
-      load_rows<DKV_BQ>(Os + (st ^ 1) * DKV_BQ * LDS, o + qoff, nq, Sq, rs);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qt = Qs + st * DKV_BQ * LDS;
-    const bf16* dOt = dOs + st * DKV_BQ * LDS;
-    const bf16* Ot = Os + st * DKV_BQ * LDS;
-    const int qbase = i * DKV_BQ;
-
-    {  // di = rowsum(o * do) and lse of this tile's 32 rows: 4 threads per row
-      const int r = tid >> 2, c = tid & 3;
-      float d = 0.f;
-#pragma unroll
-      for (int x = 0; x < HD / 8; ++x) {
-        const int col = x * 8 + 2 * c;
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const bf162*>(Ot + r * LDS + col));
-        const float2 e = __bfloat1622float2(*reinterpret_cast<const bf162*>(dOt + r * LDS + col));
-        d = fmaf(a.x, e.x, d);
-        d = fmaf(a.y, e.y, d);
-      }
-      d += __shfl_xor_sync(0xffffffff, d, 1);
-      d += __shfl_xor_sync(0xffffffff, d, 2);
-      if (c == 0) {
-        di_s[r] = d;
-        lse_s[r] = qbase + r < Sq ? lseb[qbase + r] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // P^T = exp(K Q^T * scale - lse): this warp's 16 keys x 32 queries.
-    float p[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-    mma_abt<2>(p, Ks, warp * 16, Qt, lane);
-    const bool qstraddles = qbase + DKV_BQ > Sq;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        float x = expf(p[n][e] * scale - lse_s[col]);
-        if (!((e < 2) ? kvalid0 : kvalid1) || (qstraddles && qbase + col >= Sq)) x = 0.f;
-        p[n][e] = x;
-      }
-    }
-    mma_pb<2>(dva, p, dOt, lane);   // dv += bf16(p)^T do
-
-    // dP^T = V dO^T, then dS^T = p * (dP^T - di) * scale.
-    float ds[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-    mma_abt<2>(ds, Vs, warp * 16, dOt, lane);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        ds[n][e] = p[n][e] * (ds[n][e] - di_s[col]) * scale;
-      }
-    }
-    mma_pb<2>(dka, ds, Qt, lane);   // dk += bf16(ds)^T q
-    __syncthreads();
+  d += __shfl_xor_sync(0xffffffff, d, 1);
+  d += __shfl_xor_sync(0xffffffff, d, 2);
+  d += __shfl_xor_sync(0xffffffff, d, 4);
+  if (c == 0 && r < rows) {
+    const long long bh = (long long)b * N + h;
+    scratch[bh * rows + r] = r < Sq ? lse[bh * Sq + r] * sm90_bwd::LOG2E : INFINITY;
+    scratch[((long long)B * N + bh) * rows + r] = d;
   }
-  cp_async_wait<0>();
-  store_rows(dk, dka, koff, k0 + warp * 16, Skv, rs, g, t);
-  store_rows(dv, dva, koff, k0 + warp * 16, Skv, rs, g, t);
 }
 
-// ---------------------------------------------------------------------------
-// K5, bf16: 4 warps x 16 query rows, 64-key tiles double-buffered.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(128, 2)
-fa_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ o,
-               const bf16* __restrict__ dout, const float* __restrict__ lse,
-               bf16* __restrict__ dq, int Sq, int Skv, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + BQ * LDS;
-  bf16* Ks = dOs + BQ * LDS;      // 2 stages
-  bf16* Vs = Ks + 2 * BK * LDS;   // 2 stages
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long rs = (long long)N * HD;
-  const long long qoff = ((long long)b * Sq * N + h) * HD;
-  const bf16* kb = k + ((long long)b * Skv * N + h) * HD;
-  const bf16* vb = v + ((long long)b * Skv * N + h) * HD;
-  const int n_tiles = (Skv + BK - 1) / BK;
-  const int q0 = qt * BQ;
-
-  load_rows<BQ>(Qs, q + qoff, q0, Sq, rs);
-  load_rows<BQ>(dOs, dout + qoff, q0, Sq, rs);
-  if (n_tiles > 0) {
-    load_rows<BK>(Ks, kb, 0, Skv, rs);
-    load_rows<BK>(Vs, vb, 0, Skv, rs);
-  }
-  cp_async_commit();
-
-  // di and lse of this thread's rows r0 = q0 + warp*16 + g and r0 + 8, read from global:
-  // the 4 lanes of a row group split the 128 columns.
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  float di0 = 0.f, di1 = 0.f;
-#pragma unroll
-  for (int x = 0; x < HD / 8; ++x) {
-    const int col = x * 8 + 2 * t;
-    if (r0 < Sq) {
-      const long long off = qoff + (long long)r0 * rs + col;
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + off));
-      const float2 e = __bfloat1622float2(*reinterpret_cast<const bf162*>(dout + off));
-      di0 = fmaf(a.x, e.x, di0);
-      di0 = fmaf(a.y, e.y, di0);
-    }
-    if (r1 < Sq) {
-      const long long off = qoff + (long long)r1 * rs + col;
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const bf162*>(o + off));
-      const float2 e = __bfloat1622float2(*reinterpret_cast<const bf162*>(dout + off));
-      di1 = fmaf(a.x, e.x, di1);
-      di1 = fmaf(a.y, e.y, di1);
-    }
-  }
-  di0 += __shfl_xor_sync(0xffffffff, di0, 1);
-  di0 += __shfl_xor_sync(0xffffffff, di0, 2);
-  di1 += __shfl_xor_sync(0xffffffff, di1, 1);
-  di1 += __shfl_xor_sync(0xffffffff, di1, 2);
-  const float* lb = lse + ((long long)b * N + h) * Sq;
-  const float lse0 = r0 < Sq ? lb[r0] : 0.f, lse1 = r1 < Sq ? lb[r1] : 0.f;
-
-  float dqa[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      load_rows<BK>(Ks + (stage ^ 1) * BK * LDS, kb, (j + 1) * BK, Skv, rs);
-      load_rows<BK>(Vs + (stage ^ 1) * BK * LDS, vb, (j + 1) * BK, Skv, rs);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks + stage * BK * LDS;
-    const bf16* Vt = Vs + stage * BK * LDS;
-
-    float p[8][4], ds[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.f;
-    }
-    mma_abt<4>(p, Qs, warp * 16, Kt, lane);    // S = Q K^T
-    mma_abt<4>(ds, dOs, warp * 16, Vt, lane);  // dP = dO V^T
-    const int kbase = j * BK;
-    const bool straddles = kbase + BK > Skv;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e >= 2;
-        float x = expf(p[n][e] * scale - (hi ? lse1 : lse0));
-        if (straddles && kbase + n * 8 + 2 * t + (e & 1) >= Skv) x = 0.f;
-        ds[n][e] = x * (ds[n][e] - (hi ? di1 : di0)) * scale;
-      }
-    }
-    mma_pb<4>(dqa, ds, Kt, lane);   // dq += bf16(ds) K
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  store_rows(dq, dqa, qoff, q0 + warp * 16, Sq, rs, g, t);
+// The scratch, then K4 (dkv) or K5 on the Hopper roles of flash_attention_bwd_sm90.cuh.
+int launch_sm90(bool dkv, const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* scratch, void* dk, void* dv, void* dq,
+                int B, int Sq, int Skv, int N, float scale, const long long* geom,
+                cudaStream_t st) {
+  const int rows = (Sq + sm90_bwd::SCRATCH_ROWS - 1) / sm90_bwd::SCRATCH_ROWS *
+                   sm90_bwd::SCRATCH_ROWS;
+  fa_bwd_di<<<dim3(rows / 32, N, B), 256, 0, st>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, scratch, B, Sq, N, rows);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sm90_bwd::Args a{};
+  a.lse2 = scratch;
+  a.di = scratch + (long long)B * N * rows;
+  a.dk = dk;
+  a.dv = dv;
+  a.dq = dq;
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.N = N;
+  a.rows = rows;
+  a.scale = scale;
+  a.scale_log2 = scale * sm90_bwd::LOG2E;
+  return sm90_bwd::launch(dkv, q, dout, k, v, a, B, geom, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -747,50 +585,37 @@ int gf_fa_fwd_lse(int is_bf16, const void* q, const void* k, const void* v, void
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4: dk/dv (B, Skv, N, 128) in k's dtype; o/do like q; lse (B, N, Sq) f32.
+// K4: dk/dv (B, Skv, N, 128) in k's dtype; o/do like q; lse (B, N, Sq) f32. bf16 takes
+// a (2, B, N, Sq rounded up to 128) f32 scratch it fills first, and the geometry array of
+// ops/flash_attention.py::sm90_bwd_geometry (host memory, int64); f32 ignores both.
 int gf_fa_bwd_dkv(int is_bf16, const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, const float* lse, void* dk, void* dv, int B, int Sq,
-                  int Skv, int N, float scale, void* stream) {
+                  const void* dout, const float* lse, float* scratch, void* dk, void* dv, int B,
+                  int Sq, int Skv, int N, float scale, const long long* geom, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const int smem = (2 * DKV_BK + 6 * DKV_BQ) * LDS * static_cast<int>(sizeof(bf16)) +
-                     2 * DKV_BQ * static_cast<int>(sizeof(float));
-    set_smem(fa_bwd_dkv_bf16, smem);
-    dim3 grid((Skv + DKV_BK - 1) / DKV_BK, N, B);
-    fa_bwd_dkv_bf16<<<grid, 128, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, N, scale);
-  } else {
-    dim3 grid((Skv + FB - 1) / FB, N, B);
-    fa_bwd_dkv_f32<<<grid, 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(o), static_cast<const float*>(dout), lse,
-        static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, N, scale);
-  }
+  if (is_bf16)
+    return launch_sm90(true, q, k, v, o, dout, lse, scratch, dk, dv, nullptr, B, Sq, Skv, N, scale,
+                       geom, st);
+  dim3 grid((Skv + FB - 1) / FB, N, B);
+  fa_bwd_dkv_f32<<<grid, 128, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: dq (B, Sq, N, 128) in q's dtype; same inputs as K4.
+// K5: dq (B, Sq, N, 128) in q's dtype; the same inputs, scratch and geometry as K4.
 int gf_fa_bwd_dq(int is_bf16, const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, void* dq, int B, int Sq, int Skv, int N,
-                 float scale, void* stream) {
+                 const void* dout, const float* lse, float* scratch, void* dq, int B, int Sq, int Skv,
+                 int N, float scale, const long long* geom, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const int smem = (2 * BQ + 4 * BK) * LDS * static_cast<int>(sizeof(bf16));
-    set_smem(fa_bwd_dq_bf16, smem);
-    dim3 grid((Sq + BQ - 1) / BQ, N, B);
-    fa_bwd_dq_bf16<<<grid, 128, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-        static_cast<bf16*>(dq), Sq, Skv, N, scale);
-  } else {
-    dim3 grid((Sq + FB - 1) / FB, N, B);
-    fa_bwd_dq_f32<<<grid, 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(o), static_cast<const float*>(dout), lse,
-        static_cast<float*>(dq), Sq, Skv, N, scale);
-  }
+  if (is_bf16)
+    return launch_sm90(false, q, k, v, o, dout, lse, scratch, nullptr, nullptr, dq, B, Sq, Skv, N,
+                       scale, geom, st);
+  dim3 grid((Sq + FB - 1) / FB, N, B);
+  fa_bwd_dq_f32<<<grid, 128, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+      static_cast<float*>(dq), Sq, Skv, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

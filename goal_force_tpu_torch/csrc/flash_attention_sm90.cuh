@@ -43,6 +43,9 @@
 // producer fills, e.g. K6's key scales), kv_valid(args, b), load_q / load_k (TMA issue),
 // produce_extra(...), prepare_q(...), qk_issue(...), and a State with init / softmax /
 // inv_l.
+//
+// The m64n64 wrappers and fence_regs32 below serve the training backward's roles
+// (flash_attention_bwd_sm90.cuh), which reuse this file's PTX wrappers and nothing else.
 
 #pragma once
 
@@ -127,6 +130,11 @@ __device__ __forceinline__ void fence_regs(int* r) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+// The same for a 64 x 64 f32 accumulator (32 registers per thread).
+__device__ __forceinline__ void fence_regs32(float* r) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
 
 // Shared-memory matrix descriptor, 128-byte swizzle; addresses and offsets in bytes.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -158,6 +166,31 @@ __device__ __forceinline__ void wgmma_ss_bf16(float* d, uint64_t da, uint64_t db
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : GF_D8(0), GF_D8(8), GF_D8(16), GF_D8(24), GF_D8(32), GF_D8(40), GF_D8(48), GF_D8(56)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+#define GF_REGS32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64x64 f32) += A (64x16 bf16, smem, K-major) * B (16x64 bf16, smem, K-major).
+__device__ __forceinline__ void wgmma_ss_bf16_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " GF_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : GF_D8(0), GF_D8(8), GF_D8(16), GF_D8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+// d (64x64 f32) = A * B, as above without the sum: the first k-step of a product, whose
+// outputs are written and never read (so the compiler keeps no earlier value of d alive).
+#define GF_W8(i) "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), \
+                 "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+__device__ __forceinline__ void wgmma_ss_bf16_n64_first(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " GF_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : GF_W8(0), GF_W8(8), GF_W8(16), GF_W8(24)
+      : "l"(da), "l"(db), "r"(0));
 }
 // d (64x128 f32) += A (64x16 bf16, registers) * B (16x128 bf16, smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_bf16(float* d, const uint32_t* a, uint64_t db) {

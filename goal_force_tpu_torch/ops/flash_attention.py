@@ -36,7 +36,9 @@ The bf16 K1 and K6 run on the Hopper skeleton of ``csrc/flash_attention_sm90.cuh
 (TMA, mbarrier ring, wgmma, producer/consumer warpgroups). Its host-side geometry (tiles,
 grid, tensor maps, shared memory) is computed here by ``sm90_geometry``, where the CPU
 tests reach it, and passed to the C entry point, which only checks it, encodes the maps
-and launches.
+and launches. The bf16 K4 and K5 run on the backward's Hopper roles
+(``csrc/flash_attention_bwd_sm90.cuh``) after a pass that writes lse*log2(e) and di into
+a float32 scratch; their geometry comes from ``sm90_bwd_geometry`` in the same way.
 
 A wrapper given CPU tensors computes the plain version (that is how the CPU tests run);
 given CUDA tensors it launches its kernel or raises. ``launch_counts`` counts kernel
@@ -134,10 +136,53 @@ def sm90_geometry(kernel: str, b: int, sq: int, skv: int, n: int) -> Sm90Geometr
                         v=_packed_map(b, skv, n, 2, t))
 
 
+SM90_BWD = {"K4": (64, 128, 4, 256),   # (q rows per tile, keys per tile, ring slots, threads)
+            "K5": (128, 64, 4, 384)}
+SCRATCH_ROWS = 128          # the backward's lse*log2(e) / di scratch: Sq rounded up to this
+
+
+@dataclass(frozen=True)
+class Sm90BwdGeometry(Sm90Geometry):
+    do: TensorMap = None
+    scratch_rows: int = 0                  # rows per (batch, head) of the lse*log2e/di scratch
+
+    def as_array(self):
+        """The int64 array the C entry points take (layout in flash_attention_bwd_sm90.cuh)."""
+        vals = [self.bq, self.bk, self.stages, self.threads, *self.grid, self.smem_bytes,
+                *self.q.values(), *self.do.values(), *self.k.values(), *self.v.values(),
+                self.scratch_rows]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def sm90_bwd_geometry(kernel: str, b: int, sq: int, skv: int, n: int) -> Sm90BwdGeometry:
+    """Tiles, grid, tensor maps (q, do, k, v; all bf16) and shared memory of the Hopper K4
+    ("K4": one CTA per 128 keys, a ring of 64-row Q/dO tiles) or K5 ("K5": one CTA per
+    128 q rows, a ring of 64-key K/V tiles). Shared memory: 1024 bytes of alignment slack,
+    the CTA's two resident tiles, per ring slot two tiles (and for K4 a table of 64 lse and
+    64 di float32 values), and 1 + 2 x stages mbarriers of 8 bytes. The (2, B, N,
+    scratch_rows) float32 scratch holds lse*log2(e) and di, padded to SCRATCH_ROWS rows
+    so that every 64-row table is one aligned bulk copy."""
+    if kernel not in SM90_BWD:
+        raise ValueError(f"sm90_bwd_geometry: unknown kernel {kernel!r}")
+    bq, bk, stages, threads = SM90_BWD[kernel]
+    tile = lambda rows: rows * HEAD_DIM * 2
+    if kernel == "K4":
+        smem = 1024 + 2 * tile(bk) + stages * (2 * tile(bq) + 8 * bq) + 8 * (1 + 2 * stages)
+        grid = (-(-skv // bk), n, b)
+    else:
+        smem = 1024 + 2 * tile(bq) + stages * 2 * tile(bk) + 8 * (1 + 2 * stages)
+        grid = (-(-sq // bq), n, b)
+    return Sm90BwdGeometry(bq=bq, bk=bk, stages=stages, threads=threads, grid=grid,
+                           smem_bytes=smem, q=_packed_map(b, sq, n, 2, bq),
+                           do=_packed_map(b, sq, n, 2, bq), k=_packed_map(b, skv, n, 2, bk),
+                           v=_packed_map(b, skv, n, 2, bk),
+                           scratch_rows=-(-sq // SCRATCH_ROWS) * SCRATCH_ROWS)
+
+
 def _check_tma_aligned(name: str, tensors) -> None:
     """TMA reads from 16-byte-aligned base addresses; the kernels take no other."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name} loads by TMA: q, k and v must be 16-byte aligned")
+        raise ValueError(f"{name} loads by TMA: its tensors must be 16-byte aligned")
 
 
 def fold_constant(scale: float, dtype: torch.dtype) -> float:
@@ -358,9 +403,10 @@ def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
     if not getattr(lib, "_gf_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        g = ctypes.POINTER(ctypes.c_longlong)
         lib.gf_fa_fwd_lse.argtypes = [i, p, p, p, p, p, i, i, i, i, f, p]
-        lib.gf_fa_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
-        lib.gf_fa_bwd_dq.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.gf_fa_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, g, p]
+        lib.gf_fa_bwd_dq.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, f, g, p]
         for fn in (lib.gf_fa_fwd_lse, lib.gf_fa_bwd_dkv, lib.gf_fa_bwd_dq):
             fn.restype = i
         lib._gf_typed = True
@@ -392,6 +438,29 @@ def flash_attention_fwd_lse(q, k, v, scale: float):
     return o, lse
 
 
+def _launch_bwd(name: str, fn, q, k, v, o, do, lse, outs, scale: float) -> None:
+    """K4 or K5 on CUDA tensors. bf16 runs the Hopper kernel: the wrapper checks TMA's
+    alignment, allocates the lse*log2(e) / di scratch the C side fills first and passes
+    the geometry of ``sm90_bwd_geometry``; float32 takes neither."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash attention kernels run on CUDA tensors, got {q.device}")
+    b, sq, n, _ = q.shape
+    scratch, geom = None, None
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned(name, (q, k, v, o, do))
+        g = sm90_bwd_geometry(name, b, sq, k.shape[1], n)
+        scratch = torch.empty((2, b, n, g.scratch_rows), dtype=torch.float32, device=q.device)
+        geom = g.as_array()
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(int(q.dtype == torch.bfloat16),
+            *[ptr(t) for t in (q, k, v, o, do, lse, scratch, *outs)],
+            b, sq, k.shape[1], n, float(scale), geom, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} flash-attention launch failed: CUDA error {rc}")
+    launch_counts[name] += 1
+
+
 def flash_attention_bwd_dkv(q, k, v, o, do, lse, scale: float):
     """K4: (dk, dv) in k's and v's dtype."""
     _check_bwd(q, k, v, o, do, lse)
@@ -399,7 +468,7 @@ def flash_attention_bwd_dkv(q, k, v, o, do, lse, scale: float):
         return flash_attention_bwd_dkv_plain(q, k, v, o, do, lse, scale)
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("K4", _bwd_lib().gf_fa_bwd_dkv, (q, k, v, o, do, lse, dk, dv), q, k, scale)
+    _launch_bwd("K4", _bwd_lib().gf_fa_bwd_dkv, q, k, v, o, do, lse, (dk, dv), scale)
     return dk, dv
 
 
@@ -410,7 +479,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, scale: float):
         return flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     dq = torch.empty_like(q)
-    _launch("K5", _bwd_lib().gf_fa_bwd_dq, (q, k, v, o, do, lse, dq), q, k, scale)
+    _launch_bwd("K5", _bwd_lib().gf_fa_bwd_dq, q, k, v, o, do, lse, (dq,), scale)
     return dq
 
 

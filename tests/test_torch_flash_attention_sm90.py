@@ -1,5 +1,5 @@
-"""The Hopper K1 and K6: their host-side geometry, and their plain versions at the new
-tiles' edges against the JAX Pallas kernels (interpret mode, CPU).
+"""The Hopper K1, K4, K5 and K6: their host-side geometry, and their plain versions at
+the tiles' edges against the JAX Pallas kernels (interpret mode, CPU).
 
 ``sm90_geometry`` computes the tiles, grid, tensor maps and shared memory that the C
 entry points only check, encode and launch with; here a small model of a TMA box copy
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from goal_force_tpu.ops.flash_attention import _fa_forward, _flash_bwd
 from goal_force_tpu.ops.flash_attention import flash_attention as jax_flash
 from goal_force_tpu.ops.flash_attention import flash_attention_int8 as jax_int8
 
@@ -214,3 +215,124 @@ def test_k6_plain_matches_jax_at_tile_edges(sq, skv, block, dtype):
         2 * 2.0 ** (math.floor(math.log2(float(np.abs(ref).max()))) - 7)
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=2e-5 if dtype == "float32" else 0,
                                atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The training backward's Hopper K4 (dK, dV) and K5 (dQ)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sq,skv", [(127, 127), (129, 40), (1000, 777), (32760, 32760),
+                                    (32760, 512)])
+def test_backward_tiles_per_batch_row(sq, skv):
+    """K4: one CTA per 128 keys walking ceil(Sq/64) q tiles; K5: one CTA per 128 q rows
+    walking ceil(Skv/64) key tiles. The scratch pads Sq to whole 128-row blocks."""
+    k4 = tfa.sm90_bwd_geometry("K4", 2, sq, skv, 40)
+    k5 = tfa.sm90_bwd_geometry("K5", 2, sq, skv, 40)
+    assert (k4.bq, k4.bk, k4.threads) == (64, 128, 256)
+    assert (k5.bq, k5.bk, k5.threads) == (128, 64, 384)
+    assert k4.grid == (-(-skv // 128), 40, 2) and k5.grid == (-(-sq // 128), 40, 2)
+    assert k4.scratch_rows == k5.scratch_rows == -(-sq // 128) * 128
+    assert k4.scratch_rows % k4.bq == 0          # every q tile's table is one whole copy
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_backward_maps_are_rank4_over_the_packed_layout(kernel):
+    b, sq, skv, n = 1, 32760, 512, 40
+    g = tfa.sm90_bwd_geometry(kernel, b, sq, skv, n)
+    for m, s, rows in ((g.q, sq, g.bq), (g.do, sq, g.bq), (g.k, skv, g.bk), (g.v, skv, g.bk)):
+        assert m.itemsize == 2
+        assert m.dims == (H, n, s, b)
+        assert m.strides == (2 * H, 2 * H * n, 2 * H * n * s)
+        assert m.box == (64, 1, rows, 1)
+    vals = list(g.as_array())
+    assert len(vals) == 8 + 4 * 11 + 1 and vals[-1] == g.scratch_rows
+    assert vals[8 + 11:8 + 22] == g.do.values()          # q, do, k, v in that order
+
+
+@pytest.mark.parametrize("kernel,smem", [
+    ("K4", 1024 + 2 * 32768 + 4 * (2 * 16384 + 512) + 8 * 9),
+    ("K5", 1024 + 2 * 32768 + 4 * 2 * 16384 + 8 * 9)])
+def test_backward_shared_memory_budget(kernel, smem):
+    g = tfa.sm90_bwd_geometry(kernel, 2, 129, 127, 2)
+    assert g.smem_bytes == smem <= tfa.SMEM_LIMIT
+
+
+def test_backward_geometry_agrees_with_its_header():
+    """The C side checks the array against the backward header's constants."""
+    text = (_build.CSRC / "flash_attention_bwd_sm90.cuh").read_text()
+    const = {name: int(val) for name, val in
+             re.findall(r"constexpr (?:int|long long) (\w+) = (\d+);", text)}
+    assert (const["KV_QROWS"], const["KV_KEYS"], const["KV_STAGES"],
+            const["KV_THREADS"]) == tfa.SM90_BWD["K4"]
+    assert (const["Q_ROWS"], const["Q_KEYS"], const["Q_STAGES"],
+            const["THREADS"]) == tfa.SM90_BWD["K5"]
+    assert const["SCRATCH_ROWS"] == tfa.SCRATCH_ROWS
+    assert const["SMEM_LIMIT"] == tfa.SMEM_LIMIT
+    assert tfa.SCRATCH_ROWS % const["KV_QROWS"] == 0 and tfa.SCRATCH_ROWS % const["Q_ROWS"] == 0
+
+
+def test_backward_unknown_kernel_is_refused():
+    with pytest.raises(ValueError):
+        tfa.sm90_bwd_geometry("K3", 1, 128, 128, 1)
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+@pytest.mark.parametrize("sq,skv", [(129, 127), (127, 129), (129, 40)])
+def test_backward_boxes_read_each_batch_rows_own_tiles(kernel, sq, skv):
+    """Every q, do, k and v box of every batch row reads that batch row's rows of the
+    packed tensor, zero-filled past its end, never the next batch row's first rows."""
+    b, n = 2, 3
+    g = tfa.sm90_bwd_geometry(kernel, b, sq, skv, n)
+    for m, s in ((g.q, sq), (g.do, sq), (g.k, skv), (g.v, skv)):
+        rows = m.box[2]
+        x = np.random.default_rng(s + rows).integers(1, 255, size=(b, s, n, H * 2),
+                                                     dtype=np.uint8)
+        flat = x.reshape(-1)
+        for bi in range(b):
+            for h in range(n):
+                for row0 in range(0, s, rows):
+                    for c0 in (0, 64):
+                        got = _tma_box(flat, m, (c0, h, row0, bi))[:, 0, :, 0]
+                        got = got.transpose(1, 0, 2).reshape(rows, 128)
+                        want = np.zeros((rows, 128), np.uint8)
+                        part = x[bi, row0:row0 + rows, h, c0 * 2:c0 * 2 + 128]
+                        want[:part.shape[0]] = part
+                        np.testing.assert_array_equal(got, want)
+
+
+def _jax_backward(q, k, v, do, scale):
+    """JAX's forward with lse and _flash_bwd (interpret mode), lse as (B, N, Sq)."""
+    b, sq, n, _ = q.shape
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = _fa_forward(q, k, v, scale, 128, 128, with_lse=True)
+        dq, dk, dv = _flash_bwd(scale, 128, 128, "auto", (q, k, v, o, lse), do)
+    return o, np.asarray(lse)[:, :sq, 0].reshape(b, n, sq), dq, dk, dv
+
+
+def _to_np(x):
+    return np.array(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv", EDGES + [(129, 40)])
+def test_k4_k5_plain_match_jax_backward_at_tile_edges(sq, skv, dtype):
+    """K4 (dk, dv) and K5 (dq) plain versions against JAX _flash_bwd at B = 2 with ragged
+    last tiles, from the same (q, k, v, o, lse, do). The tolerances of
+    test_torch_flash_attention_bwd.py: 5e-5 in float32 (another summation order), in
+    bf16 two bf16 ulps of each output's largest value (the same float32 sums rounded)."""
+    B, N = 2, 2
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    arrs = [_rand((B, s, N, H), seed) for s, seed in ((sq, 20), (skv, 21), (skv, 22), (sq, 23))]
+    q, k, v, do = (jnp.asarray(a).astype(jdt) for a in arrs)
+    o, lse, dq, dk, dv = _jax_backward(q, k, v, do, H**-0.5)
+    tq, tk, tv, tdo, to = (torch.from_numpy(_to_np(x)).to(tdt) for x in (q, k, v, do, o))
+    tlse = torch.from_numpy(lse.copy())
+    tdk, tdv = tfa.flash_attention_bwd_dkv(tq, tk, tv, to, tdo, tlse, H**-0.5)
+    tdq = tfa.flash_attention_bwd_dq(tq, tk, tv, to, tdo, tlse, H**-0.5)
+    for got, ref in ((tdq, dq), (tdk, dk), (tdv, dv)):
+        ref = _to_np(ref)
+        assert got.dtype == tdt and got.shape == ref.shape
+        atol = 5e-5 if dtype == "float32" else \
+            2 * 2.0 ** (math.floor(math.log2(float(np.abs(ref).max()))) - 7)
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=atol)

@@ -163,3 +163,21 @@ def test_flash_int8_attention_launches_k6_only(cuda_device):
     assert delta == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 1}
     tattn.attention(q, k, v, impl="flash_int8", kv_len=torch.tensor([20, 40]))
     assert tfa.launch_counts["K6"] == before["K6"] + 1
+
+
+# The Hopper K4 takes 128 keys per CTA and walks 64-row q tiles, K5 takes 128 q rows per CTA
+# and walks 64-key tiles: Sq and Skv of 127 and 129 leave ragged tiles at every batch row's
+# end, Skv = 40 leaves K4's second warpgroup without a key and K5's only key tile short.
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(127, 127), (127, 129), (129, 127), (129, 129), (129, 40)])
+def test_backward_kernels_match_plain_at_tile_edges(cuda_device, sq, skv):
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, sq, skv, 2, seed=8)
+    do = _qkv(cuda_device, torch.bfloat16, 2, sq, 1, 2, seed=9)[0]
+    scale = H**-0.5
+    o, lse = tfa.flash_attention_fwd_lse_plain(q, k, v, scale)
+    got = [*tfa.flash_attention_bwd_dkv(q, k, v, o, do, lse, scale),
+           tfa.flash_attention_bwd_dq(q, k, v, o, do, lse, scale)]
+    ref = [*tfa.flash_attention_bwd_dkv_plain(q, k, v, o, do, lse, scale),
+           tfa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale)]
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=_bf16_limit(r), rtol=0)
