@@ -3,15 +3,17 @@
 
     python3 chip_mutants.py
 
-Builds 21 broken copies of the port's kernels (5 of K1 in flash_attention.cu, 11 of K3-K5
-in flash_attention_bwd.cu and its Hopper header flash_attention_bwd_sm90.cuh, 5 of K6 in
-flash_attention_int8.cu; a mutant may patch a header, built into its own source only), one
-nvcc per mutant, all started together, each in a temporary directory of its own with
-copies of the headers. Loads each in place of the real library and runs chip_smoke's
-kernel checks of that source with every failed check recorded instead of raised: the
-float32 and bf16 checks of K1/K2 (small shapes, kv_len, the tile edges, the serving self
-and cross shapes), the bf16 checks of K3/K4/K5 (the 1000x777, training self and training
-cross shapes, and K4/K5 at the tile edges), and the float32 and bf16 checks of K6 (1000x777 and the tile edges with
+Builds 27 broken copies of the port's kernels (5 of K1 and 3 of K2 in flash_attention.cu
+and the forward skeleton's header flash_attention_sm90.cuh, 14 of K3-K5 in
+flash_attention_bwd.cu and its headers, 5 of K6 in flash_attention_int8.cu; a mutant may
+patch a header, built into its own source only, so one text of the skeleton's header
+breaks K2 in one mutant and K3 in another), one nvcc per mutant, all started together,
+each in a temporary directory of its own with copies of the headers. Loads each in place
+of the real library and runs chip_smoke's kernel checks of that source with every failed
+check recorded instead of raised: the float32 and bf16 checks of K1/K2 (small shapes,
+kv_len, the tile edges, the serving self and cross shapes), the bf16 checks of K3/K4/K5
+(the 1000x777, training self and training cross shapes, the tile edges, and K3 with q and
+k x8), and the float32 and bf16 checks of K6 (1000x777 and the tile edges with
 quantization tiles of 128 and of 300, the serving self and cross shapes). Prints one JSON
 line per mutant with the checks that caught it; exits 0 when every mutant was caught by at
 least one check.
@@ -33,6 +35,9 @@ from goal_force_tpu_torch.ops import _build
 
 SM90 = "flash_attention_sm90.cuh"
 BWD = "flash_attention_bwd_sm90.cuh"
+# Texts of the skeleton header's online max (K2 and K3).
+STRADDLE = "if (kbase + BK > valid) {   // only the tile that straddles `valid` pays for the mask"
+RESCALE = "if (__any_sync(0xffffffff, a0 != 1.f || a1 != 1.f)) {   // else acc * 1 == acc"
 
 # name -> (source stem, file patched (None: the source itself), text in that file, its
 # replacement); each text occurs once.
@@ -48,11 +53,21 @@ MUTANTS = {
         "const int l = a.kv_len[b];", "const int l = a.Skv;"),
     "K1 q fold skips the second 64-column half": ("flash_attention", None,
         "for (int hh = 0; hh < 2; ++hh) {", "for (int hh = 0; hh < 1; ++hh) {"),
-    "K3 no straddle mask": ("flash_attention_bwd", None,
-        "if (straddles && kbase + n * 8 + 2 * t + (e & 1) >= Skv) s[n][e] = MASK_VALUE;", ""),
-    "K3 loses kv tile 1": ("flash_attention_bwd", None,
-        "mma_pb<4>(acc, s, Vt, lane);   // acc += bf16(p) V",
-        "if (j != 1) mma_pb<4>(acc, s, Vt, lane);"),
+    "K2 no straddle mask": ("flash_attention", SM90, STRADDLE, "if (false) {"),
+    "K2 kv_len ignored": ("flash_attention", None, "struct K2Policy : K1Policy {",
+        "struct K2Policy : K1Policy {\n"
+        "  __device__ static int kv_valid(const sm90::Args& a, int) { return a.Skv; }"),
+    "K2 acc not rescaled by alpha": ("flash_attention", SM90, RESCALE, "if (false) {"),
+    "K3 no straddle mask": ("flash_attention_bwd", SM90, STRADDLE, "if (false) {"),
+    "K3 loses key tile 1": ("flash_attention_bwd", SM90,
+        "pv_issue(acc, pf, sV + s * V_BYTES);", "if (j != 1) pv_issue(acc, pf, sV + s * V_BYTES);"),
+    "K3 acc not rescaled by alpha": ("flash_attention_bwd", SM90, RESCALE, "if (false) {"),
+    "K3 lse without its m*scale term": ("flash_attention_bwd", None,
+        "lb[r0] = __fmul_rn(m0, a.scale) + logf(fmaxf(l0, 1e-30f));",
+        "lb[r0] = logf(fmaxf(l0, 1e-30f));"),
+    "K3 row g's lse written for row g+8": ("flash_attention_bwd", None,
+        "lb[r0 + 8] = __fmul_rn(m1, a.scale) + logf(fmaxf(l1, 1e-30f));",
+        "lb[r0 + 8] = __fmul_rn(m0, a.scale) + logf(fmaxf(l0, 1e-30f));"),
     "K4 ds shrunk by 0.2%": ("flash_attention_bwd", BWD,
         "dpt[e] = st[e] * (dpt[e] - lds(tab + 4 * (KV_QROWS + c))) * a.scale;",
         "dpt[e] = st[e] * (dpt[e] - lds(tab + 4 * (KV_QROWS + c))) * a.scale * 0.998f;"),

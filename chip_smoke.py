@@ -8,14 +8,16 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 1. device  - a CUDA card must be present; prints nvidia-smi's name and power limit.
 2. build   - compiles goal_force_tpu_torch/csrc/*.cu with nvcc for sm_90a (one nvcc per
              source, started together) and prints each kernel's ptxas report and the
-             Hopper kernels' (K1, K4, K5, K6) SASS instruction counts by opcode; each of
-             them must hold HGMMA (wgmma) and no HMMA (mma.sync).
+             Hopper kernels' (K1-K6) SASS instruction counts by opcode; each of them must
+             hold HGMMA (wgmma) and no HMMA (mma.sync), spill nothing, and draw no ptxas
+             warning that it serialized its wgmma.
 3. kernels - holds K1/K2 against their plain torch versions on the card (small shapes,
-             saturation, per-batch kv_len, K1 at the Hopper tiles' edges: B = 2, Sq and
-             Skv of 127 and 129, and the main-path shapes), K3/K4/K5 (o and lse, dk and
-             dv, dq) in float32 and bf16 at 1000x777 and at the training self and cross
-             shapes, K4/K5 in bf16 at their tiles' edges (B = 2, Sq and Skv of 127 and
-             129, and Skv = 40), and K6 (int8 q and k) in float32 and bf16 at 1000x777
+             saturation, per-batch kv_len, both at the Hopper tiles' edges: B = 2, Sq and
+             Skv of 127 and 129, and the main-path self and cross shapes), K3/K4/K5 (o and
+             lse, dk and dv, dq) in float32 and bf16 at 1000x777 and at the training self
+             and cross shapes, K3/K4/K5 in bf16 at their tiles' edges (B = 2, Sq and Skv
+             of 127 and 129, and Skv = 40) and K3 with q and k x8 (a running max that
+             moves), and K6 (int8 q and k) in float32 and bf16 at 1000x777
              and at the tile edges with quantization tiles of 128 and 300, and at the main
              path's self and cross shapes; times kernel, plain version, K6's quantize step
              and SDPA (as a yardstick only) at the path shapes.
@@ -150,8 +152,9 @@ def phase_build():
                 spill = next((x for x in ptxas[i + 1:] if "spill" in x), "")
                 check(spill.startswith("0 bytes stack frame, 0 bytes spill stores"),
                       f"{stem}.cu: a Hopper kernel spills: {ln} {spill}")
-        check(not any("Performance Loss" in ln and "sm90_bwd" in ln for ln in ptxas),
-              f"{stem}.cu: ptxas serialized K4's or K5's wgmma: {ptxas}")
+        # C75xx: only the Hopper bodies issue wgmma.
+        check(not any("Performance Loss" in ln for ln in ptxas),
+              f"{stem}.cu: ptxas serialized a Hopper kernel's wgmma: {ptxas}")
     log("build", seconds=round(secs, 3), nvcc=_build.nvcc_path())
     found = set()
     for stem in ("flash_attention", "flash_attention_int8", "flash_attention_bwd"):
@@ -165,8 +168,8 @@ def phase_build():
 
 
 # Hopper kernel bodies in the SASS: a function-name fragment -> the kernel's name.
-SM90_BODIES = {"K1Policy": "K1", "K6Policy": "K6", "fa_sm90_bwd_dkv": "K4",
-               "fa_sm90_bwd_dq": "K5"}
+SM90_BODIES = {"K1Policy": "K1", "K2Policy": "K2", "K3Policy": "K3", "K6Policy": "K6",
+               "fa_sm90_bwd_dkv": "K4", "fa_sm90_bwd_dq": "K5"}
 
 
 def _sass_counts(lib_path):
@@ -236,8 +239,9 @@ def picked(fn):
 
 
 # The Hopper kernels' tile edges: 128-row q tiles and 128-key tiles, ragged at the end of
-# every batch row (Sq, Skv in {127, 129}, B = 2), and K1's kv_len (per batch row) on both
-# sides of a tile edge: no key, one short of a tile, exactly one tile, one key past it.
+# every batch row (Sq, Skv in {127, 129}, B = 2), and K1's and K2's kv_len (per batch row)
+# on both sides of a tile edge: no key, one short of a tile, exactly one tile, one key past
+# it.
 EDGES = (((127, 127), (0, 127)), ((127, 129), (128, 129)), ((129, 127), (127, 1)),
          ((129, 129), (0, 128)))
 
@@ -252,8 +256,8 @@ def phase_kernels():
 
 def _forward_kernels(timed=True):
     """K1/K2 vs their plain versions in float32 and bf16 (small shapes, saturation,
-    per-batch kv_len), K1 at the tile edges (EDGES), and both at the main path's shapes;
-    times kernel, plain version and SDPA (a yardstick only) at those shapes."""
+    per-batch kv_len), both at the tile edges (EDGES), and both at the main path's self
+    and cross shapes; times kernel, plain version and SDPA (a yardstick only) there."""
     from goal_force_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator("cuda").manual_seed(1234)
@@ -301,15 +305,21 @@ def _forward_kernels(timed=True):
             check(bool((got[0] == 0).all()), f"{kname} kv_len=0 row is not exactly 0")
             compare(f"{kname} kv_len=(0,300) {tag}", got, plain(qb, kb, vb, scale, kv_len=lens), **tol)
 
+    k1, k1_plain = fa.flash_attention_nomax, fa.flash_attention_nomax_plain
+    k2, k2_plain = fa.flash_attention_max, fa.flash_attention_max_plain
     for (sq, skv), lens in EDGES:
         q, k, v = (_rand((2, s, 2, 128), gen, torch.bfloat16) for s in (sq, skv, skv))
-        for kv_len, clamp in ((torch.tensor(lens, device="cuda"), fa.NOMAX_CLAMP), (None, None)):
-            got = fa.flash_attention_nomax(q, k, v, scale, kv_len=kv_len, clamp=clamp)
-            ref = fa.flash_attention_nomax_plain(q, k, v, scale, kv_len=kv_len, clamp=clamp)
-            if kv_len is not None and lens[0] == 0:
-                check(bool((got[0] == 0).all()), f"K1 edge {sq}x{skv}: kv_len=0 row is not 0")
-            compare(f"K1 edge (2,{sq},2,128)x(2,{skv},2,128) bf16 "
-                    f"{f'kv_len={lens}' if kv_len is not None else 'no clamp'}", got, ref,
+        kv_len = torch.tensor(lens, device="cuda")
+        for kname, kern, plain, kw, what in (
+                ("K1", k1, k1_plain, dict(kv_len=kv_len, clamp=fa.NOMAX_CLAMP), f"kv_len={lens}"),
+                ("K1", k1, k1_plain, dict(clamp=None), "no clamp"),
+                ("K2", k2, k2_plain, dict(kv_len=kv_len), f"kv_len={lens}"),
+                ("K2", k2, k2_plain, {}, "all keys")):
+            got = kern(q, k, v, scale, **kw)
+            ref = plain(q, k, v, scale, **kw)
+            if "kv_len" in kw and lens[0] == 0:
+                check(bool((got[0] == 0).all()), f"{kname} edge {sq}x{skv}: kv_len=0 row is not 0")
+            compare(f"{kname} edge (2,{sq},2,128)x(2,{skv},2,128) bf16 {what}", got, ref,
                     atol=bf16_limit(ref), rtol=0.0)
 
     # Main-path shapes, bf16: self-attention (K1; K2 on the unbounded path) and cross.
@@ -322,9 +332,8 @@ def _forward_kernels(timed=True):
              lambda a, b, c: fa.flash_attention_nomax_plain(a, b, c, scale)),
             ("K2", lambda a, b, c: fa.flash_attention_max(a, b, c, scale),
              lambda a, b, c: fa.flash_attention_max_plain(a, b, c, scale))):
-        shapes = [("self", k, v)] + ([("cross", ck, cv)] if kname == "K1" else [])
         rec = {}
-        for sname, kk, vv in shapes:
+        for sname, kk, vv in (("self", k, v), ("cross", ck, cv)):
             got = kern(q, kk, vv)
             ref = plain(q, kk, vv)
             err = compare(f"{kname} {sname} {tuple(q.shape)}x{tuple(kk.shape)} bf16", got, ref,
@@ -363,8 +372,8 @@ def kernel_bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
 def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
     """K3/K4/K5 vs their plain versions in float32 and bf16, at a shape with a padded q
     tile and a partly masked kv tile and at the training path's self and cross shapes,
-    then (bf16) K4/K5 at their tiles' edges; times kernel, plain version and SDPA (a
-    yardstick only) at the bf16 path shapes."""
+    then (bf16) K3/K4/K5 at their tiles' edges and K3 with q and k x8; times kernel,
+    plain version and SDPA (a yardstick only) at the bf16 path shapes."""
     from goal_force_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator("cuda").manual_seed(4321)
@@ -445,27 +454,39 @@ def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
             del q, k, v, do, o_ref, lse_ref, args, runs
             torch.cuda.empty_cache()
     if torch.bfloat16 in dtypes:
-        _backward_edges(gen, scale)
+        _training_edges(gen, scale, lse_tol)
     return out
 
 
-# The Hopper K4/K5 tiles: K4 takes 128 keys per CTA and walks 64-row q tiles, K5 takes 128
-# q rows per CTA and walks 64-key tiles. Sq and Skv of 127 and 129 (B = 2) leave ragged
-# tiles at every batch row's end; Skv = 40 leaves K4's second consumer warpgroup with no
-# key and K5's only key tile short.
+# The Hopper K3/K4/K5 tiles: K3 takes 128 q rows per CTA and walks 128-key tiles, K4 takes
+# 128 keys per CTA and walks 64-row q tiles, K5 takes 128 q rows per CTA and walks 64-key
+# tiles. Sq and Skv of 127 and 129 (B = 2) leave ragged tiles at every batch row's end;
+# Skv = 40 leaves K4's second consumer warpgroup with no key and K3's and K5's only key
+# tile short.
 BWD_EDGES = tuple(shape for shape, _ in EDGES) + ((129, 40),)
 
 
-def _backward_edges(gen, scale):
-    """K4 (dk, dv) and K5 (dq) in bf16 against their plain versions at BWD_EDGES, with the
-    plain forward's o and lse, to two bf16 ulps of the largest |ref| and the bias check."""
+def _training_edges(gen, scale, lse_tol):
+    """K3 (o, lse), K4 (dk, dv) and K5 (dq) in bf16 against their plain versions at
+    BWD_EDGES, K4/K5 with the plain forward's o and lse, to two bf16 ulps of the largest
+    |ref| and the bias check (lse to lse_tol); then K3 with q and k x8 at 1000x777, whose
+    logits (|s*scale| up to ~200) make the running max climb over the tiles, so alpha
+    rescales l and acc by factors far from 1."""
     from goal_force_tpu_torch.ops import flash_attention as fa
+
+    def k3(q, k, v, case):
+        (o, lse), n = picked(lambda: fa.flash_attention_fwd_lse(q, k, v, scale))
+        check(n == only(K3=1), f"K3 {case} launched {n}")
+        o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+        compare(f"K3 o {case}", o, o_ref, atol=bf16_limit(o_ref), rtol=0.0)
+        compare(f"K3 lse {case}", lse, lse_ref, **lse_tol)
+        return o_ref, lse_ref
 
     for sq, skv in BWD_EDGES:
         q, do = (_rand((2, sq, 2, 128), gen, torch.bfloat16) for _ in range(2))
         k, v = (_rand((2, skv, 2, 128), gen, torch.bfloat16) for _ in range(2))
-        o, lse = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
         case = f"edge (2,{sq},2,128)x(2,{skv},2,128) bf16"
+        o, lse = k3(q, k, v, case)
         (dk, dv), n = picked(lambda: fa.flash_attention_bwd_dkv(q, k, v, o, do, lse, scale))
         dq, n5 = picked(lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, scale))
         check(n == only(K4=1) and n5 == only(K5=1), f"K4/K5 {case} launched {n} / {n5}")
@@ -473,6 +494,10 @@ def _backward_edges(gen, scale):
         dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
         for name, got, ref in (("K4 dk", dk, dk_ref), ("K4 dv", dv, dv_ref), ("K5 dq", dq, dq_ref)):
             compare(f"{name} {case}", got, ref, atol=bf16_limit(ref), rtol=0.0)
+    q, k, v = (_rand(s, gen, torch.bfloat16, m) for s, m in (((1, 1000, 4, 128), 8.0),
+                                                            ((1, 777, 4, 128), 8.0),
+                                                            ((1, 777, 4, 128), 1.0)))
+    k3(q, k, v, "x8 (1,1000,4,128)x(1,777,4,128) bf16")
 
 
 PEAK_INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak (data sheet)
@@ -1187,7 +1212,7 @@ def main() -> int:
             ("K1 flash_attention_nomax", fwd, 241, main_launches["K1"],
              {"cross": measured["K1"]["cross"]}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
-             {"path": "unbounded (qk_bounded=False, q-norm x8)"}),
+             {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)"}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train"}),
             ("K4 flash_attention_bwd_dkv", train_src, 76, train_launches["K4"],

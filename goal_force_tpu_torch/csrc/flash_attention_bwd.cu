@@ -1,6 +1,6 @@
 // Flash-attention training kernels for Hopper (sm_90a), non-causal, head_dim 128.
 //
-// K3 `fa_fwd_lse_*` replaces goal_force_tpu/ops/flash_attention.py::_fa_kernel_fwd:
+// K3 `gf_fa_fwd_lse` replaces goal_force_tpu/ops/flash_attention.py::_fa_kernel_fwd:
 //    online-max forward in the natural exp domain. s = (q.k^T) * scale in f32 (the
 //    scale is NOT folded into q), p = exp(s - m), l and acc rescaled by
 //    alpha = exp(m_prev - m_next), o = acc / l, and lse = m + log(max(l, 1e-30)),
@@ -16,16 +16,21 @@
 //
 // Bound on the H100: at the training shapes (32,760 queries against 32,760 or 512
 // keys) K3 does 4, K4 8 and K5 6 * Sq*Skv*128 flops per (batch, head) on O(S*128)
-// bytes, so all three are bound by tensor-core operations. The bf16 K4 and K5 run on
-// the Hopper roles of flash_attention_bwd_sm90.cuh (TMA into an mbarrier ring fed by a
-// producer warp, every product by wgmma in two consumer warpgroups; K4 key-stationary
-// with its products transposed, K5 query-stationary), after `fa_bwd_di`, a pass that
-// computes di once per call from o and do. K3's bf16 body is still an mma.sync
-// m16n8k16 loop (fragments from ldmatrix, tiles double-buffered with cp.async), as K2
-// in flash_attention.cu. The f32 kernels are plain FMA loops for exact checks.
-//
-// The small PTX helpers of K3 are repeated from flash_attention.cu so that K1/K2's
-// source, and the library built from it, stay unchanged.
+// bytes, so all three are bound by tensor-core operations, which only wgmma reaches.
+// The bf16 K3 is a policy of the forward skeleton (flash_attention_sm90.cuh: a producer
+// warp feeds 128-key K/V tiles by TMA into an mbarrier ring, two consumer warpgroups of
+// 64 query rows run QK^T and PV by wgmma and take turns at the softmax, so one's
+// exponentials overlap the other's products): K1's bf16 tiles and QK^T without the q fold,
+// the online max of sm90::OnlineMax on the raw f32 accumulator, and an epilogue that writes
+// lse. Its exponential is one MUFU.EX2 per logit: p = ex2.approx(fma(s, c, -m*c)) and
+// alpha = ex2.approx((m_prev - m_next)*c) with c = scale*log2 e in f32, which differs from
+// exp(s*scale - m*scale) only in the float32 rounding of the argument, as in K4/K5 below;
+// expf would cost about 7 more instructions per logit in its range reduction. The bf16 K4
+// and K5 run on the Hopper roles of flash_attention_bwd_sm90.cuh (TMA into an mbarrier ring
+// fed by a producer warp, every product by wgmma in two consumer warpgroups; K4
+// key-stationary with its products transposed, K5 query-stationary), after `fa_bwd_di`, a
+// pass that computes di once per call from o and do. The f32 kernels are plain FMA loops
+// for exact checks.
 //
 // C interface (loaded with ctypes): every entry point returns cudaGetLastError()
 // after its launch, so a refused launch reaches the caller.
@@ -43,239 +48,34 @@ typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
 constexpr int HD = 128;            // head dim
-constexpr int LDS = HD + 8;        // padded smem row (bf16 elements): conflict-free ldmatrix
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;   // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  bf162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Loads ROWS rows of 128 bf16 starting at global row `row0` (row stride `gstride`
-// elements) into smem (row stride LDS); rows >= `valid` are zero-filled. 128 threads.
-template <int ROWS>
-__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g, int row0, int valid,
-                                          long long gstride) {
-#pragma unroll
-  for (int i = 0; i < ROWS * 16 / 128; ++i) {
-    int c = threadIdx.x + i * 128;
-    int r = c >> 4, col = (c & 15) * 8;
-    bool ok = row0 + r < valid;
-    const bf16* src = ok ? g + (long long)(row0 + r) * gstride + col : g;
-    cp_async16(sm + r * LDS + col, src, ok);
-  }
-}
-
-// A fragments (16 rows x 16 cols at k-chunk kk) of the warp's 16 rows starting at `row0`.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* sm, int row0, int kk, int lane) {
-  int row = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  int col = kk * 16 + (lane >> 4) * 8;
-  ldmatrix_x4(a, sm + row * LDS + col);
-}
-
-// s[0..2*NP) += A (16 x 128, fragments from `sa` at rows arow0..+15) . B^T, where B holds
-// 16*NP rows of 128 in smem `sb` (the n dimension is B's row index).
-template <int NP>
-__device__ __forceinline__ void mma_abt(float (*s)[4], const bf16* sa, int arow0, const bf16* sb,
-                                        int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    uint32_t a[4];
-    load_a(a, sa, arow0, kk, lane);
-#pragma unroll
-    for (int np = 0; np < NP; ++np) {
-      uint32_t b4[4];
-      int row = np * 16 + (lane & 7) + (lane >> 4) * 8;
-      int col = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(b4, sb + row * LDS + col);
-      mma_bf16(s[2 * np], a, b4[0], b4[1]);
-      mma_bf16(s[2 * np + 1], a, b4[2], b4[3]);
-    }
-  }
-}
-
-// acc[0..16) (16 x 128) += P (16 x 16*KC, given in accumulator layout as p[2*KC][4],
-// rounded to bf16 here) . B, where B holds 16*KC rows of 128 in smem `sb` (the k
-// dimension is B's row index; fragments by transposed ldmatrix).
-template <int KC>
-__device__ __forceinline__ void mma_pb(float (*acc)[4], const float (*p)[4], const bf16* sb,
-                                       int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < 8; ++dp) {
-      uint32_t b4[4];
-      int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      int col = dp * 16 + (lane >> 4) * 8;
-      ldmatrix_x4_trans(b4, sb + row * LDS + col);
-      mma_bf16(acc[2 * dp], pa, b4[0], b4[1]);
-      mma_bf16(acc[2 * dp + 1], pa, b4[2], b4[3]);
-    }
-  }
-}
-
-// Stores a warp's 16 x 128 f32 accumulator as bf16 rows r0 = row0 + g and r0 + 8.
-__device__ __forceinline__ void store_rows(bf16* out, const float (*acc)[4], long long base,
-                                           int row0, int valid, long long rs, int g, int t,
-                                           float mul0 = 1.f, float mul1 = 1.f) {
-  const int r0 = row0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r0 < valid)
-      *reinterpret_cast<bf162*>(out + base + (long long)r0 * rs + col) =
-          __floats2bfloat162_rn(acc[n][0] * mul0, acc[n][1] * mul0);
-    if (r1 < valid)
-      *reinterpret_cast<bf162*>(out + base + (long long)r1 * rs + col) =
-          __floats2bfloat162_rn(acc[n][2] * mul1, acc[n][3] * mul1);
-  }
-}
+using sm90::MASK_VALUE;
+using sm90::quad_sum;
 
 // ---------------------------------------------------------------------------
-// K3, bf16: 4 warps x 16 query rows, 64-key tiles double-buffered.
+// K3, bf16, on the forward skeleton.
 // ---------------------------------------------------------------------------
-constexpr int BQ = 64;
-constexpr int BK = 64;
 
-__global__ void __launch_bounds__(128, 2)
-fa_fwd_lse_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                int Sq, int Skv, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LDS;       // 2 stages
-  bf16* Vs = Ks + 2 * BK * LDS;   // 2 stages
+// ex2.approx with c = scale*log2 e: the natural exp of s*scale in one MUFU.EX2.
+struct NaturalDomain {
+  __device__ static float log2_factor(const sm90::Args& a) { return a.qscale; }
+  __device__ static float exp2(float x) { return sm90_bwd::ex2(x); }
+};
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long rs = (long long)N * HD;
-  const long long qbase = ((long long)b * Sq * N + h) * HD;
-  const bf16* kb = k + ((long long)b * Skv * N + h) * HD;
-  const bf16* vb = v + ((long long)b * Skv * N + h) * HD;
-  const int n_tiles = (Skv + BK - 1) / BK;
-  const int q0 = qt * BQ;
+struct K3Policy : sm90::Bf16QK {
+  __device__ static int kv_valid(const sm90::Args& a, int) { return a.Skv; }
+  __device__ static void prepare_q(const sm90::Args&, unsigned char*, int, int) {}   // no fold
 
-  load_rows<BQ>(Qs, q + qbase, q0, Sq, rs);
-  if (n_tiles > 0) {
-    load_rows<BK>(Ks, kb, 0, Skv, rs);
-    load_rows<BK>(Vs, vb, 0, Skv, rs);
-  }
-  cp_async_commit();
-
-  float acc[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;                 // partial row sums (rows g, g+8)
-  float m0 = -INFINITY, m1 = -INFINITY;     // running row max (natural-log domain)
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      load_rows<BK>(Ks + (stage ^ 1) * BK * LDS, kb, (j + 1) * BK, Skv, rs);
-      load_rows<BK>(Vs + (stage ^ 1) * BK * LDS, vb, (j + 1) * BK, Skv, rs);
+  struct State : sm90::OnlineMax<NaturalDomain> {
+    // lse = m*scale + log(max(l, 1e-30)) of rows r0 and r0 + 8, by one lane of the quad
+    // (m is the raw max; fl(m*scale) is the max of fl(s*scale), JAX's m).
+    __device__ void epilogue(const sm90::Args& a, int b, int h, int r0, int t) {
+      if (t != 0) return;
+      float* lb = a.lse + ((long long)b * a.N + h) * a.Sq;
+      if (r0 < a.Sq) lb[r0] = __fmul_rn(m0, a.scale) + logf(fmaxf(l0, 1e-30f));
+      if (r0 + 8 < a.Sq) lb[r0 + 8] = __fmul_rn(m1, a.scale) + logf(fmaxf(l1, 1e-30f));
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks + stage * BK * LDS;
-    const bf16* Vt = Vs + stage * BK * LDS;
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    mma_abt<4>(s, Qs, warp * 16, Kt, lane);
-
-    const int kbase = j * BK;
-    const bool straddles = kbase + BK > Skv;
-    float mx0 = MASK_VALUE, mx1 = MASK_VALUE;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] *= scale;
-        if (straddles && kbase + n * 8 + 2 * t + (e & 1) >= Skv) s[n][e] = MASK_VALUE;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      ps0 += s[n][0] + s[n][1];
-      ps1 += s[n][2] + s[n][3];
-    }
-    l0 = a0 * l0 + ps0;
-    l1 = a1 * l1 + ps1;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-    mma_pb<4>(acc, s, Vt, lane);   // acc += bf16(p) V
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  l0 += __shfl_xor_sync(0xffffffff, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffff, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffff, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffff, l1, 2);
-  store_rows(o, acc, qbase, q0 + warp * 16, Sq, rs, g, t, l0 == 0.f ? 1.f : 1.f / l0,
-             l1 == 0.f ? 1.f : 1.f / l1);
-  if (t == 0) {
-    const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-    float* lb = lse + ((long long)b * N + h) * Sq;
-    if (r0 < Sq) lb[r0] = m0 + logf(fmaxf(l0, 1e-30f));
-    if (r1 < Sq) lb[r1] = m1 + logf(fmaxf(l1, 1e-30f));
-  }
-}
+  };
+};
 
 // ---------------------------------------------------------------------------
 // The lse*log2 e / di scratch of K4 and K5, once per call: (2, B, N, rows) f32 with rows =
@@ -346,11 +146,6 @@ int launch_sm90(bool dkv, const void* q, const void* k, const void* v, const voi
 // ---------------------------------------------------------------------------
 constexpr int FB = 32;    // rows per CTA and keys per tile
 constexpr int FQ = 16;    // query rows per tile in the dK/dV kernel
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffff, x, 1);
-  return x + __shfl_xor_sync(0xffffffff, x, 2);
-}
 
 __global__ void __launch_bounds__(128)
 fa_fwd_lse_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -554,34 +349,31 @@ fa_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
 }  // namespace
 
 extern "C" {
 
 // K3: q/o (B, Sq, N, 128), k/v (B, Skv, N, 128), contiguous, all bf16 (is_bf16=1) or all
-// f32; lse (B, N, Sq) f32.
+// f32; lse (B, N, Sq) f32. bf16 takes the geometry array of
+// ops/flash_attention.py::sm90_geometry (host memory, int64); f32 ignores it.
 int gf_fa_fwd_lse(int is_bf16, const void* q, const void* k, const void* v, void* o, float* lse,
-                  int B, int Sq, int Skv, int N, float scale, void* stream) {
+                  int B, int Sq, int Skv, int N, float scale, const long long* geom, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const int smem = (BQ + 4 * BK) * LDS * static_cast<int>(sizeof(bf16));
-    set_smem(fa_fwd_lse_bf16, smem);
-    dim3 grid((Sq + BQ - 1) / BQ, N, B);
-    fa_fwd_lse_bf16<<<grid, 128, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, Sq, Skv, N, scale);
-  } else {
-    dim3 grid((Sq + FB - 1) / FB, N, B);
-    fa_fwd_lse_f32<<<grid, 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), lse, Sq, Skv, N, scale);
+    sm90::Args a{};
+    a.o = o;
+    a.lse = lse;
+    a.Sq = Sq;
+    a.Skv = Skv;
+    a.N = N;
+    a.qscale = scale * sm90_bwd::LOG2E;
+    a.scale = scale;
+    return sm90::launch<K3Policy>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, a, B, geom, st);
   }
+  dim3 grid((Sq + FB - 1) / FB, N, B);
+  fa_fwd_lse_f32<<<grid, 128, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, Sq, Skv, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,7 +39,7 @@
 namespace {
 
 constexpr int HD = 128;            // head dim (bytes of an int8 row)
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+using sm90::MASK_VALUE;
 
 // The softmax's exponential: the natural exp, as the TPU kernel takes it.
 __device__ __forceinline__ float softmax_exp(float x) { return expf(x); }
@@ -168,6 +168,7 @@ struct K6Policy {
       inv0 = s0 == 0.f ? 1.f : 1.f / s0;
       inv1 = s1 == 0.f ? 1.f : 1.f / s1;
     }
+    __device__ void epilogue(const sm90::Args&, int, int, int, int) {}
   };
 };
 

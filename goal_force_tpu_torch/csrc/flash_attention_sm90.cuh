@@ -1,6 +1,7 @@
-// The Hopper (sm_90a) forward skeleton shared by K1 (csrc/flash_attention.cu) and K6
-// (csrc/flash_attention_int8.cu): non-causal flash attention over the packed
-// (B, S, N, 128) layout, one CTA per (128 query rows, head, batch).
+// The Hopper (sm_90a) forward skeleton shared by K1 and K2 (csrc/flash_attention.cu), K3
+// (csrc/flash_attention_bwd.cu) and K6 (csrc/flash_attention_int8.cu): non-causal flash
+// attention over the packed (B, S, N, 128) layout, one CTA per (128 query rows, head,
+// batch).
 //
 // Roles. Warpgroup 0 is the producer: after `setmaxnreg.dec` to 24 registers, its first
 // warp loads Q once and then walks the key tiles, issuing TMA copies
@@ -42,7 +43,9 @@
 // K tile), kQRowBytes / kKRowBytes (one q or k row), kExtraBytes (per-slot table the
 // producer fills, e.g. K6's key scales), kv_valid(args, b), load_q / load_k (TMA issue),
 // produce_extra(...), prepare_q(...), qk_issue(...), and a State with init / softmax /
-// inv_l.
+// inv_l / epilogue (after o's normalisation, with the thread's rows r0 and r0 + 8; K3
+// writes the logsumexp there). The bf16 policies (K1, K2, K3) take their Q and K tiles,
+// loads and QK^T from Bf16QK below, and K2 and K3 their softmax from OnlineMax.
 //
 // The m64n64 wrappers and fence_regs32 below serve the training backward's roles
 // (flash_attention_bwd_sm90.cuh), which reuse this file's PTX wrappers and nothing else.
@@ -64,6 +67,7 @@ constexpr int THREADS = 384;     // producer warpgroup + two consumer warpgroups
 constexpr int HALF_BYTES = 128 * 128;          // one bf16 half tile: 128 rows x 128 bytes
 constexpr uint32_t V_BYTES = 2 * HALF_BYTES;   // one V tile (128 keys x 128 bf16)
 constexpr long long SMEM_LIMIT = 232448;
+constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;   // JAX's masked logit
 
 // ---------------------------------------------------------------------------------------
 // PTX wrappers
@@ -238,14 +242,15 @@ __device__ __forceinline__ void load_bf16_tile(uint32_t dst, const CUtensorMap* 
 
 struct Args {
   void* o;                  // (B, Sq, N, 128) bf16
-  const int* kv_len;        // K1: (B,) valid keys per batch row
+  const int* kv_len;        // K1, K2: (B,) valid keys per batch row
   const float* sq;          // K6: (B, N, Tq) q tile scales
   const float* sk;          // K6: (B, N, Tk) k tile scales
+  float* lse;               // K3: (B, N, Sq) f32 logsumexp
   int Sq, Skv, N, Tq, Tk, bq, bk;
-  float qscale;             // K1: scale*log2(e) in q's dtype
+  float qscale;             // K1, K2: scale*log2(e) in q's dtype; K3: in f32
   int use_clamp;            // K1
   float clamp;              // K1
-  float scale;              // K6
+  float scale;              // K3, K6
 };
 
 // Dynamic shared memory of one CTA: 1024 bytes of alignment slack, Q, STAGES x (K, V, the
@@ -389,6 +394,7 @@ fa_sm90_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUt
 
     float inv0, inv1;
     st.inv_l(inv0, inv1);
+    st.epilogue(a, b, h, r0, t);
     __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o);
     const long long rs = (long long)a.N * HD;
 #pragma unroll
@@ -403,6 +409,120 @@ fa_sm90_fwd(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUt
     }
   }
 }
+
+// ---------------------------------------------------------------------------------------
+// Building blocks of the bf16 policies
+// ---------------------------------------------------------------------------------------
+
+// bf16 q and k (K1, K2, K3): Q and K tiles of 128 rows x 128 bf16, each loaded as two
+// 64-column boxes, and QK^T by wgmma with both operands in shared memory.
+struct Bf16QK {
+  using Acc = float;
+  static constexpr uint32_t kQBytes = 2 * HALF_BYTES;    // 128 rows x 128 bf16
+  static constexpr uint32_t kKBytes = 2 * HALF_BYTES;
+  static constexpr uint32_t kExtraBytes = 0;
+  static constexpr int kQRowBytes = 2 * HD, kKRowBytes = 2 * HD;
+
+  __device__ static void load_q(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row0, int h,
+                                int b) {
+    load_bf16_tile(dst, m, bar, row0, h, b);
+  }
+  __device__ static void load_k(uint32_t dst, const CUtensorMap* m, uint32_t bar, int row0, int h,
+                                int b) {
+    load_bf16_tile(dst, m, bar, row0, h, b);
+  }
+  __device__ static void produce_extra(const Args&, unsigned char*, int, int, int, int) {}
+
+  // Issues S = Q K^T for this warpgroup's 64 rows x 128 keys: 8 k-steps of 16 head dims,
+  // the first four in the first 64-column half of Q and K, the last four in the second.
+  __device__ static void qk_issue(float* sc, uint32_t sQ, uint32_t sK, int cw) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk >> 2) * HALF_BYTES + (kk & 3) * 32;
+      wgmma_ss_bf16(sc, kmajor_desc(sQ + cw * 64 * 128 + off), kmajor_desc(sK + off), kk > 0);
+    }
+  }
+};
+
+// The online-max softmax of K2 and K3 (JAX's _fa_kernel and _fa_kernel_fwd) on one tile of
+// f32 logits s in the accumulator layout. E supplies the exponential E::exp2 and the factor
+// c = E::log2_factor(args) > 0 that takes a logit to the log2 domain (K2: 1, its q carries
+// scale*log2 e; K3: scale*log2 e). The running max m is kept on s as it is; c > 0, so
+// fl(m*c) is the max of fl(s*c). Per tile:
+//   s = MASK_VALUE for keys at or past `valid` (TMA zero-fills them: their logits load as
+//       0, not -inf), only in the tile that straddles `valid`;
+//   m_next = max(m, rowmax(s)), alpha = exp2((m - m_next)*c), p = exp2(fma(s, c, -m_next*c));
+//   l = alpha*l + rowsum(p), acc *= alpha (no PV product is in flight here; skipped when no
+//   alpha of the warp moved), and bf16(p) packed in the A-fragment order of the PV wgmma.
+template <class E>
+struct OnlineMax {
+  float l0, l1, m0, m1;   // partial row sums and running maxima (rows r0, r0 + 8)
+
+  __device__ void init(const Args&, int, int, int) {
+    l0 = l1 = 0.f;
+    m0 = m1 = -INFINITY;
+  }
+
+  __device__ void softmax(float* sc, uint32_t* pf, float* acc, const Args& a, int kbase,
+                          int valid, const float*, int t) {
+    if (kbase + BK > valid) {   // only the tile that straddles `valid` pays for the mask
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kbase + n * 8 + 2 * t + (e & 1) >= valid) sc[4 * n + e] = MASK_VALUE;
+    }
+    float mx0 = MASK_VALUE, mx1 = MASK_VALUE;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+    const float c = E::log2_factor(a);
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = E::exp2((m0 - mn0) * c), a1 = E::exp2((m1 - mn1) * c);
+    const float b0 = -(mn0 * c), b1 = -(mn1 * c);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      sc[4 * n] = E::exp2(fmaf(sc[4 * n], c, b0));
+      sc[4 * n + 1] = E::exp2(fmaf(sc[4 * n + 1], c, b0));
+      sc[4 * n + 2] = E::exp2(fmaf(sc[4 * n + 2], c, b1));
+      sc[4 * n + 3] = E::exp2(fmaf(sc[4 * n + 3], c, b1));
+      ps0 += sc[4 * n] + sc[4 * n + 1];
+      ps1 += sc[4 * n + 2] + sc[4 * n + 3];
+    }
+    l0 = a0 * l0 + ps0;
+    l1 = a1 * l1 + ps1;
+    if (__any_sync(0xffffffff, a0 != 1.f || a1 != 1.f)) {   // else acc * 1 == acc
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        acc[4 * n] *= a0;
+        acc[4 * n + 1] *= a0;
+        acc[4 * n + 2] *= a1;
+        acc[4 * n + 3] *= a1;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pf[4 * kk + 0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pf[4 * kk + 1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pf[4 * kk + 2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pf[4 * kk + 3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  }
+  // The row sums over the quad (kept in l0, l1 for the epilogue) and o's factors 1/l (1
+  // where l == 0: a row without a valid key writes 0).
+  __device__ void inv_l(float& inv0, float& inv1) {
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    inv0 = l0 == 0.f ? 1.f : 1.f / l0;
+    inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+  }
+  __device__ void epilogue(const Args&, int, int, int, int) {}
+};
 
 // ---------------------------------------------------------------------------------------
 // Host side: check the geometry, encode the maps, launch

@@ -32,13 +32,20 @@ with one float32 scale per (batch, head, tile of ``block`` rows); the kernel com
 s = float(q_i8.k_i8) * ((scale*s_q)*s_k) per (row, key), the online max with the natural
 exp, p rounded to V's dtype, float32 sums and o = acc * (1/l).
 
-The bf16 K1 and K6 run on the Hopper skeleton of ``csrc/flash_attention_sm90.cuh``
-(TMA, mbarrier ring, wgmma, producer/consumer warpgroups). Its host-side geometry (tiles,
-grid, tensor maps, shared memory) is computed here by ``sm90_geometry``, where the CPU
-tests reach it, and passed to the C entry point, which only checks it, encodes the maps
-and launches. The bf16 K4 and K5 run on the backward's Hopper roles
+Every kernel computes 4 (K1, K2, K3, K6), 6 (K5) or 8 (K4) products of Sq x Skv x 128
+per (batch, head) on O(S x 128) bytes, so it is bound by the tensor cores, which only
+``wgmma`` drives at their full rate. The bf16 K1, K2, K3 and K6 therefore run on the
+Hopper forward skeleton of ``csrc/flash_attention_sm90.cuh`` (a producer warp issues TMA
+loads into an mbarrier ring, two consumer warpgroups run both products with wgmma and
+take turns at the softmax), each as a policy that adds its softmax; K3's natural exp is
+``ex2.approx`` of s*(scale*log2 e) - m*(scale*log2 e), which differs from JAX's exp only
+in the float32 rounding of the argument. Their host-side geometry (tiles, grid, tensor
+maps, shared memory) is computed here by ``sm90_geometry``, where the CPU tests reach
+it, and passed to the C entry point, which only checks it, encodes the maps and launches.
+The bf16 K4 and K5 run on the backward's Hopper roles
 (``csrc/flash_attention_bwd_sm90.cuh``) after a pass that writes lse*log2(e) and di into
-a float32 scratch; their geometry comes from ``sm90_bwd_geometry`` in the same way.
+a float32 scratch; their geometry comes from ``sm90_bwd_geometry`` in the same way. The
+float32 kernels are plain FMA loops, for exact checks.
 
 A wrapper given CPU tensors computes the plain version (that is how the CPU tests run);
 given CUDA tensors it launches its kernel or raises. ``launch_counts`` counts kernel
@@ -70,7 +77,7 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Host-side geometry of the Hopper kernels (bf16 K1 and K6)
+# Host-side geometry of the Hopper kernels
 # ---------------------------------------------------------------------------
 
 SM90_TILE = 128             # query rows per CTA and keys per tile
@@ -118,14 +125,15 @@ def _packed_map(b: int, s: int, n: int, itemsize: int, rows: int) -> TensorMap:
 
 
 def sm90_geometry(kernel: str, b: int, sq: int, skv: int, n: int) -> Sm90Geometry:
-    """Tiles, grid, tensor maps and shared memory of the Hopper K1 ("K1": bf16 q/k/v) or
-    K6 ("K6": int8 q/k codes, bf16 v). One CTA per (128 query rows, head, batch row);
-    each map is rank 4 so that TMA clips at each batch row's own end. Shared memory:
-    1024 bytes of alignment slack, the Q tile, per ring slot a K tile, a V tile and (K6)
-    a table of 128 float32 k scales, and 1 + 3 x stages mbarriers of 8 bytes."""
-    if kernel not in ("K1", "K6"):
+    """Tiles, grid, tensor maps and shared memory of a kernel on the Hopper forward
+    skeleton: "K1", "K2" or "K3" (bf16 q/k/v) or "K6" (int8 q/k codes, bf16 v). One CTA
+    per (128 query rows, head, batch row); each map is rank 4 so that TMA clips at each
+    batch row's own end. Shared memory: 1024 bytes of alignment slack, the Q tile, per
+    ring slot a K tile, a V tile and (K6) a table of 128 float32 k scales, and 1 + 3 x
+    stages mbarriers of 8 bytes."""
+    if kernel not in ("K1", "K2", "K3", "K6"):
         raise ValueError(f"sm90_geometry: unknown kernel {kernel!r}")
-    qk_size = 2 if kernel == "K1" else 1
+    qk_size = 1 if kernel == "K6" else 2
     t = SM90_TILE
     extra = 4 * t if kernel == "K6" else 0
     q_tile, k_tile, v_tile = t * HEAD_DIM * qk_size, t * HEAD_DIM * qk_size, t * HEAD_DIM * 2
@@ -281,6 +289,14 @@ def _kernel_args(q, k, v, kv_len):
     return (q, k, v, lens), out, ptrs, dims, stream
 
 
+def _fwd_geometry(name: str, q, k, v):
+    """bf16: the skeleton's geometry array, after TMA's alignment check; float32: None."""
+    if q.dtype != torch.bfloat16:
+        return None
+    _check_tma_aligned(name, (q, k, v))
+    return sm90_geometry(name, q.shape[0], q.shape[1], k.shape[1], q.shape[2]).as_array()
+
+
 def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_gf_typed", False):
@@ -288,7 +304,7 @@ def _lib():
         g = ctypes.POINTER(ctypes.c_longlong)
         lib.gf_fa_nomax.argtypes = [i, p, p, p, p, p, i, i, i, i, f, i, f, g, p]
         lib.gf_fa_nomax.restype = i
-        lib.gf_fa_max.argtypes = [i, p, p, p, p, p, i, i, i, i, f, p]
+        lib.gf_fa_max.argtypes = [i, p, p, p, p, p, i, i, i, i, f, g, p]
         lib.gf_fa_max.restype = i
         lib._gf_typed = True
     return lib
@@ -301,10 +317,7 @@ def flash_attention_nomax(q, k, v, scale: float, kv_len=None,
     if q.device.type == "cpu":
         return flash_attention_nomax_plain(q, k, v, scale, kv_len, clamp)
     keep, out, ptrs, dims, stream = _kernel_args(q, k, v, kv_len)
-    geom = None
-    if q.dtype == torch.bfloat16:
-        _check_tma_aligned("K1", keep[:3])
-        geom = sm90_geometry("K1", q.shape[0], q.shape[1], k.shape[1], q.shape[2]).as_array()
+    geom = _fwd_geometry("K1", *keep[:3])
     rc = _lib().gf_fa_nomax(int(q.dtype == torch.bfloat16), *ptrs, *dims,
                             fold_constant(scale, q.dtype), int(clamp is not None),
                             float(clamp or 0.0), geom, stream)
@@ -321,7 +334,7 @@ def flash_attention_max(q, k, v, scale: float, kv_len=None) -> torch.Tensor:
         return flash_attention_max_plain(q, k, v, scale, kv_len)
     keep, out, ptrs, dims, stream = _kernel_args(q, k, v, kv_len)
     rc = _lib().gf_fa_max(int(q.dtype == torch.bfloat16), *ptrs, *dims,
-                          fold_constant(scale, q.dtype), stream)
+                          fold_constant(scale, q.dtype), _fwd_geometry("K2", *keep[:3]), stream)
     if rc != 0:
         raise RuntimeError(f"K2 flash-attention launch failed: CUDA error {rc}")
     launch_counts["K2"] += 1
@@ -404,7 +417,7 @@ def _bwd_lib():
     if not getattr(lib, "_gf_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         g = ctypes.POINTER(ctypes.c_longlong)
-        lib.gf_fa_fwd_lse.argtypes = [i, p, p, p, p, p, i, i, i, i, f, p]
+        lib.gf_fa_fwd_lse.argtypes = [i, p, p, p, p, p, i, i, i, i, f, g, p]
         lib.gf_fa_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, g, p]
         lib.gf_fa_bwd_dq.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, f, g, p]
         for fn in (lib.gf_fa_fwd_lse, lib.gf_fa_bwd_dkv, lib.gf_fa_bwd_dq):
@@ -413,28 +426,25 @@ def _bwd_lib():
     return lib
 
 
-def _launch(name: str, fn, tensors, q, k, scale: float) -> None:
-    """Calls a C entry point of flash_attention_bwd.cu on contiguous CUDA tensors."""
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash attention kernels run on CUDA tensors, got {q.device}")
-    b, sq, n, _ = q.shape
-    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    rc = fn(int(q.dtype == torch.bfloat16), *[ctypes.c_void_p(t.data_ptr()) for t in tensors],
-            b, sq, k.shape[1], n, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} flash-attention launch failed: CUDA error {rc}")
-    launch_counts[name] += 1
-
-
 def flash_attention_fwd_lse(q, k, v, scale: float):
     """K3: (o, lse) with o like q and lse (B, N, Sq) float32."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash attention kernels run on CUDA tensors, got {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, sq, n, _ = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
-    _launch("K3", _bwd_lib().gf_fa_fwd_lse, (q, k, v, o, lse), q, k, scale)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _bwd_lib().gf_fa_fwd_lse(int(q.dtype == torch.bfloat16),
+                                  *[ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, lse)],
+                                  b, sq, k.shape[1], n, float(scale),
+                                  _fwd_geometry("K3", q, k, v), stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 flash-attention launch failed: CUDA error {rc}")
+    launch_counts["K3"] += 1
     return o, lse
 
 

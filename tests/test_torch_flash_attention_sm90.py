@@ -1,5 +1,5 @@
-"""The Hopper K1, K4, K5 and K6: their host-side geometry, and their plain versions at
-the tiles' edges against the JAX Pallas kernels (interpret mode, CPU).
+"""The Hopper K1-K6: their host-side geometry, and their plain versions at the tiles'
+edges against the JAX Pallas kernels (interpret mode, CPU).
 
 ``sm90_geometry`` computes the tiles, grid, tensor maps and shared memory that the C
 entry points only check, encode and launch with; here a small model of a TMA box copy
@@ -41,14 +41,14 @@ def _rand(shape, seed, mult=1.0):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("sq,tiles", [(127, 1), (128, 1), (129, 2), (1000, 8), (32760, 256)])
-@pytest.mark.parametrize("kernel", ["K1", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K6"])
 def test_q_tiles_per_batch_row(kernel, sq, tiles):
     g = tfa.sm90_geometry(kernel, 2, sq, 512, 40)
     assert g.grid == (tiles, 40, 2)
     assert g.bq == g.bk == 128 and g.threads == 384
 
 
-@pytest.mark.parametrize("kernel,qk_size", [("K1", 2), ("K6", 1)])
+@pytest.mark.parametrize("kernel,qk_size", [("K1", 2), ("K2", 2), ("K3", 2), ("K6", 1)])
 def test_maps_are_rank4_over_the_packed_layout(kernel, qk_size):
     b, sq, skv, n = 2, 32760, 512, 40
     g = tfa.sm90_geometry(kernel, b, sq, skv, n)
@@ -64,6 +64,8 @@ def test_maps_are_rank4_over_the_packed_layout(kernel, qk_size):
 
 
 @pytest.mark.parametrize("kernel,smem", [("K1", 1024 + 32768 + 2 * 65536 + 56),
+                                         ("K2", 1024 + 32768 + 2 * 65536 + 56),
+                                         ("K3", 1024 + 32768 + 2 * 65536 + 56),
                                          ("K6", 1024 + 16384 + 2 * (16384 + 32768 + 512) + 56)])
 def test_shared_memory_budget(kernel, smem):
     g = tfa.sm90_geometry(kernel, 1, 300, 300, 2)
@@ -100,7 +102,7 @@ def test_an_edited_header_rebuilds(tmp_path, monkeypatch):
 
 def test_unknown_kernel_is_refused():
     with pytest.raises(ValueError):
-        tfa.sm90_geometry("K2", 1, 128, 128, 1)
+        tfa.sm90_geometry("K7", 1, 128, 128, 1)
 
 
 def _tma_box(flat: np.ndarray, m, coords):
@@ -118,7 +120,7 @@ def _tma_box(flat: np.ndarray, m, coords):
     return out
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K6"])
 @pytest.mark.parametrize("sq,skv", [(129, 127), (127, 129)])
 def test_boxes_read_each_batch_rows_own_tiles(kernel, sq, skv):
     """Every q, k and v box of every batch row reads exactly that batch row's rows of
@@ -191,6 +193,27 @@ def test_k1_plain_without_clamp_matches_jax_at_tile_edges(sq, skv):
         ref = jax_flash(q, k, v, scale=H**-0.5, block_q=128, block_k=128)
     got = tfa.flash_attention_nomax(tq, tk, tv, H**-0.5, clamp=None).numpy()
     np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("sq,skv,lens", list(_k1_cases()))
+def test_k2_plain_matches_jax_at_tile_edges(sq, skv, lens):
+    """x40 inputs put the logit bound past NOMAX_BOUND, so "auto" takes JAX's _fa_kernel
+    and the port's K2, with kv_len 0, 127, 128 and 129. Float32; the logits reach ~1e4 in
+    the log2 domain, where float32 sums in another order differ by ~1e-3, so the limit is
+    that of test_torch_flash_attention.py for x40 inputs (2e-3)."""
+    B, N = 2, 2
+    (q, k, v), (tq, tk, tv) = _both(_rand((B, sq, N, H), 9, 40.0), _rand((B, skv, N, H), 10, 40.0),
+                                    _rand((B, skv, N, H), 11))
+    assert float(tfa.logit_bound(tq, tk, tv, H**-0.5)) >= tfa.NOMAX_BOUND
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash(q, k, v, scale=H**-0.5, block_q=128, block_k=128,
+                        kv_len=jnp.asarray(lens, jnp.int32))
+    got = tfa.flash_attention(tq, tk, tv, H**-0.5, kv_len=torch.tensor(lens)).numpy()
+    np.testing.assert_array_equal(
+        got, tfa.flash_attention_max(tq, tk, tv, H**-0.5, kv_len=torch.tensor(lens)).numpy())
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=2e-3)
+    if lens[0] == 0:
+        assert (got[0] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -336,3 +359,79 @@ def test_k4_k5_plain_match_jax_backward_at_tile_edges(sq, skv, dtype):
         atol = 5e-5 if dtype == "float32" else \
             2 * 2.0 ** (math.floor(math.log2(float(np.abs(ref).max()))) - 7)
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The training forward's Hopper K3
+# ---------------------------------------------------------------------------
+
+def _jax_forward_lse(q, k, v, scale):
+    """JAX's K3 (_fa_forward with lse, interpret mode): o, and lse as (B, N, Sq)."""
+    b, sq, n, _ = q.shape
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = _fa_forward(q, k, v, scale, 128, 128, with_lse=True)
+    return _to_np(o), np.asarray(lse)[:, :sq, 0].reshape(b, n, sq)
+
+
+def _two_bf16_ulps(ref):
+    return 2 * 2.0 ** (math.floor(math.log2(float(np.abs(ref).max()))) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv", EDGES + [(129, 40)])
+def test_k3_plain_matches_jax_forward_at_tile_edges(sq, skv, dtype):
+    """K3's plain version (o, lse) against JAX _fa_forward(with_lse=True) at B = 2 with
+    ragged last q and key tiles (Skv = 40: one short key tile). The tolerances of
+    test_torch_flash_attention_bwd.py: o to 2e-5 in float32 and to two bf16 ulps of the
+    largest |o| in bf16 (the same float32 sums rounded), lse to 1e-5 (float32 logs of
+    float32 sums)."""
+    B, N = 2, 2
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    q, k, v = (jnp.asarray(_rand((B, s, N, H), seed)).astype(jdt)
+               for s, seed in ((sq, 24), (skv, 25), (skv, 26)))
+    o_ref, lse_ref = _jax_forward_lse(q, k, v, H**-0.5)
+    tq, tk, tv = (torch.from_numpy(_to_np(x)).to(tdt) for x in (q, k, v))
+    o, lse = tfa.flash_attention_fwd_lse(tq, tk, tv, H**-0.5)
+    assert o.dtype == tdt and tuple(lse.shape) == (B, N, sq) and lse.dtype == torch.float32
+    atol = 2e-5 if dtype == "float32" else _two_bf16_ulps(o_ref)
+    np.testing.assert_allclose(o.float().numpy(), o_ref, rtol=0, atol=atol)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, rtol=0, atol=1e-5)
+
+
+def _k3_exp2_model(q, k, v, scale):
+    """The card's K3 arithmetic in torch float32: raw float32 logits s and their row max m;
+    c = fl(scale*log2 e); p = exp2(fl(s*c - fl(m*c))), the FFMA modelled in float64 (the
+    product of two float32 values is exact there) and rounded once to float32; l =
+    rowsum(p); o = (bf16(p) v) / l in q's dtype; lse = fl(m*scale) + log(max(l, 1e-30)).
+    torch's exp2 stands in for ex2.approx (which is within 2 float32 ulps of it)."""
+    f32 = torch.float32
+    s = torch.einsum("bsnh,btnh->bnst", q.float(), k.float())
+    m = s.amax(dim=-1, keepdim=True)
+    c = torch.tensor(scale * tfa.LOG2E, dtype=f32)
+    p = torch.exp2((s.double() * c.double() - (m * c).double()).to(f32))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bnst,btnh->bsnh", p.to(v.dtype).float(), v.float())
+    o = (acc / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+    lse = m[..., 0] * torch.tensor(scale, dtype=f32) + torch.log(l.clamp(min=1e-30))
+    return o, lse
+
+
+@pytest.mark.parametrize("mult", [1.0, 8.0])
+def test_k3_exp2_form_stays_within_the_cards_limits(mult):
+    """The card's K3 takes p = ex2.approx(fma(s, c, -m*c)) with c = scale*log2 e where JAX
+    takes exp(s*scale - m*scale): the two differ in the float32 rounding of the argument,
+    which grows with the logits. A model of the card's form in bf16 at 1000x777, with q
+    and k x1 and x8 (logits up to ~200), stays within the limits chip_smoke.py holds the
+    card's K3 to, here against JAX's form: o within two bf16 ulps of the largest |o| with a
+    mean signed error under 5e-4 of the mean |o|, lse within 1e-5 + 1e-5 |lse|."""
+    q, k, v = (jnp.asarray(_rand(s, seed, m)).astype(jnp.bfloat16)
+               for s, seed, m in (((1, 1000, 2, H), 30, mult), ((1, 777, 2, H), 31, mult),
+                                  ((1, 777, 2, H), 32, 1.0)))
+    o_ref, lse_ref = _jax_forward_lse(q, k, v, H**-0.5)
+    o, lse = _k3_exp2_model(*(torch.from_numpy(_to_np(x)).to(torch.bfloat16) for x in (q, k, v)),
+                            H**-0.5)
+    err = o.float().numpy() - o_ref
+    assert np.abs(err).max() <= _two_bf16_ulps(o_ref)
+    assert abs((err * np.sign(o_ref)).mean()) <= 5e-4 * np.abs(o_ref).mean()
+    np.testing.assert_allclose(lse.numpy(), lse_ref, rtol=1e-5, atol=1e-5)

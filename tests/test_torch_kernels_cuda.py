@@ -117,7 +117,7 @@ def test_int8_kernel_matches_plain_on_card(cuda_device, dtype, block):
     torch.testing.assert_close(got.float(), ref.float(), **tol)
 
 
-# The Hopper K1/K6 tiles are 128 query rows by 128 keys: Sq and Skv of 127 and 129 make
+# The Hopper K1/K2/K6 tiles are 128 query rows by 128 keys: Sq and Skv of 127 and 129 make
 # the last q and key tiles of every batch row ragged; kv_len lands on both sides of a
 # tile edge (no key, one short of a tile, exactly one tile, one key past it).
 EDGES = [((127, 127), (0, 127)), ((127, 129), (128, 129)), ((129, 127), (127, 1)),
@@ -136,6 +136,20 @@ def test_k1_matches_plain_at_tile_edges(cuda_device, shape, lens):
         torch.testing.assert_close(got.float(), ref.float(), atol=_bf16_limit(ref), rtol=0)
     if lens[0] == 0:
         assert (tfa.flash_attention_nomax(q, k, v, H**-0.5, kv_len=kv_len)[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lens", EDGES)
+def test_k2_matches_plain_at_tile_edges(cuda_device, shape, lens):
+    sq, skv = shape
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, sq, skv, 2, seed=10)
+    kv_len = torch.tensor(lens, device=cuda_device)
+    for kw in (dict(kv_len=kv_len), {}):
+        got = tfa.flash_attention_max(q, k, v, H**-0.5, **kw)
+        ref = tfa.flash_attention_max_plain(q, k, v, H**-0.5, **kw)
+        torch.testing.assert_close(got.float(), ref.float(), atol=_bf16_limit(ref), rtol=0)
+    if lens[0] == 0:
+        assert (tfa.flash_attention_max(q, k, v, H**-0.5, kv_len=kv_len)[0] == 0).all()
 
 
 @pytest.mark.cuda
@@ -168,6 +182,18 @@ def test_flash_int8_attention_launches_k6_only(cuda_device):
 # The Hopper K4 takes 128 keys per CTA and walks 64-row q tiles, K5 takes 128 q rows per CTA
 # and walks 64-key tiles: Sq and Skv of 127 and 129 leave ragged tiles at every batch row's
 # end, Skv = 40 leaves K4's second warpgroup without a key and K5's only key tile short.
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv", [(127, 127), (127, 129), (129, 127), (129, 129), (129, 40)])
+def test_k3_matches_plain_at_tile_edges(cuda_device, sq, skv):
+    """K3 takes 128 q rows per CTA and walks 128-key tiles: ragged last tiles at every batch
+    row's end, and Skv = 40 a single short key tile."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, sq, skv, 2, seed=11)
+    o, lse = tfa.flash_attention_fwd_lse(q, k, v, H**-0.5)
+    o_ref, lse_ref = tfa.flash_attention_fwd_lse_plain(q, k, v, H**-0.5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=_bf16_limit(o_ref), rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv", [(127, 127), (127, 129), (129, 127), (129, 129), (129, 40)])
 def test_backward_kernels_match_plain_at_tile_edges(cuda_device, sq, skv):
