@@ -31,19 +31,32 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
              are reset just before and read just after.
-8. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
+8. cli     - the reference contract at main's widths and depth: main's weights saved in
+             the reference formats (the high-noise expert as 2 bf16 safetensors shards
+             read through a glob, umt5 and the VAE as .pth, the VAE under "model.", a
+             step-K ControlNet checkpoint with non-zero zero convs), one CSV row and an
+             832x480 PNG; the CLI's functions (from_pretrained with a SentencePiece
+             tokenizer directory and host staging) answer the row in 4 steps, which must
+             equal main's pipeline's frames for the same sample, tokenizer and seed; the
+             row's five artifacts are written; the files are deleted.
+9. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
              so the runtime logit bound routes self-attention to K2.
-9. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
+10. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
              attn_impl="flash_int8": the same two requests, 48 K6 launches each and no
              other, and the frames' mean distance from main's bf16 frames.
-10. train  - frees the serving pipeline and trains the ControlNet at full A14B width
+11. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
              the frozen models, the checkpoint and the launches per step, and logs the
              stage split and peak memory.
-11. full_int8 - full A14B depth on one card (40 DiT + 10 ControlNet layers per expert,
+12. full_int8 - full A14B depth on one card (40 DiT + 10 ControlNet layers per expert,
              24-layer umt5-xxl, full VAE), W8A8 + K6: one 2-step request across the
              expert switch, 100 K6 launches per step; logs init, stages and peak memory.
+13. full_bf16 - full A14B depth in bf16 on one card: the low-noise pair is built and
+             staged to pinned host memory before the high-noise pair is built; two
+             identical 2-step requests (3 swaps, 200 K1 launches each), the second of
+             which must repeat the first step for step; logs init, stages, each swap and
+             peak memory.
 
 The second-to-last line is nvidia-smi's "name, power.limit"; before it, one JSON line
 lists each kernel's launches, error and times; the last line is the result JSON.
@@ -750,6 +763,151 @@ def phase_main():
     return pipe, launches, frames
 
 
+CLI_HEADER = ("image,caption,projectile_force_magnitude,projectile_force_angle,"
+              "projectile_coordx,projectile_coordy,width,height,"
+              "target_indirect_force_magnitude,target_indirect_force_angle,target_coordx,"
+              "target_coordy,projectile_mass,target_mass")
+CLI_ROW = "table.png,{},220.0,35,300,200.0,832,480,120,80,520,260,2.0,3"
+CLI_ATOL = 1e-3      # frames of the CLI's load vs the in-memory pipeline (0 expected)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_cli(pipe):
+    """The reference contract at full width: main's pipeline's weights saved in the
+    reference formats (the high-noise expert as 2 bf16 safetensors shards read through a
+    glob, the low-noise one as one file, umt5 as a .pth, the VAE as a .pth under
+    "model.", a step-K ControlNet checkpoint with non-zero zero convs), one CSV row and
+    an 832x480 PNG written with the port's writer, and the CLI's functions (load_pipeline
+    -> from_pretrained with a SentencePiece tokenizer directory and host staging,
+    row_samples, answer_row, write_row) answering the row in 4 steps. The frames must
+    equal main's pipeline answering the same sample with the same tokenizer and seed."""
+    import gc
+    import shutil
+    import tempfile
+
+    from goal_force_tpu_torch.data.video_io import save_image
+    from goal_force_tpu_torch.io import safetensors_io as sio
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.scripts import infer
+
+    pc = pipe.pipe_cfg
+    cn = pipe.models["controlnet"]
+    zero = [(zc.weight.clone(), zc.bias.clone()) for zc in cn.controlnet_zero_convs_after]
+    tokenizer = pipe.tokenizer
+    tmp = tempfile.mkdtemp(prefix="gf_cli_")
+    try:
+        _perturb_zero_convs(cn, 17)          # a trained checkpoint's zero convs
+        t0 = time.perf_counter()
+        high = pipe.models["dit"].state_dict()
+        keys = sorted(high)
+        for i in range(2):
+            sio.save_safetensors({k: high[k] for k in keys[i::2]}, os.path.join(
+                tmp, "high", f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
+        sio.save_safetensors(pipe.models["dit2"].state_dict(),
+                             os.path.join(tmp, "low", "diffusion_pytorch_model.safetensors"))
+        torch.save({k: v.cpu() for k, v in pipe.models["t5"].state_dict().items()},
+                   os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth"))
+        torch.save({"model." + k: v.cpu() for k, v in pipe.models["vae"].state_dict().items()},
+                   os.path.join(tmp, "Wan2.1_VAE.pth"))
+        ckpt = os.path.join(tmp, "ckpt", "step-3.safetensors")
+        sio.save_safetensors(sio.export_goalforce_controlnet(cn), ckpt)
+        write_s = time.perf_counter() - t0
+        weight_bytes = _dir_bytes(tmp)
+        tok_dir = os.path.join(tmp, "umt5_tokenizer")
+        os.makedirs(tok_dir)
+        src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goal_force_tpu",
+                           "tokenizer_assets", "cog", "tokenizer")
+        for name in ("spiece.model", "added_tokens.json"):
+            shutil.copy(os.path.join(src, name), tok_dir)
+        image, _ = _request_inputs(41, 1, pc.height, pc.width, pc)
+        save_image(image, os.path.join(tmp, "examples", "images", "table.png"))
+        csv_path = os.path.join(tmp, "examples", "rows.csv")
+        with open(csv_path, "w") as f:
+            f.write(CLI_HEADER + "\n" + CLI_ROW.format(PROMPTS[0]) + "\n")
+        log("cli", stage="files", seconds=write_s, bytes=weight_bytes,
+            files=sorted(os.path.relpath(os.path.join(d, x), tmp)
+                         for d, _, fs in os.walk(tmp) for x in fs))
+        args = infer.parse_args([
+            "--high_noise_model", os.path.join(tmp, "high", "diffusion_pytorch_model-*.safetensors"),
+            "--low_noise_model", os.path.join(tmp, "low", "diffusion_pytorch_model.safetensors"),
+            "--t5_path", os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth"),
+            "--vae_path", os.path.join(tmp, "Wan2.1_VAE.pth"), "--tokenizer_path", tok_dir,
+            "--model_ckpt_path", ckpt, "--example_paths", csv_path,
+            "--output_dir", os.path.join(tmp, "out"), "--num_inference_steps", str(STEPS),
+            "--controlnet_num_layers", str(pipe.cn_cfg.num_layers), "--seed", "7"])
+        loaded, load_s = sync_time(lambda: infer.load_pipeline(args, dit_cfg=pipe.dit_cfg,
+                                                               t5_cfg=pipe.t5_cfg))
+        lm = loaded.models
+        same = {}
+        for k in ("dit", "dit2", "t5", "vae", "controlnet"):
+            want = pipe.models[k].state_dict()
+            same[k] = all(torch.equal(t, want[n].to(t.device))
+                          for n, t in lm[k].state_dict().items())
+        cn2_zero = all(not zc.weight.any() and not zc.bias.any()
+                       for zc in lm["controlnet2"].controlnet_zero_convs_after)
+        cn_ckpt = all(torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
+                      for a, b in zip(lm["controlnet"].controlnet_zero_convs_after,
+                                      cn.controlnet_zero_convs_after))
+        standby_pinned = all(not t.is_cuda and t.is_pinned()
+                             for k in ("dit2", "controlnet2") for t in lm[k].state_dict().values())
+        log("cli", stage="load", seconds=load_s, tokenizer=type(loaded.tokenizer).__name__,
+            staged=loaded._stager is not None, standby_pinned=standby_pinned,
+            weights_equal_main=same, controlnet2_zero_convs_zero=cn2_zero,
+            controlnet_zero_convs_from_checkpoint=cn_ckpt,
+            memory_gb=torch.cuda.memory_allocated() / 2**30)
+        check(all(same.values()), f"cli: loaded weights differ from main's: {same}")
+        check(cn2_zero and cn_ckpt, "cli: the ControlNets' zero convs are not as loaded")
+        check(loaded._stager is not None and standby_pinned,
+              "cli: the low-noise pair is not staged in pinned host memory")
+        samples = list(infer.row_samples(csv_path, args, loaded.pipe_cfg))
+        check(len(samples) == 1, f"cli: {len(samples)} samples from one row")
+        sample = samples[0]
+        swaps = []
+        real_swap = loaded._stager.swap
+        loaded._stager.swap = lambda: swaps.append(sync_time(real_swap)[1])
+        stage_times = []
+        _instrument(loaded, stage_times)
+        fa.reset_launch_counts()
+        frames, answer_s = sync_time(lambda: infer.answer_row(loaded, sample, args))
+        launches = dict(fa.launch_counts)
+        _uninstrument(loaded)
+        check(launches == only(K1=K1_PER_REQUEST), f"cli launched {launches}")
+        out_dir, step = infer.output_dir(args)
+        base = infer.row_base(sample, args, out_dir, step)
+        infer.write_row(sample, frames, base, loaded.pipe_cfg)
+        written = {k: os.path.exists(base + k) for k in infer.ARTIFACTS}
+        pipe.tokenizer, pipe.pipe_cfg = loaded.tokenizer, loaded.pipe_cfg
+        del loaded, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = infer.answer_row(pipe, sample, args, progress=False)
+        err = float(np.abs(frames - ref).max())
+        check(frames.shape == (pc.num_frames, pc.height, pc.width, 3)
+              and bool(np.isfinite(frames).all()) and 0.0 <= frames.min()
+              and frames.max() <= 1.0, "cli: bad frames")
+        log("cli", stage="request", seconds=answer_s, stages=dict(stage_times),
+            swap_seconds=swaps, launches=launches, max_abs_err_vs_main=err, atol=CLI_ATOL,
+            frames_mean=float(frames.mean()), ok=err <= CLI_ATOL)
+        log("cli", stage="artifacts", base=os.path.basename(base),
+            written=sorted(k for k, v in written.items() if v),
+            not_written=sorted(k for k, v in written.items() if not v),
+            sizes={k: os.path.getsize(base + k) for k, v in written.items() if v})
+        check(err <= CLI_ATOL, f"cli: frames differ from main's by {err}")
+        check(len(swaps) == 1, f"cli: {len(swaps)} swaps in one request")
+        check(all(written.values()), f"cli: artifacts not written: {written}")
+    finally:
+        with torch.no_grad():
+            for zc, (w, b) in zip(cn.controlnet_zero_convs_after, zero):
+                zc.weight.copy_(w)
+                zc.bias.copy_(b)
+        pipe.tokenizer, pipe.pipe_cfg = tokenizer, pc
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 QPATHS = ("self_attn", "cross_attn", "ffn")     # the block linears JAX quantizes
 FP8_LINEAR_RTOL = 2e-3    # the card's fp8 sums of 5120 products: 1.2e-4 measured
 QUANTIZED = ("dit", "dit2", "controlnet", "controlnet2")
@@ -948,7 +1106,7 @@ def phase_full_int8():
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     pipe = GoalForcePipeline(dit_cfg, t5_cfg, vae_cfg, cn_cfg, C.PipelineConfig(), models,
-                             load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len),
+                             load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len, quiet=True),
                              torch.bfloat16, torch.device("cuda"), attn_impl="flash_int8")
     gb = {k: sum(t.numel() * t.element_size() for t in m.state_dict().values()) / 1e9
           for k, m in models.items()}
@@ -964,6 +1122,145 @@ def phase_full_int8():
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _fingerprint(modules):
+    """One number from every tensor of `modules` (on the card): equal sums of the same
+    tensors, so a pair that comes back from the host unchanged gives the same value."""
+    ts = [t for m in modules for t in m.state_dict().values()]
+    return torch.stack([t.float().sum() for t in ts]).double().sum().item()
+
+
+def phase_full_bf16():
+    """Full A14B depth in bf16 on one card with host staging: 40 DiT + 10 ControlNet
+    layers per expert (non-zero zero convs), the 24-layer umt5-xxl and the full Wan2.1
+    VAE. The low-noise pair is built first and staged to pinned host memory before the
+    high-noise pair is built, so both pairs are never on the card together. Two
+    81x480x832 requests of 2 steps with the same seed and inputs (t = 1000 on the
+    high-noise pair, t = 833 on the low-noise pair): the stager swaps in, back and in
+    again, and the second request must repeat the first step for step."""
+    import gc
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models import vae as vaem
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.models.tokenizer import load_tokenizer
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.parallel.host_staging import stage_to_host
+    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dit_cfg, t5_cfg, vae_cfg = C.WAN22_A14B, C.UMT5_XXL, C.WAN21_VAE
+    cn_cfg = C.ControlNetConfig(num_layers=10, in_channels=vae_cfg.z_dim)
+    gen = torch.Generator("cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    models, prints = {}, {}
+    for dit_name, cn_name, tag, seed in (("dit2", "controlnet2", "low", 23),
+                                         ("dit", "controlnet", "high", 29)):
+        models[dit_name] = wan_dit.init_wan_dit(dit_cfg, gen, torch.bfloat16, device="cuda")
+        models[cn_name] = cnm.init_from_dit(models[dit_name], dit_cfg, cn_cfg, gen,
+                                            torch.bfloat16, device="cuda")
+        _perturb_zero_convs(models[cn_name], seed)
+        prints[tag] = _fingerprint((models[dit_name], models[cn_name]))
+        pair_gb = sum(t.numel() * t.element_size() for k in (dit_name, cn_name)
+                      for t in models[k].state_dict().values()) / 2**30
+        stage_s = None
+        if tag == "low":
+            _, stage_s = sync_time(lambda: stage_to_host(
+                {"dit": models["dit2"], "controlnet": models["controlnet2"]}, pin_memory=True))
+            gc.collect()
+            torch.cuda.empty_cache()
+        log("full_bf16", stage=f"init {dit_name}+{cn_name}", pair_gib=pair_gb,
+            stage_to_host_seconds=stage_s, memory_gb=torch.cuda.memory_allocated() / 2**30,
+            seconds=time.perf_counter() - t0)
+    models["t5"] = t5m.init_t5(t5_cfg, gen, torch.bfloat16, device="cuda")
+    models["vae"] = vaem.init_vae(vae_cfg, gen, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = GoalForcePipeline(dit_cfg, t5_cfg, vae_cfg, cn_cfg, C.PipelineConfig(), models,
+                             load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len, quiet=True),
+                             torch.bfloat16, torch.device("cuda")).host_stage_experts()
+    gb = {k: sum(t.numel() * t.element_size() for t in m.state_dict().values()) / 2**30
+          for k, m in models.items()}
+    log("full_bf16", stage="init", seconds=init_s, weights_gib=gb,
+        memory_gb=torch.cuda.memory_allocated() / 2**30,
+        init_peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+    swaps, peaks = [], []
+    real_swap = pipe._stager.swap
+
+    def timed_swap():
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        _, secs = sync_time(real_swap)
+        peak = torch.cuda.max_memory_allocated()
+        peaks.append(peak)
+        swaps.append({"seconds": secs, "peak_gb": peak / 2**30,
+                      "peak_above_resident_gb": (peak - resident) / 2**30})
+
+    pipe._stager.swap = timed_swap
+    steps, stage_times = [], []
+    _instrument(pipe, stage_times)
+    timed_step = pipe.denoise_step
+
+    def step(dit, cn, *a, **k):
+        out = timed_step(dit, cn, *a, **k)
+        tag = "high" if dit is models["dit"] else "low"
+        other = models["dit2"] if tag == "high" else models["dit"]
+        steps.append({"expert": tag, "out": out.float().cpu(),
+                      "weights_intact": _fingerprint((dit, cn)) == prints[tag],
+                      "on_card": all(t.is_cuda for t in dit.state_dict().values()),
+                      "other_on_host": not any(t.is_cuda for t in other.state_dict().values())})
+        return out
+
+    pipe.denoise_step = step
+    pc = pipe.pipe_cfg
+    per_request = only(K1=2 * 2 * (dit_cfg.num_layers + cn_cfg.num_layers))
+    image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
+    outputs = []
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    try:
+        for r in range(2):
+            stage_times.clear()
+            before, n_swaps = dict(fa.launch_counts), len(swaps)
+            frames, total = sync_time(lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+                                                   seed=11, num_inference_steps=2))
+            counts = {k: fa.launch_counts[k] - before[k] for k in before}
+            log("full_bf16", stage=f"request{r}", seconds=total, stages=dict(stage_times),
+                launches=counts, swaps=swaps[n_swaps:],
+                frames_mean=float(frames.mean()))
+            check(frames.shape == (pc.num_frames, pc.height, pc.width, 3)
+                  and bool(np.isfinite(frames).all()) and frames.min() >= 0.0
+                  and frames.max() <= 1.0, f"full_bf16 request {r}: bad frames")
+            check(counts == per_request, f"full_bf16 request {r}: launched {counts}")
+            outputs.append(frames)
+    finally:
+        _uninstrument(pipe)
+    run_counts = dict(fa.launch_counts)
+    peaks.append(torch.cuda.max_memory_allocated())
+    experts = [s["expert"] for s in steps]
+    repeat = [float((steps[i + 2]["out"] - steps[i]["out"]).abs().max()) for i in range(2)]
+    frames_diff = float(np.abs(outputs[1] - outputs[0]).max())
+    intact = all(s["weights_intact"] and s["on_card"] and s["other_on_host"] for s in steps)
+    log("full_bf16", stage="done", launches=run_counts, k1_per_step=per_request["K1"] // 2,
+        experts=experts, swaps=swaps, weights_intact_and_placed=intact,
+        second_request_step_max_abs_diff=repeat, second_request_frames_max_abs_diff=frames_diff,
+        max_memory_allocated_gb=max(peaks) / 2**30)
+    check(experts == ["high", "low", "high", "low"], f"full_bf16: experts {experts}")
+    check(len(swaps) == 3, f"full_bf16: {len(swaps)} swaps")
+    check(intact, "full_bf16: a pair on the card changed, or the pairs were misplaced")
+    check(repeat[0] == 0.0, f"full_bf16: request 2's first step differs by {repeat[0]}")
+    del pipe, models, outputs, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_counts
 
 
 def phase_unbounded(pipe):
@@ -1134,7 +1431,7 @@ def phase_train():
                         keep_last_states=1, num_frames=pc.num_frames, height=pc.height,
                         width=pc.width)
     data = _SyntheticClips(3, pc)
-    tok = load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len)
+    tok = load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len, quiet=True)
     run = lambda **kw: train(cfg, dit_cfg, t5_cfg, C.WAN21_VAE, cn_cfg, frozen, cn0, data, tok,
                              device="cuda", history=history, **kw)
     history = []
@@ -1198,11 +1495,13 @@ def main() -> int:
     phase_small_train()
     phase_small_int8()
     pipe, main_launches, bf16_frames = phase_main()
+    cli_launches = phase_cli(pipe)
     unb_launches = phase_unbounded(pipe)
     int8_launches = phase_main_int8(pipe, bf16_frames)
     del pipe, bf16_frames
     train_launches = phase_train()
     full_launches = phase_full_int8()
+    full_bf16_launches = phase_full_bf16()
     fwd = "goal_force_tpu_torch/csrc/flash_attention.cu"
     train_src = "goal_force_tpu_torch/csrc/flash_attention_bwd.cu"
     int8_src = "goal_force_tpu_torch/csrc/flash_attention_int8.cu"
@@ -1210,7 +1509,8 @@ def main() -> int:
     kernels = []
     for name, src, line, launches, extra in (
             ("K1 flash_attention_nomax", fwd, 241, main_launches["K1"],
-             {"cross": measured["K1"]["cross"]}),
+             {"cross": measured["K1"]["cross"], "cli_launches": cli_launches["K1"],
+              "full_bf16_launches": full_bf16_launches["K1"]}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)"}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],

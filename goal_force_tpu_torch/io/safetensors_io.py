@@ -1,11 +1,13 @@
-"""Safetensors files and the goal-force checkpoints.
+"""Weight files (safetensors, torch ``.pth``) and the goal-force checkpoints.
 
-Port of ``goal_force_tpu/io/safetensors_io.py`` (the training side). The reader and
-writer are the port's own, since the card's machine has no ``safetensors`` package:
-an 8-byte little-endian header length, a JSON header naming each tensor's dtype, shape
-and byte range, then the raw little-endian bytes, tensors back to back. F32, BF16, I64
-and I32 are supported; BF16 is stored as it is (the JAX package's numpy backend cannot
-write it).
+Port of ``goal_force_tpu/io/safetensors_io.py``. The safetensors reader and writer are
+the port's own, so the port needs no ``safetensors`` package: an 8-byte little-endian
+header length, a JSON header naming each tensor's dtype, shape and byte range, then the
+raw little-endian bytes, tensors back to back. F32, BF16, I64 and I32 are
+supported; BF16 is stored as it is (the JAX package's numpy backend cannot write it).
+``load_safetensors`` takes one file, a glob or a list of shards (the A14B experts come
+as six shards each); ``load_torch_pth`` reads a torch pickle checkpoint
+(``Wan2.1_VAE.pth``, the umt5 encoder) with its tensors in their own dtypes.
 
 Checkpoints:
   - ``step-K.safetensors``: the ControlNet alone in the reference's format, its
@@ -21,7 +23,7 @@ import json
 import os
 import re
 import struct
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -57,8 +59,7 @@ def save_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
             f.write(arr.tobytes())      # little-endian hosts (x86-64, aarch64)
 
 
-def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Read a safetensors file into CPU tensors."""
+def _read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
@@ -73,12 +74,45 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
             dtype, np_dt = _BY_NAME[info["dtype"]]
             b, e = info["data_offsets"]
             shape = tuple(info["shape"])
-            if not 0 <= b <= e <= size or e - b != int(np.prod(shape)) * np.dtype(np_dt).itemsize:
+            count = int(np.prod(shape))
+            if not 0 <= b <= e <= size or e - b != count * np.dtype(np_dt).itemsize:
                 raise ValueError(f"{path}: {name} has a bad byte range {b}..{e}")
             f.seek(start + b)
-            t = torch.from_numpy(np.frombuffer(bytearray(f.read(e - b)), np_dt).reshape(shape))
+            t = torch.from_numpy(np.fromfile(f, np_dt, count).reshape(shape))
             out[name] = t.view(torch.bfloat16) if dtype == torch.bfloat16 else t
     return out
+
+
+def load_safetensors(paths: Union[str, Sequence[str]]) -> Dict[str, torch.Tensor]:
+    """Read one file, a glob or a list of shards into one dict of CPU tensors. A glob
+    that matches nothing, or a name that two shards both hold, raises."""
+    if isinstance(paths, (str, os.PathLike)):
+        paths = str(paths)
+        expanded = sorted(glob.glob(paths)) if any(c in paths for c in "*?[") else [paths]
+        if not expanded:
+            raise FileNotFoundError(f"no file matches {paths!r}")
+    else:
+        expanded = [str(p) for p in paths]
+    out: Dict[str, torch.Tensor] = {}
+    for p in expanded:
+        shard = _read_safetensors(p)
+        twice = sorted(set(shard) & set(out))
+        if twice:
+            raise ValueError(f"{p}: tensors {twice[:5]} are also in an earlier shard")
+        out.update(shard)
+    return out
+
+
+def load_torch_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A torch pickle checkpoint (``torch.load(weights_only=True)``) as a state dict of
+    CPU tensors in their own dtypes, unwrapping the ``model_state`` wrapper the
+    reference unwraps for ``Wan2.1_VAE.pth``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model_state" in sd:
+        sd = sd["model_state"]
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path}: expected a state dict, found {type(sd).__name__}")
+    return dict(sd)
 
 
 # ---------------------------------------------------------------------------

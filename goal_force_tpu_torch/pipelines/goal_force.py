@@ -12,6 +12,15 @@ Low-precision serving: pack the block linears of the four DiT/ControlNet models 
 "ffn"))`` and set ``attn_impl="flash_int8"`` (K6); a pipeline so changed answers requests
 as before.
 
+Construction: ``from_pretrained`` reads the reference's files (the high- and low-noise
+experts as a safetensors path, glob or list of shards, the umt5 encoder and the Wan2.1
+VAE as ``.pth`` or safetensors, a ``step-K.safetensors`` ControlNet checkpoint and a
+tokenizer directory); ``init_random`` and ``from_state_dicts`` build from a seed or from
+state dicts. ``host_stage_experts()`` keeps only the active expert and its ControlNet on
+the device and the standby pair in host memory, swapped once per crossing of the
+boundary (``parallel/host_staging.py``): that is how full A14B depth fits one 80 GB card
+in bf16.
+
 Everything runs on the pipeline's device, which is CUDA unless the caller asks for the
 CPU. Arguments of the JAX ``_generate`` that this port does not cover raise
 ``NotImplementedError``.
@@ -39,6 +48,7 @@ from goal_force_tpu_torch.models import vae as vaem
 from goal_force_tpu_torch.models import wan_dit
 from goal_force_tpu_torch.models.tokenizer import load_tokenizer
 from goal_force_tpu_torch.ops import quant
+from goal_force_tpu_torch.parallel.host_staging import ExpertStager, stage_to_host
 from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
 from goal_force_tpu_torch.schedulers import flow_match as fm
 
@@ -47,11 +57,11 @@ _NOT_PORTED = (
     "camera_control_direction", "camera_control_origin", "motion_bucket_id",
     "vace_video", "vace_video_mask", "vace_reference_image", "tea_cache_l1_thresh",
     "sliding_window_size", "sliding_window_stride", "height", "width",
-    "camera_control_speed", "vace_scale", "tea_cache_model_id", "progress",
+    "camera_control_speed", "vace_scale", "tea_cache_model_id",
 )
 # Values of unported JAX arguments that select nothing, so passing them is harmless.
 _JAX_DEFAULTS = {"camera_control_speed": 1 / 54, "vace_scale": 1.0,
-                 "tea_cache_model_id": "Wan2.1-I2V-14B-480P", "progress": False}
+                 "tea_cache_model_id": "Wan2.1-I2V-14B-480P"}
 
 
 def resolve_device(device) -> torch.device:
@@ -60,6 +70,44 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+def load_weights(path) -> Dict[str, torch.Tensor]:
+    """A state dict from a ``.pth``/``.pt`` pickle or from safetensors (one file, a glob
+    or a list of shards), its tensors on the CPU in the file's dtypes."""
+    from goal_force_tpu_torch.io.safetensors_io import load_safetensors, load_torch_pth
+
+    if str(path).endswith((".pth", ".pt")):
+        return load_torch_pth(path)
+    return load_safetensors(path)
+
+
+def load_state_dict_strict(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                           what: str) -> None:
+    """Copy `sd` into `module` (cast to its dtype). A missing or unexpected key, or a
+    shape that does not fit, raises an error naming it: nothing is left at its initial
+    value."""
+    want = module.state_dict()
+    missing, unexpected = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    if missing or unexpected:
+        raise KeyError(f"{what}: {len(missing)} missing keys {missing[:8]}, "
+                       f"{len(unexpected)} unexpected keys {unexpected[:8]}")
+    bad = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in want.items()
+           if tuple(sd[k].shape) != tuple(v.shape)]
+    if bad:
+        raise ValueError(f"{what}: shapes (file, model) do not fit: {bad[:8]}")
+    module.load_state_dict(sd)
+
+
+def _vae_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Strip the ``model.`` prefix that the reference's converter puts on the VAE."""
+    return {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
+
+
+def _progress_bar(total: int):
+    from tqdm import tqdm
+
+    return tqdm(total=total, desc="denoising")
 
 
 def build_i2v_mask(num_frames: int, lat_f: int, lat_h: int, lat_w: int) -> np.ndarray:
@@ -83,10 +131,100 @@ class GoalForcePipeline:
     dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cuda")
     attn_impl: str = "auto"
+    _stager: Optional[ExpertStager] = dataclasses.field(default=None, repr=False)
+    _stager_low: bool = dataclasses.field(default=False, repr=False)
 
     # ------------------------------------------------------------------
     # Construction
     # ------------------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        high_noise_model,                 # safetensors path, glob or list (civitai names)
+        low_noise_model=None,
+        t5_path: Optional[str] = None,    # .pth or .safetensors
+        vae_path: Optional[str] = None,
+        controlnet_checkpoint: Optional[str] = None,
+        controlnet_num_layers: int = 10,
+        controlnet_stride: Optional[int] = None,
+        tokenizer_path: Optional[str] = None,
+        vace_path: Optional[str] = None,
+        vace_layers: Optional[tuple] = None,
+        motion_controller_path: Optional[str] = None,
+        camera_adapter_path: Optional[str] = None,
+        dit_cfg: Optional[WanDiTConfig] = None,
+        t5_cfg: Optional[T5Config] = None,
+        vae_cfg: Optional[VAEConfig] = None,
+        pipe_cfg: Optional[PipelineConfig] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+        device="cuda",
+        host_stage_experts: bool = False,
+    ) -> "GoalForcePipeline":
+        """Build the pipeline from reference-format weight files.
+
+        Both ControlNets are initialised from their experts' first blocks with zero
+        convs and one patch embedding drawn from `seed` (the JAX package draws both
+        from one key); a checkpoint overlays only ``controlnet`` (the high-noise one),
+        as the reference loads it. With `host_stage_experts` the low-noise expert and
+        its ControlNet are read into host memory and never placed on the device; the
+        first crossing of the boundary swaps them in.
+        """
+        device = resolve_device(device)
+        for name, value in (("controlnet_stride", controlnet_stride), ("vace_path", vace_path),
+                            ("vace_layers", vace_layers),
+                            ("motion_controller_path", motion_controller_path),
+                            ("camera_adapter_path", camera_adapter_path)):
+            if value is not None:
+                raise NotImplementedError(f"{name} is not ported yet")
+        dit_cfg = dit_cfg or configs.WAN22_A14B
+        t5_cfg = t5_cfg or configs.UMT5_XXL
+        vae_cfg = vae_cfg or configs.WAN21_VAE
+        cn_cfg = (ControlNetConfig(num_layers=controlnet_num_layers, in_channels=vae_cfg.z_dim)
+                  if controlnet_num_layers > 0 else None)
+        stage = host_stage_experts and low_noise_model is not None
+        host = torch.device("cpu") if stage else device
+
+        def load(cls_, cfg, path, on, transform=None):
+            sd = load_weights(path)
+            if transform is not None:
+                sd = transform(sd)
+            mod = wan_dit.empty_module(cls_, cfg, dtype=dtype, device=on)
+            if on.type == "cpu" and device.type == "cuda":
+                stage_to_host({"m": mod}, pin_memory=True)   # pinned, then filled
+            load_state_dict_strict(mod, sd, str(path))
+            return mod.eval().requires_grad_(False)
+
+        gen = torch.Generator(device).manual_seed(seed)
+        models = {"dit": load(wan_dit.WanDiT, dit_cfg, high_noise_model, device)}
+        if cn_cfg is not None:
+            models["controlnet"] = cnm.init_from_dit(models["dit"], dit_cfg, cn_cfg, gen,
+                                                     dtype, device=device)
+        if low_noise_model is not None:
+            models["dit2"] = load(wan_dit.WanDiT, dit_cfg, low_noise_model, host)
+            if cn_cfg is not None:
+                cn2 = cnm.init_from_dit(models["dit2"], dit_cfg, cn_cfg, torch.Generator(host),
+                                        dtype, device=host)
+                cn2.controlnet_patch_embedding.load_state_dict(
+                    models["controlnet"].controlnet_patch_embedding.state_dict())
+                if stage:
+                    stage_to_host({"controlnet": cn2}, pin_memory=device.type == "cuda")
+                models["controlnet2"] = cn2
+        if cn_cfg is not None and controlnet_checkpoint is not None:
+            from goal_force_tpu_torch.io.safetensors_io import load_goalforce_controlnet
+
+            load_state_dict_strict(models["controlnet"],
+                                   load_goalforce_controlnet(controlnet_checkpoint),
+                                   str(controlnet_checkpoint))
+        if t5_path is not None:
+            models["t5"] = load(t5m.T5Encoder, t5_cfg, t5_path, device)
+        if vae_path is not None:
+            models["vae"] = load(vaem.WanVAE, vae_cfg, vae_path, device, _vae_state_dict)
+        tok = load_tokenizer(tokenizer_path, t5_cfg.vocab, t5_cfg.text_len)
+        pipe = cls(dit_cfg, t5_cfg, vae_cfg, cn_cfg, pipe_cfg or PipelineConfig(), models,
+                   tok, dtype, device)
+        return pipe.host_stage_experts() if stage else pipe
 
     @classmethod
     def init_random(
@@ -121,8 +259,9 @@ class GoalForcePipeline:
                                                      dtype, device=device)
             models["controlnet2"] = cnm.init_from_dit(models["dit2"], dit_cfg, cn_cfg, gen,
                                                       dtype, device=device)
+        tok = load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len, quiet=True)
         return cls(dit_cfg, t5_cfg, vae_cfg, cn_cfg, pipe_cfg or PipelineConfig(), models,
-                   load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len), dtype, device)
+                   tok, dtype, device)
 
     @classmethod
     def from_state_dicts(
@@ -151,8 +290,23 @@ class GoalForcePipeline:
             quant.pack_like_state_dict(mod, state_dicts[name])
             mod.load_state_dict(state_dicts[name])
             models[name] = mod.eval().requires_grad_(False)
+        tok = load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len, quiet=True)
         return cls(dit_cfg, t5_cfg, vae_cfg, cn_cfg, pipe_cfg or PipelineConfig(), models,
-                   load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len), dtype, device)
+                   tok, dtype, device)
+
+    def host_stage_experts(self) -> "GoalForcePipeline":
+        """Keep the high-noise expert and its ControlNet on the device and the
+        low-noise pair in host memory (pinned on CUDA); ``_expert`` swaps them once per
+        crossing of the boundary. A pipeline with one expert stays as it is."""
+        if "dit2" in self.models:
+            active, standby = {"dit": self.models["dit"]}, {"dit": self.models["dit2"]}
+            if "controlnet" in self.models:
+                active["controlnet"] = self.models["controlnet"]
+            if "controlnet2" in self.models:
+                standby["controlnet"] = self.models["controlnet2"]
+            self._stager = ExpertStager(active, standby, self.device)
+            self._stager_low = False
+        return self
 
     # ------------------------------------------------------------------
     # Conditioning
@@ -206,9 +360,17 @@ class GoalForcePipeline:
     # ------------------------------------------------------------------
 
     def _expert(self, low_noise: bool):
-        if low_noise and "dit2" in self.models:
-            return self.models["dit2"], self.models.get("controlnet2")
-        return self.models["dit"], self.models.get("controlnet")
+        """(dit, controlnet) of the requested expert; with host staging, the standby
+        pair is swapped in at most once per crossing of the boundary."""
+        if self._stager is None:
+            if low_noise and "dit2" in self.models:
+                return self.models["dit2"], self.models.get("controlnet2")
+            return self.models["dit"], self.models.get("controlnet")
+        if low_noise != self._stager_low:
+            self._stager.swap()
+            self._stager_low = low_noise
+        active = self._stager.active
+        return active["dit"], active.get("controlnet")
 
     @torch.no_grad()
     def denoise_step(self, dit, cn, latents, t_val: float, sigma: float, sigma_next: float,
@@ -252,12 +414,14 @@ class GoalForcePipeline:
         tiled: Optional[bool] = None,
         tile_size: Optional[tuple] = None,
         tile_stride: Optional[tuple] = None,
+        progress: bool = False,
         **unported,
     ) -> np.ndarray:
         """Returns (F, H, W, 3) float32 frames in [0, 1].
 
         noise: the initial latents; by default drawn with torch.randn from a generator
-        seeded with `seed` on the pipeline's device.
+        seeded with `seed` on the pipeline's device. progress: show each denoising step
+        (through tqdm); the frames are the same.
         """
         given = {k: v for k, v in unported.items()
                  if v is not None and v != _JAX_DEFAULTS.get(k, None)}
@@ -276,13 +440,13 @@ class GoalForcePipeline:
             return self._generate_i2v(
                 prompt, input_image, control_signal_video, negative_prompt,
                 denoising_strength, seed, noise, num_frames, num_inference_steps, cfg_scale,
-                sigma_shift, switch_dit_boundary, controlnet)
+                sigma_shift, switch_dit_boundary, controlnet, progress)
         finally:
             self.pipe_cfg = saved
 
     def _generate_i2v(self, prompt, input_image, control_signal_video, negative_prompt,
                       denoising_strength, seed, noise, num_frames, num_inference_steps,
-                      cfg_scale, sigma_shift, switch_dit_boundary, controlnet):
+                      cfg_scale, sigma_shift, switch_dit_boundary, controlnet, progress):
         pc = self.pipe_cfg
         num_frames = num_frames or pc.num_frames
         steps = num_inference_steps or pc.num_inference_steps
@@ -314,12 +478,17 @@ class GoalForcePipeline:
         latents = latents.to(self.dtype)
 
         switch_t = boundary * schedule.num_train_timesteps
+        bar = _progress_bar(len(schedule)) if progress else None
         for i in range(len(schedule)):
             t_val = float(schedule.timesteps[i])
             dit, cn = self._expert(low_noise=t_val < switch_t)
             latents = self.denoise_step(dit, cn if use_cn else None, latents, t_val,
                                         float(schedule.sigmas[i]), schedule.sigma_next(i),
                                         ctx, y, control_latents, cfg_scale)
+            if bar is not None:
+                bar.update(1)
+        if bar is not None:
+            bar.close()
 
         video = self._vae_decode_full(latents.float())
         return ((video[0] + 1.0) / 2.0).float().cpu().numpy()

@@ -23,9 +23,16 @@ MODULES = sorted(
     for p in PKG.rglob("*.py"))
 
 
+# Packages the card's machine may lack: the port imports each only inside the function
+# that needs it, so importing any module of the port must not need them.
+BLOCKED = ("jax", "pandas", "PIL", "cv2", "imageio", "tqdm", "safetensors", "transformers",
+           "tokenizers")
+
+
 def test_every_module_imports_with_jax_blocked():
     code = ("import sys, importlib\n"
-            "sys.modules['jax'] = None\n"
+            f"for b in {BLOCKED!r}:\n"
+            "    sys.modules[b] = None\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "assert not any(k == 'goal_force_tpu' or k.startswith('goal_force_tpu.')\n"
@@ -57,6 +64,14 @@ def test_no_jax_or_reference_package_imports(path):
         for name in names:
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "goal_force_tpu", "flax"), f"{path}: {name}"
+
+
+def test_checkpoint_cli_and_staging_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.models.spm", "goal_force_tpu_torch.prompters",
+              "goal_force_tpu_torch.models.tokenizer", "goal_force_tpu_torch.parallel.host_staging",
+              "goal_force_tpu_torch.data.video_io", "goal_force_tpu_torch.data.viz",
+              "goal_force_tpu_torch.data.datasets", "goal_force_tpu_torch.scripts.infer"):
+        assert m in MODULES
 
 
 def test_low_precision_modules_are_in_the_blocked_import():

@@ -207,3 +207,51 @@ def test_backward_kernels_match_plain_at_tile_edges(cuda_device, sq, skv):
            tfa.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale)]
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.float(), r.float(), atol=_bf16_limit(r), rtol=0)
+
+
+@pytest.mark.cuda
+def test_expert_swap_holds_one_pair_on_the_card(cuda_device):
+    """The standby pair waits in pinned host memory, and a swap exchanges the pairs
+    tensor by tensor: the card's peak during it stays within the resident pair plus its
+    largest tensor (and 2 MiB for the allocator's rounding), and no value changes."""
+    from torch import nn
+
+    from goal_force_tpu_torch.parallel.host_staging import ExpertStager
+
+    def pair(seed):
+        g = torch.Generator(cuda_device).manual_seed(seed)
+        lin = lambda n: nn.Sequential(*[nn.Linear(2048, 2048, device=cuda_device,
+                                                  dtype=torch.bfloat16) for _ in range(n)])
+        out = {"dit": lin(8), "controlnet": lin(2)}
+        out["controlnet"].register_buffer(   # a W8A8 pack is a buffer
+            "codes", torch.randint(-127, 128, (2048, 2048), generator=g, device=cuda_device,
+                                   dtype=torch.int8))
+        for m in out.values():
+            for p in m.parameters():
+                p.requires_grad_(False).normal_(generator=g)
+        return out
+
+    def snapshot(p):
+        return {k: {n: t.cpu() for n, t in m.state_dict().items()} for k, m in p.items()}
+
+    def tensors(p):
+        return [t for m in p.values() for t in m.state_dict().values()]
+
+    a, b = pair(0), pair(1)
+    ref_a, ref_b = snapshot(a), snapshot(b)
+    stager = ExpertStager(a, b, "cuda")
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in tensors(b))
+    largest = max(t.numel() * t.element_size() for t in tensors(a))
+    for incoming, ref in ((b, ref_b), (a, ref_a)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        assert stager.swap() is incoming
+        peak = torch.cuda.max_memory_allocated()
+        assert peak <= base + largest + (2 << 20), (peak - base, largest)
+        assert torch.cuda.memory_allocated() <= base + (2 << 20)
+        assert all(t.is_cuda for t in tensors(incoming))
+        outgoing = a if incoming is b else b
+        assert all(t.device.type == "cpu" and t.is_pinned() for t in tensors(outgoing))
+        got = snapshot(incoming)
+        assert all(torch.equal(got[k][n], ref[k][n]) for k in ref for n in ref[k])
