@@ -19,7 +19,8 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              of 127 and 129, and Skv = 40) and K3 with q and k x8 (a running max that
              moves), and K6 (int8 q and k) in float32 and bf16 at 1000x777
              and at the tile edges with quantization tiles of 128 and 300, and at the main
-             path's self and cross shapes; times kernel, plain version, K6's quantize step
+             path's self and cross shapes, and K1 at the sliding-window shape (14,040
+             tokens, self and cross); times kernel, plain version, K6's quantize step
              and SDPA (as a yardstick only) at the path shapes.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
@@ -31,7 +32,15 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
              are reset just before and read just after.
-8. cli     - the reference contract at main's widths and depth: main's weights saved in
+8. teacache - main's first request again with TeaCache (tea_cache_l1_thresh): under 0.03
+             every step computes and the frames equal main's bit for bit with main's K1
+             launches; under 1e12 the two middle steps skip the blocks, and K1 launches
+             only in the two computed steps. Logs the decisions and each step's seconds.
+9. window  - main's first request with sliding windows of 9 latent frames every 6 over
+             the 21 (three windows of 14,040 tokens each, ControlNet inside each): K1
+             launches 3x a step's per step; then one window over all 21 frames, whose
+             frames must agree with main's. Logs each window's seconds.
+10. cli    - the reference contract at main's widths and depth: main's weights saved in
              the reference formats (the high-noise expert as 2 bf16 safetensors shards
              read through a glob, umt5 and the VAE as .pth, the VAE under "model.", a
              step-K ControlNet checkpoint with non-zero zero convs), one CSV row and an
@@ -39,20 +48,27 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              tokenizer directory and host staging) answer the row in 4 steps, which must
              equal main's pipeline's frames for the same sample, tokenizer and seed; the
              row's five artifacts are written; the files are deleted.
-9. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
+11. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
              so the runtime logit bound routes self-attention to K2.
-10. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
+12. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
              attn_impl="flash_int8": the same two requests, 48 K6 launches each and no
              other, and the frames' mean distance from main's bf16 frames.
-11. train  - frees the serving pipeline and trains the ControlNet at full A14B width
+13. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
              the frozen models, the checkpoint and the launches per step, and logs the
              stage split and peak memory.
-12. full_int8 - full A14B depth on one card (40 DiT + 10 ControlNet layers per expert,
+14. train_cli - the training CLI's functions at train's config on reference-format
+             files (the expert as safetensors shards, umt5 and the VAE as .pth; Balls,
+             Dominos and Plants CSVs with 832x480 mp4 clips): LoRA adapters (rank 32)
+             jointly with the ControlNet for 3 steps, then a resume from the step-2 state
+             whose step 3 must equal the first run's bit for bit; checks the base expert,
+             the adapters' B, the step-2 file's keys and K3/K4/K5 launches; logs stages,
+             peaks and how many merged bf16 weights the adapters change.
+15. full_int8 - full A14B depth on one card (40 DiT + 10 ControlNet layers per expert,
              24-layer umt5-xxl, full VAE), W8A8 + K6: one 2-step request across the
              expert switch, 100 K6 launches per step; logs init, stages and peak memory.
-13. full_bf16 - full A14B depth in bf16 on one card: the low-noise pair is built and
+16. full_bf16 - full A14B depth in bf16 on one card: the low-noise pair is built and
              staged to pinned host memory before the high-noise pair is built; two
              identical 2-step requests (3 swaps, 200 K1 launches each), the second of
              which must repeat the first step for step; logs init, stages, each swap and
@@ -84,6 +100,11 @@ TRAIN_SELF = (1, 32760, 40, 128)     # training (B = 1) self-attention q/k/v
 TRAIN_CROSS_KV = (1, 512, 40, 128)   # training cross-attention text keys
 STEPS = 4
 K1_PER_REQUEST = 2 * (4 + 2) * STEPS
+WINDOW, WINDOW_STRIDE = 9, 6            # latent frames: windows at 0, 6 and 12 of 21
+WINDOW_SELF = (2, WINDOW * 30 * 52, 40, 128)    # one window's self-attention q/k/v
+# The I2V-480P rescale polynomial is at least 0.037 for every drift >= 0, so 0.03 computes
+# every step; 1e12 skips every step between the first and the last.
+TC_NO_SKIP, TC_SKIP_ALL = 0.03, 1e12
 
 
 class SmokeFailure(RuntimeError):
@@ -365,6 +386,32 @@ def _forward_kernels(timed=True):
                               shape=f"{tuple(q.shape)}x{tuple(kk.shape)}")
             log("kernels", case=f"{kname} {sname} timing", **rec[sname])
         out[kname] = rec
+    del q, k, v
+    torch.cuda.empty_cache()
+    # K1 at the sliding-window shape: one window of 9 latent frames holds 9 x 30 x 52 =
+    # 14,040 tokens, 109.7 tiles of 128, so the last q tile and the last key tile are
+    # partial (self) and the last q tile is (cross).
+    q, k, v = (_rand(WINDOW_SELF, gen, torch.bfloat16) for _ in range(3))
+    kern = lambda a, b, c: fa.flash_attention_nomax(a, b, c, scale)
+    plain = lambda a, b, c: fa.flash_attention_nomax_plain(a, b, c, scale)
+    for sname, kk, vv in (("self", k, v), ("cross", ck, cv)):
+        got = kern(q, kk, vv)
+        ref = plain(q, kk, vv)
+        err = compare(f"K1 window {sname} {tuple(q.shape)}x{tuple(kk.shape)} bf16", got, ref,
+                      **bf16_tol_shape[sname])
+        del got, ref
+        torch.cuda.empty_cache()
+        if not timed:
+            continue
+        bound, by = attention_bound_ms(q.shape, kk.shape)
+        rec = dict(max_abs_err=err, ms=event_ms(lambda: kern(q, kk, vv)),
+                   plain_ms=event_ms(lambda: plain(q, kk, vv), iters=1, warmup=0),
+                   bound_ms=bound, bound_by=by,
+                   library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), kk.transpose(1, 2),
+                                                    vv.transpose(1, 2))),
+                   shape=f"{tuple(q.shape)}x{tuple(kk.shape)}")
+        out["K1"][f"window_{sname}"] = rec
+        log("kernels", case=f"K1 window {sname} timing", **rec)
     del q, k, v, ck, cv
     torch.cuda.empty_cache()
     return out
@@ -761,6 +808,128 @@ def phase_main():
     log("main", stage="done", launches=launches,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
     return pipe, launches, frames
+
+
+def _step_log(pipe):
+    """Wrap the pipeline's full and skipped steps: each call appends (kind, synchronised
+    seconds), kind "full" for a TeaCache step that computes, "plain" for an ordinary
+    step and "skip" for a skipped one. Returns the log and a function that unwraps."""
+    steps = []
+    full, skip = pipe.denoise_step, pipe.denoise_step_skip
+
+    def full_(*a, **k):
+        out, secs = sync_time(lambda: full(*a, **k))
+        steps.append(("full" if k.get("return_residual") else "plain", secs))
+        return out
+
+    def skip_(*a, **k):
+        out, secs = sync_time(lambda: skip(*a, **k))
+        steps.append(("skip", secs))
+        return out
+
+    pipe.denoise_step, pipe.denoise_step_skip = full_, skip_
+    return steps, lambda: [pipe.__dict__.pop(n, None) for n in ("denoise_step",
+                                                                 "denoise_step_skip")]
+
+
+def _check_frames(phase, frames, pc):
+    check(frames.shape == (pc.num_frames, pc.height, pc.width, 3)
+          and bool(np.isfinite(frames).all()) and frames.min() >= 0.0 and frames.max() <= 1.0,
+          f"{phase}: frames of shape {frames.shape}, not finite or outside [0, 1]")
+
+
+def phase_teacache(pipe, main_frames):
+    """main's first request (seed, prompt and inputs) again with TeaCache: under a
+    threshold that computes every step the frames must equal main's bit for bit with
+    main's K1 launches; under one that skips every middle step, K1 launches only in the
+    computed steps (the first and the last)."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    pc = pipe.pipe_cfg
+    image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
+    per_step = K1_PER_REQUEST // STEPS
+    fa.reset_launch_counts()
+    for name, thresh, want in (("no_skip", TC_NO_SKIP, ["full"] * STEPS),
+                               ("skip", TC_SKIP_ALL, ["full"] + ["skip"] * (STEPS - 2) + ["full"])):
+        steps, unwrap = _step_log(pipe)
+        before = dict(fa.launch_counts)
+        try:
+            frames, secs = sync_time(lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+                                                  seed=11, num_inference_steps=STEPS,
+                                                  tea_cache_l1_thresh=thresh))
+        finally:
+            unwrap()
+        counts = {k: fa.launch_counts[k] - before[k] for k in before}
+        decisions = [kind for kind, _ in steps]
+        computed = decisions.count("full")
+        diff = float(np.abs(frames - main_frames).max())
+        log("teacache", request=name, threshold=thresh, decisions=decisions, seconds=secs,
+            computed_step_seconds=[t for k, t in steps if k == "full"],
+            skipped_step_seconds=[t for k, t in steps if k == "skip"], launches=counts,
+            k1_per_computed_step=per_step, max_abs_diff_vs_main=diff,
+            frames_mean=float(frames.mean()))
+        _check_frames(f"teacache {name}", frames, pc)
+        check(decisions == want, f"teacache {name}: decisions {decisions}, expected {want}")
+        check(counts == only(K1=computed * per_step), f"teacache {name} launched {counts}")
+        if name == "no_skip":
+            check(diff == 0.0, f"teacache {name}: frames differ from main's by {diff}")
+    return dict(fa.launch_counts)
+
+
+WINDOW_ATOL = 1e-2   # one window over every frame vs main's frames: ~1 bf16 ulp near 1.0
+
+
+def phase_window(pipe, main_frames):
+    """main's first request with sliding windows of 9 latent frames every 6 over the 21
+    (three windows of 14,040 tokens, the ControlNet inside each), then with one window
+    over all 21, whose frames must agree with main's (same function, summed in float32
+    under a unit mask)."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import goal_force as gfm
+
+    pc = pipe.pipe_cfg
+    image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
+    per_window = K1_PER_REQUEST // STEPS
+    real_tiled = gfm.temporal_tiled_forward
+    windows = []
+
+    def tiled(model_fn, latents, *a, **k):
+        def timed(lat, *rest):
+            out, secs = sync_time(lambda: model_fn(lat, *rest))
+            windows.append((lat.shape[1], secs))
+            return out
+        return real_tiled(timed, latents, *a, **k)
+
+    gfm.temporal_tiled_forward = tiled
+    fa.reset_launch_counts()
+    try:
+        for name, size, stride in (("three_windows", WINDOW, WINDOW_STRIDE),
+                                   ("one_window", pc.latent_frames, pc.latent_frames)):
+            windows.clear()
+            before = dict(fa.launch_counts)
+            frames, secs = sync_time(lambda: pipe(
+                PROMPTS[0], image, control_signal_video=video, seed=11,
+                num_inference_steps=STEPS, sliding_window_size=size,
+                sliding_window_stride=stride))
+            counts = {k: fa.launch_counts[k] - before[k] for k in before}
+            n_win = len(windows) // STEPS
+            diff = float(np.abs(frames - main_frames).max())
+            log("window", request=name, window=size, stride=stride,
+                window_frames=[f for f, _ in windows[:n_win]],
+                window_tokens=[f * 30 * 52 for f, _ in windows[:n_win]],
+                window_seconds=[t for _, t in windows], seconds=secs, launches=counts,
+                max_abs_diff_vs_main=diff, atol=WINDOW_ATOL if n_win == 1 else None,
+                frames_mean=float(frames.mean()))
+            _check_frames(f"window {name}", frames, pc)
+            want = [WINDOW] * 3 if name == "three_windows" else [pc.latent_frames]
+            check([f for f, _ in windows] == want * STEPS, f"window {name}: windows {windows}")
+            check(counts == only(K1=STEPS * len(want) * per_window),
+                  f"window {name} launched {counts}")
+            if name == "one_window":
+                check(diff <= WINDOW_ATOL, f"window {name}: frames differ from main's by {diff}")
+    finally:
+        gfm.temporal_tiled_forward = real_tiled
+    return dict(fa.launch_counts)
 
 
 CLI_HEADER = ("image,caption,projectile_force_magnitude,projectile_force_angle,"
@@ -1487,6 +1656,185 @@ def phase_train():
     return launches
 
 
+TRAIN_HEADER = ("video,caption,projectile_force_magnitude,projectile_force_angle,"
+                "projectile_coordx,projectile_coordy,width,height,"
+                "target_indirect_force_magnitude,target_indirect_force_angle,target_coordx,"
+                "target_coordy,projectile_mass,target_mass")
+
+
+def _write_training_set(root, pc):
+    """Balls, Dominos and Plants training sets in the reference's layout (a CSV beside
+    its mp4 clips, 832x480, written with the port's writer): Balls clips hold 161 frames
+    (the dataset takes every second one), Dominos and Plants 81; the Plants set has a
+    carnation clip, which the dataset crops. Two rows per set, with different forces,
+    so each set's calibration range is not empty. Returns {set: (base, csv)}."""
+    import shutil
+
+    from goal_force_tpu_torch.data.video_io import save_video
+
+    image, _ = _request_inputs(61, 1, pc.height, pc.width, pc)
+    first = (image * 255).astype(np.uint8)
+    out = {}
+    for name, n, files, rows in (
+            ("balls", 2 * pc.num_frames - 1, ("ball0.mp4", "ball1.mp4"),
+             ["ball0.mp4,a red ball rolls into a blue ball,150,30,300,200,832,480,80,45,"
+              "520,260,1.5,2.0",
+              "ball1.mp4,a marble hits a cup,260,200,400,240,832,480,140,90,600,300,3.0,2.5"]),
+            ("dominos", pc.num_frames, ("domino0.mp4", "domino1.mp4"),
+             ["domino0.mp4,dominoes fall to the right,220,0,200,240,832,480,60,0,500,240,2,2",
+              "domino1.mp4,a domino tips over,120,180,600,200,832,480,130,180,300,200,1,2"]),
+            ("plants", pc.num_frames, ("carnation_0.mp4", "ivy_0.mp4"),
+             ["carnation_0.mp4,a carnation sways in the wind,40,100,416,240,832,480",
+              "ivy_0.mp4,ivy leaves shake,80,200,300,200,832,480"])):
+        base = os.path.join(root, name)
+        os.makedirs(base)
+        frames = np.stack([np.roll(first, 3 * t, axis=1) for t in range(n)])
+        save_video(frames, os.path.join(base, files[0]), fps=15)
+        shutil.copy(os.path.join(base, files[0]), os.path.join(base, files[1]))
+        header = TRAIN_HEADER if name != "plants" else \
+            "video,caption,force,angle,coordx,coordy,width,height"
+        csv = os.path.join(base, "train.csv")
+        with open(csv, "w") as f:
+            f.write(header + "\n" + "\n".join(rows) + "\n")
+        out[name] = (base, csv)
+    return out
+
+
+def phase_train_cli():
+    """The training CLI's functions at train's config (full WAN22_A14B width, 4 DiT + 2
+    ControlNet layers, umt5 at 2 layers, bf16, 81x480x832) on reference-format files:
+    the frozen weights (the expert as 2 safetensors shards read through a glob, umt5 and
+    the VAE as .pth, the VAE under "model.") and Balls, Dominos and Plants CSVs with mp4
+    clips. --train_lora (rank 32) jointly with the ControlNet: 3 steps without a break
+    (saving at step 2), then a resume from state-2 that takes step 3 again, which must
+    repeat the first run's step 3 bit for bit. Checks the base expert, the adapters'
+    B, the step-2 file's keys and the launches; logs the stages, the peaks and how many
+    merged bf16 weights the adapters change."""
+    import argparse
+    import gc
+    import shutil
+    import tempfile
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.io import safetensors_io as sio
+    from goal_force_tpu_torch.lora import TARGETS, lora_to_peft, merged_weight
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models import vae as vaem
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.scripts import train as tcli
+    from goal_force_tpu_torch.training.train_step import trainable_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4)
+    t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
+    pc = C.PipelineConfig()
+    tmp = tempfile.mkdtemp(prefix="gf_train_cli_")
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator("cuda").manual_seed(5)
+        sd = wan_dit.init_wan_dit(dit_cfg, gen, torch.bfloat16, device="cuda").state_dict()
+        keys = sorted(sd)
+        for i in range(2):
+            sio.save_safetensors({k: sd[k] for k in keys[i::2]}, os.path.join(
+                tmp, "high", f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
+        del sd
+        torch.save({k: v.cpu() for k, v in t5m.init_t5(t5_cfg, gen, torch.bfloat16,
+                                                      device="cuda").state_dict().items()},
+                   os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth"))
+        torch.save({"model." + k: v.cpu() for k, v in vaem.init_vae(
+            C.WAN21_VAE, gen, torch.bfloat16, device="cuda").state_dict().items()},
+            os.path.join(tmp, "Wan2.1_VAE.pth"))
+        sets = _write_training_set(os.path.join(tmp, "data"), pc)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("train_cli", stage="files", seconds=time.perf_counter() - t0, bytes=_dir_bytes(tmp),
+            files=sorted(os.path.relpath(os.path.join(d, x), tmp)
+                         for d, _, fs in os.walk(tmp) for x in fs))
+        argv = ["--high_noise_model", os.path.join(tmp, "high", "diffusion_pytorch_model-*.safetensors"),
+                "--t5_path", os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth"),
+                "--vae_path", os.path.join(tmp, "Wan2.1_VAE.pth"),
+                "--controlnet_num_layers", "2", "--train_lora", "--lora_rank", "32",
+                "--save_steps", "2", "--max_steps", "3", "--output_path", os.path.join(tmp, "run")]
+        for name, (base, csv) in sets.items():
+            argv += [f"--{name}_base_path", base, f"--{name}_metadata_path", csv]
+        args = tcli.parse_args(argv)
+        models, load_s = sync_time(lambda: tcli.load_models(args, dit_cfg=dit_cfg, t5_cfg=t5_cfg))
+        dit = models["frozen"]["dit"]
+        base_print = _fingerprint([dit])
+        log("train_cli", stage="load", seconds=load_s,
+            memory_gb=torch.cuda.memory_allocated() / 2**30)
+        history = []
+        fa.reset_launch_counts()
+        state, secs = sync_time(lambda: tcli.run(args, models, tcli.build_datasets(args, seed=0),
+                                                 history=history, keep_last_states=2))
+        step3 = {n: t.detach().to("cpu", copy=True)
+                 for n, t in trainable_params(state.params).items()}
+        opt3 = {n: t.to("cpu", copy=True) for n, t in state.opt_state.items()}
+        step2_keys = set(sio.load_safetensors(os.path.join(tmp, "run", "step-2.safetensors")))
+        want_keys = set(lora_to_peft(state.params["lora"])) | set(
+            sio.export_goalforce_controlnet(state.params["controlnet"]))
+        del state
+        gc.collect()
+        for f in ("step-3.safetensors", "state-3.safetensors"):
+            os.remove(os.path.join(tmp, "run", f))
+        resume_args = argparse.Namespace(**{**vars(args), "resume": True, "max_steps": 1})
+        resumed, secs_resume = sync_time(lambda: tcli.run(
+            resume_args, models, tcli.build_datasets(args, seed=0), history=history,
+            keep_last_states=2))
+        launches = dict(fa.launch_counts)
+        got = {n: t.detach().cpu() for n, t in trainable_params(resumed.params).items()}
+        same = [n for n in step3 if torch.equal(got[n], step3[n])]
+        same_opt = all(torch.equal(t.cpu(), opt3[n]) for n, t in resumed.opt_state.items())
+        lora = resumed.params["lora"]
+        b_moved = {t: bool(ab["b"].any()) for t, ab in lora.items()}
+        changed, total, per_target = 0, 0, {}
+        with torch.no_grad():
+            for t, ab in lora.items():
+                grp, leaf = TARGETS[t]
+                n_t = 0
+                for i, blk in enumerate(dit.blocks):
+                    w = blk.get_submodule(f"{grp}.{leaf}").weight
+                    n_t += int((merged_weight(w, ab["a"][i], ab["b"][i], 1.0) != w).sum())
+                    total += w.numel()
+                per_target[t] = n_t
+                changed += n_t
+        peak_gb = max(v for h in history for k, v in h.items() if k.endswith("_peak_gb"))
+        for h in history:
+            log("train_cli", stage=f"step{h['step']}", **h)
+        # per step (every attention needs a gradient through the adapters): DiT 4 blocks x
+        # (self, cross) and ControlNet 2 blocks x (self, cross) = 12 calls, K3 twice each
+        # (remat), K5 once each, K4 where k and v need a gradient: the 4 DiT self calls
+        # and all 4 ControlNet calls (the DiT's cross k, v come from the frozen text path).
+        expected = only(K3=4 * 24, K4=4 * 8, K5=4 * 12)
+        unchanged_base = _fingerprint([dit]) == base_print
+        log("train_cli", stage="done", seconds_steps_1_3=secs, seconds_resume_step_3=secs_resume,
+            launches=launches, expected_launches=expected, max_memory_allocated_gb=peak_gb,
+            resumed_step3_equal=len(same) == len(step3), optimizer_state_equal=same_opt,
+            trainable_tensors=len(step3), base_dit_unchanged=unchanged_base, b_moved=b_moved,
+            step2_keys=len(step2_keys), step2_keys_as_expected=step2_keys == want_keys,
+            merged_bf16_weights_changed=changed, merged_bf16_weights=total,
+            merged_changed_fraction=changed / total, merged_changed_per_target=per_target,
+            files=sorted(os.listdir(os.path.join(tmp, "run"))))
+        check([h["step"] for h in history] == [1, 2, 3, 3], f"train_cli steps: {history}")
+        check(all(math.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in history),
+              "train_cli: non-finite loss or zero gradient")
+        check(launches == expected, f"train_cli launched {launches}, expected {expected}")
+        check(unchanged_base, "train_cli: the base expert changed")
+        check(all(b_moved.values()), f"train_cli: a B stayed at zero: {b_moved}")
+        check(step2_keys == want_keys, "train_cli: step-2 holds other keys than the adapters' "
+              "PEFT keys and the ControlNet's")
+        check(len(same) == len(step3) and same_opt,
+              f"train_cli: the resumed step 3 differs in {sorted(set(step3) - set(same))[:5]}")
+        del models, resumed, dit, lora
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1495,11 +1843,14 @@ def main() -> int:
     phase_small_train()
     phase_small_int8()
     pipe, main_launches, bf16_frames = phase_main()
+    tc_launches = phase_teacache(pipe, bf16_frames[0])
+    window_launches = phase_window(pipe, bf16_frames[0])
     cli_launches = phase_cli(pipe)
     unb_launches = phase_unbounded(pipe)
     int8_launches = phase_main_int8(pipe, bf16_frames)
     del pipe, bf16_frames
     train_launches = phase_train()
+    train_cli_launches = phase_train_cli()
     full_launches = phase_full_int8()
     full_bf16_launches = phase_full_bf16()
     fwd = "goal_force_tpu_torch/csrc/flash_attention.cu"
@@ -1509,16 +1860,22 @@ def main() -> int:
     kernels = []
     for name, src, line, launches, extra in (
             ("K1 flash_attention_nomax", fwd, 241, main_launches["K1"],
-             {"cross": measured["K1"]["cross"], "cli_launches": cli_launches["K1"],
+             {"cross": measured["K1"]["cross"], "window_self": measured["K1"]["window_self"],
+              "window_cross": measured["K1"]["window_cross"],
+              "teacache_launches": tc_launches["K1"], "window_launches": window_launches["K1"],
+              "cli_launches": cli_launches["K1"],
               "full_bf16_launches": full_bf16_launches["K1"]}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)"}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
-             {"cross": measured["K3"]["cross"], "path": "train"}),
+             {"cross": measured["K3"]["cross"], "path": "train",
+              "train_cli_launches": train_cli_launches["K3"]}),
             ("K4 flash_attention_bwd_dkv", train_src, 76, train_launches["K4"],
-             {"cross": measured["K4"]["cross"], "path": "train"}),
+             {"cross": measured["K4"]["cross"], "path": "train",
+              "train_cli_launches": train_cli_launches["K4"]}),
             ("K5 flash_attention_bwd_dq", train_src, 118, train_launches["K5"],
-             {"cross": measured["K5"]["cross"], "path": "train"}),
+             {"cross": measured["K5"]["cross"], "path": "train",
+              "train_cli_launches": train_cli_launches["K5"]}),
             ("K6 flash_attention_int8", int8_src, 581, int8_launches["K6"],
              {"cross": measured["K6"]["cross"], "path": "main_int8",
               "full_int8_launches": full_launches["K6"]})):

@@ -1,25 +1,39 @@
-"""The goal-force CSV dataset and the training-sample checks.
+"""The goal-force training and validation datasets and the training-sample checks.
 
-Port of ``goal_force_tpu/data/datasets.py``: ``should_skip``, ``_CSVDataset`` and
-``BallsDataset`` (force, goal force and masses, distractors in training rows). A row of
-a validation CSV names a first-frame image under ``images/``; its sample is that image
-(resized to the dataset's size), the caption, the rendered control video, the row's
-``ControlSpec`` and its ``file_id``. Training rows name mp4 clips, whose reading is not
-ported yet: loading one raises ``NotImplementedError``. The CSV is read with pandas,
-imported when a dataset is built.
+Port of ``goal_force_tpu/data/datasets.py``:
+
+- ``BallsDataset`` (force, goal force and masses, distractors in training rows; clips
+  at twice the frame rate, taken as frames[::2][-num_frames:]), ``DominosDataset``
+  (the same channels, frames[:num_frames]) and ``PlantsDataset`` (direct force only,
+  control channels 1-2 zeroed, a random crop-zoom of carnation clips drawn from the
+  dataset's ``np.random.Generator`` as JAX draws it);
+- ``CannyEdgeDataset`` (Canny edge maps of each frame as the control video),
+  ``ConcatDataset``, ``should_skip``, ``safe_collate`` and ``batch_iterator``.
+
+A row of a validation CSV names a first-frame image under ``images/``; its sample is
+that image (resized to the dataset's size). A training row names an mp4 clip under the
+base path, decoded by ``video_io`` (imageio-ffmpeg or cv2). A sample is a dict of the
+frames ((T, H, W, 3) float32 in [0, 1]), the caption, the rendered control video, the
+row's ``ControlSpec`` and its ``file_id``; a clip that cannot be read gives None. The
+CSV is read with pandas and the crops are resized with cv2, each imported when used.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from goal_force_tpu_torch.data.control_signal import ControlSpec, render_control_video
-from goal_force_tpu_torch.data.video_io import load_image
+from goal_force_tpu_torch.data.video_io import load_image, load_video, load_video_frames
 
 MAX_NUM_DISTRACTORS = 8
+
+
+# What a missing, empty or corrupt media file raises while it is read: its sample is
+# None and the trainer skips it.
+_UNREADABLE = (OSError, ValueError, RuntimeError)
 
 
 def should_skip(sample: Optional[Dict], num_frames: int, height: int, width: int) -> bool:
@@ -28,6 +42,40 @@ def should_skip(sample: Optional[Dict], num_frames: int, height: int, width: int
         return True
     cv = sample.get("control_video")
     return cv is None or tuple(cv.shape) != (num_frames, height, width, 3)
+
+
+def safe_collate(samples: List[Optional[Dict]]) -> Optional[Dict]:
+    """The first valid sample (the loader's batch size is 1)."""
+    for s in samples:
+        if s is not None:
+            return s
+    return None
+
+
+def batch_iterator(dataset, batch_size=1, shuffle=True, seed=0, drop_remainder=True):
+    """Lists of `batch_size` valid samples, in an order shuffled by `seed`."""
+    rng = np.random.default_rng(seed)
+    order = np.arange(len(dataset))
+    if shuffle:
+        rng.shuffle(order)
+    buf = []
+    for i in order:
+        s = dataset[int(i)]
+        if s is None:
+            continue
+        buf.append(s)
+        if len(buf) == batch_size:
+            yield buf
+            buf = []
+    if buf and not drop_remainder:
+        yield buf
+
+
+def resize_area(frames: np.ndarray, width: int, height: int) -> np.ndarray:
+    import cv2
+
+    return np.stack([cv2.resize(f, (width, height), interpolation=cv2.INTER_AREA)
+                     for f in frames])
 
 
 def _read_csv(path: str):
@@ -73,8 +121,11 @@ class _CSVDataset:
         path = self._media_path(file_name)
         if self.is_validation_dataset:
             return load_image(path, size=(self.width, self.height))[None]
-        raise NotImplementedError(f"{path}: reading training clips (mp4 frames) is not "
-                                  "ported yet")
+        frames = self._subsample(load_video_frames(path))
+        return np.stack([np.asarray(f, np.float32) / 255.0 for f in frames])
+
+    def _subsample(self, frames: List):
+        return frames[:self.num_frames]
 
 
 class BallsDataset(_CSVDataset):
@@ -115,6 +166,9 @@ class BallsDataset(_CSVDataset):
         self.min_mass, self.max_mass = min_mass, max_mass
         self.min_indirect_force, self.max_indirect_force = min_force, max_force
 
+    def _subsample(self, frames):
+        return frames[::2][-self.num_frames:]
+
     def _spec_from_row(self, item) -> ControlSpec:
         distract_m, distract_xy = [], []
         if not self.is_validation_dataset and "distractor_0_mass" in item:
@@ -148,7 +202,7 @@ class BallsDataset(_CSVDataset):
         item = self.df.iloc[idx % len(self.df)]
         try:
             frames = self._load_media(item[self.media_type])
-        except (OSError, ValueError):
+        except _UNREADABLE:
             return None      # a missing or corrupt file: the sample is skipped
         spec = self._spec_from_row(item)
         control = render_control_video(
@@ -168,3 +222,137 @@ class BallsDataset(_CSVDataset):
             "file_id": os.path.splitext(name)[0],
             "spec": spec,
         }
+
+
+class DominosDataset(BallsDataset):
+    """Balls' control channels; dominos clips are not frame-strided."""
+
+    def _subsample(self, frames):
+        return frames[:self.num_frames]
+
+
+class PlantsDataset(_CSVDataset):
+    """Direct force only, control channels 1-2 zeroed, and a random crop-zoom of the
+    carnation clips in training."""
+
+    def __init__(self, *args, rng: Optional[np.random.Generator] = None, **kwargs):
+        self.rng = rng or np.random.default_rng()
+        super().__init__(*args, **kwargs)
+
+    def _calibrate(self):
+        if self.is_validation_dataset:
+            self.min_force, self.max_force = 0.0, 1.0
+        else:
+            self.min_force = float(self.df["force"].min())
+            self.max_force = float(self.df["force"].max())
+
+    def __getitem__(self, idx) -> Optional[Dict]:
+        item = self.df.iloc[idx % len(self.df)]
+        try:
+            frames = self._load_media(item[self.media_type])
+        except _UNREADABLE:
+            return None
+        file_id = os.path.splitext(item[self.media_type])[0]
+        x_pos = float(item["coordx"]) / float(item["width"])
+        y_pos = float(item["coordy"]) / float(item["height"])
+        if not self.is_validation_dataset and file_id.startswith("carnation"):
+            frames, x_pos, y_pos = self._carnation_crop(frames, float(item["coordx"]),
+                                                        float(item["coordy"]))
+        spec = ControlSpec(
+            force=float(item["force"]), angle_deg=float(item["angle"]),
+            x_pos=x_pos, y_pos=y_pos,
+            target_force=-1.0, target_angle_deg=0.0, target_x_pos=0.0, target_y_pos=0.0,
+        )
+        control = render_control_video(
+            spec, self.num_frames, self.height, self.width,
+            min_force=self.min_force, max_force=self.max_force,
+            p_mask_out_masses=1.0, rng=self.rng,  # the mass channel is always zero
+        )
+        control[..., 1:3] = 0.0
+        return {"video": frames, "prompt": item["caption"], "control_video": control,
+                "file_id": file_id, "spec": spec}
+
+    def _carnation_crop(self, frames, coordx, coordy):
+        """A random zoom in [1, 1.3) that keeps the force point ~50 px inside the crop,
+        resized back to the dataset's size; returns the frames and the point's new
+        relative (x, y), y measured from the bottom."""
+        t, oh, ow, _ = frames.shape
+        coordy_tl = oh - coordy
+        zoom = self.rng.uniform(1.0, 1.3)
+        nw, nh = int(ow / zoom), int(oh / zoom)
+        min_x = max(0, int(coordx - nw + 50))
+        max_x = min(ow - nw, int(coordx - 50))
+        min_y = max(0, int(coordy_tl - nh + 50))
+        max_y = min(oh - nh, int(coordy_tl - 50))
+        if min_x >= max_x or min_y >= max_y:
+            ox = self.rng.integers(0, ow - nw + 1)
+            oy = self.rng.integers(0, oh - nh + 1)
+        else:
+            ox = self.rng.integers(min_x, max_x + 1)
+            oy = self.rng.integers(min_y, max_y + 1)
+        out = resize_area(frames[:, oy:oy + nh, ox:ox + nw], self.width, self.height)
+        fx = ((coordx - ox) / nw) * self.width
+        fy = ((coordy_tl - oy) / nh) * self.height
+        return out, fx / self.width, 1.0 - fy / self.height
+
+
+class CannyEdgeDataset:
+    """Clips whose control video is the Canny edge map of each of their frames."""
+
+    def __init__(self, video_paths: List[str], prompts: List[str],
+                 num_frames=81, height=480, width=832,
+                 low_threshold=100, high_threshold=200):
+        if len(video_paths) != len(prompts):
+            raise ValueError(f"{len(video_paths)} videos but {len(prompts)} prompts")
+        self.video_paths = video_paths
+        self.prompts = prompts
+        self.num_frames = num_frames
+        self.height = height
+        self.width = width
+        self.low = low_threshold
+        self.high = high_threshold
+
+    def __len__(self):
+        return len(self.video_paths)
+
+    def canny_control(self, frames: np.ndarray) -> np.ndarray:
+        """(T, H, W, 3) in [0, 1] -> Canny maps (T, H, W, 3) in {0, 1}."""
+        import cv2
+
+        out = []
+        for f in (frames * 255).astype(np.uint8):
+            edges = cv2.Canny(f, self.low, self.high)
+            out.append(np.repeat(edges[..., None], 3, axis=-1).astype(np.float32) / 255.0)
+        return np.stack(out)
+
+    def __getitem__(self, idx) -> Optional[Dict]:
+        try:
+            frames = load_video(self.video_paths[idx], self.num_frames)
+        except _UNREADABLE:
+            return None
+        frames = resize_area(frames, self.width, self.height)
+        return {
+            "video": frames,
+            "prompt": self.prompts[idx],
+            "control_video": self.canny_control(frames),
+            "file_id": os.path.splitext(os.path.basename(self.video_paths[idx]))[0],
+        }
+
+
+class ConcatDataset:
+    """The datasets one after another (the trainer concatenates Balls, Dominos and
+    Plants)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.lengths = [len(d) for d in self.datasets]
+
+    def __len__(self):
+        return sum(self.lengths)
+
+    def __getitem__(self, idx):
+        for d, n in zip(self.datasets, self.lengths):
+            if idx < n:
+                return d[idx]
+            idx -= n
+        raise IndexError(idx)

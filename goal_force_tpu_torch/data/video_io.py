@@ -9,7 +9,7 @@ backend when called.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -65,6 +65,12 @@ def load_video(path: str, num_frames: Optional[int] = None) -> np.ndarray:
             break
         frames.append(np.asarray(frame, np.float32) / 255.0)
     return np.stack(frames)
+
+
+def load_video_frames(path: str) -> List[np.ndarray]:
+    """Every frame of a clip as (H, W, 3) uint8 (the counterpart of JAX's
+    ``load_video_pil``)."""
+    return list(_iter_frames(path))
 
 
 def _iter_frames(path: str):

@@ -14,6 +14,10 @@
     -> ``weight`` codes (out, in), ``weight_scale`` (out,) and ``bias``, the state dict
     of ``ops/quant.py``'s ``Int8Linear`` / ``Fp8Linear``; the codes are carried, not
     re-quantized.
+
+``lora_from_jax(tree)`` carries a JAX LoRA adapter tree (``goal_force_tpu/lora.py``,
+``{target: {"a": (L, in, r), "b": (L, r, out)}}``) into the port's ``lora.py``, whose
+tree has the same layout.
 """
 
 from __future__ import annotations
@@ -196,3 +200,8 @@ def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]
         else:
             raise NotImplementedError(f"no converter for params[{name!r}]")
     return out
+
+
+def lora_from_jax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX adapter tree (numpy leaves) as tensors of the same layout and dtype."""
+    return {name: {k: _t(v) for k, v in ab.items()} for name, ab in tree.items()}

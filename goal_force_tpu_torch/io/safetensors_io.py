@@ -12,6 +12,8 @@ as six shards each); ``load_torch_pth`` reads a torch pickle checkpoint
 Checkpoints:
   - ``step-K.safetensors``: the ControlNet alone in the reference's format, its
     state-dict names under ``pipe.controlnet.``, float32 (what the JAX package exports);
+  - with LoRA training, ``step-K.safetensors`` holds the adapters as PEFT keys
+    (``lora.py::lora_to_peft``), plus the ControlNet's keys when it trains jointly;
   - ``state-K.safetensors``: the full training state (parameters, AdamW moments and
     counters, the step) in their own dtypes, for a resume that is bit-identical.
 """
@@ -139,15 +141,26 @@ def train_state_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"state-{step}.safetensors")
 
 
+def param_tensors(params) -> Dict[str, torch.Tensor]:
+    """A training state's parameters by name: the ControlNet's state dict, or for LoRA
+    training ``lora.<target>.<a|b>`` and ``controlnet.<name>``."""
+    if isinstance(params, torch.nn.Module):
+        return params.state_dict()
+    out = {f"lora.{t}.{k}": v for t, ab in params["lora"].items() for k, v in ab.items()}
+    if params.get("controlnet") is not None:
+        out.update({f"controlnet.{k}": v for k, v in params["controlnet"].state_dict().items()})
+    return out
+
+
 def _state_tensors(state) -> Dict[str, torch.Tensor]:
-    out = {f"params.{k}": v for k, v in state.params.state_dict().items()}
+    out = {f"params.{k}": v for k, v in param_tensors(state.params).items()}
     out.update({f"opt.{k}": v for k, v in state.opt_state.items()})
     out["step"] = torch.tensor(int(state.step), dtype=torch.int64)
     return out
 
 
 def save_train_state(state, path: str) -> None:
-    """Write a ``TrainState``: ``params.*`` (the ControlNet's state dict), ``opt.*`` (the
+    """Write a ``TrainState``: ``params.*`` (``param_tensors``), ``opt.*`` (the
     optimizer's tensors: AdamW ``exp_avg``/``exp_avg_sq``, ``count``, and the
     accumulation buffers when gradients are accumulated) and ``step``, each in its own
     dtype."""

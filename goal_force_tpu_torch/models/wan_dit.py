@@ -16,6 +16,7 @@ over those modules, one per JAX function, with the same dtype steps:
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -224,23 +225,31 @@ def feed_forward(p: WanBlock, h: torch.Tensor) -> torch.Tensor:
     return (out[0] if len(out) == 1 else torch.cat(out)).reshape(*h.shape[:-1], -1)
 
 
+def _block_with_weights(block_weights, i, blk, *args):
+    return dit_block(block_weights(i, blk), *args)
+
+
 def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,
                injections: Optional[List[torch.Tensor]] = None, attn_impl: str = "auto",
-               remat: bool = False):
+               remat: bool = False, block_weights=None):
     """Run x through the blocks; injections[i] (the ControlNet outputs) is added after
     block i for every i < len(injections).
 
     remat: recompute each block in the backward pass instead of keeping its activations
     (one non-reentrant checkpoint per block, as JAX checkpoints each scan body). The
     forward then already sees grad-requiring inputs, so attention takes K3 there too.
+    block_weights: ``block_weights(i, blk)`` gives the block that runs in place of block
+    i, called inside the block's checkpoint (LoRA's merged weights).
     """
     n_inj = 0 if injections is None else len(injections)
     for i, blk in enumerate(blocks):
+        fn = dit_block if block_weights is None else partial(_block_with_weights,
+                                                             block_weights, i)
         if remat:
-            x = checkpoint(dit_block, blk, x, context, t_mod, cos, sin, cfg, attn_impl,
+            x = checkpoint(fn, blk, x, context, t_mod, cos, sin, cfg, attn_impl,
                            use_reentrant=False)
         else:
-            x = dit_block(blk, x, context, t_mod, cos, sin, cfg, attn_impl)
+            x = fn(blk, x, context, t_mod, cos, sin, cfg, attn_impl)
         if i < n_inj:
             x = x + injections[i].to(x.dtype)
     return x

@@ -21,6 +21,13 @@ the device and the standby pair in host memory, swapped once per crossing of the
 boundary (``parallel/host_staging.py``): that is how full A14B depth fits one 80 GB card
 in bf16.
 
+Serving options of the JAX loop that the port runs as JAX does: ``tea_cache_l1_thresh``
+(TeaCache, ``pipelines/teacache.py``: with merged CFG, a step whose accumulated
+timestep-embedding drift stays under the threshold skips the blocks and adds the last
+computed step's token residual; the residual carries across the expert switch) and
+``sliding_window_size``/``sliding_window_stride`` (each step denoises overlapping
+windows of latent frames, each with its ControlNet, and blends them).
+
 Everything runs on the pipeline's device, which is CUDA unless the caller asks for the
 CPU. Arguments of the JAX ``_generate`` that this port does not cover raise
 ``NotImplementedError``.
@@ -49,19 +56,22 @@ from goal_force_tpu_torch.models import wan_dit
 from goal_force_tpu_torch.models.tokenizer import load_tokenizer
 from goal_force_tpu_torch.ops import quant
 from goal_force_tpu_torch.parallel.host_staging import ExpertStager, stage_to_host
-from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
+from goal_force_tpu_torch.pipelines.model_fn import (
+    denoise_forward,
+    denoise_forward_skip,
+    temporal_tiled_forward,
+)
+from goal_force_tpu_torch.pipelines.teacache import TeaCache
 from goal_force_tpu_torch.schedulers import flow_match as fm
 
 _NOT_PORTED = (
     "end_image", "input_video", "fun_control_video", "reference_image",
     "camera_control_direction", "camera_control_origin", "motion_bucket_id",
-    "vace_video", "vace_video_mask", "vace_reference_image", "tea_cache_l1_thresh",
-    "sliding_window_size", "sliding_window_stride", "height", "width",
-    "camera_control_speed", "vace_scale", "tea_cache_model_id",
+    "vace_video", "vace_video_mask", "vace_reference_image", "height", "width",
+    "camera_control_speed", "vace_scale",
 )
 # Values of unported JAX arguments that select nothing, so passing them is harmless.
-_JAX_DEFAULTS = {"camera_control_speed": 1 / 54, "vace_scale": 1.0,
-                 "tea_cache_model_id": "Wan2.1-I2V-14B-480P"}
+_JAX_DEFAULTS = {"camera_control_speed": 1 / 54, "vace_scale": 1.0}
 
 
 def resolve_device(device) -> torch.device:
@@ -99,7 +109,7 @@ def load_state_dict_strict(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
     module.load_state_dict(sd)
 
 
-def _vae_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def vae_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Strip the ``model.`` prefix that the reference's converter puts on the VAE."""
     return {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
 
@@ -220,7 +230,7 @@ class GoalForcePipeline:
         if t5_path is not None:
             models["t5"] = load(t5m.T5Encoder, t5_cfg, t5_path, device)
         if vae_path is not None:
-            models["vae"] = load(vaem.WanVAE, vae_cfg, vae_path, device, _vae_state_dict)
+            models["vae"] = load(vaem.WanVAE, vae_cfg, vae_path, device, vae_state_dict)
         tok = load_tokenizer(tokenizer_path, t5_cfg.vocab, t5_cfg.text_len)
         pipe = cls(dit_cfg, t5_cfg, vae_cfg, cn_cfg, pipe_cfg or PipelineConfig(), models,
                    tok, dtype, device)
@@ -374,9 +384,11 @@ class GoalForcePipeline:
 
     @torch.no_grad()
     def denoise_step(self, dit, cn, latents, t_val: float, sigma: float, sigma_next: float,
-                     context, y, control_latents, cfg_scale: float) -> torch.Tensor:
+                     context, y, control_latents, cfg_scale: float,
+                     return_residual: bool = False):
         """One Euler step. With cfg_scale != 1 the posi/nega branches run as one batch of
-        2 (context rows [posi, nega]); the timestep takes the latents' dtype."""
+        2 (context rows [posi, nega]); the timestep takes the latents' dtype.
+        return_residual: also return the blocks' token residual (TeaCache's full step)."""
         b = latents.shape[0]
         merged = cfg_scale != 1.0
         x = torch.cat([latents, latents]) if merged else latents
@@ -387,9 +399,54 @@ class GoalForcePipeline:
             controlnet=cn, controlnet_cfg=self.cn_cfg,
             control_latents=None if cn is None else (
                 torch.cat([control_latents, control_latents]) if merged else control_latents),
-            attn_impl=self.attn_impl)
+            attn_impl=self.attn_impl, return_token_states=return_residual)
+        if return_residual:
+            v, (pre, post) = v
         if merged:
             v = v[b:] + cfg_scale * (v[:b] - v[b:])
+        out = fm.euler_step(latents, v.to(latents.dtype), sigma, sigma_next)
+        return (out, post - pre) if return_residual else out
+
+    @torch.no_grad()
+    def _t_mod(self, dit, t_val: float, batch: int) -> np.ndarray:
+        """The DiT's modulated timestep input (batch, 6, D) on the host, in float32."""
+        tstep = torch.full((batch,), t_val, dtype=self.dtype, device=self.device)
+        return wan_dit.time_embed(dit, self.dit_cfg, tstep)[1].float().cpu().numpy()
+
+    @torch.no_grad()
+    def denoise_step_skip(self, dit, latents, t_val: float, sigma: float, sigma_next: float,
+                          y, residual, cfg_scale: float) -> torch.Tensor:
+        """TeaCache's skipped merged-CFG step: the cached residual replaces the blocks."""
+        b = latents.shape[0]
+        x = torch.cat([latents, latents])
+        tstep = torch.full((2 * b,), t_val, dtype=latents.dtype, device=latents.device)
+        v = denoise_forward_skip(dit, self.dit_cfg, x, tstep,
+                                 None if y is None else torch.cat([y, y]), residual)
+        v = v[b:] + cfg_scale * (v[:b] - v[b:])
+        return fm.euler_step(latents, v.to(latents.dtype), sigma, sigma_next)
+
+    @torch.no_grad()
+    def sliding_window_step(self, dit, cn, latents, t_val: float, sigma: float,
+                            sigma_next: float, context, y, control_latents, cfg_scale: float,
+                            window: int, stride: int) -> torch.Tensor:
+        """One Euler step over temporal windows of the latents (merged CFG in each
+        window, whatever cfg_scale is, as in the JAX package); the ControlNet runs inside
+        each window on its slice of the control latents."""
+        b = latents.shape[0]
+        t2 = torch.full((2 * b,), t_val, dtype=latents.dtype, device=latents.device)
+
+        def window_fn(lat_w, y_w, cl_w):
+            x2 = torch.cat([lat_w, lat_w])
+            y2 = None if y_w is None else torch.cat([y_w, y_w])
+            cl2 = None if cl_w is None else torch.cat([cl_w, cl_w])
+            v = denoise_forward(dit, self.dit_cfg, x2, t2, context, y=y2,
+                                controlnet=cn if cl2 is not None else None,
+                                controlnet_cfg=self.cn_cfg, control_latents=cl2,
+                                attn_impl=self.attn_impl)
+            return v[b:] + cfg_scale * (v[:b] - v[b:])
+
+        v = temporal_tiled_forward(window_fn, latents, y, window, stride,
+                                   control_latents if cn is not None else None)
         return fm.euler_step(latents, v.to(latents.dtype), sigma, sigma_next)
 
     def __call__(self, *args, **kwargs) -> np.ndarray:
@@ -411,6 +468,10 @@ class GoalForcePipeline:
         sigma_shift: Optional[float] = None,
         switch_dit_boundary: Optional[float] = None,
         controlnet: bool = True,
+        tea_cache_l1_thresh: Optional[float] = None,
+        tea_cache_model_id: str = "Wan2.1-I2V-14B-480P",
+        sliding_window_size: Optional[int] = None,
+        sliding_window_stride: Optional[int] = None,
         tiled: Optional[bool] = None,
         tile_size: Optional[tuple] = None,
         tile_stride: Optional[tuple] = None,
@@ -440,13 +501,17 @@ class GoalForcePipeline:
             return self._generate_i2v(
                 prompt, input_image, control_signal_video, negative_prompt,
                 denoising_strength, seed, noise, num_frames, num_inference_steps, cfg_scale,
-                sigma_shift, switch_dit_boundary, controlnet, progress)
+                sigma_shift, switch_dit_boundary, controlnet, progress,
+                tea_cache_l1_thresh, tea_cache_model_id, sliding_window_size,
+                sliding_window_stride)
         finally:
             self.pipe_cfg = saved
 
     def _generate_i2v(self, prompt, input_image, control_signal_video, negative_prompt,
                       denoising_strength, seed, noise, num_frames, num_inference_steps,
-                      cfg_scale, sigma_shift, switch_dit_boundary, controlnet, progress):
+                      cfg_scale, sigma_shift, switch_dit_boundary, controlnet, progress,
+                      tea_cache_l1_thresh, tea_cache_model_id, sliding_window_size,
+                      sliding_window_stride):
         pc = self.pipe_cfg
         num_frames = num_frames or pc.num_frames
         steps = num_inference_steps or pc.num_inference_steps
@@ -477,14 +542,31 @@ class GoalForcePipeline:
                 raise ValueError(f"noise has shape {tuple(latents.shape)}, expected {shape}")
         latents = latents.to(self.dtype)
 
+        tea_cache = (TeaCache(steps, tea_cache_l1_thresh, tea_cache_model_id)
+                     if tea_cache_l1_thresh is not None else None)
         switch_t = boundary * schedule.num_train_timesteps
         bar = _progress_bar(len(schedule)) if progress else None
         for i in range(len(schedule)):
             t_val = float(schedule.timesteps[i])
             dit, cn = self._expert(low_noise=t_val < switch_t)
-            latents = self.denoise_step(dit, cn if use_cn else None, latents, t_val,
-                                        float(schedule.sigmas[i]), schedule.sigma_next(i),
-                                        ctx, y, control_latents, cfg_scale)
+            cn = cn if use_cn else None
+            sig, sig_n = float(schedule.sigmas[i]), schedule.sigma_next(i)
+            if sliding_window_size is not None and sliding_window_stride is not None:
+                latents = self.sliding_window_step(
+                    dit, cn, latents, t_val, sig, sig_n, ctx, y, control_latents, cfg_scale,
+                    sliding_window_size, sliding_window_stride)
+            elif tea_cache is not None and cfg_scale != 1.0:
+                t_mod = self._t_mod(dit, t_val, 2 * latents.shape[0])
+                if tea_cache.should_skip(t_mod) and tea_cache.residual is not None:
+                    latents = self.denoise_step_skip(dit, latents, t_val, sig, sig_n, y,
+                                                     tea_cache.residual, cfg_scale)
+                else:
+                    latents, tea_cache.residual = self.denoise_step(
+                        dit, cn, latents, t_val, sig, sig_n, ctx, y, control_latents,
+                        cfg_scale, return_residual=True)
+            else:
+                latents = self.denoise_step(dit, cn, latents, t_val, sig, sig_n, ctx, y,
+                                            control_latents, cfg_scale)
             if bar is not None:
                 bar.update(1)
         if bar is not None:

@@ -18,8 +18,12 @@ the tiny test geometry in float32.
 The port adds ``--device`` (``cuda`` by default; a run without a card raises unless
 ``--device cpu`` is given) and ``--host_stage_experts`` (on by default for the a14b
 preset in bf16 on CUDA: the low-noise expert and its ControlNet wait in pinned host
-memory, so the bf16 A14B pair fits one 80 GB card). ``--control_signal_type
-canny_edge`` is not ported yet and raises.
+memory, so the bf16 A14B pair fits one 80 GB card).
+
+``--control_signal_type canny_edge`` takes CSVs of (image, control_video, caption)
+rows instead, with first frames under ``images/`` and precomputed Canny videos under
+``canny-videos/``; per row it writes ``<root>-canny-control-signal.mp4``,
+``<root>-image-condition.png`` and ``<root>-canny-output.mp4`` (``run_canny_edge``).
 
 ``main`` is three steps that other scripts can call in turn: ``load_pipeline``,
 ``answer_row`` (returns the frames) and ``write_row``.
@@ -43,7 +47,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--control_signal_type", type=str, default="goal_force",
                    choices=["goal_force", "canny_edge"],
-                   help="canny_edge is not ported yet and raises")
+                   help="canny_edge: CSVs with (image, control_video, caption) rows and "
+                        "precomputed canny videos")
     p.add_argument("--model_ckpt_path", type=str, default=None,
                    help="trained ControlNet step-K.safetensors (omit => base Wan2.2)")
     p.add_argument("--high_noise_model", type=str, required=True,
@@ -179,14 +184,52 @@ def write_row(sample: Dict, video: np.ndarray, base: str, pipe_cfg) -> None:
                fps=15, quality=5)
 
 
+def run_canny_edge(pipe, args, out_dir: str) -> List[str]:
+    """Canny-edge control: each row of each CSV this process takes names a first frame
+    under ``images/`` (resized by PIL to the run's size) and a Canny video under
+    ``canny-videos/`` (its first ``num_frames`` frames, resized with cv2's INTER_AREA).
+    Writes the control video, the first frame and the answer per row; returns the
+    answers' paths."""
+    import pandas as pd
+    from PIL import Image
+
+    from goal_force_tpu_torch.data.datasets import resize_area
+    from goal_force_tpu_torch.data.video_io import load_video, save_image, save_video
+
+    outs = []
+    for csv in split_contiguous(args.example_paths, args.world_size, args.device_id):
+        df = pd.read_csv(csv)
+        base_path = os.path.dirname(csv)
+        for _, row in df.iterrows():
+            image = np.asarray(
+                Image.open(os.path.join(base_path, "images", row["image"]))
+                .convert("RGB").resize((args.width, args.height)), np.float32) / 255.0
+            cv_name = row["control_video"]
+            frames = load_video(os.path.join(base_path, "canny-videos", cv_name),
+                                args.num_frames)
+            cv = resize_area(frames, args.width, args.height)
+            root = cv_name.split("_canny.mp4")[0].split(".mp4")[0]
+            out = os.path.join(out_dir, f"{root}-canny-output.mp4")
+            save_video(cv, os.path.join(out_dir, f"{root}-canny-control-signal.mp4"),
+                       fps=15, quality=5)
+            save_image(image, os.path.join(out_dir, f"{root}-image-condition.png"))
+            video = pipe(row["caption"], image, control_signal_video=cv, seed=args.seed,
+                         num_frames=args.num_frames, progress=True)
+            save_video(video, out, fps=15, quality=5)
+            print("wrote", out)
+            outs.append(out)
+    return outs
+
+
 def main(argv: Optional[List[str]] = None) -> List[str]:
-    """Answer every row of the CSVs this process takes; returns each row's ``base``."""
+    """Answer every row of the CSVs this process takes; returns each row's ``base``
+    (with ``canny_edge``, each answer's path)."""
     args = parse_args(argv)
-    if args.control_signal_type == "canny_edge":
-        raise NotImplementedError("--control_signal_type canny_edge is not ported yet")
     pipe = load_pipeline(args)
     out_dir, step = output_dir(args)
     os.makedirs(out_dir, exist_ok=True)
+    if args.control_signal_type == "canny_edge":
+        return run_canny_edge(pipe, args, out_dir)
     bases = []
     for csv_path in split_contiguous(args.example_paths, args.world_size, args.device_id):
         print("processing", csv_path)

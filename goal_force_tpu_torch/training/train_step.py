@@ -1,13 +1,18 @@
-"""ControlNet training: loss, optimizer and the train step.
+"""ControlNet and LoRA training: loss, optimizer and the train step.
 
-Port of ``goal_force_tpu/training/train_step.py`` (ControlNet-only training):
+Port of ``goal_force_tpu/training/train_step.py``:
 
   - one timestep id per step, uniform in [min_b, max_b) x 1000 of the 1000-entry
     descending training schedule (shift 5; boundary 0.358 by default);
   - x_t = (1 - sigma) x0 + sigma eps, target v = eps - x0, Gaussian-bell step weight;
   - global-norm clip 1.0, then AdamW (lr 1e-5, betas (0.9, 0.999), eps 1e-8, weight
     decay 0.01), optionally averaging k micro-steps first (``optax.MultiSteps``);
-  - only the ControlNet trains; the DiT, T5 and VAE stay frozen.
+  - by default only the ControlNet trains; the DiT, T5 and VAE stay frozen. With
+    ``train_lora`` the trainable set is ``{"lora": adapters}`` (``lora.py``), plus
+    ``"controlnet"`` when a ControlNet trains jointly: the DiT runs with
+    ``W + (alpha / r) A @ B`` (alpha defaults to the rank), merged block by block
+    inside each block's remat region, and its base weights never change. The gradient
+    norm and the clip cover the whole trainable set, and AdamW updates every part.
 
 The JAX step is one jitted function; here it is eager PyTorch: the three VAE encodes and
 the T5 encode run under ``no_grad``, the denoiser forward runs with a checkpoint per
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from goal_force_tpu_torch.configs import ControlNetConfig, T5Config, VAEConfig, WanDiTConfig
+from goal_force_tpu_torch.lora import lora_rank, merged_block
 from goal_force_tpu_torch.models import t5 as t5m
 from goal_force_tpu_torch.models import vae as vaem
 from goal_force_tpu_torch.pipelines.goal_force import build_i2v_mask, resolve_device
@@ -38,13 +44,21 @@ Tensors = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    params: torch.nn.Module            # the trainable ControlNet
-    opt_state: Tensors                 # AdamW.init(...) of its parameters
+    params: object       # the trainable ControlNet, or {"lora": adapters[, "controlnet": cn]}
+    opt_state: Tensors   # AdamW.init(trainable_params(params))
     step: int = 0
 
 
-def trainable_params(module: torch.nn.Module) -> Tensors:
-    return {n: p for n, p in module.named_parameters() if p.requires_grad}
+def trainable_params(params) -> Tensors:
+    """The trainable tensors by name: a module's parameters that require grad, or for
+    LoRA training ``lora.<target>.<a|b>`` and ``controlnet.<name>``."""
+    if isinstance(params, torch.nn.Module):
+        return {n: p for n, p in params.named_parameters() if p.requires_grad}
+    out = {f"lora.{t}.{k}": v for t, ab in params["lora"].items() for k, v in ab.items()}
+    if params.get("controlnet") is not None:
+        out.update({f"controlnet.{n}": p
+                    for n, p in trainable_params(params["controlnet"]).items()})
+    return out
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -130,13 +144,15 @@ def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.01, grad_clip: floa
 
 def training_loss(dit, cn, dit_cfg: WanDiTConfig, cn_cfg: Optional[ControlNetConfig],
                   x0, noise, sigma, timestep, weight, context, y, control_latents,
-                  attn_impl: str = "auto", remat: bool = True) -> torch.Tensor:
-    """Weighted v-MSE of the denoiser (float32 scalar)."""
+                  attn_impl: str = "auto", remat: bool = True,
+                  block_weights=None) -> torch.Tensor:
+    """Weighted v-MSE of the denoiser (float32 scalar). block_weights: see
+    ``denoise_forward`` (LoRA's merge)."""
     latents = fm.add_noise(x0, noise, sigma)
     target = fm.training_target(x0, noise)
     v = denoise_forward(dit, dit_cfg, latents, timestep, context, y=y, controlnet=cn,
                         controlnet_cfg=cn_cfg, control_latents=control_latents,
-                        attn_impl=attn_impl, remat=remat)
+                        attn_impl=attn_impl, remat=remat, block_weights=block_weights)
     loss = (v.float() - target.float()).square().mean()
     return loss * weight
 
@@ -186,9 +202,10 @@ def make_train_step(
     seconds of each stage (encodes, t5, forward_backward, optimizer), synchronised, and on
     CUDA each stage's peak memory.
     metrics: loss, grad_norm (before clipping) and timestep, as floats.
+
+    train_lora: state.params is {"lora": adapters[, "controlnet": cn]} (see the module
+    docstring); lora_alpha defaults to the adapters' rank.
     """
-    if train_lora or lora_alpha is not None:
-        raise NotImplementedError("LoRA training is not ported yet")
     if pp_microbatches:
         raise NotImplementedError("pipeline-parallel training is not ported yet")
     schedule = fm.make_schedule(num_steps=1000, shift=5.0, sigma_min=0.0,
@@ -242,12 +259,23 @@ def make_train_step(
                               device=device)
         weight = float(schedule.training_weights[tid])
 
+        if train_lora != isinstance(state.params, dict):
+            raise ValueError("train_lora needs state.params = {'lora': ...[, 'controlnet': "
+                             "...]}, ControlNet training the ControlNet module")
+        block_weights = None
+        cn = state.params
+        if train_lora:
+            lora, cn = state.params["lora"], state.params.get("controlnet")
+            alpha = lora_alpha or lora_rank(lora)
+            block_weights = lambda i, blk: merged_block(blk, lora, i, alpha)
         params = trainable_params(state.params)
         with _stage(timings, "forward_backward", device):
             with torch.enable_grad():
-                loss = training_loss(dit, state.params, dit_cfg, cn_cfg, x0, noise, sigma,
-                                     timestep, weight, context, y, control_latents,
-                                     attn_impl=attn_impl, remat=True)
+                loss = training_loss(dit, cn, dit_cfg, cn_cfg if cn is not None else None,
+                                     x0, noise, sigma, timestep, weight, context, y,
+                                     control_latents if cn is not None else None,
+                                     attn_impl=attn_impl, remat=True,
+                                     block_weights=block_weights)
                 grads = torch.autograd.grad(loss, list(params.values()))
         grads = dict(zip(params, grads))
         with _stage(timings, "optimizer", device):

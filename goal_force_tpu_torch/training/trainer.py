@@ -1,12 +1,18 @@
 """Training harness: epoch/step loop, metrics, checkpoints and resume.
 
-Port of ``goal_force_tpu/training/trainer.py`` (ControlNet-only training): a per-epoch
+Port of ``goal_force_tpu/training/trainer.py``: a per-epoch
 numpy permutation of the dataset, bad samples skipped (``should_skip``), metrics every
 ``log_every`` steps to ``metrics.jsonl``, and every ``save_steps`` steps (and at the
 end) a reference-format ``step-K.safetensors`` plus a full ``state-K.safetensors``
 (older full states pruned to ``keep_last_states``). Resume prefers the full state, which
 makes a resumed run bit-identical to one without a break; with only ``step-K`` it
-reloads the ControlNet and starts the step counter at K, as the JAX trainer does.
+reloads the ControlNet (with LoRA: the adapters from the PEFT keys) and starts the step
+counter at K, as the JAX trainer does.
+
+With ``train_lora`` the adapters (``lora.py``, rank ``lora_rank``) are drawn from a
+generator seeded with ``seed + 1`` and train on the frozen DiT, with the ControlNet
+beside them when one is given; ``step-K`` then holds the PEFT keys (and the
+ControlNet's).
 
 Each step draws its timestep and noise from a ``torch.Generator`` seeded from
 (seed, step), so a resume replays exactly without replaying any random stream.
@@ -31,11 +37,13 @@ from goal_force_tpu_torch.io.safetensors_io import (
     export_goalforce_controlnet,
     find_latest_checkpoint,
     load_goalforce_controlnet,
+    load_safetensors,
     load_train_state,
     save_safetensors,
     save_train_state,
     train_state_path,
 )
+from goal_force_tpu_torch.lora import init_lora, lora_from_peft, lora_to_peft
 from goal_force_tpu_torch.pipelines.goal_force import resolve_device
 from goal_force_tpu_torch.training.train_step import (
     TrainState,
@@ -77,7 +85,8 @@ class TrainerConfig:
     height: int = 480
     width: int = 832
     seed: int = 0
-    train_lora: bool = False            # not ported: raises
+    train_lora: bool = False            # LoRA adapters on the frozen DiT
+    lora_rank: int = 32
     pp_microbatches: Optional[int] = None   # not ported: raises
     keep_last_states: int = 2           # full state-K files kept (<= 0 keeps all)
 
@@ -94,22 +103,23 @@ def _pixels(frames, device) -> torch.Tensor:
 
 
 def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
-          frozen: Dict[str, torch.nn.Module], controlnet: torch.nn.Module, dataset, tokenizer,
-          resume: bool = False, max_steps: Optional[int] = None, device="cuda",
+          frozen: Dict[str, torch.nn.Module], controlnet: Optional[torch.nn.Module], dataset,
+          tokenizer, resume: bool = False, max_steps: Optional[int] = None, device="cuda",
           history: Optional[list] = None) -> TrainState:
     """Run the training loop and return the final state.
 
     frozen: {"dit", "t5", "vae"} modules on `device`; controlnet: the initial ControlNet
-    (copied, never changed); dataset: an indexable of dicts with ``video`` and
+    (copied, never changed; None trains the LoRA adapters alone, with
+    ``cfg.train_lora``); dataset: an indexable of dicts with ``video`` and
     ``control_video`` ((T, H, W, 3) in [0, 1]) and ``prompt``; tokenizer: prompts ->
     (ids, mask) numpy arrays. history: a list that receives each step's metrics and the
     seconds of its stages (synchronised, so only for measurement).
     """
     device = resolve_device(device)
-    if cfg.train_lora:
-        raise NotImplementedError("LoRA training is not ported yet")
+    if controlnet is None and not cfg.train_lora:
+        raise ValueError("ControlNet training needs a controlnet")
     for name, m in (*frozen.items(), ("controlnet", controlnet)):
-        if next(m.parameters()).device.type != device.type:
+        if m is not None and next(m.parameters()).device.type != device.type:
             raise ValueError(f"{name} is not on {device}")
     optimizer = make_optimizer(cfg.lr, cfg.weight_decay, cfg.grad_clip,
                                grad_accum_steps=cfg.grad_accum_steps)
@@ -117,10 +127,10 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
         dit_cfg, t5_cfg, vae_cfg, cn_cfg, optimizer, num_frames=cfg.num_frames,
         max_timestep_boundary=cfg.max_timestep_boundary,
         min_timestep_boundary=cfg.min_timestep_boundary,
-        pp_microbatches=cfg.pp_microbatches)
+        train_lora=cfg.train_lora, pp_microbatches=cfg.pp_microbatches)
 
-    cn = copy.deepcopy(controlnet).requires_grad_(True)
-    start_step, full_state_file = 0, None
+    cn = None if controlnet is None else copy.deepcopy(controlnet).requires_grad_(True)
+    start_step, full_state_file, lora = 0, None, None
     if resume:
         latest = find_latest_checkpoint(cfg.output_dir)
         if latest is not None:
@@ -129,9 +139,21 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
             cand = train_state_path(cfg.output_dir, start_step)
             if os.path.exists(cand):
                 full_state_file = cand
+            elif cfg.train_lora:
+                lora = lora_from_peft(load_safetensors(latest), dit_cfg.num_layers)
+                lora = {t: {k: v.to(device) for k, v in ab.items()} for t, ab in lora.items()}
             else:
                 cn.load_state_dict(load_goalforce_controlnet(latest))
-    state = TrainState(cn, optimizer.init(trainable_params(cn)), start_step)
+    params = cn
+    if cfg.train_lora:
+        if lora is None:
+            gen = torch.Generator(device).manual_seed(cfg.seed + 1)
+            lora = init_lora(gen, frozen["dit"], rank=cfg.lora_rank)
+        for ab in lora.values():
+            for t in ab.values():
+                t.requires_grad_(True)
+        params = {"lora": lora, **({"controlnet": cn} if cn is not None else {})}
+    state = TrainState(params, optimizer.init(trainable_params(params)), start_step)
     if full_state_file is not None:
         load_train_state(full_state_file, state)
     logger = MetricsLogger(cfg.output_dir, cfg.log_every)
@@ -176,7 +198,8 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
 
 def save_checkpoint(state: TrainState, output_dir: str, step: int, keep_states: int = 2):
     """Full state-K.safetensors (then prune older ones to the newest `keep_states`) and
-    the reference-format step-K.safetensors (never pruned)."""
+    the reference-format step-K.safetensors (never pruned): the ControlNet, or with LoRA
+    the adapters' PEFT keys plus the ControlNet's keys when it trains jointly."""
     save_train_state(state, train_state_path(output_dir, step))
     if keep_states and keep_states > 0:
         pat = re.compile(r"state-(\d+)\.safetensors$")
@@ -184,5 +207,12 @@ def save_checkpoint(state: TrainState, output_dir: str, step: int, keep_states: 
         for old in steps[:-keep_states]:
             os.remove(train_state_path(output_dir, old))
     path = os.path.join(output_dir, f"step-{step}.safetensors")
-    save_safetensors(export_goalforce_controlnet(state.params), path)
+    params = state.params
+    if isinstance(params, dict):
+        sd = lora_to_peft(params["lora"])
+        if params.get("controlnet") is not None:
+            sd.update(export_goalforce_controlnet(params["controlnet"]))
+    else:
+        sd = export_goalforce_controlnet(params)
+    save_safetensors(sd, path)
     print(f"saved {path}")

@@ -74,6 +74,13 @@ def test_checkpoint_cli_and_staging_modules_are_in_the_blocked_import():
         assert m in MODULES
 
 
+def test_teacache_lora_and_training_cli_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.pipelines.teacache", "goal_force_tpu_torch.lora",
+              "goal_force_tpu_torch.scripts.train", "goal_force_tpu_torch.pipelines.model_fn",
+              "goal_force_tpu_torch.io.from_jax"):
+        assert m in MODULES
+
+
 def test_low_precision_modules_are_in_the_blocked_import():
     for m in ("goal_force_tpu_torch.ops.quant", "goal_force_tpu_torch.ops.flash_attention",
               "goal_force_tpu_torch.ops.attention"):

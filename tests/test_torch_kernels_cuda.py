@@ -255,3 +255,55 @@ def test_expert_swap_holds_one_pair_on_the_card(cuda_device):
         assert all(t.device.type == "cpu" and t.is_pinned() for t in tensors(outgoing))
         got = snapshot(incoming)
         assert all(torch.equal(got[k][n], ref[k][n]) for k in ref for n in ref[k])
+
+
+@pytest.mark.cuda
+def test_lora_merge_inside_remat_holds_one_block_of_merged_weights(cuda_device):
+    """LoRA training merges each block's adapters inside its remat region: the peak of a
+    forward + backward above the same run without adapters stays within a few blocks'
+    merged weights (the merged weights, their gradient and its float32 cast of the
+    block being recomputed), while merging all 16 blocks first adds at least all 16."""
+    from goal_force_tpu_torch import configs
+    from goal_force_tpu_torch.lora import init_lora, merged_block
+    from goal_force_tpu_torch.models import wan_dit
+
+    cfg = configs.WanDiTConfig(dim=1024, ffn_dim=4096, num_heads=8, num_layers=16,
+                               text_dim=1024, freq_dim=256)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    dit = wan_dit.init_wan_dit(cfg, gen, torch.bfloat16, device=cuda_device)
+    lora = init_lora(gen, dit, rank=8)
+    for ab in lora.values():
+        ab["b"].normal_(generator=gen).mul_(0.01)
+        for t in ab.values():
+            t.requires_grad_(True)
+    x = torch.randn((1, 1024, cfg.dim), generator=gen, device=cuda_device).to(torch.bfloat16)
+    ctx = torch.randn((1, 64, cfg.dim), generator=gen, device=cuda_device).to(torch.bfloat16)
+    _, t_mod = wan_dit.time_embed(dit, cfg, torch.full((1,), 500.0, device=cuda_device))
+    cos, sin = wan_dit.rope_for_grid(cfg, (4, 16, 16), cuda_device)
+    block_bytes = sum(2 * p.numel() for blk in dit.blocks[:1] for n, p in blk.named_parameters()
+                      if n.split(".weight")[0] in ("self_attn.q", "self_attn.k", "self_attn.v",
+                                                  "self_attn.o", "ffn.0", "ffn.2"))
+
+    def peak(block_weights, inputs_grad):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        xi = x.clone().requires_grad_(inputs_grad)
+        weights = block_weights() if callable(block_weights) else None
+        out = wan_dit.run_blocks(dit.blocks, xi, ctx, t_mod, cos, sin, cfg, remat=True,
+                                 block_weights=weights)
+        out.float().square().mean().backward()
+        del out, weights
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    plain = peak(None, True)
+    inside = peak(lambda: (lambda i, blk: merged_block(blk, lora, i)), False)
+
+    def whole():
+        merged = [merged_block(blk, lora, i) for i, blk in enumerate(dit.blocks)]
+        return lambda i, blk: merged[i]
+
+    upfront = peak(whole, False)
+    assert inside - plain <= 6 * block_bytes, (inside - plain, block_bytes)
+    assert upfront - plain >= cfg.num_layers * block_bytes, (upfront - plain, block_bytes)

@@ -167,7 +167,7 @@ def test_seeded_noise_is_deterministic(pipes, inputs):
     assert np.abs(a - c).max() > 1e-4
 
 
-@pytest.mark.parametrize("arg", ["tea_cache_l1_thresh", "sliding_window_size", "end_image",
+@pytest.mark.parametrize("arg", ["fun_control_video", "reference_image", "end_image",
                                  "vace_video", "motion_bucket_id", "input_video"])
 def test_unported_arguments_raise(pipes, inputs, arg):
     _, tpipe = pipes

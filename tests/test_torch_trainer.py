@@ -204,4 +204,4 @@ def test_trainer_needs_cuda_unless_cpu_is_asked(setup, tmp_path):
         train(_cfg(tmp_path), pipe.dit_cfg, pipe.t5_cfg, pipe.vae_cfg, pipe.cn_cfg, frozen,
               cn0, dataset, pipe.tokenizer, max_steps=1)
     with pytest.raises(NotImplementedError):
-        _run(setup, tmp_path, train_lora=True)
+        _run(setup, tmp_path, pp_microbatches=2)

@@ -311,8 +311,6 @@ def test_grad_accumulation_matches_optax_multisteps():
 def test_unported_training_options_raise(tiny):
     t_cfgs = tiny[3]
     with pytest.raises(NotImplementedError):
-        tts.make_train_step(*t_cfgs, tts.make_optimizer(), train_lora=True)
-    with pytest.raises(NotImplementedError):
         tts.make_train_step(*t_cfgs, tts.make_optimizer(), pp_microbatches=2)
     if not torch.cuda.is_available():     # the default device is CUDA: refused without one
         with pytest.raises(RuntimeError, match="CUDA"):
