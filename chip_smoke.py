@@ -10,7 +10,9 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              source, started together) and prints each kernel's ptxas report and the
              Hopper kernels' (K1-K6) SASS instruction counts by opcode; each of them must
              hold HGMMA (wgmma) and no HMMA (mma.sync), spill nothing, and draw no ptxas
-             warning that it serialized its wgmma.
+             warning that it serialized its wgmma. Then builds the native control renderer
+             (goal_force_tpu_torch/native, g++; no fallback) and renders one 81x480x832
+             control video with it and with numpy (equal within 1e-6).
 3. kernels - holds K1/K2 against their plain torch versions on the card (small shapes,
              saturation, per-batch kv_len, both at the Hopper tiles' edges: B = 2, Sq and
              Skv of 127 and 129, and the main-path self and cross shapes), K3/K4/K5 (o and
@@ -20,8 +22,10 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              moves), and K6 (int8 q and k) in float32 and bf16 at 1000x777
              and at the tile edges with quantization tiles of 128 and 300, and at the main
              path's self and cross shapes, and K1 at the sliding-window shape (14,040
-             tokens, self and cross); times kernel, plain version, K6's quantize step
-             and SDPA (as a yardstick only) at the path shapes.
+             tokens, self and cross), at the Fun-Reference / VACE-reference shape (B = 2,
+             34,320 tokens) and at generate_batch's (B = 4, 32,760 tokens); times kernel,
+             plain version, K6's quantize step and SDPA (as a yardstick only) at the path
+             shapes.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
 5. small_train - one training loss + backward at that size, kernels vs plain attention
@@ -50,25 +54,43 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              row's five artifacts are written; the files are deleted.
 11. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
              so the runtime logit bound routes self-attention to K2.
-12. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
+12. variants - main's pipeline with full-width adapters (a motion controller and a camera
+             SimpleAdapter written in the reference formats and read back through
+             from_pretrained's loaders, a Fun-Reference ref_conv in both experts), 2-step
+             requests: at 33 frames the plain request, end_image, v2v, motion_bucket_id,
+             camera "Left" and a strided ControlNet (stride 2), 12 K1 per step each; at 81
+             frames the plain request without ControlNet and Fun-Reference (8 K1 per
+             step, 34,320 tokens), two single requests and generate_batch of the same 2
+             clips (12 K1 per step at B = 4), which must equal the singles within 1e-2.
+             Each request's frames must differ from its plain request's; logs launches
+             per step, stage seconds and peak memory, then v2v's untiled 81-frame encode
+             (its peak, or the allocation it was refused).
+13. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
              attn_impl="flash_int8": the same two requests, 48 K6 launches each and no
              other, and the frames' mean distance from main's bf16 frames.
-13. train  - frees the serving pipeline and trains the ControlNet at full A14B width
+14. t2v_vace - a full-width t2v pipeline (in_dim 16, 4 DiT layers, no ControlNet) with
+             VACE hint blocks after layers 0 and 2 (written and read back through
+             from_pretrained's loader): a t2v request (8 K1 per step) and a VACE request
+             with video, mask and reference image (34,320 tokens, 12 K1 per step), 2
+             steps at 81x480x832.
+15. fun_control - a full-width Fun-Control pipeline (in_dim 52, 4 DiT layers): two
+             33-frame requests with two control videos (8 K1 per step), frames differ.
+16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
              the frozen models, the checkpoint and the launches per step, and logs the
              stage split and peak memory.
-14. train_cli - the training CLI's functions at train's config on reference-format
+17. train_cli - the training CLI's functions at train's config on reference-format
              files (the expert as safetensors shards, umt5 and the VAE as .pth; Balls,
              Dominos and Plants CSVs with 832x480 mp4 clips): LoRA adapters (rank 32)
              jointly with the ControlNet for 3 steps, then a resume from the step-2 state
              whose step 3 must equal the first run's bit for bit; checks the base expert,
              the adapters' B, the step-2 file's keys and K3/K4/K5 launches; logs stages,
              peaks and how many merged bf16 weights the adapters change.
-15. full_int8 - full A14B depth on one card (40 DiT + 10 ControlNet layers per expert,
+18. full_int8 - full A14B depth on one card (40 DiT + 10 ControlNet layers per expert,
              24-layer umt5-xxl, full VAE), W8A8 + K6: one 2-step request across the
              expert switch, 100 K6 launches per step; logs init, stages and peak memory.
-16. full_bf16 - full A14B depth in bf16 on one card: the low-noise pair is built and
+19. full_bf16 - full A14B depth in bf16 on one card: the low-noise pair is built and
              staged to pinned host memory before the high-noise pair is built; two
              identical 2-step requests (3 swaps, 200 K1 launches each), the second of
              which must repeat the first step for step; logs init, stages, each swap and
@@ -102,6 +124,11 @@ STEPS = 4
 K1_PER_REQUEST = 2 * (4 + 2) * STEPS
 WINDOW, WINDOW_STRIDE = 9, 6            # latent frames: windows at 0, 6 and 12 of 21
 WINDOW_SELF = (2, WINDOW * 30 * 52, 40, 128)    # one window's self-attention q/k/v
+REF_SELF = (2, 22 * 30 * 52, 40, 128)    # Fun-Reference / VACE reference: one more frame
+BATCH_SELF = (4, 32760, 40, 128)         # generate_batch of 2 clips under merged CFG
+BATCH_CROSS_KV = (4, 512, 40, 128)
+VARIANT_FRAMES = 33      # 9 latent frames (14,040 tokens): K1's window shape
+VARIANT_STEPS = 2
 # The I2V-480P rescale polynomial is at least 0.037 for every drift >= 0, so 0.03 computes
 # every step; 1e12 skips every step between the first and the last.
 TC_NO_SKIP, TC_SKIP_ALL = 0.03, 1e12
@@ -199,6 +226,35 @@ def phase_build():
             check(ops.get("HGMMA", 0) > 0 and ops.get("HMMA", 0) == 0,
                   f"{name}: SASS holds {ops.get('HGMMA', 0)} HGMMA and {ops.get('HMMA', 0)} HMMA")
     check(found == set(SM90_BODIES.values()), f"Hopper bodies found in the SASS: {found}")
+    _build_renderer()
+
+
+def _build_renderer():
+    """The native control renderer (g++, no fallback), and one full-size control video
+    from it against the numpy path."""
+    from goal_force_tpu_torch import native
+    from goal_force_tpu_torch.data import ControlSpec, render_control_video
+
+    lib, secs = sync_time(native.native)
+    check(lib is not None, f"the native control renderer does not build: {native.build_error}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    spec = ControlSpec(force=220, angle_deg=35, x_pos=0.36, y_pos=0.58, target_force=120,
+                       target_angle_deg=80, target_x_pos=0.62, target_y_pos=0.45,
+                       projectile_mass=2.0, projectile_xy_px=(300, 200), target_mass=3.0,
+                       target_xy_px=(520, 260))
+    kw = dict(min_force=30.0, max_force=400.0)
+    t0 = time.perf_counter()
+    fast = render_control_video(spec, 81, 480, 832, backend="native", **kw)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = render_control_video(spec, 81, 480, 832, backend="numpy", **kw)
+    numpy_s = time.perf_counter() - t0
+    err = float(np.abs(fast - slow).max())
+    log("build", renderer=str(native.library_path()), seconds=secs,
+        gxx=gxx.splitlines()[0] if gxx else None, render_81x480x832_native_s=native_s,
+        render_81x480x832_numpy_s=numpy_s, max_abs_diff_vs_numpy=err, atol=1e-6,
+        ok=err <= 1e-6)
+    check(err <= 1e-6, f"native renderer differs from numpy by {err}")
 
 
 # Hopper kernel bodies in the SASS: a function-name fragment -> the kernel's name.
@@ -414,6 +470,33 @@ def _forward_kernels(timed=True):
         log("kernels", case=f"K1 window {sname} timing", **rec)
     del q, k, v, ck, cv
     torch.cuda.empty_cache()
+    # K1 at the variants' new shapes: Fun-Reference and VACE with a reference image prepend
+    # one latent frame (34,320 tokens, 268.1 tiles of 128: partial last q and key tiles);
+    # generate_batch of 2 clips runs B = 4 (2 clips x merged CFG).
+    for tag, qshape, kvshape in (("ref", REF_SELF, CROSS_KV), ("batch", BATCH_SELF,
+                                                              BATCH_CROSS_KV)):
+        q, k, v = (_rand(qshape, gen, torch.bfloat16) for _ in range(3))
+        ck, cv = _rand(kvshape, gen, torch.bfloat16), _rand(kvshape, gen, torch.bfloat16)
+        for sname, kk, vv in (("self", k, v), ("cross", ck, cv)):
+            got = kern(q, kk, vv)
+            ref = plain(q, kk, vv)
+            err = compare(f"K1 {tag} {sname} {tuple(q.shape)}x{tuple(kk.shape)} bf16", got, ref,
+                          **bf16_tol_shape[sname])
+            del got, ref
+            torch.cuda.empty_cache()
+            if not timed:
+                continue
+            bound, by = attention_bound_ms(q.shape, kk.shape)
+            rec = dict(max_abs_err=err, ms=event_ms(lambda: kern(q, kk, vv)),
+                       plain_ms=event_ms(lambda: plain(q, kk, vv), iters=1, warmup=0),
+                       bound_ms=bound, bound_by=by,
+                       library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), kk.transpose(1, 2),
+                                                        vv.transpose(1, 2))),
+                       shape=f"{tuple(q.shape)}x{tuple(kk.shape)}")
+            out["K1"][f"{tag}_{sname}"] = rec
+            log("kernels", case=f"K1 {tag} {sname} timing", **rec)
+        del q, k, v, ck, cv
+        torch.cuda.empty_cache()
     return out
 
 
@@ -930,6 +1013,282 @@ def phase_window(pipe, main_frames):
     finally:
         gfm.temporal_tiled_forward = real_tiled
     return dict(fa.launch_counts)
+
+
+def _variant_request(pipe, phase, name, fn, per_step, frames_shape, steps=VARIANT_STEPS,
+                     base=None):
+    """One request fn() with its stages timed. Checks its frames (shape, finite, in
+    [0, 1]) and that K1 (and nothing else) launched per_step times in each of its steps;
+    logs the launches per step, the step seconds, the peak memory and max |frames - base|,
+    which must exceed 1e-3 (the variant's input changed the result). Returns the frames."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    stage_times = []
+    _instrument(pipe, stage_times)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.launch_counts)
+    try:
+        frames, secs = sync_time(fn)
+    finally:
+        _uninstrument(pipe)
+    counts = {k: fa.launch_counts[k] - before[k] for k in before}
+    diff = None if base is None else float(np.abs(frames - base).max())
+    log(phase, request=name, seconds=secs, stages=dict(stage_times), launches=counts,
+        k1_per_step=counts["K1"] / steps, peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+        max_abs_diff_vs_plain=diff, frames_mean=float(frames.mean()))
+    check(frames.shape == frames_shape and bool(np.isfinite(frames).all())
+          and frames.min() >= 0.0 and frames.max() <= 1.0,
+          f"{phase} {name}: frames of shape {frames.shape}, not finite or outside [0, 1]")
+    check(counts == only(K1=per_step * steps), f"{phase} {name} launched {counts}")
+    if base is not None:
+        check(diff > 1e-3, f"{phase} {name}: frames equal the plain request's ({diff})")
+    return frames
+
+
+def _save_and_load_adapters(root, dit_cfg, adapters):
+    """Write drawn adapters in the reference formats (the camera adapter inside a camera
+    model's file, under "control_adapter.") and read them back through from_pretrained's
+    loaders."""
+    from goal_force_tpu_torch.io import safetensors_io as sio
+    from goal_force_tpu_torch.pipelines.goal_force import load_adapters
+
+    paths = {}
+    for name, mod in adapters.items():
+        sd = {k: v.contiguous() for k, v in mod.state_dict().items()}
+        if name == "camera_adapter":
+            sd = {"control_adapter." + k: v for k, v in sd.items()}
+        paths[name] = os.path.join(root, f"{name}.safetensors")
+        sio.save_safetensors(sd, paths[name])
+    nbytes = sum(os.path.getsize(p) for p in paths.values())
+    n_vace = len(adapters["vace"].vace_blocks) if "vace" in adapters else 0
+    loaded, secs = sync_time(lambda: load_adapters(
+        dit_cfg, paths.get("vace"), n_vace, paths.get("motion_controller"),
+        paths.get("camera_adapter"), torch.bfloat16, "cuda"))
+    for name, mod in adapters.items():
+        want = mod.state_dict()
+        check(all(torch.equal(t, want[k]) for k, t in loaded[name].state_dict().items()),
+              f"{name}: read back differs from what was written")
+    return loaded, nbytes, secs
+
+
+def phase_variants(pipe):
+    """The Wan variants on main's bf16 pipeline, 2 steps each. Adapters drawn at full
+    width (a motion controller whose last layer is not zero, a camera SimpleAdapter, a
+    Fun-Reference ref_conv in both experts), the first two written in the reference
+    formats and read back through from_pretrained's loaders. At 33 frames (K1 at the
+    window's 14,040 tokens): the plain request, end_image, v2v (its untiled encode),
+    motion_bucket_id, camera "Left" and a strided ControlNet (stride 2: blocks 0 and 2,
+    raw states after them), each 12 K1 per step. At 81 frames: the plain request without
+    ControlNet and Fun-Reference (8 K1 per step, 34,320 tokens), then generate_batch of 2
+    clips (12 K1 per step at B = 4), which must equal its two single requests within
+    WINDOW_ATOL. Last, v2v's untiled encode at 81 frames, as JAX encodes it, measured
+    and reported whether or not it fits."""
+    import gc
+    import tempfile
+
+    from goal_force_tpu_torch.models import adapters as adm
+    from goal_force_tpu_torch.models import camera_controller as camm
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    pc = pipe.pipe_cfg
+    dit_cfg = pipe.dit_cfg
+    gen = torch.Generator("cuda").manual_seed(31)
+    mc = adm.init_motion_controller(gen, dit_cfg.freq_dim, dit_cfg.dim, torch.bfloat16,
+                                    device="cuda")
+    with torch.no_grad():
+        wan_dit.init_linear_(mc.linear[4], gen)     # a trained controller's is not zero
+    cam = camm.init_simple_adapter(dit_cfg.dim, gen, kernel=dit_cfg.patch_size[1],
+                                   dtype=torch.bfloat16, device="cuda")
+    with tempfile.TemporaryDirectory() as root:
+        loaded, nbytes, load_s = _save_and_load_adapters(
+            root, dit_cfg, {"motion_controller": mc, "camera_adapter": cam})
+    del mc, cam
+    pipe.models.update(loaded)
+    for name in ("dit", "dit2"):
+        wan_dit.init_ref_conv_(pipe.models[name], pipe.vae_cfg.z_dim, gen)
+    log("variants", stage="adapters", file_bytes=nbytes, load_seconds=load_s,
+        params={k: sum(t.numel() for t in pipe.models[k].parameters())
+                for k in ("motion_controller", "camera_adapter")},
+        ref_conv_params=pipe.models["dit"].ref_conv.weight.numel())
+
+    n = VARIANT_FRAMES
+    shape33 = (n, pc.height, pc.width, 3)
+    image, video = _request_inputs(41, n, pc.height, pc.width, pc)
+    end_image, other = _request_inputs(42, n, pc.height, pc.width, pc)
+    kw = dict(seed=41, num_frames=n, num_inference_steps=VARIANT_STEPS)
+    fa.reset_launch_counts()
+    run = lambda name, per_step, shape, fn, base=None: _variant_request(
+        pipe, "variants", name, fn, per_step, shape, base=base)
+    plain = run("plain_33", 12, shape33,
+                lambda: pipe(PROMPTS[0], image, control_signal_video=video, **kw))
+    run("end_image_33", 12, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+                                                  end_image=end_image, **kw), plain)
+    v2v_input = np.clip(0.5 * other + 0.25, 0.0, 1.0)
+    run("v2v_33", 12, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+                                            input_video=v2v_input, denoising_strength=0.8,
+                                            **kw), plain)
+    run("motion_33", 12, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+                                               motion_bucket_id=90, **kw), plain)
+    run("camera_left_33", 12, shape33, lambda: pipe(PROMPTS[0], image,
+                                                    control_signal_video=video,
+                                                    camera_control_direction="Left", **kw),
+        plain)
+    # strided ControlNets (stride 2), in place of main's for one request
+    saved = (pipe.cn_cfg, pipe.models["controlnet"], pipe.models["controlnet2"])
+    pipe.cn_cfg = dataclasses.replace(pipe.cn_cfg, stride=2)
+    for cn_name, dit_name in (("controlnet", "dit"), ("controlnet2", "dit2")):
+        pipe.models[cn_name] = cnm.init_from_dit(pipe.models[dit_name], dit_cfg, pipe.cn_cfg,
+                                                 gen, torch.bfloat16, device="cuda")
+    try:
+        run("strided_controlnet_33", 12, shape33,
+            lambda: pipe(PROMPTS[0], image, control_signal_video=video, **kw), plain)
+    finally:
+        pipe.cn_cfg, pipe.models["controlnet"], pipe.models["controlnet2"] = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shape81 = (pc.num_frames, pc.height, pc.width, 3)
+    images_, videos = zip(*(_request_inputs(s, pc.num_frames, pc.height, pc.width, pc)
+                            for s in (43, 44)))
+    ref_image = _request_inputs(45, 1, pc.height, pc.width, pc)[0]
+    kw81 = dict(num_inference_steps=VARIANT_STEPS)
+    plain81 = run("plain_no_controlnet_81", 8, shape81,
+                  lambda: pipe(PROMPTS[0], images_[0], seed=43, controlnet=False, **kw81))
+    run("reference_81", 8, shape81, lambda: pipe(PROMPTS[0], images_[0], seed=43,
+                                                  controlnet=False, reference_image=ref_image,
+                                                  **kw81), plain81)
+    singles = [run(f"single{i}_81", 12, shape81,
+                   lambda i=i: pipe(PROMPTS[i], images_[i], control_signal_video=videos[i],
+                                    seed=43 + i, **kw81))
+               for i in range(2)]
+    batch = run("batch_2x81", 12, (2,) + shape81,
+                lambda: pipe.generate_batch(list(PROMPTS), np.stack(images_),
+                                            control_signal_videos=list(videos),
+                                            seeds=[43, 44], **kw81))
+    batch_diff = [float(np.abs(batch[i] - singles[i]).max()) for i in range(2)]
+    log("variants", stage="batch_vs_singles", max_abs_diff=batch_diff, atol=WINDOW_ATOL,
+        ok=max(batch_diff) <= WINDOW_ATOL)
+    check(max(batch_diff) <= WINDOW_ATOL,
+          f"generate_batch differs from its singles by {batch_diff}")
+    run_counts = dict(fa.launch_counts)
+    del batch, singles, plain81
+    gc.collect()
+    torch.cuda.empty_cache()
+    _v2v_encode_81(pipe, videos[0])
+    for name in ("motion_controller", "camera_adapter"):
+        del pipe.models[name]
+    for name in ("dit", "dit2"):
+        del pipe.models[name].ref_conv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_counts
+
+
+def _v2v_encode_81(pipe, video):
+    """v2v's untiled float32 encode of an 81-frame input, as JAX encodes it: its peak if it
+    fits, else what the allocator refused (a measurement, not a check)."""
+    import gc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    try:
+        lat, secs = sync_time(lambda: pipe._encode_untiled(video))
+        log("variants", stage="v2v_untiled_encode_81", fits=True, seconds=secs,
+            latents=list(lat.shape), resident_gb=resident / 2**30,
+            peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+        del lat
+    except torch.cuda.OutOfMemoryError as e:
+        log("variants", stage="v2v_untiled_encode_81", fits=False, resident_gb=resident / 2**30,
+            peak_before_failure_gb=torch.cuda.max_memory_allocated() / 2**30,
+            error=str(e).splitlines()[0][:300])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_t2v_vace():
+    """A full-width text-to-video pipeline (A14B widths, in_dim 16, 4 DiT layers per expert,
+    no ControlNet) with VACE hint blocks after DiT layers 0 and 2, drawn at full width and
+    read back through from_pretrained's loader: one t2v request (8 K1 per step), then one
+    VACE request with video, mask and reference image (22 latent frames, 34,320 tokens,
+    12 K1 per step), both 81x480x832 and 2 steps."""
+    import gc
+    import tempfile
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4, in_dim=C.WAN21_VAE.z_dim)
+    t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
+    layers = (0, 2)
+    pipe, secs = sync_time(lambda: GoalForcePipeline.init_random(
+        seed=7, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=C.WAN21_VAE, cn_cfg=None,
+        dtype=torch.bfloat16, device="cuda", adapters=("vace",), vace_layers=layers))
+    with tempfile.TemporaryDirectory() as root:
+        loaded, nbytes, load_s = _save_and_load_adapters(root, dit_cfg,
+                                                         {"vace": pipe.models["vace"]})
+    pipe.models["vace"] = loaded["vace"]
+    check(pipe.vace_layers == layers, f"t2v_vace: vace layers {pipe.vace_layers}")
+    log("t2v_vace", stage="init", seconds=secs, vace_file_bytes=nbytes, vace_load_seconds=load_s,
+        vace_params=sum(t.numel() for t in pipe.models["vace"].parameters()),
+        memory_gb=torch.cuda.memory_allocated() / 2**30)
+    pc = pipe.pipe_cfg
+    shape = (pc.num_frames, pc.height, pc.width, 3)
+    kw = dict(height=pc.height, width=pc.width, seed=51, num_inference_steps=VARIANT_STEPS)
+    image, video = _request_inputs(51, pc.num_frames, pc.height, pc.width, pc)
+    mask = np.zeros((pc.num_frames, pc.height, pc.width), np.float32)
+    mask[:, 120:360, 208:624] = 1.0                          # regenerate the centre
+    fa.reset_launch_counts()
+    t2v = _variant_request(pipe, "t2v_vace", "t2v_81", lambda: pipe(PROMPTS[0], **kw), 8, shape)
+    _variant_request(pipe, "t2v_vace", "vace_81_with_reference", lambda: pipe(
+        PROMPTS[0], vace_video=video, vace_video_mask=mask, vace_reference_image=image, **kw),
+        12, shape, base=t2v)
+    run_counts = dict(fa.launch_counts)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_counts
+
+
+def phase_fun_control():
+    """A full-width Fun-Control pipeline (A14B widths, in_dim 52 = 16 + 16 control + 4 + 16,
+    4 DiT layers per expert, no ControlNet): one 33-frame request with a first frame and a
+    control video (8 K1 per step), and the same with another control video, whose frames
+    must differ."""
+    import gc
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+
+    z = C.WAN21_VAE.z_dim
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4, in_dim=3 * z + 4)
+    t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
+    pipe, secs = sync_time(lambda: GoalForcePipeline.init_random(
+        seed=9, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=C.WAN21_VAE, cn_cfg=None,
+        dtype=torch.bfloat16, device="cuda"))
+    log("fun_control", stage="init", seconds=secs, in_dim=dit_cfg.in_dim,
+        memory_gb=torch.cuda.memory_allocated() / 2**30)
+    pc = pipe.pipe_cfg
+    n = VARIANT_FRAMES
+    image, video = _request_inputs(61, n, pc.height, pc.width, pc)
+    _, other = _request_inputs(62, n, pc.height, pc.width, pc)
+    kw = dict(seed=61, num_frames=n, num_inference_steps=VARIANT_STEPS)
+    fa.reset_launch_counts()
+    first = _variant_request(pipe, "fun_control", "fun_control_33", lambda: pipe(
+        PROMPTS[0], image, fun_control_video=video, **kw), 8, (n, pc.height, pc.width, 3))
+    _variant_request(pipe, "fun_control", "other_control_video_33", lambda: pipe(
+        PROMPTS[0], image, fun_control_video=other, **kw), 8, (n, pc.height, pc.width, 3),
+        base=first)
+    run_counts = dict(fa.launch_counts)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_counts
 
 
 CLI_HEADER = ("image,caption,projectile_force_magnitude,projectile_force_angle,"
@@ -1847,8 +2206,11 @@ def main() -> int:
     window_launches = phase_window(pipe, bf16_frames[0])
     cli_launches = phase_cli(pipe)
     unb_launches = phase_unbounded(pipe)
+    variants_launches = phase_variants(pipe)
     int8_launches = phase_main_int8(pipe, bf16_frames)
     del pipe, bf16_frames
+    t2v_vace_launches = phase_t2v_vace()
+    fun_control_launches = phase_fun_control()
     train_launches = phase_train()
     train_cli_launches = phase_train_cli()
     full_launches = phase_full_int8()
@@ -1864,7 +2226,12 @@ def main() -> int:
               "window_cross": measured["K1"]["window_cross"],
               "teacache_launches": tc_launches["K1"], "window_launches": window_launches["K1"],
               "cli_launches": cli_launches["K1"],
-              "full_bf16_launches": full_bf16_launches["K1"]}),
+              "full_bf16_launches": full_bf16_launches["K1"],
+              **{k: measured["K1"][k] for k in ("ref_self", "ref_cross", "batch_self",
+                                                "batch_cross")},
+              "variants_launches": variants_launches["K1"],
+              "t2v_vace_launches": t2v_vace_launches["K1"],
+              "fun_control_launches": fun_control_launches["K1"]}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)"}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],

@@ -1,6 +1,9 @@
-"""Force/mass control-signal rendering (numpy, host side).
+"""Force/mass control-signal rendering (host side).
 
-Port of ``goal_force_tpu/data/control_signal.py`` without its C++ backend:
+Port of ``goal_force_tpu/data/control_signal.py`` with both of its backends: the C++
+windowed renderer (``native/control_render.cpp``, the default where it builds) and the
+separable numpy path. They agree to ~1e-6 (float32 rounding; the native path zeroes the
+numerically dead tail beyond 7 radii), and each equals the JAX package's same backend.
 
   channel 0: a radius-20 Gaussian blob travelling from the projectile position along the
              direct-force angle; travel distance lerps width/8 -> width/2 with normalized
@@ -103,13 +106,25 @@ def render_control_video(
     p_mask_out_indirect: float = 0.0,
     p_mask_out_masses: float = 0.0,
     rng: Optional[np.random.Generator] = None,
+    backend: str = "auto",
 ) -> np.ndarray:
-    """Render the (num_frames, height, width, 3) float32 control video in [0, 1]."""
+    """Render the (num_frames, height, width, 3) float32 control video in [0, 1].
+
+    backend: "auto" renders with the native library where it builds, else with numpy;
+    "native" raises where it does not build; "numpy" never uses it."""
     if min_indirect_force is None:
         min_indirect_force = min_force
     if max_indirect_force is None:
         max_indirect_force = max_force
     rng = rng or np.random.default_rng()
+
+    lib = None
+    if backend in ("auto", "native"):
+        from goal_force_tpu_torch import native as nat
+
+        lib = nat.native()
+        if lib is None and backend == "native":
+            raise RuntimeError(f"native renderer unavailable: {nat.build_error}")
     out = np.zeros((num_frames, height, width, 3), dtype=np.float32)
 
     if spec.force == -1:
@@ -126,7 +141,12 @@ def render_control_video(
 
     def render_moving(channel, x0, y0, angle, norm):
         xs, ys = _moving_blob_path(x0, y0, angle, norm, num_frames, width)
-        out[..., channel] = gaussian_blob(xs, ys, BLOB_RADIUS, height, width)
+        if lib is not None:
+            lib.gf_add_moving_blob(out, num_frames, height, width, 3, channel,
+                                   np.ascontiguousarray(xs), np.ascontiguousarray(ys),
+                                   BLOB_RADIUS, 1.0)
+        else:
+            out[..., channel] = gaussian_blob(xs, ys, BLOB_RADIUS, height, width)
 
     if not mask_direct:
         norm = (spec.force - min_force) / (max_force - min_force)
@@ -150,10 +170,17 @@ def render_control_video(
             xs.append(cx)
             ys.append(height - cy)   # pixel y flip
             radii.append(mass_blob_radius(mass, min_mass, max_mass))
-        if xs:
+        if xs and lib is not None:
+            lib.gf_add_static_blobs(out, num_frames, height, width, 3, 2,
+                                    np.asarray(xs, np.float32), np.asarray(ys, np.float32),
+                                    np.asarray(radii, np.float32), len(xs), 1.0)
+        elif xs:
             mass_map = gaussian_blob(np.array(xs), np.array(ys), np.array(radii),
                                      height, width)
             out[..., 2] = mass_map.sum(axis=0)[None]  # static across frames
-        np.clip(out, 0.0, 1.0, out=out)
+        if lib is not None:
+            lib.gf_clamp01(out, out.size)
+        else:
+            np.clip(out, 0.0, 1.0, out=out)
 
     return out

@@ -1,6 +1,7 @@
 """The JAX package's parameter tree (as numpy arrays) -> the port's state dicts.
 
-``params_from_jax(tree)`` takes ``{dit, dit2, controlnet, controlnet2, t5, vae}`` as
+``params_from_jax(tree)`` takes ``{dit, dit2, controlnet, controlnet2, t5, vae}`` (and
+the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) as
 ``GoalForcePipeline.init_random(...).params`` holds it in the JAX package (after
 ``tree_map(np.asarray, ...)``) and returns one reference-format state dict per entry:
 
@@ -10,6 +11,10 @@
   - (kt, kh, kw, Cin, Cout) conv weights -> (Cout, Cin, kt, kh, kw), (kh, kw, Cin, Cout) ->
     (Cout, Cin, kh, kw);
   - stacked zero convs (L, in, out) -> ``controlnet_zero_convs_after.{i}`` Conv1d (out, in, 1);
+  - the adapters: a DiT's Fun-Reference ``ref_conv`` -> Conv2d (D, z, 2, 2); ``vace`` ->
+    ``vace_blocks.{i}`` (+ ``before_proj`` on block 0, ``after_proj`` on each) and
+    ``vace_patch_embedding``; ``motion_controller`` -> ``linear.0/2/4``;
+    ``camera_adapter`` (SimpleAdapter) -> ``conv`` and ``residual_blocks.{i}.conv1/2``;
   - int8 / fp8 packs ``{"w_i8"|"w_f8", "w_scale", "b"}`` (``quantize_linear_tree[_fp8]``)
     -> ``weight`` codes (out, in), ``weight_scale`` (out,) and ``bias``, the state dict
     of ``ops/quant.py``'s ``Int8Linear`` / ``Fp8Linear``; the codes are carried, not
@@ -96,6 +101,40 @@ def dit_state_dict(p: Mapping, patch_size=(1, 2, 2)) -> StateDict:
         _block(sd, f"blocks.{i}", _layer(p["blocks"], i))
     _lin(sd, "head.head", p["head"])
     sd["head.modulation"] = _t(np.asarray(p["head"]["modulation"])[None])
+    if "ref_conv" in p:   # (z*4, D), features (c, dy, dx) -> Conv2d (D, z, 2, 2)
+        w = np.asarray(p["ref_conv"]["w"])
+        sd["ref_conv.weight"] = _t(w.T.reshape(w.shape[1], -1, 2, 2))
+        sd["ref_conv.bias"] = _t(p["ref_conv"]["b"])
+    return sd
+
+
+def vace_state_dict(p: Mapping, patch_size=(1, 2, 2)) -> StateDict:
+    sd: StateDict = {}
+    sd["vace_patch_embedding.weight"], sd["vace_patch_embedding.bias"] = _patch(
+        p["patch_embedding"]["w"], p["patch_embedding"]["b"], patch_size)
+    _lin(sd, "vace_blocks.0.before_proj", p["before_proj"])
+    aw, ab = np.asarray(p["after_proj"]["w"]), np.asarray(p["after_proj"]["b"])
+    for i in range(_num_layers(p["blocks"])):
+        _block(sd, f"vace_blocks.{i}", _layer(p["blocks"], i))
+        _lin(sd, f"vace_blocks.{i}.after_proj", {"w": aw[i], "b": ab[i]})
+    return sd
+
+
+def motion_controller_state_dict(p: Mapping) -> StateDict:
+    sd: StateDict = {}
+    for i, name in ((0, "fc0"), (2, "fc1"), (4, "fc2")):
+        _lin(sd, f"linear.{i}", p[name])
+    return sd
+
+
+def camera_adapter_state_dict(p: Mapping) -> StateDict:
+    """SimpleAdapter: conv and residual_blocks.{i}.conv1/conv2, (kh, kw, Cin, Cout)
+    kernels -> (Cout, Cin, kh, kw)."""
+    sd: StateDict = {}
+    _conv2d(sd, "conv", p["conv"])
+    for i, blk in enumerate(p["res_blocks"]):
+        _conv2d(sd, f"residual_blocks.{i}.conv1", blk["conv1"])
+        _conv2d(sd, f"residual_blocks.{i}.conv2", blk["conv2"])
     return sd
 
 
@@ -197,6 +236,12 @@ def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]
             out[name] = t5_state_dict(p)
         elif name == "vae":
             out[name] = vae_state_dict(p)
+        elif name == "vace":
+            out[name] = vace_state_dict(p, patch_size)
+        elif name == "motion_controller":
+            out[name] = motion_controller_state_dict(p)
+        elif name == "camera_adapter":
+            out[name] = camera_adapter_state_dict(p)
         else:
             raise NotImplementedError(f"no converter for params[{name!r}]")
     return out

@@ -74,18 +74,27 @@ def _block_and_zero_conv(blk, zc, c, context, t_mod, rope_cos, rope_sin, dit_cfg
 
 def controlnet_injections(cn: GoalForceControlNet, dit_cfg: WanDiTConfig, control_latents,
                           context, t_mod, rope_cos, rope_sin,
-                          attn_impl: str = "auto", remat: bool = False) -> List[torch.Tensor]:
+                          attn_impl: str = "auto", remat: bool = False,
+                          apply_zero_convs: bool = True) -> List[torch.Tensor]:
     """Run the side stack and return the per-layer injections, each (B, S, D).
 
     control_latents: (B, F, H, W, C) VAE latents of the control video. Each block's state
     goes through its 1x1 zero conv as soon as it is computed, so only the injections are
     kept. remat: one non-reentrant checkpoint per block with its zero conv fused in, as
-    JAX checkpoints each body of its side-stack scan.
+    JAX checkpoints each body of its side-stack scan. apply_zero_convs=False returns the
+    blocks' raw states instead: the strided mode adds them without zero convs, as the
+    reference does.
     """
     tokens, _ = patchify(cn.controlnet_patch_embedding.patch_embedding, control_latents,
                          dit_cfg.patch_size)
     out = []
     c = tokens
+    if not apply_zero_convs:
+        for blk in cn.controlnet_dit.blocks:
+            args = (blk, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
+            c = checkpoint(dit_block, *args, use_reentrant=False) if remat else dit_block(*args)
+            out.append(c)
+        return out
     for blk, zc in zip(cn.controlnet_dit.blocks, cn.controlnet_zero_convs_after):
         args = (blk, zc, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
         if remat:

@@ -213,6 +213,10 @@ def upsample_spatial(p: Resample, x):
 
 
 def downsample3d_time(conv: nn.Conv3d, x):
+    """Frame 0, then the stride-2 conv over the frames without causal padding (nothing
+    where there are fewer frames than the kernel: one frame encodes as itself)."""
+    if x.shape[2] < conv.weight.shape[2]:
+        return x[:, :, :1]
     tail = causal_conv3d(conv, x, t_stride=2, causal_pad=False)
     return torch.cat([x[:, :, :1], tail], dim=2)
 

@@ -1,7 +1,8 @@
 """Wan video DiT in PyTorch.
 
-Port of ``goal_force_tpu/models/wan_dit.py`` (main path and the int8/fp8 packs of
-``ops/quant.py``; no pipeline parallelism, no CLIP image branch). Modules hold the parameters under the reference
+Port of ``goal_force_tpu/models/wan_dit.py`` (main path, the Fun-Reference ``ref_conv``
+and the int8/fp8 packs of ``ops/quant.py``; no pipeline parallelism, no CLIP image
+branch). Modules hold the parameters under the reference
 ("civitai") state-dict names that ``goal_force_tpu/io/torch_convert.py`` reads, so a
 reference-format state dict loads directly. The computation is written as functions
 over those modules, one per JAX function, with the same dtype steps:
@@ -130,9 +131,14 @@ class WanHead(nn.Module):
 
 
 class WanDiT(nn.Module):
-    def __init__(self, cfg: WanDiTConfig):
+    """ref_conv_in > 0 adds the Fun-Reference ``ref_conv`` (Conv2d(ref_conv_in, dim, 2,
+    stride 2)); a model has it where its state dict does."""
+
+    def __init__(self, cfg: WanDiTConfig, ref_conv_in: int = 0):
         super().__init__()
         self.cfg = cfg
+        if ref_conv_in:
+            self.ref_conv = nn.Conv2d(ref_conv_in, cfg.dim, 2, 2)
         self.patch_embedding = nn.Conv3d(cfg.in_dim, cfg.dim, cfg.patch_size, cfg.patch_size)
         self.text_embedding = nn.Sequential(nn.Linear(cfg.text_dim, cfg.dim), Activation(),
                                             nn.Linear(cfg.dim, cfg.dim))
@@ -231,9 +237,11 @@ def _block_with_weights(block_weights, i, blk, *args):
 
 def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,
                injections: Optional[List[torch.Tensor]] = None, attn_impl: str = "auto",
-               remat: bool = False, block_weights=None):
-    """Run x through the blocks; injections[i] (the ControlNet outputs) is added after
-    block i for every i < len(injections).
+               remat: bool = False, block_weights=None, start: int = 0,
+               stop: Optional[int] = None):
+    """Run x through blocks[start:stop]; injections[i] (the ControlNet outputs) is added
+    after block i for every i < len(injections). Indices are the blocks' own in
+    `blocks`, so a segment's block i still gets injections[i] and block_weights(i, ...).
 
     remat: recompute each block in the backward pass instead of keeping its activations
     (one non-reentrant checkpoint per block, as JAX checkpoints each scan body). The
@@ -242,7 +250,8 @@ def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: Wan
     i, called inside the block's checkpoint (LoRA's merged weights).
     """
     n_inj = 0 if injections is None else len(injections)
-    for i, blk in enumerate(blocks):
+    for i in range(start, len(blocks) if stop is None else stop):
+        blk = blocks[i]
         fn = dit_block if block_weights is None else partial(_block_with_weights,
                                                              block_weights, i)
         if remat:
@@ -301,10 +310,10 @@ def wan_dit_forward(model: WanDiT, cfg: WanDiTConfig, x, timestep, context, y=No
 # Random init (the JAX package's distributions)
 # ---------------------------------------------------------------------------
 
-def empty_module(cls, *args, dtype=torch.float32, device):
+def empty_module(cls, *args, dtype=torch.float32, device, **kwargs):
     """Build a module without running its default initialisers."""
     with torch.device("meta"):
-        mod = cls(*args)
+        mod = cls(*args, **kwargs)
     return mod.to(dtype=dtype).to_empty(device=device)
 
 
@@ -336,6 +345,30 @@ def init_patch_embedding_(conv: nn.Conv3d, gen: torch.Generator):
     scale = 1.0 / math.sqrt(fan_in)
     conv.weight.uniform_(-scale, scale, generator=gen)
     conv.bias.zero_()
+
+
+def dit_kwargs(sd) -> dict:
+    """WanDiT's optional parts that a reference-format state dict holds."""
+    return {"ref_conv_in": sd["ref_conv.weight"].shape[1]} if "ref_conv.weight" in sd else {}
+
+
+def reference_tokens(conv: nn.Conv2d, latents: torch.Tensor) -> torch.Tensor:
+    """Fun-Reference: latents (B, h, w, z) -> tokens (B, h/2 * w/2, D), each 2 x 2 patch
+    flattened in (c, dy, dx) order through the 2 x 2 / stride-2 ``ref_conv``."""
+    b, hh, ww, c = latents.shape
+    r = latents.reshape(b, hh // 2, 2, ww // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
+    r = r.reshape(b, (hh // 2) * (ww // 2), c * 4)
+    return F.linear(r, conv.weight.reshape(conv.weight.shape[0], -1), conv.bias)
+
+
+@torch.no_grad()
+def init_ref_conv_(model: WanDiT, z_dim: int, gen: torch.Generator) -> WanDiT:
+    """Give `model` a Fun-Reference ref_conv with uniform +-1/sqrt(fan_in) weights."""
+    w = model.patch_embedding.weight
+    model.ref_conv = nn.Conv2d(z_dim, model.cfg.dim, 2, 2, dtype=w.dtype, device=w.device)
+    init_patch_embedding_(model.ref_conv, gen)
+    model.ref_conv.requires_grad_(False)
+    return model
 
 
 @torch.no_grad()

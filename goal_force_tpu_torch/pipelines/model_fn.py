@@ -1,10 +1,12 @@
 """The denoiser forward: DiT + ControlNet side stack + conditioning.
 
-Port of the main-path branches of ``goal_force_tpu/pipelines/model_fn.py``:
+Port of ``goal_force_tpu/pipelines/model_fn.py`` (all but its pipeline-parallel trunk):
 
-- ``denoise_forward``: time embed -> text embed -> y concat -> patchify -> RoPE ->
-  ControlNet injections -> blocks with per-block injection -> head -> unpatchify; with
-  ``return_token_states`` also the tokens before and after the blocks (TeaCache's pair);
+- ``denoise_forward``: time embed (+ the motion controller's offset) -> text embed -> y
+  concat -> patchify (+ camera tokens, Fun-Reference tokens in front) -> RoPE ->
+  ControlNet injections -> blocks with per-block injection (or strided raw states, or
+  VACE hints, segment by segment) -> head -> unpatchify; with ``return_token_states``
+  also the tokens before and after the blocks (TeaCache's pair);
 - ``denoise_forward_skip``: TeaCache's skip path (patchify, add the cached residual,
   head, unpatchify);
 - ``temporal_tiled_forward``: sliding windows over the latent frames, blended with
@@ -14,17 +16,20 @@ Port of the main-path branches of ``goal_force_tpu/pipelines/model_fn.py``:
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from functools import partial
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from goal_force_tpu_torch.configs import ControlNetConfig, WanDiTConfig
+from goal_force_tpu_torch.models.adapters import Vace, vace_hints
 from goal_force_tpu_torch.models.controlnet import GoalForceControlNet, controlnet_injections
 from goal_force_tpu_torch.models.wan_dit import (
     WanDiT,
     head,
     patchify,
+    reference_tokens,
     rope_for_grid,
     run_blocks,
     text_embed,
@@ -47,6 +52,13 @@ def denoise_forward(
     remat: bool = False,
     return_token_states: bool = False,
     block_weights: Optional[Callable] = None,
+    t_mod_offset: Optional[torch.Tensor] = None,      # motion controller (B, 6, D)
+    vace: Optional[Vace] = None,
+    vace_context: Optional[torch.Tensor] = None,      # (B, F, H, W, vace_in_dim)
+    vace_scale: float = 1.0,
+    vace_layers: Sequence[int] = (),
+    reference_latents: Optional[torch.Tensor] = None,  # (B, h, w, z) Fun-Reference
+    camera_embedding: Optional[torch.Tensor] = None,   # (B, S, D) camera adapter tokens
 ):
     """Velocity prediction (B, F, H, W, out_dim). remat: recompute every DiT and
     ControlNet block in the backward pass (the training path).
@@ -55,26 +67,82 @@ def denoise_forward(
     patchify and after the blocks (with their ControlNet injections), TeaCache's pair.
     block_weights: ``block_weights(i, block)`` gives what runs in place of DiT block i
     (LoRA merges its adapters there, inside the block's remat region, so only one
-    block's merged weights live at a time)."""
+    block's merged weights live at a time); segmented runs keep i global.
+
+    The adapters' conditionings, as in JAX: t_mod_offset shifts t_mod; camera_embedding
+    is added to the patch tokens; reference_latents go through the DiT's ref_conv and
+    are prepended as tokens (the RoPE grid gains one frame) and stripped before the
+    head; with a strided ControlNet (controlnet_cfg.stride = s) the side stack's raw
+    states are added after blocks 0, s, 2s, ...; VACE hints are added after the blocks
+    of vace_layers, scaled by vace_scale. Fun-Reference and VACE each refuse the
+    goal-force ControlNet."""
     t, t_mod = time_embed(dit, dit_cfg, timestep)
+    if t_mod_offset is not None:
+        t_mod = t_mod + t_mod_offset.to(t_mod.dtype)
     ctx = text_embed(dit, context)
     x = latents
     if y is not None:
         x = torch.cat([x, y.to(x.dtype)], dim=-1)
     tokens, grid = patchify(dit.patch_embedding, x, dit_cfg.patch_size)
+    if camera_embedding is not None:
+        tokens = tokens + camera_embedding.to(tokens.dtype)
     tokens_pre = tokens if return_token_states else None
-    cos, sin = rope_for_grid(dit_cfg, grid, tokens.device)
+    use_cn = controlnet is not None and control_latents is not None
+    n_ref = 0
+    rope_grid = grid
+    if reference_latents is not None:
+        if not hasattr(dit, "ref_conv"):
+            raise ValueError("reference_latents requires a DiT with ref_conv weights "
+                             "(Fun-Reference checkpoints)")
+        if use_cn:
+            raise NotImplementedError(
+                "Fun-Reference tokens cannot combine with the goal-force ControlNet: the "
+                "side-stack states cover only the video tokens")
+        ref = reference_tokens(dit.ref_conv, reference_latents.to(dit.ref_conv.weight.dtype))
+        n_ref = ref.shape[1]
+        tokens = torch.cat([ref.to(tokens.dtype), tokens], dim=1)
+        rope_grid = (grid[0] + 1, grid[1], grid[2])
+    cos, sin = rope_for_grid(dit_cfg, rope_grid, tokens.device)
 
+    stride = controlnet_cfg.stride if (use_cn and controlnet_cfg is not None) else None
     inj = None
-    if controlnet is not None and control_latents is not None:
-        if controlnet_cfg is not None and controlnet_cfg.stride is not None:
-            raise NotImplementedError("strided ControlNet injection is not ported yet")
+    if use_cn:
         inj = controlnet_injections(controlnet, dit_cfg, control_latents.to(tokens.dtype),
-                                    ctx, t_mod, cos, sin, attn_impl=attn_impl, remat=remat)
-    tokens = run_blocks(dit.blocks, tokens, ctx, t_mod, cos, sin, dit_cfg,
-                        injections=inj, attn_impl=attn_impl, remat=remat,
-                        block_weights=block_weights)
+                                    ctx, t_mod, cos, sin, attn_impl=attn_impl, remat=remat,
+                                    apply_zero_convs=stride is None)
+    run = partial(run_blocks, dit.blocks, context=ctx, t_mod=t_mod, cos=cos, sin=sin,
+                  cfg=dit_cfg, attn_impl=attn_impl, remat=remat, block_weights=block_weights)
+    n_layers = dit_cfg.num_layers
+    if stride is not None:
+        # Raw states after blocks 0, stride, 2 * stride, ...; the last segment runs to the
+        # end whatever the stride.
+        pos = 0
+        for i, state in enumerate(inj):
+            stop = min(pos + 1, n_layers)
+            tokens = run(tokens, start=pos, stop=stop) + state.to(tokens.dtype)
+            pos = stop
+            nxt = min(pos + stride - 1, n_layers) if i + 1 < len(inj) else n_layers
+            if nxt > pos:
+                tokens = run(tokens, start=pos, stop=nxt)
+                pos = nxt
+    elif vace is not None and vace_context is not None:
+        if use_cn:
+            raise NotImplementedError("VACE and goal-force ControlNet cannot be combined")
+        # the hint blocks take the default attention, as JAX's vace_hints does
+        hints = vace_hints(vace, dit_cfg, tokens, vace_context.to(tokens.dtype), ctx, t_mod,
+                           cos, sin)
+        pos = 0
+        for hint, layer in zip(hints, vace_layers):
+            tokens = run(tokens, start=pos, stop=min(layer + 1, n_layers))
+            tokens = tokens + hint.to(tokens.dtype) * vace_scale
+            pos = layer + 1
+        if pos < n_layers:
+            tokens = run(tokens, start=pos)
+    else:
+        tokens = run(tokens, injections=inj)
     del inj
+    if n_ref:
+        tokens = tokens[:, n_ref:]
     out = head(dit.head, tokens, t, dit_cfg.eps)
     out = unpatchify(out, grid, dit_cfg.patch_size, dit_cfg.out_dim)
     if return_token_states:

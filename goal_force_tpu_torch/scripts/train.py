@@ -17,7 +17,9 @@ The frozen models are bf16.
 
 The port adds ``--device`` (``cuda`` by default; a run without a card raises unless
 ``--device cpu`` is given). ``--dp/--sp/--tp/--pp`` above 1 (multi-GPU, ROADMAP M13)
-and ``--controlnet_stride`` (ROADMAP M11) are not ported yet and raise.
+are not ported yet and raise. ``--controlnet_stride s`` trains a strided ControlNet:
+its blocks copy expert blocks 0, s, 2s, ... and their raw states are added after those
+blocks (no zero convs), each segment between them under remat.
 
 At the A14B default the run does not fit one 80 GB card yet: the frozen expert, T5,
 the ControlNet with its AdamW state and the untiled VAE encodes of a step exceed it
@@ -61,7 +63,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--p_mask_out_indirect_force", type=float, default=0.5)
     p.add_argument("--controlnet_num_layers", type=int, default=10)
     p.add_argument("--controlnet_stride", type=int, default=None,
-                   help="strided ControlNet injection: not ported yet (ROADMAP M11)")
+                   help="strided ControlNet: blocks copied from expert blocks i * stride, "
+                        "raw states added after them")
     p.add_argument("--max_timestep_boundary", type=float, default=0.358)
     p.add_argument("--min_timestep_boundary", type=float, default=0.0)
     p.add_argument("--learning_rate", type=float, default=1e-5)
@@ -94,9 +97,6 @@ def check_supported(args) -> None:
     mesh = {a: getattr(args, a) for a in ("dp", "sp", "tp", "pp") if getattr(args, a) > 1}
     if mesh:
         raise NotImplementedError(f"{mesh}: multi-GPU training is not ported yet (ROADMAP M13)")
-    if args.controlnet_stride is not None:
-        raise NotImplementedError("--controlnet_stride: strided ControlNet injection is not "
-                                  "ported yet (ROADMAP M11)")
 
 
 def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
@@ -124,7 +124,7 @@ def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
     t5_cfg = configs_.get("t5_cfg", configs.UMT5_XXL)
     vae_cfg = configs_.get("vae_cfg", configs.WAN21_VAE)
     cn_cfg = configs.ControlNetConfig(num_layers=args.controlnet_num_layers,
-                                      in_channels=vae_cfg.z_dim)
+                                      stride=args.controlnet_stride, in_channels=vae_cfg.z_dim)
 
     def load(cls, cfg, path, transform=lambda sd: sd):
         mod = wan_dit.empty_module(cls, cfg, dtype=dtype, device=device)

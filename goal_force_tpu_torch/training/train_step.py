@@ -276,7 +276,10 @@ def make_train_step(
                                      control_latents if cn is not None else None,
                                      attn_impl=attn_impl, remat=True,
                                      block_weights=block_weights)
-                grads = torch.autograd.grad(loss, list(params.values()))
+                # a strided ControlNet never uses its zero convs: their gradients are
+                # zero, as JAX's are
+                grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                            materialize_grads=True)
         grads = dict(zip(params, grads))
         with _stage(timings, "optimizer", device):
             gnorm = global_norm(grads.values())

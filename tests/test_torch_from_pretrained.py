@@ -260,8 +260,93 @@ def test_from_pretrained_needs_cuda_unless_cpu_is_asked(files):
                                           vae_path=paths["vae"])
 
 
+def _adapter_files(d, arg):
+    """Reference-format files of one adapter drawn at the tiny width, and what a request
+    with it adds: (from_pretrained keywords, request keywords)."""
+    from goal_force_tpu_torch.models import adapters as adm
+    from goal_force_tpu_torch.models import camera_controller as camm
+
+    dit_cfg = tcfg.tiny_pipeline_configs()[0]
+    gen = torch.Generator().manual_seed(21)
+    rng = np.random.default_rng(22)
+    if arg == "controlnet_stride":
+        return dict(controlnet_stride=2), dict(control_signal_video=rng.uniform(
+            size=(FRAMES, H, W, 3)).astype(np.float32))
+    if arg == "vace_path":   # no vace_layers: JAX's default by depth (the 1.3B set, 15)
+        vace = adm.init_vace(dit_cfg, gen, adm.VACE_LAYERS_1_3B, 2 * 4 + 64, device="cpu")
+        sio.save_safetensors(vace.state_dict(), str(d / "vace.safetensors"))
+        mask = (rng.uniform(size=(FRAMES, H, W)) > 0.5).astype(np.float32)
+        return (dict(vace_path=str(d / "vace.safetensors")),
+                dict(vace_video=rng.uniform(size=(FRAMES, H, W, 3)).astype(np.float32),
+                     vace_video_mask=mask, controlnet=False))
+    if arg == "motion_controller_path":
+        mc = adm.init_motion_controller(gen, dit_cfg.freq_dim, dit_cfg.dim, device="cpu")
+        with torch.no_grad():
+            mc.linear[4].weight.normal_(generator=gen).mul_(0.05)
+        torch.save(mc.state_dict(), d / "motion.pth")
+        return dict(motion_controller_path=str(d / "motion.pth")), dict(motion_bucket_id=7)
+    cam = camm.init_simple_adapter(dit_cfg.dim, gen, device="cpu")
+    sd = cam.state_dict()
+    sio.save_safetensors(sd, str(d / "camera.safetensors"))
+    # a camera model's file: the adapter under "control_adapter." beside the DiT's keys
+    model = {"control_adapter." + k: v for k, v in sd.items()}
+    model["blocks.0.modulation"] = torch.zeros(1, 6, dit_cfg.dim)
+    sio.save_safetensors(model, str(d / "camera_model.safetensors"))
+    return (dict(camera_adapter_path=str(d / "camera.safetensors")),
+            dict(camera_control_direction="Right"))
+
+
 @pytest.mark.parametrize("arg", ["controlnet_stride", "vace_path", "motion_controller_path",
                                  "camera_adapter_path"])
-def test_unported_files_raise(files, arg):
-    with pytest.raises(NotImplementedError, match=arg):
-        _load_port(files[0], **{arg: 2 if arg == "controlnet_stride" else "x.safetensors"})
+def test_adapter_files_match_jax(files, tmp_path, arg):
+    """Each adapter file and controlnet_stride through both packages' from_pretrained on
+    the same files: every adapter tensor equal, and the frames of a request that uses it
+    equal within 1e-3 on JAX's noise. The camera adapter reads the same from its bare
+    file and from a camera model's file."""
+    paths, _ = files
+    load_kw, req = _adapter_files(tmp_path, arg)
+    dit_cfg, t5_cfg, vae_cfg, _ = jcfg.tiny_pipeline_configs()
+    with pytest.warns(UserWarning, match="HashTokenizer"):
+        jpipe = JaxPipeline.from_pretrained(
+            paths["high"], low_noise_model=paths["low"], t5_path=paths["t5"],
+            vae_path=paths["vae"], controlnet_checkpoint=paths["ckpt"],
+            controlnet_num_layers=1, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=vae_cfg,
+            dtype=jnp.float32, **load_kw)
+    with pytest.warns(UserWarning, match="HashTokenizer"):
+        tpipe = _load_port(paths, **load_kw)
+    assert tpipe.vace_layers == jpipe.vace_layers
+    ref_sds = _jax_state_dicts(jpipe)
+    for name in ("vace", "motion_controller", "camera_adapter", "controlnet"):
+        if name in ref_sds:
+            got = tpipe.models[name].state_dict()
+            assert set(got) == set(ref_sds[name]), name
+            for k, t in got.items():
+                np.testing.assert_array_equal(t.numpy(), ref_sds[name][k].numpy(), err_msg=k)
+    if arg == "controlnet_stride":
+        assert tpipe.cn_cfg.stride == jpipe.cn_cfg.stride == 2
+        # controlnet2's patch embedding is drawn at random by each package from its own
+        # generator, and in strided mode its raw states reach the low-noise expert: give
+        # the port JAX's draw
+        pe = {k[len(PATCH):]: v for k, v in ref_sds["controlnet2"].items()
+              if k.startswith(PATCH)}
+        cn2 = tpipe.models["controlnet2"].controlnet_patch_embedding
+        cn2.patch_embedding.load_state_dict(pe)
+    if arg == "camera_adapter_path":
+        with pytest.warns(UserWarning, match="HashTokenizer"):
+            other = _load_port(paths,
+                               camera_adapter_path=str(tmp_path / "camera_model.safetensors"))
+        for k, t in other.models["camera_adapter"].state_dict().items():
+            assert torch.equal(t, tpipe.models["camera_adapter"].state_dict()[k]), k
+    image = np.random.default_rng(23).uniform(size=(H, W, 3)).astype(np.float32)
+    kw = dict(seed=0, num_frames=FRAMES, num_inference_steps=2, **req)
+    ref = jpipe("a ball rolls right", image, **kw)
+    shape = (1, (FRAMES - 1) // 4 + 1, H // 8, W // 8, tpipe.vae_cfg.z_dim)
+    noise = np.array(jax.random.normal(jax.random.PRNGKey(0), shape, jnp.float32))
+    got = tpipe("a ball rolls right", image, noise=torch.from_numpy(noise), **kw)
+    np.testing.assert_allclose(got, ref, atol=1e-3)
+    if arg == "vace_path":   # host staging leaves the adapter resident, for both experts
+        with pytest.warns(UserWarning, match="HashTokenizer"):
+            staged = _load_port(paths, host_stage_experts=True, **load_kw)
+        assert "vace" in staged.models and "vace" not in staged._stager.standby
+        np.testing.assert_array_equal(
+            staged("a ball rolls right", image, noise=torch.from_numpy(noise), **kw), got)

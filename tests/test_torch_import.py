@@ -81,6 +81,13 @@ def test_teacache_lora_and_training_cli_modules_are_in_the_blocked_import():
         assert m in MODULES
 
 
+def test_variant_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.native", "goal_force_tpu_torch.models.adapters",
+              "goal_force_tpu_torch.models.camera_controller"):
+        assert m in MODULES
+    assert (PKG / "native" / "control_render.cpp").is_file()
+
+
 def test_low_precision_modules_are_in_the_blocked_import():
     for m in ("goal_force_tpu_torch.ops.quant", "goal_force_tpu_torch.ops.flash_attention",
               "goal_force_tpu_torch.ops.attention"):

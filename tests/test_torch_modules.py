@@ -91,7 +91,8 @@ def test_control_render_equals_jax_numpy_backend(masses):
         kw.update(projectile_mass=2.0, projectile_xy_px=(15, 16), target_mass=3.0,
                   target_xy_px=(33, 12), distractor_masses=(1.5,), distractor_xy_px=((5, 5),))
     a = tcs.render_control_video(tcs.ControlSpec(**kw), 9, 32, 48, 30, 400,
-                                 rng=np.random.default_rng(1), p_mask_out_direct=0.3)
+                                 rng=np.random.default_rng(1), p_mask_out_direct=0.3,
+                                 backend="numpy")
     b = jcs.render_control_video(jcs.ControlSpec(**kw), 9, 32, 48, 30, 400,
                                  rng=np.random.default_rng(1), p_mask_out_direct=0.3,
                                  backend="numpy")

@@ -167,10 +167,46 @@ def test_seeded_noise_is_deterministic(pipes, inputs):
     assert np.abs(a - c).max() > 1e-4
 
 
+# Each argument that an earlier slice refused, now held against JAX pipe(...) on JAX's
+# noise: (pipeline pair, positional arguments, keywords) per argument.
+def _argument_case(arg):
+    from test_torch_variant_pipes import FRAMES, H, W, images, pair
+
+    img, vid = images(30), images(31, frames=FRAMES)
+    if arg == "fun_control_video":      # Fun-Control: in_dim 3z + 4
+        return pair(seed=7, in_dim=16, controlnet=False), (img,), dict(fun_control_video=vid)
+    if arg == "reference_image":        # Fun-Reference: a DiT with ref_conv, no ControlNet
+        return (pair(seed=8, adapters=("ref_conv",)), (img,),
+                dict(reference_image=images(32), controlnet=False))
+    if arg == "end_image":              # first-last-frame, with the ControlNet
+        return pair(seed=9), (img,), dict(end_image=images(33), control_signal_video=vid)
+    if arg == "vace_video":             # VACE on a t2v model, with a mask
+        mask = (np.random.default_rng(34).uniform(size=(FRAMES, H, W)) > 0.5).astype(np.float32)
+        return (pair(seed=10, in_dim=4, controlnet=False, adapters=("vace",),
+                     vace_layers=(1,)), (),
+                dict(height=H, width=W, vace_video=vid, vace_video_mask=mask))
+    if arg == "motion_bucket_id":       # the motion controller's t_mod offset
+        return (pair(seed=11, adapters=("motion_controller",)), (img,),
+                dict(motion_bucket_id=42.0, control_signal_video=vid))
+    # v2v: the input video's untiled latents noised to the first sigma
+    return pair(seed=12), (img,), dict(input_video=vid, denoising_strength=0.7)
+
+
 @pytest.mark.parametrize("arg", ["fun_control_video", "reference_image", "end_image",
                                  "vace_video", "motion_bucket_id", "input_video"])
-def test_unported_arguments_raise(pipes, inputs, arg):
-    _, tpipe = pipes
-    image, _ = inputs
-    with pytest.raises(NotImplementedError):
-        tpipe("x", image, num_frames=5, num_inference_steps=1, **{arg: 0.1})
+def test_argument_matches_jax(arg):
+    """Frames of each argument's request against JAX pipe(...) at 1e-3, and different
+    from the same request without it (for Fun-Control, whose model needs its video,
+    with another video)."""
+    from test_torch_variant_pipes import FRAMES, both, images
+
+    pipes, args, kw = _argument_case(arg)
+    ref, got = both(*pipes, "a ball rolls right", *args, **kw)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-3)
+    plain = {k: v for k, v in kw.items() if k != arg and not k.startswith("vace_video")
+             and k != "denoising_strength"}
+    if arg == "fun_control_video":
+        plain[arg] = images(35, frames=FRAMES)
+    _, without = both(*pipes, "a ball rolls right", *args, **plain)
+    assert np.abs(got - without).max() > 1e-3
