@@ -1,4 +1,3 @@
-#!/usr/bin/env python3
 """Drive the PyTorch port (goal_force_tpu_torch) on one CUDA card and check it.
 
     python3 chip_smoke.py
@@ -23,15 +22,23 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              and at the tile edges with quantization tiles of 128 and 300, and at the main
              path's self and cross shapes, and K1 at the sliding-window shape (14,040
              tokens, self and cross), at the Fun-Reference / VACE-reference shape (B = 2,
-             34,320 tokens) and at generate_batch's (B = 4, 32,760 tokens); times kernel,
-             plain version, K6's quantize step and SDPA (as a yardstick only) at the path
-             shapes.
+             34,320 tokens) and at generate_batch's (B = 4, 32,760 tokens), and
+             K1 through the runtime dispatch and K2 at speech-to-video's shapes (B = 1
+             self 32,760^2 and cross x512, the audio injection's B = 20, 1,560 x 5 keys,
+             with its tile edges at Skv 1, 2, 5 and 127 with and without kv_len) and K1
+             at the image branch's B = 2, 32,760 x 257; times kernel, plain version, K6's
+             quantize step, the runtime bound's reductions and host sync, and SDPA (as a
+             yardstick only) at the path shapes.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
 5. small_train - one training loss + backward at that size, kernels vs plain attention
              (loss and every ControlNet gradient), and the launch counts of the rule.
 6. small_int8 - the W8A8 linears on the card, then that pipeline with W8A8 packs in its
              four DiT/ControlNet models: K6 vs the plain int8 attention, K6 launches only.
+6b. small_s2v - a head_dim-128 speech-to-video model (2 heads, 2 layers, audio
+             injections after both) over the tiny T5 and VAE in float32: a plain and a
+             motion request (9 frames, 256 x 256, 2 steps, CFG) through the kernels
+             against plain attention (frames within 1e-2), 12 K1 per step exactly.
 7. main    - GoalForcePipeline at full A14B width (depth cut to 4 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
@@ -75,6 +82,23 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              steps at 81x480x832.
 15. fun_control - a full-width Fun-Control pipeline (in_dim 52, 4 DiT layers): two
              33-frame requests with two control videos (8 K1 per step), frames differ.
+15b. s2v  - S2VPipeline at Wan2.2-S2V-14B widths (dim 5120, 40x128 heads, ffn 13824,
+             audio_dim 1024 over 25 wav2vec2 layers, 4 audio tokens), 4 of 40 layers with
+             audio injections after layers 0 and 2, 2 of 24 umt5 layers, the full Wan2.1
+             VAE, random weights, 2 steps at CFG 5.0: audio features from a random
+             wav2vec2-large-shaped model on the card (save_pretrained, read back,
+             extract, the first bucket), then (a) 81x480x832 (32,760 self tokens, the
+             audio injection at B = 20, 1,560 x 5 keys), (b) a pose video at 33 frames,
+             (c) a 73-frame motion video at 448x832 and 17 frames (its untiled float32
+             decode of 23 latent frames is the largest that fit), each 20 K1 per step;
+             (d) one step with every self-attention's norm_q x8 (8 K2 + 12 K1), and the
+             same step with and without the runtime bound's host sync, timed.
+15c. image_branch - the CLIP ViT-H/14 vision tower at full width encodes one 480x832
+             frame; an I2V DiT at Wan2.1-I2V-14B-480P widths (in_dim 36, 4 of 40 layers,
+             img_emb, k_img/v_img) runs one forward at B = 2, 81x480x832, with the
+             frame's clip_feature (12 K1) and without (8 K1); the outputs differ.
+15d. vae38 - the Wan2.2 VAE (z 48, 16x) at full width, random weights: encode and
+             decode one 81x480x832 video in float32, untiled; times and peaks.
 16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
@@ -339,8 +363,120 @@ EDGES = (((127, 127), (0, 127)), ((127, 129), (128, 129)), ((129, 127), (127, 1)
 def phase_kernels():
     """Kernel vs plain on the same inputs; returns per-kernel measurements."""
     out = _forward_kernels()
+    for name, recs in _s2v_kernels().items():
+        out[name].update(recs)
     out.update(_training_kernels())
     out.update(_int8_kernels())
+    return out
+
+
+# Speech-to-video: every attention of S2V takes the runtime logit bound, then K1
+# without clamp (or K2). CFG runs two batch-1 forwards, so self-attention is B = 1 over
+# 32,760 tokens and the text cross-attention 32,760 x 512; the audio injection attends each
+# of the 20 latent frames' 1,560 video tokens to that frame's 5 audio keys (B = 20). The
+# I2V image branch adds a cross-attention over 257 CLIP keys at B = 2, bounded (K1 with
+# its clamp).
+S2V_SELF = (1, 32760, 40, 128)
+S2V_CROSS_KV = (1, 512, 40, 128)
+AUDIO_Q, AUDIO_KV = (20, 1560, 40, 128), (20, 5, 40, 128)
+IMAGE_KV = (2, 257, 40, 128)
+AUDIO_EDGES = (1, 2, 5, 127)     # keys per audio row: under one 128-key tile, and one short
+
+
+def _timed_record(kern, plain, q, k, v, err):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound, by = attention_bound_ms(q.shape, k.shape)
+    return dict(max_abs_err=err, ms=event_ms(lambda: kern(q, k, v)),
+                plain_ms=event_ms(lambda: plain(q, k, v), iters=1, warmup=0),
+                bound_ms=bound, bound_by=by,
+                library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                                 v.transpose(1, 2))),
+                shape=f"{tuple(q.shape)}x{tuple(k.shape)}")
+
+
+def _s2v_kernels(timed=True):
+    """K1 (through dispatch "auto": the runtime bound, then K1 without clamp) and K2
+    against their plain versions at S2V's shapes (the audio injection's B = 20, 1,560 x 5;
+    B = 1 self 32,760^2 and cross 32,760 x 512), K1 with its clamp at the image branch's
+    B = 2, 32,760 x 257, and both at the audio shape's tile edges (Skv 1, 2, 5 and 127, with
+    and without a per-row kv_len); times kernel, plain version, SDPA and the bound's host
+    sync at the new shapes."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(4321)
+    scale = 128**-0.5
+    out = {"K1": {}, "K2": {}}
+    # Tile edges at the audio shape: every row's few keys sit in the one key tile whose
+    # box TMA zero-fills past them; kv_len gives rows 0 .. skv valid keys in turn.
+    for skv in AUDIO_EDGES:
+        q = _rand(AUDIO_Q, gen, torch.bfloat16)
+        k, v = (_rand((20, skv, 40, 128), gen, torch.bfloat16) for _ in range(2))
+        lens = torch.tensor([i % (skv + 1) for i in range(20)], device="cuda")
+        for kname, kern, plain, kw, what in (
+                ("K1", fa.flash_attention_nomax, fa.flash_attention_nomax_plain,
+                 dict(clamp=None), "no clamp"),
+                ("K1", fa.flash_attention_nomax, fa.flash_attention_nomax_plain,
+                 dict(kv_len=lens, clamp=None), "no clamp, kv_len"),
+                ("K1", fa.flash_attention_nomax, fa.flash_attention_nomax_plain,
+                 dict(kv_len=lens), "clamp, kv_len"),
+                ("K2", fa.flash_attention_max, fa.flash_attention_max_plain, {}, "all keys"),
+                ("K2", fa.flash_attention_max, fa.flash_attention_max_plain,
+                 dict(kv_len=lens), "kv_len")):
+            got = kern(q, k, v, scale, **kw)
+            ref = plain(q, k, v, scale, **kw)
+            if "kv_len" in kw:
+                check(bool((got[lens == 0] == 0).all()),
+                      f"{kname} audio edge Skv={skv}: a row with no key is not 0")
+            compare(f"{kname} audio edge (20,1560,40,128)x(20,{skv},40,128) bf16 {what}", got,
+                    ref, atol=bf16_limit(ref), rtol=0.0)
+        del q, k, v
+    # The path's shapes. K1 is reached as S2V reaches it: flash_attention(dispatch="auto"),
+    # which must pick K1 there (random normal q and k stay far under NOMAX_BOUND).
+    auto = lambda a, b, c: fa.flash_attention(a, b, c, scale, dispatch="auto")
+    k1 = lambda a, b, c: fa.flash_attention_nomax(a, b, c, scale, clamp=None)
+    k1_plain = lambda a, b, c: fa.flash_attention_nomax_plain(a, b, c, scale, clamp=None)
+    k2 = lambda a, b, c: fa.flash_attention_max(a, b, c, scale)
+    k2_plain = lambda a, b, c: fa.flash_attention_max_plain(a, b, c, scale)
+    for tag, qshape, kvshape in (("audio", AUDIO_Q, AUDIO_KV), ("s2v_self", S2V_SELF, S2V_SELF),
+                                 ("s2v_cross", S2V_SELF, S2V_CROSS_KV)):
+        q, k, v = _rand(qshape, gen, torch.bfloat16), *(_rand(kvshape, gen, torch.bfloat16)
+                                                       for _ in range(2))
+        for kname, kern, plain in (("K1", k1, k1_plain), ("K2", k2, k2_plain)):
+            got, n = picked(lambda: (auto if kname == "K1" else kern)(q, k, v))
+            check(n == only(**{kname: 1}), f"{kname} {tag}: launched {n}")
+            ref = plain(q, k, v)
+            atol = {"s2v_self": 1e-3, "s2v_cross": 1e-2}.get(tag, bf16_limit(ref))
+            err = compare(f"{kname} {tag} {tuple(q.shape)}x{tuple(k.shape)} bf16", got, ref,
+                          atol=atol, rtol=0.0)
+            del got, ref
+            torch.cuda.empty_cache()
+            if timed:
+                out[kname][tag] = _timed_record(kern, plain, q, k, v, err)
+                log("kernels", case=f"{kname} {tag} timing", **out[kname][tag])
+        if timed:
+            # the runtime bound alone (its reductions and the one host sync per call), and
+            # the whole call as S2V makes it: bound, then K1
+            rec = out["K1"][tag]
+            rec["bound_sync_ms"] = event_ms(lambda: float(fa.logit_bound(q, k, v, scale)))
+            rec["dispatch_ms"] = event_ms(lambda: auto(q, k, v))
+            log("kernels", case=f"logit bound {tag}", bound_sync_ms=rec["bound_sync_ms"],
+                dispatch_ms=rec["dispatch_ms"])
+        del q, k, v
+        torch.cuda.empty_cache()
+    # The image branch's cross-attention over 257 CLIP tokens (bounded: K1 with its clamp).
+    q = _rand(SELF, gen, torch.bfloat16)
+    k, v = (_rand(IMAGE_KV, gen, torch.bfloat16) for _ in range(2))
+    kern = lambda a, b, c: fa.flash_attention_nomax(a, b, c, scale)
+    plain = lambda a, b, c: fa.flash_attention_nomax_plain(a, b, c, scale)
+    got, ref = kern(q, k, v), plain(q, k, v)
+    err = compare(f"K1 image_cross {tuple(q.shape)}x{tuple(k.shape)} bf16", got, ref,
+                  atol=1e-2, rtol=0.0)
+    del got, ref
+    if timed:
+        out["K1"]["image_cross"] = _timed_record(kern, plain, q, k, v, err)
+        log("kernels", case="K1 image_cross timing", **out["K1"]["image_cross"])
+    del q, k, v
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2194,6 +2330,366 @@ def phase_train_cli():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Speech-to-video, the image branch and the Wan2.2 VAE
+# ---------------------------------------------------------------------------
+
+S2V_STEPS = 2
+S2V_K1_PER_STEP = 2 * (4 + 4 + 2)    # CFG's two forwards x (4 self, 4 text cross, 2 audio)
+S2V_MOTION_FRAMES = 17                # (c): 19 motion + 4 latent frames decode untiled
+S2V_POSE_FRAMES = 33                  # (b): the pose request at 9 latent frames
+
+
+def _s2v_request_inputs(seed, frames, height, width, motion=False, pose=False):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    image = np.clip(np.stack([xx / width, yy / height, 0.5 + 0.5 * np.sin(xx / 29.0 + seed)],
+                             -1) + 0.05 * rng.standard_normal((height, width, 3)), 0, 1)
+    out = {"image": image.astype(np.float32)}
+    if pose:
+        out["pose"] = rng.uniform(size=(frames - 1, height, width, 3)).astype(np.float32)
+    if motion:
+        out["motion"] = rng.uniform(size=(73, height, width, 3)).astype(np.float32)
+    return out
+
+
+def _s2v_instrument(pipe, stage_times):
+    """Wrap the S2V pipeline's stages so each appends (name, synchronised seconds)."""
+    def timed(name, fn):
+        def run(*a, **k):
+            out, secs = sync_time(lambda: fn(*a, **k))
+            stage_times.append((name, secs))
+            return out
+        return run
+
+    for name in ("encode_prompts", "_encode_px", "_pose_latents", "_decode"):
+        setattr(pipe, name, timed(name.lstrip("_"), getattr(pipe, name)))
+    real_step = pipe.denoise_step
+
+    def step(*a, **k):
+        n = sum(name.startswith("step") for name, _ in stage_times)
+        return timed(f"step{n}", real_step)(*a, **k)
+
+    pipe.denoise_step = step
+
+
+def _s2v_request(pipe, phase, name, fn, frames_shape, per_step, steps=S2V_STEPS, base=None):
+    """One S2V request with its stages timed; checks its frames and its launches (exactly
+    per_step K1 in each step); logs stages, peak memory and max |frames - base|."""
+    import gc
+
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    stage_times = []
+    _s2v_instrument(pipe, stage_times)
+    gc.collect()
+    torch.cuda.empty_cache()     # the untiled float32 decode needs ~60 GiB in few blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.launch_counts)
+    try:
+        frames, secs = sync_time(fn)
+    finally:
+        for attr in ("encode_prompts", "_encode_px", "_pose_latents", "_decode", "denoise_step"):
+            pipe.__dict__.pop(attr, None)
+    counts = {k: fa.launch_counts[k] - before[k] for k in before}
+    n = None if base is None else min(len(frames), len(base))     # frames both share
+    diff = None if base is None else float(np.abs(frames[:n] - base[:n]).max())
+    log(phase, request=name, seconds=secs, stages=dict(stage_times), launches=counts,
+        k1_per_step=counts["K1"] / steps, peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+        max_abs_diff_vs_a=diff, frames_mean=float(frames.mean()), frames_shape=list(frames.shape))
+    check(frames.shape == frames_shape and bool(np.isfinite(frames).all())
+          and frames.min() >= 0.0 and frames.max() <= 1.0,
+          f"{phase} {name}: frames of shape {frames.shape}, not finite or outside [0, 1]")
+    check(counts == only(K1=per_step * steps), f"{phase} {name} launched {counts}")
+    if base is not None:
+        check(diff > 1e-3, f"{phase} {name}: frames equal request (a)'s ({diff})")
+    return frames
+
+
+def _small_s2v_configs():
+    """A head_dim-128 S2V (2 heads, 2 layers, injections after both) over the tiny T5 and
+    VAE: 256 x 256 pixels give 256 tokens per latent frame, enough for the kernels."""
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.models.s2v import S2VConfig
+
+    t5_cfg, vae_cfg = C.tiny_t5(), C.tiny_vae()
+    cfg = S2VConfig(dim=256, in_dim=vae_cfg.z_dim, ffn_dim=512, out_dim=vae_cfg.z_dim,
+                    text_dim=t5_cfg.dim, freq_dim=32, num_heads=2, num_layers=2,
+                    cond_dim=vae_cfg.z_dim, audio_dim=32, num_audio_token=4,
+                    audio_inject_layers=(0, 1))
+    return cfg, t5_cfg, vae_cfg
+
+
+def phase_small_s2v():
+    """The small S2V in float32: a plain and a motion request (9 frames, 256 x 256, 2
+    steps, CFG) through the kernels against attn_impl="plain" (cudnn TF32 off): frames
+    within 1e-2, launches exact (12 K1 per step: 2 x (2 self + 2 cross + 2 audio))."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines.s2v import S2VPipeline
+
+    cfg, t5_cfg, vae_cfg = _small_s2v_configs()
+    pipe = S2VPipeline.init_random(seed=12, cfg=cfg, t5_cfg=t5_cfg, vae_cfg=vae_cfg,
+                                   dtype=torch.float32, device="cuda")
+    frames, h, w = 9, 256, 256
+    x = _s2v_request_inputs(13, frames, h, w, motion=True)
+    audio = np.random.default_rng(14).normal(size=(1, 25, cfg.audio_dim, frames - 1))
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    try:
+        for name, extra, n_frames in (("plain", {}, frames),
+                                      ("motion", {"motion_video": x["motion"]}, frames + 72)):
+            kw = dict(audio_embeds=audio.astype(np.float32), seed=15, num_frames=frames,
+                      num_inference_steps=S2V_STEPS, cfg_scale=5.0, **extra)
+            pipe.attn_impl = "auto"
+            fa.reset_launch_counts()
+            got = pipe("a small check", x["image"], **kw)
+            launches[name] = dict(fa.launch_counts)
+            pipe.attn_impl = "plain"
+            ref = pipe("a small check", x["image"], **kw)
+            err = float(np.abs(got - ref).max())
+            log("small_s2v", request=name, frames_shape=list(got.shape), launches=launches[name],
+                frames_max_abs_err=err, frames_atol=1e-2, ok=err <= 1e-2)
+            check(got.shape == (n_frames, h, w, 3) and bool(np.isfinite(got).all()),
+                  f"small_s2v {name}: frames of shape {got.shape} or not finite")
+            check(launches[name] == only(K1=12 * S2V_STEPS),
+                  f"small_s2v {name} launched {launches[name]}")
+            check(err <= 1e-2, f"small_s2v {name}: kernels vs plain attention differ by {err}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+        pipe.attn_impl = "auto"
+    del pipe
+    torch.cuda.empty_cache()
+    return {k: launches["plain"][k] + launches["motion"][k] for k in launches["plain"]}
+
+
+def _wav2vec_embeds(root, frames):
+    """audio_embeds from the card: a random wav2vec2-large-shaped model (hidden 1024, 24
+    layers: 25 hidden states) written by save_pretrained and read back, Wav2Vec2Features
+    .extract on 16 kHz noise, then get_audio_embed_bucket_fps's first bucket of frames - 1
+    video frames."""
+    from transformers import Wav2Vec2Config, Wav2Vec2ForCTC
+
+    from goal_force_tpu_torch.models.audio import Wav2Vec2Features, get_audio_embed_bucket_fps
+
+    torch.manual_seed(16)
+    cfg = Wav2Vec2Config(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+                         intermediate_size=4096, vocab_size=32)
+    path = os.path.join(root, "wav2vec2-large")
+    t0 = time.perf_counter()
+    Wav2Vec2ForCTC(cfg).save_pretrained(path)
+    save_s = time.perf_counter() - t0
+    feats, load_s = sync_time(lambda: Wav2Vec2Features(path, device="cuda"))
+    wav = (np.random.default_rng(17).normal(size=(16000 * frames // 16,)) * 0.1).astype(np.float32)
+    stack, secs = sync_time(lambda: feats.extract(wav, 16000, fps=16))
+    buckets, n = get_audio_embed_bucket_fps(stack[0], fps=16, batch_frames=frames - 1)
+    log("s2v", stage="wav2vec2", save_seconds=save_s, load_seconds=load_s, extract_seconds=secs,
+        features=list(stack.shape), dtype=str(stack.dtype), buckets=n,
+        model_params=sum(p.numel() for p in feats.model.parameters()))
+    check(stack.shape[:3] == (1, 25, 1024) and bool(np.isfinite(stack).all()),
+          f"wav2vec2 features of shape {stack.shape} or not finite")
+    del feats
+    torch.cuda.empty_cache()
+    return buckets[:1]
+
+
+def phase_s2v():
+    """S2VPipeline at Wan2.2-S2V-14B widths (dim 5120, 40 x 128 heads, ffn 13824, audio_dim
+    1024 over 25 wav2vec2 layers, 4 audio tokens) with 4 of 40 layers and injections after
+    layers (0, 2), umt5-xxl at 2 of 24 layers, the full Wan2.1 VAE, random weights, 2 of 50
+    steps at CFG 5.0: (a) audio_embeds from wav2vec2 on the card at 81x480x832 (32,760
+    self tokens, audio B = 20 at 1,560 x 5), (b) with a pose video at 33 frames, (c) a
+    motion request (73-frame motion video) at 448x832 and 17 frames, (d) one step with
+    every self-attention's norm_q x8 (self on K2, cross and audio on K1), then a step
+    with the runtime bound's host sync taken away, to time it."""
+    import gc
+    import tempfile
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.models import s2v as s2vm
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines.s2v import S2VPipeline
+
+    cfg = dataclasses.replace(s2vm.WAN22_S2V_14B, num_layers=4, audio_inject_layers=(0, 2))
+    t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
+    pipe, secs = sync_time(lambda: S2VPipeline.init_random(
+        seed=21, cfg=cfg, t5_cfg=t5_cfg, vae_cfg=C.WAN21_VAE, dtype=torch.bfloat16,
+        device="cuda"))
+    log("s2v", stage="init", seconds=secs,
+        params={k: sum(p.numel() for p in m.parameters()) for k, m in pipe.models.items()},
+        memory_gb=torch.cuda.memory_allocated() / 2**30)
+    pc = pipe.pipe_cfg
+    with tempfile.TemporaryDirectory() as root:
+        audio = _wav2vec_embeds(root, pc.num_frames)
+    gc.collect()
+    prompt = "a woman speaks to the camera in a bright room"
+    kw = dict(seed=22, num_inference_steps=S2V_STEPS, cfg_scale=5.0)
+    x = _s2v_request_inputs(23, pc.num_frames, pc.height, pc.width)
+    fa.reset_launch_counts()
+    a = _s2v_request(pipe, "s2v", "a_81", lambda: pipe(prompt, x["image"], audio_embeds=audio,
+                                                         num_frames=pc.num_frames, **kw),
+                     (pc.num_frames, pc.height, pc.width, 3), S2V_K1_PER_STEP)
+    xb = _s2v_request_inputs(23, S2V_POSE_FRAMES, pc.height, pc.width, pose=True)
+    audio_b = np.ascontiguousarray(audio[..., :S2V_POSE_FRAMES - 1])
+    _s2v_request(pipe, "s2v", f"b_pose_{S2V_POSE_FRAMES}", lambda: pipe(
+        prompt, x["image"], audio_embeds=audio_b, s2v_pose_video=xb["pose"],
+        num_frames=S2V_POSE_FRAMES, **kw), (S2V_POSE_FRAMES, pc.height, pc.width, 3),
+        S2V_K1_PER_STEP, base=a)
+    xc = _s2v_request_inputs(24, S2V_MOTION_FRAMES, 448, pc.width, motion=True)
+    audio_c = np.ascontiguousarray(audio[..., :S2V_MOTION_FRAMES - 1])
+    _s2v_request(pipe, "s2v", f"c_motion_448_{S2V_MOTION_FRAMES}", lambda: pipe(
+        prompt, xc["image"], audio_embeds=audio_c, motion_video=xc["motion"],
+        num_frames=S2V_MOTION_FRAMES, **kw), (72 + S2V_MOTION_FRAMES, 448, pc.width, 3),
+        S2V_K1_PER_STEP)
+    run_counts = dict(fa.launch_counts)
+    run_counts["K2"] += _s2v_unbounded_step(pipe, audio, x["image"])
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_counts
+
+
+def _s2v_unbounded_step(pipe, audio, image):
+    """(d): one CFG step at 81 frames with every self-attention's norm_q x8, so the
+    runtime bound sends self-attention to K2 (8 launches) and cross and audio stay on K1
+    (12); then the same step as it is, twice with the bound and twice with the bound
+    replaced by a host constant (same kernels, no reductions, no host sync). Returns the
+    K2 launches of (d)."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    pc = pipe.pipe_cfg
+    model = pipe.models["s2v"]
+    gen = torch.Generator("cuda").manual_seed(25)
+    lat = torch.randn((1, pc.latent_frames, pc.latent_height, pc.latent_width, 16),
+                      generator=gen, device="cuda").to(pipe.dtype)
+    ctx = pipe.encode_prompts(["a woman speaks", pc.negative_prompt])
+    ref_lat = pipe._encode_px(image[None])
+    aud = torch.as_tensor(audio, device="cuda").to(pipe.dtype)
+    t = torch.full((1,), 1000.0, dtype=pipe.dtype, device="cuda")
+
+    def step():
+        return pipe.denoise_step(lat, ref_lat, t, 1.0, 0.9375, ctx[:1], ctx[1:], aud, None,
+                                 None, 5.0)
+
+    for blk in model.blocks:
+        blk.self_attn.norm_q.weight.mul_(8)
+    try:
+        fa.reset_launch_counts()
+        out, secs = sync_time(step)
+        launches = dict(fa.launch_counts)
+    finally:
+        for blk in model.blocks:
+            blk.self_attn.norm_q.weight.div_(8)
+    check(tuple(out.shape) == tuple(lat.shape) and bool(torch.isfinite(out.float()).all()),
+          "s2v unbounded step: bad output")
+    check(launches == only(K1=12, K2=8), f"s2v unbounded step launched {launches}")
+    log("s2v", stage="d_unbounded_step", seconds=secs, launches=launches)
+    real_bound = fa.logit_bound
+    times = {"with_bound": [], "bound_replaced": []}
+    for key in ("with_bound", "bound_replaced", "bound_replaced", "with_bound"):
+        if key == "bound_replaced":
+            fa.logit_bound = lambda *a: torch.zeros(())     # a host tensor: no sync
+        try:
+            before = dict(fa.launch_counts)
+            times[key].append(sync_time(step)[1])
+            n = {k: fa.launch_counts[k] - before[k] for k in before}
+        finally:
+            fa.logit_bound = real_bound
+        check(n == only(K1=S2V_K1_PER_STEP), f"s2v {key} step launched {n}")
+    log("s2v", stage="bound_sync_cost", step_seconds=times,
+        per_step_cost_s=min(times["with_bound"]) - min(times["bound_replaced"]),
+        bound_calls_per_step=S2V_K1_PER_STEP)
+    return launches["K2"]
+
+
+def phase_image_branch():
+    """The CLIP ViT-H/14 vision tower at full width (random bf16 weights) encodes one
+    480 x 832 frame; a DiT at Wan2.1-I2V-14B-480P widths (in_dim 36, has_image_input, 4 of
+    40 layers, img_emb and k_img/v_img) runs one wan_dit_forward at B = 2, 81x480x832,
+    with the frame's clip_feature (12 K1: 4 self, 4 text, 4 image) and without it (8 K1);
+    the two velocities must differ."""
+    import gc
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.models import image_encoder as vit
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(31)
+    tower = vit.init_vit(vit.VIT_H_14, gen, torch.bfloat16, device="cuda")
+    image = _s2v_request_inputs(32, 1, 480, 832)["image"]
+    vit.encode_image(tower, image)                                  # warm-up
+    clip, secs = sync_time(lambda: vit.encode_image(tower, image))
+    check(tuple(clip.shape) == (1, 257, 1280) and bool(torch.isfinite(clip.float()).all()),
+          f"image encoder: clip_feature of shape {tuple(clip.shape)} or not finite")
+    log("image_branch", stage="vit_h_14", seconds=secs, clip_feature=list(clip.shape),
+        params=sum(p.numel() for p in tower.parameters()))
+    del tower
+    cfg = dataclasses.replace(C.WAN22_A14B, has_image_input=True, num_layers=4)
+    dit = wan_dit.init_wan_dit(cfg, gen, torch.bfloat16, device="cuda")
+    wan_dit.init_image_branch_(dit, gen, clip_dim=1280)
+    b = 2
+    x = torch.randn((b, 21, 60, 104, 16), generator=gen, device="cuda").to(torch.bfloat16)
+    y = torch.randn((b, 21, 60, 104, 20), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((b, 512, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.tensor([900.0, 900.0], device="cuda", dtype=torch.bfloat16)
+    clip2 = clip.expand(b, -1, -1)
+    outs, launches = {}, {}
+    with torch.no_grad():
+        for name, kw, want in (("with_clip", dict(clip_feature=clip2), 12), ("without", {}, 8)):
+            torch.cuda.reset_peak_memory_stats()
+            (outs[name], n), secs = sync_time(lambda: picked(
+                lambda: wan_dit.wan_dit_forward(dit, cfg, x, t, ctx, y, **kw)))
+            launches[name] = n
+            log("image_branch", stage=name, seconds=secs, launches=n,
+                peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+            check(n == only(K1=want), f"image_branch {name} launched {n}")
+            check(bool(torch.isfinite(outs[name].float()).all()),
+                  f"image_branch {name}: not finite")
+    diff = float((outs["with_clip"].float() - outs["without"].float()).abs().max())
+    log("image_branch", stage="compare", max_abs_diff=diff)
+    check(diff > 1e-3, f"image_branch: clip_feature changed nothing ({diff})")
+    del dit, outs, x, y, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches["with_clip"][k] + launches["without"][k] for k in launches["without"]}
+
+
+def phase_vae38():
+    """The Wan2.2 VAE (VAE38: dim 160, dec_dim 256, z 48, patch 2, 16x) at full width with
+    random weights: encode and decode one 81x480x832 video in float32, untiled; logs the
+    times and peaks."""
+    import gc
+
+    from goal_force_tpu_torch.models import vae38
+
+    gen = torch.Generator("cuda").manual_seed(41)
+    cfg = vae38.WAN22_VAE38
+    vae = vae38.init_vae38(cfg, gen, torch.float32, device="cuda")
+    video = torch.rand((1, 81, 480, 832, 3), generator=gen, device="cuda") * 2 - 1
+    with torch.no_grad():
+        for name in ("encode", "decode"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            if name == "encode":
+                lat, secs = sync_time(lambda: vae38.encode_video(vae, cfg, video))
+                out, want = lat, (1, 21, 30, 52, 48)
+            else:
+                out, secs = sync_time(lambda: vae38.decode_video(vae, cfg, lat))
+                want = (1, 81, 480, 832, 3)
+            log("vae38", stage=name, seconds=secs, shape=list(out.shape),
+                resident_gb=base / 2**30, peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+            check(tuple(out.shape) == want and bool(torch.isfinite(out).all()),
+                  f"vae38 {name}: shape {tuple(out.shape)} or not finite")
+    check(float(out.abs().max()) <= 1.0, "vae38 decode: frames outside [-1, 1]")
+    del vae, video, lat, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -2201,6 +2697,7 @@ def main() -> int:
     phase_small()
     phase_small_train()
     phase_small_int8()
+    small_s2v_launches = phase_small_s2v()
     pipe, main_launches, bf16_frames = phase_main()
     tc_launches = phase_teacache(pipe, bf16_frames[0])
     window_launches = phase_window(pipe, bf16_frames[0])
@@ -2211,6 +2708,9 @@ def main() -> int:
     del pipe, bf16_frames
     t2v_vace_launches = phase_t2v_vace()
     fun_control_launches = phase_fun_control()
+    s2v_launches = phase_s2v()
+    image_launches = phase_image_branch()
+    phase_vae38()
     train_launches = phase_train()
     train_cli_launches = phase_train_cli()
     full_launches = phase_full_int8()
@@ -2231,9 +2731,15 @@ def main() -> int:
                                                 "batch_cross")},
               "variants_launches": variants_launches["K1"],
               "t2v_vace_launches": t2v_vace_launches["K1"],
-              "fun_control_launches": fun_control_launches["K1"]}),
+              "fun_control_launches": fun_control_launches["K1"],
+              "s2v_launches": s2v_launches["K1"], "small_s2v_launches": small_s2v_launches["K1"],
+              "image_branch_launches": image_launches["K1"],
+              **{k: measured["K1"][k] for k in ("audio", "s2v_self", "s2v_cross",
+                                                "image_cross")}}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
-             {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)"}),
+             {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
+              "s2v_launches": s2v_launches["K2"],
+              **{k: measured["K2"][k] for k in ("audio", "s2v_self", "s2v_cross")}}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K3"]}),

@@ -3,7 +3,8 @@
 ``params_from_jax(tree)`` takes ``{dit, dit2, controlnet, controlnet2, t5, vae}`` (and
 the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) as
 ``GoalForcePipeline.init_random(...).params`` holds it in the JAX package (after
-``tree_map(np.asarray, ...)``) and returns one reference-format state dict per entry:
+``tree_map(np.asarray, ...)``), an S2V pipeline's ``{s2v, t5, vae}``, and trees named
+``vae38`` and ``image_encoder``, and returns one reference-format state dict per entry:
 
   - stacked ``blocks`` leaves (leading layer axis) -> ``blocks.{i}.*``;
   - (in, out) linear weights -> torch's (out, in);
@@ -11,6 +12,15 @@ the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) 
   - (kt, kh, kw, Cin, Cout) conv weights -> (Cout, Cin, kt, kh, kw), (kh, kw, Cin, Cout) ->
     (Cout, Cin, kh, kw);
   - stacked zero convs (L, in, out) -> ``controlnet_zero_convs_after.{i}`` Conv1d (out, in, 1);
+  - an I2V DiT's image branch: ``img_emb`` -> ``img_emb.proj.{0,1,3,4}`` (+ ``emb_pos``
+    (1, T, clip_dim)) and each block's ``k_img``/``v_img``/``norm_k_img``;
+  - ``vae38`` (the Wan2.2 VAE) -> ``encoder.downsamples.{i}.downsamples.{j}`` and
+    ``decoder.upsamples.{i}.upsamples.{j}`` (residual blocks, then the stage's
+    ``resample.1``/``time_conv``), as ``vae38_params_from_torch`` reads them;
+  - ``image_encoder`` (the CLIP ViT-H/14 vision tower) -> ``model.visual.*``;
+  - ``s2v`` (speech-to-video) -> the WanS2V keys of ``s2v_params_from_torch``, the
+    causal conv1d kernels (k, in, out) -> (out, in, k) under ``*.conv``, the frame packer's
+    patch matmuls -> Conv3d kernels of (1, 2, 2), (2, 4, 4) and (4, 8, 8);
   - the adapters: a DiT's Fun-Reference ``ref_conv`` -> Conv2d (D, z, 2, 2); ``vace`` ->
     ``vace_blocks.{i}`` (+ ``before_proj`` on block 0, ``after_proj`` on each) and
     ``vace_patch_embedding``; ``motion_controller`` -> ``linear.0/2/4``;
@@ -70,13 +80,18 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def _attention(sd: StateDict, prefix: str, a: Mapping) -> None:
+    for proj in ("q", "k", "v", "o", "k_img", "v_img"):
+        if proj in a:
+            _lin(sd, f"{prefix}.{proj}", a[proj])
+    for norm in ("norm_q", "norm_k", "norm_k_img"):
+        if norm in a:
+            sd[f"{prefix}.{norm}.weight"] = _t(a[norm]["w"])
+
+
 def _block(sd: StateDict, prefix: str, p: Mapping) -> None:
     for name in ("self_attn", "cross_attn"):
-        a = p[name]
-        for proj in ("q", "k", "v", "o"):
-            _lin(sd, f"{prefix}.{name}.{proj}", a[proj])
-        sd[f"{prefix}.{name}.norm_q.weight"] = _t(a["norm_q"]["w"])
-        sd[f"{prefix}.{name}.norm_k.weight"] = _t(a["norm_k"]["w"])
+        _attention(sd, f"{prefix}.{name}", p[name])
     sd[f"{prefix}.norm3.weight"] = _t(p["norm3"]["w"])
     sd[f"{prefix}.norm3.bias"] = _t(p["norm3"]["b"])
     _lin(sd, f"{prefix}.ffn.0", p["ffn"]["fc0"])
@@ -105,6 +120,15 @@ def dit_state_dict(p: Mapping, patch_size=(1, 2, 2)) -> StateDict:
         w = np.asarray(p["ref_conv"]["w"])
         sd["ref_conv.weight"] = _t(w.T.reshape(w.shape[1], -1, 2, 2))
         sd["ref_conv.bias"] = _t(p["ref_conv"]["b"])
+    if "img_emb" in p:
+        e = p["img_emb"]
+        for i, name in ((0, "norm_in"), (4, "norm_out")):
+            sd[f"img_emb.proj.{i}.weight"] = _t(e[name]["w"])
+            sd[f"img_emb.proj.{i}.bias"] = _t(e[name]["b"])
+        _lin(sd, "img_emb.proj.1", e["fc0"])
+        _lin(sd, "img_emb.proj.3", e["fc2"])
+        if "emb_pos" in e:
+            sd["img_emb.emb_pos"] = _t(np.asarray(e["emb_pos"])[None])
     return sd
 
 
@@ -224,6 +248,100 @@ def vae_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
+def _vae38_side(sd: StateDict, side: str, q: Mapping) -> None:
+    seq = "downsamples" if side == "encoder" else "upsamples"
+    _conv3d(sd, f"{side}.conv1", q["conv1"])
+    for i, stage in enumerate(q["stages"]):
+        pre = f"{side}.{seq}.{i}.{seq}"
+        for j, res in enumerate(stage["res"]):
+            _res(sd, f"{pre}.{j}", res)
+        if "resample" in stage:
+            rs, j = stage["resample"], len(stage["res"])
+            _conv2d(sd, f"{pre}.{j}.resample.1", rs["conv"])
+            if "time_conv" in rs:
+                _conv3d(sd, f"{pre}.{j}.time_conv", rs["time_conv"])
+    _res(sd, f"{side}.middle.0", q["mid_res1"])
+    _attn(sd, f"{side}.middle.1", q["mid_attn"])
+    _res(sd, f"{side}.middle.2", q["mid_res2"])
+    _norm(sd, f"{side}.head.0", q["head_norm"])
+    _conv3d(sd, f"{side}.head.2", q["head_conv"])
+
+
+def vae38_state_dict(p: Mapping) -> StateDict:
+    """JAX ``init_vae38`` / ``vae38_params_from_torch`` tree -> the Wan2.2 VAE's keys."""
+    sd: StateDict = {}
+    _vae38_side(sd, "encoder", p["encoder"])
+    _vae38_side(sd, "decoder", p["decoder"])
+    _conv3d(sd, "conv1", p["conv1"])
+    _conv3d(sd, "conv2", p["conv2"])
+    return sd
+
+
+def vit_state_dict(p: Mapping, prefix: str = "model.visual.") -> StateDict:
+    """JAX ``init_vit`` / ``vit_params_from_torch`` tree -> the vision tower's keys."""
+    sd: StateDict = {}
+    w = np.asarray(p["patch_embedding"]["w"])                 # (3 p p, dim), (c, dy, dx)
+    ps = int(round((w.shape[0] // 3) ** 0.5))
+    sd[prefix + "patch_embedding.weight"] = _t(w.T.reshape(w.shape[1], 3, ps, ps))
+    sd[prefix + "cls_embedding"] = _t(np.asarray(p["cls_embedding"])[None])
+    sd[prefix + "pos_embedding"] = _t(np.asarray(p["pos_embedding"])[None])
+    for name in ("weight", "bias"):
+        sd[prefix + "pre_norm." + name] = _t(p["pre_norm"]["w" if name == "weight" else "b"])
+    blocks = p["blocks"]
+    for i in range(int(np.asarray(blocks["norm1"]["w"]).shape[0])):
+        b, pre = _layer(blocks, i), f"{prefix}transformer.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = _t(b[norm]["w"])
+            sd[f"{pre}.{norm}.bias"] = _t(b[norm]["b"])
+        _lin(sd, f"{pre}.attn.to_qkv", b["attn"]["to_qkv"])
+        _lin(sd, f"{pre}.attn.proj", b["attn"]["proj"])
+        _lin(sd, f"{pre}.mlp.0", b["mlp_fc1"])
+        _lin(sd, f"{pre}.mlp.2", b["mlp_fc2"])
+    return sd
+
+
+def _conv1d(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".conv.weight"] = _t(np.asarray(p["w"]).transpose(2, 1, 0))
+    sd[prefix + ".conv.bias"] = _t(p["b"])
+
+
+def s2v_state_dict(p: Mapping, patch_size=(1, 2, 2)) -> StateDict:
+    """JAX ``s2v_params_from_torch`` tree -> the WanS2V keys it reads."""
+    sd: StateDict = {}
+    for name in ("patch_embedding", "cond_encoder"):
+        sd[name + ".weight"], sd[name + ".bias"] = _patch(p[name]["w"], p[name]["b"],
+                                                          patch_size)
+    _lin(sd, "text_embedding.0", p["text_embedding"]["fc0"])
+    _lin(sd, "text_embedding.2", p["text_embedding"]["fc2"])
+    _lin(sd, "time_embedding.0", p["time_embedding"]["fc0"])
+    _lin(sd, "time_embedding.2", p["time_embedding"]["fc2"])
+    _lin(sd, "time_projection.1", p["time_projection"])
+    for i in range(_num_layers(p["blocks"])):
+        _block(sd, f"blocks.{i}", _layer(p["blocks"], i))
+    _lin(sd, "head.head", p["head"])
+    sd["head.modulation"] = _t(np.asarray(p["head"]["modulation"])[None])
+    sd["trainable_cond_mask.weight"] = _t(p["trainable_cond_mask"])
+    enc, pre = p["audio_encoder"], "casual_audio_encoder"
+    sd[pre + ".weights"] = _t(enc["weights"])
+    for name in ("conv1_local", "conv2", "conv3", "conv1_global"):
+        if name in enc["encoder"]:
+            _conv1d(sd, f"{pre}.encoder.{name}", enc["encoder"][name])
+    if "final_linear" in enc["encoder"]:
+        _lin(sd, pre + ".encoder.final_linear", enc["encoder"]["final_linear"])
+    sd[pre + ".encoder.padding_tokens"] = _t(np.asarray(enc["encoder"]["padding_tokens"])
+                                             [None, None])
+    inj = p["audio_injector"]
+    for k in range(int(np.asarray(inj["adain"]["linear"]["w"]).shape[0])):
+        layer = _layer(inj, k)
+        _attention(sd, f"audio_injector.injector.{k}", layer["injector"])
+        _lin(sd, f"audio_injector.injector_adain_layers.{k}.linear", layer["adain"]["linear"])
+    for name, patch in (("proj", (1, 2, 2)), ("proj_2x", (2, 4, 4)), ("proj_4x", (4, 8, 8))):
+        q = p["frame_packer"][name]
+        sd[f"frame_packer.{name}.weight"], sd[f"frame_packer.{name}.bias"] = _patch(
+            q["w"], q["b"], patch)
+    return sd
+
+
 def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]:
     """State dicts for every entry of the JAX pipeline's params tree."""
     out: Dict[str, StateDict] = {}
@@ -236,6 +354,12 @@ def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]
             out[name] = t5_state_dict(p)
         elif name == "vae":
             out[name] = vae_state_dict(p)
+        elif name == "vae38":
+            out[name] = vae38_state_dict(p)
+        elif name == "image_encoder":
+            out[name] = vit_state_dict(p)
+        elif name == "s2v":
+            out[name] = s2v_state_dict(p, patch_size)
         elif name == "vace":
             out[name] = vace_state_dict(p, patch_size)
         elif name == "motion_controller":

@@ -53,14 +53,19 @@ class GoalForceControlNet(nn.Module):
 def init_from_dit(dit, dit_cfg: WanDiTConfig, cfg: ControlNetConfig, gen: torch.Generator,
                   dtype=torch.bfloat16, *, device, requires_grad: bool = False
                   ) -> GoalForceControlNet:
-    """Copy blocks i*stride of the expert DiT, draw a fresh patch embedding, and zero the
+    """Copy blocks i*stride of the expert DiT (without an I2V expert's k_img/v_img/
+    norm_k_img), draw a fresh patch embedding, and zero the
     zero convs (so the ControlNet starts as the identity). requires_grad=True returns it
     trainable (the training path); by default it is frozen, as for serving."""
     stride = cfg.stride or 1
     cn = empty_module(GoalForceControlNet, dit_cfg, cfg, dtype=dtype, device=device)
     init_patch_embedding_(cn.controlnet_patch_embedding.patch_embedding, gen)
     for i, blk in enumerate(cn.controlnet_dit.blocks):
-        blk.load_state_dict(copy.deepcopy(dit.blocks[i * stride].state_dict()))
+        # an I2V expert's image-key projections stay behind: the side stack has no image
+        # tokens (JAX copies them and never reads them)
+        own = blk.state_dict()
+        blk.load_state_dict(copy.deepcopy({k: v for k, v in dit.blocks[i * stride]
+                                           .state_dict().items() if k in own}))
     for zc in cn.controlnet_zero_convs_after:
         zc.weight.zero_()
         zc.bias.zero_()

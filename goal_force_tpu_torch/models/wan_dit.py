@@ -1,8 +1,9 @@
 """Wan video DiT in PyTorch.
 
-Port of ``goal_force_tpu/models/wan_dit.py`` (main path, the Fun-Reference ``ref_conv``
-and the int8/fp8 packs of ``ops/quant.py``; no pipeline parallelism, no CLIP image
-branch). Modules hold the parameters under the reference
+Port of ``goal_force_tpu/models/wan_dit.py`` (main path, the Fun-Reference ``ref_conv``,
+the CLIP image branch of the I2V-480P models (``img_emb`` and the cross-attention's
+``k_img``/``v_img``/``norm_k_img``) and the int8/fp8 packs of ``ops/quant.py``; no
+pipeline parallelism). Modules hold the parameters under the reference
 ("civitai") state-dict names that ``goal_force_tpu/io/torch_convert.py`` reads, so a
 reference-format state dict loads directly. The computation is written as functions
 over those modules, one per JAX function, with the same dtype steps:
@@ -102,7 +103,9 @@ class Activation(nn.Module):
 
 
 class WanAttention(nn.Module):
-    def __init__(self, dim: int):
+    """image=True adds the image keys' projections of an I2V cross-attention."""
+
+    def __init__(self, dim: int, image: bool = False):
         super().__init__()
         self.q = nn.Linear(dim, dim)
         self.k = nn.Linear(dim, dim)
@@ -110,13 +113,17 @@ class WanAttention(nn.Module):
         self.o = nn.Linear(dim, dim)
         self.norm_q = RMSNorm(dim)
         self.norm_k = RMSNorm(dim)
+        if image:
+            self.k_img = nn.Linear(dim, dim)
+            self.v_img = nn.Linear(dim, dim)
+            self.norm_k_img = RMSNorm(dim)
 
 
 class WanBlock(nn.Module):
-    def __init__(self, cfg: WanDiTConfig):
+    def __init__(self, cfg: WanDiTConfig, image: bool = False):
         super().__init__()
         self.self_attn = WanAttention(cfg.dim)
-        self.cross_attn = WanAttention(cfg.dim)
+        self.cross_attn = WanAttention(cfg.dim, image)
         self.norm3 = LayerNormAffine(cfg.dim)
         self.ffn = nn.Sequential(nn.Linear(cfg.dim, cfg.ffn_dim), Activation(),
                                  nn.Linear(cfg.ffn_dim, cfg.dim))
@@ -130,22 +137,40 @@ class WanHead(nn.Module):
         self.modulation = nn.Parameter(torch.zeros(1, 2, cfg.dim))
 
 
-class WanDiT(nn.Module):
-    """ref_conv_in > 0 adds the Fun-Reference ``ref_conv`` (Conv2d(ref_conv_in, dim, 2,
-    stride 2)); a model has it where its state dict does."""
+class ImageEmbedding(nn.Module):
+    """CLIP tokens -> DiT context tokens: LayerNorm, Linear, GELU(erf), Linear, LayerNorm
+    under ``proj.{0,1,3,4}``, and an optional learned position embedding ``emb_pos``
+    (1, pos_len, clip_dim) of the first-last-frame models."""
 
-    def __init__(self, cfg: WanDiTConfig, ref_conv_in: int = 0):
+    def __init__(self, clip_dim: int, dim: int, pos_len: int = 0):
+        super().__init__()
+        self.proj = nn.Sequential(LayerNormAffine(clip_dim), nn.Linear(clip_dim, clip_dim),
+                                  Activation(), nn.Linear(clip_dim, dim), LayerNormAffine(dim))
+        if pos_len:
+            self.emb_pos = nn.Parameter(torch.zeros(1, pos_len, clip_dim))
+
+
+class WanDiT(nn.Module):
+    """Optional parts, each present where a reference state dict has its keys
+    (``dit_kwargs``): ref_conv_in > 0 adds the Fun-Reference ``ref_conv`` (Conv2d(ref_conv_in,
+    dim, 2, stride 2)); clip_dim > 0 the I2V image branch, the image embedding ``img_emb``
+    (with ``emb_pos`` when img_pos_len > 0) and the blocks' image-key projections."""
+
+    def __init__(self, cfg: WanDiTConfig, ref_conv_in: int = 0, clip_dim: int = 0,
+                 img_pos_len: int = 0):
         super().__init__()
         self.cfg = cfg
         if ref_conv_in:
             self.ref_conv = nn.Conv2d(ref_conv_in, cfg.dim, 2, 2)
+        if clip_dim:
+            self.img_emb = ImageEmbedding(clip_dim, cfg.dim, img_pos_len)
         self.patch_embedding = nn.Conv3d(cfg.in_dim, cfg.dim, cfg.patch_size, cfg.patch_size)
         self.text_embedding = nn.Sequential(nn.Linear(cfg.text_dim, cfg.dim), Activation(),
                                             nn.Linear(cfg.dim, cfg.dim))
         self.time_embedding = nn.Sequential(nn.Linear(cfg.freq_dim, cfg.dim), Activation(),
                                             nn.Linear(cfg.dim, cfg.dim))
         self.time_projection = nn.Sequential(Activation(), nn.Linear(cfg.dim, cfg.dim * 6))
-        self.blocks = nn.ModuleList(WanBlock(cfg) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(WanBlock(cfg, clip_dim > 0) for _ in range(cfg.num_layers))
         self.head = WanHead(cfg)
 
 
@@ -190,19 +215,28 @@ def self_attention(p: WanAttention, x, cos, sin, num_heads: int, eps: float,
 
 
 def cross_attention(p: WanAttention, x, context, num_heads: int, eps: float,
-                    attn_impl: str = "auto", bounded: bool = False):
-    """Text cross-attention over every context token (no mask)."""
+                    attn_impl: str = "auto", bounded: bool = False, num_img_tokens: int = 0):
+    """Text cross-attention over every context token (no mask). With num_img_tokens > 0
+    the first tokens of `context` are image tokens, attended through k_img/v_img with the
+    same queries; the two attentions' outputs are added before ``o``."""
     b, s, d = x.shape
-    t = context.shape[1]
+    img, ctx = context[:, :num_img_tokens], context[:, num_img_tokens:]
+    t = ctx.shape[1]
     q = rms_norm(linear(p.q, x), p.norm_q.weight, eps).reshape(b, s, num_heads, -1)
-    k = rms_norm(linear(p.k, context), p.norm_k.weight, eps).reshape(b, t, num_heads, -1)
-    v = linear(p.v, context).reshape(b, t, num_heads, -1)
+    k = rms_norm(linear(p.k, ctx), p.norm_k.weight, eps).reshape(b, t, num_heads, -1)
+    v = linear(p.v, ctx).reshape(b, t, num_heads, -1)
     out = attention(q, k, v, impl=attn_impl, bounded=bounded).reshape(b, s, d)
+    if num_img_tokens:
+        k_img = rms_norm(linear(p.k_img, img), p.norm_k_img.weight, eps).reshape(
+            b, num_img_tokens, num_heads, -1)
+        v_img = linear(p.v_img, img).reshape(b, num_img_tokens, num_heads, -1)
+        out = out + attention(q, k_img, v_img, impl=attn_impl,
+                              bounded=bounded).reshape(b, s, d)
     return linear(p.o, out)
 
 
 def dit_block(p: WanBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig,
-              attn_impl: str = "auto"):
+              attn_impl: str = "auto", num_img_tokens: int = 0):
     """One DiT block with 6-way AdaLN modulation. t_mod: (B, 6, D)."""
     mod = p.modulation.to(t_mod.dtype) + t_mod                 # (B, 6, D)
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
@@ -212,7 +246,7 @@ def dit_block(p: WanBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig,
                                       attn_impl, bounded=cfg.qk_bounded)
     x = x + cross_attention(p.cross_attn, layer_norm(x, cfg.eps, p.norm3.weight, p.norm3.bias),
                             context, cfg.num_heads, cfg.eps, attn_impl,
-                            bounded=cfg.qk_bounded)
+                            bounded=cfg.qk_bounded, num_img_tokens=num_img_tokens)
     h = layer_norm(x, cfg.eps) * (1 + scale_mlp) + shift_mlp
     return x + gate_mlp * feed_forward(p, h)
 
@@ -238,7 +272,7 @@ def _block_with_weights(block_weights, i, blk, *args):
 def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,
                injections: Optional[List[torch.Tensor]] = None, attn_impl: str = "auto",
                remat: bool = False, block_weights=None, start: int = 0,
-               stop: Optional[int] = None):
+               stop: Optional[int] = None, num_img_tokens: int = 0):
     """Run x through blocks[start:stop]; injections[i] (the ControlNet outputs) is added
     after block i for every i < len(injections). Indices are the blocks' own in
     `blocks`, so a segment's block i still gets injections[i] and block_weights(i, ...).
@@ -248,6 +282,7 @@ def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: Wan
     forward then already sees grad-requiring inputs, so attention takes K3 there too.
     block_weights: ``block_weights(i, blk)`` gives the block that runs in place of block
     i, called inside the block's checkpoint (LoRA's merged weights).
+    num_img_tokens: the leading image tokens of `context` (the I2V image branch).
     """
     n_inj = 0 if injections is None else len(injections)
     for i in range(start, len(blocks) if stop is None else stop):
@@ -256,9 +291,9 @@ def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: Wan
                                                              block_weights, i)
         if remat:
             x = checkpoint(fn, blk, x, context, t_mod, cos, sin, cfg, attn_impl,
-                           use_reentrant=False)
+                           num_img_tokens, use_reentrant=False)
         else:
-            x = fn(blk, x, context, t_mod, cos, sin, cfg, attn_impl)
+            x = fn(blk, x, context, t_mod, cos, sin, cfg, attn_impl, num_img_tokens)
         if i < n_inj:
             x = x + injections[i].to(x.dtype)
     return x
@@ -285,23 +320,47 @@ def text_embed(model: WanDiT, x):
     return linear(model.text_embedding[2], gelu_tanh(linear(model.text_embedding[0], x)))
 
 
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return (0.5 * xf * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+
+
+def img_embed(model: WanDiT, clip_feature: torch.Tensor) -> torch.Tensor:
+    """CLIP tokens (B, T, clip_dim) -> image context tokens (B, T, D)."""
+    p = model.img_emb
+    x = clip_feature
+    if hasattr(p, "emb_pos"):
+        x = x + p.emb_pos[0].to(x.dtype)
+    proj = p.proj
+    x = layer_norm(x, 1e-5, proj[0].weight, proj[0].bias)
+    x = linear(proj[3], gelu_erf(linear(proj[1], x)))
+    return layer_norm(x, 1e-5, proj[4].weight, proj[4].bias)
+
+
 def rope_for_grid(cfg: WanDiTConfig, grid, device):
     tables = rope_tables_3d(cfg.head_dim, cfg.rope_max_len)
     return assemble_rope(tables, *grid, device=device)
 
 
 def wan_dit_forward(model: WanDiT, cfg: WanDiTConfig, x, timestep, context, y=None,
-                    attn_impl: str = "auto"):
+                    attn_impl: str = "auto", clip_feature=None):
     """Base-model velocity (B, F, H, W, out_dim) for latents x (B, F, H, W, C),
-    timestep (B,), context (B, L, text_dim) and optional conditioning y."""
+    timestep (B,), context (B, L, text_dim) and optional conditioning y. clip_feature
+    (B, T, clip_dim), the image encoder's tokens, is used only where
+    ``cfg.has_image_input``: its embedding goes in front of the text context."""
     t, t_mod = time_embed(model, cfg, timestep)
     context = text_embed(model, context)
+    num_img_tokens = 0
+    if clip_feature is not None and cfg.has_image_input:
+        img_ctx = img_embed(model, clip_feature)
+        num_img_tokens = img_ctx.shape[1]
+        context = torch.cat([img_ctx, context.to(img_ctx.dtype)], dim=1)
     if y is not None:
         x = torch.cat([x, y.to(x.dtype)], dim=-1)
     tokens, grid = patchify(model.patch_embedding, x, cfg.patch_size)
     cos, sin = rope_for_grid(cfg, grid, tokens.device)
     tokens = run_blocks(model.blocks, tokens, context, t_mod, cos, sin, cfg,
-                        attn_impl=attn_impl)
+                        attn_impl=attn_impl, num_img_tokens=num_img_tokens)
     out = head(model.head, tokens, t, cfg.eps)
     return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
 
@@ -349,7 +408,14 @@ def init_patch_embedding_(conv: nn.Conv3d, gen: torch.Generator):
 
 def dit_kwargs(sd) -> dict:
     """WanDiT's optional parts that a reference-format state dict holds."""
-    return {"ref_conv_in": sd["ref_conv.weight"].shape[1]} if "ref_conv.weight" in sd else {}
+    kw = {}
+    if "ref_conv.weight" in sd:
+        kw["ref_conv_in"] = sd["ref_conv.weight"].shape[1]
+    if "img_emb.proj.0.weight" in sd:
+        kw["clip_dim"] = sd["img_emb.proj.0.weight"].shape[0]
+    if "img_emb.emb_pos" in sd:
+        kw["img_pos_len"] = sd["img_emb.emb_pos"].shape[1]
+    return kw
 
 
 def reference_tokens(conv: nn.Conv2d, latents: torch.Tensor) -> torch.Tensor:
@@ -369,6 +435,35 @@ def init_ref_conv_(model: WanDiT, z_dim: int, gen: torch.Generator) -> WanDiT:
     init_patch_embedding_(model.ref_conv, gen)
     model.ref_conv.requires_grad_(False)
     return model
+
+
+@torch.no_grad()
+def init_image_branch_(model: WanDiT, gen: torch.Generator, clip_dim: int = 1280,
+                       pos_len: int = 0) -> WanDiT:
+    """Give `model` the I2V image branch (``img_emb``, and ``k_img``/``v_img``/
+    ``norm_k_img`` in every block) with uniform +-1/sqrt(fan_in) linears, zero biases,
+    unit norms and, with pos_len, an N(0, 1/clip_dim) ``emb_pos``. The JAX package has no
+    initialiser for it (its weights come from a file); this one feeds tests and the
+    smoke."""
+    w = model.patch_embedding.weight
+    dim = model.cfg.dim
+    like = dict(dtype=w.dtype, device=w.device)
+    model.img_emb = empty_module(ImageEmbedding, clip_dim, dim, pos_len, **like)
+    for norm in (model.img_emb.proj[0], model.img_emb.proj[4]):
+        norm.weight.fill_(1.0)
+        norm.bias.zero_()
+    init_linear_(model.img_emb.proj[1], gen)
+    init_linear_(model.img_emb.proj[3], gen)
+    if pos_len:
+        model.img_emb.emb_pos.normal_(generator=gen).div_(clip_dim**0.5)
+    for blk in model.blocks:
+        a = blk.cross_attn
+        a.k_img = nn.Linear(dim, dim, **like)
+        a.v_img = nn.Linear(dim, dim, **like)
+        a.norm_k_img = RMSNorm(dim).to(**like)
+        init_linear_(a.k_img, gen)
+        init_linear_(a.v_img, gen)
+    return model.requires_grad_(False)
 
 
 @torch.no_grad()

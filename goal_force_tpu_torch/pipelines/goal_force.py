@@ -150,6 +150,29 @@ def load_adapters(dit_cfg: WanDiTConfig, vace_path=None, vace_num_layers: int = 
     return out
 
 
+@torch.no_grad()
+def t5_encode_prompts(t5, t5_cfg: T5Config, tokenizer, prompts, device) -> torch.Tensor:
+    """(len(prompts), text_len, dim) embeddings, zero past each prompt's length."""
+    ids, mask = tokenizer(prompts)
+    ids = torch.from_numpy(ids).to(device)
+    mask = torch.from_numpy(mask).to(device)
+    emb = t5m.t5_encode(t5, t5_cfg, ids, mask)
+    return emb * (mask[..., None] > 0)
+
+
+def initial_latents(shape, seed: int, noise, device, dtype) -> torch.Tensor:
+    """noise (of `shape`) or a torch.randn draw from a generator seeded with `seed` on
+    `device`, in `dtype`."""
+    if noise is None:
+        gen = torch.Generator(device).manual_seed(int(seed))
+        latents = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    else:
+        latents = torch.as_tensor(noise, device=device)
+        if tuple(latents.shape) != tuple(shape):
+            raise ValueError(f"noise has shape {tuple(latents.shape)}, expected {shape}")
+    return latents.to(dtype)
+
+
 def _progress_bar(total: int):
     from tqdm import tqdm
 
@@ -412,14 +435,10 @@ class GoalForcePipeline:
     # Conditioning
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
     def encode_prompts(self, prompts) -> torch.Tensor:
         """(len(prompts), text_len, dim) embeddings, zero past each prompt's length."""
-        ids, mask = self.tokenizer(prompts)
-        ids = torch.from_numpy(ids).to(self.device)
-        mask = torch.from_numpy(mask).to(self.device)
-        emb = t5m.t5_encode(self.models["t5"], self.t5_cfg, ids, mask)
-        return emb * (mask[..., None] > 0)
+        return t5_encode_prompts(self.models["t5"], self.t5_cfg, self.tokenizer, prompts,
+                                 self.device)
 
     def _vae_encode_px(self, x: torch.Tensor) -> torch.Tensor:
         """(B, F, H, W, 3) pixels in [-1, 1] -> latents; tiled above one tile."""
@@ -645,16 +664,7 @@ class GoalForcePipeline:
         return self._generate(*args, **kwargs)
 
     def _latents(self, shape, seed: int, noise) -> torch.Tensor:
-        """noise (of `shape`) or a torch.randn draw from a generator seeded with `seed`
-        on the device, in the pipeline dtype."""
-        if noise is None:
-            gen = torch.Generator(self.device).manual_seed(int(seed))
-            latents = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
-        else:
-            latents = torch.as_tensor(noise, device=self.device)
-            if tuple(latents.shape) != tuple(shape):
-                raise ValueError(f"noise has shape {tuple(latents.shape)}, expected {shape}")
-        return latents.to(self.dtype)
+        return initial_latents(shape, seed, noise, self.device, self.dtype)
 
     @torch.no_grad()
     def _encode_untiled(self, pixels: np.ndarray) -> torch.Tensor:

@@ -40,7 +40,8 @@ def _rand(shape, seed, mult=1.0):
 # Geometry
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("sq,tiles", [(127, 1), (128, 1), (129, 2), (1000, 8), (32760, 256)])
+@pytest.mark.parametrize("sq,tiles", [(127, 1), (128, 1), (129, 2), (1000, 8), (1560, 13),
+                                      (32760, 256)])
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K6"])
 def test_q_tiles_per_batch_row(kernel, sq, tiles):
     g = tfa.sm90_geometry(kernel, 2, sq, 512, 40)
@@ -125,7 +126,35 @@ def _tma_box(flat: np.ndarray, m, coords):
 def test_boxes_read_each_batch_rows_own_tiles(kernel, sq, skv):
     """Every q, k and v box of every batch row reads exactly that batch row's rows of
     the packed tensor, zero-filled past its end (never the next batch row's first)."""
-    b, n = 2, 3
+    _check_boxes(kernel, 2, sq, skv, 3)
+
+
+# Speech-to-video's audio injection attends each latent frame's 1,560 video tokens (a batch
+# row per frame, B = 20) to its 5 audio keys: fewer keys than one 128-key tile, so TMA
+# zero-fills most of the only key box and the kernels' mask alone keeps keys 5-127 out.
+AUDIO_SKV = (1, 2, 5, 127)
+
+
+@pytest.mark.parametrize("skv", AUDIO_SKV)
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_audio_shape_geometry(kernel, skv):
+    g = tfa.sm90_geometry(kernel, 20, 1560, skv, 40)
+    assert g.grid == (13, 40, 20)            # the last q tile holds 1560 - 12 * 128 = 24 rows
+    for m, s in ((g.q, 1560), (g.k, skv), (g.v, skv)):
+        assert m.dims == (H, 40, s, 20)
+        assert m.strides == (H * 2, 40 * H * 2, s * 40 * H * 2)
+        assert m.box[1:] == (1, 128, 1)
+
+
+@pytest.mark.parametrize("skv", AUDIO_SKV)
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_audio_shape_boxes_zero_fill_past_the_keys(kernel, skv):
+    """At B = 20, Sq = 1,560: every key box holds its batch row's skv keys and zeros after
+    them (never the next frame's keys), and the last q box 24 rows and zeros."""
+    _check_boxes(kernel, 20, 1560, skv, 1)
+
+
+def _check_boxes(kernel, b, sq, skv, n):
     g = tfa.sm90_geometry(kernel, b, sq, skv, n)
     for m, s in ((g.q, sq), (g.k, skv), (g.v, skv)):
         x = np.random.default_rng(s).integers(1, 255, size=(b, s, n, H * m.itemsize),
@@ -213,6 +242,39 @@ def test_k2_plain_matches_jax_at_tile_edges(sq, skv, lens):
         got, tfa.flash_attention_max(tq, tk, tv, H**-0.5, kv_len=torch.tensor(lens)).numpy())
     np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=2e-3)
     if lens[0] == 0:
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("skv", AUDIO_SKV[:3])
+@pytest.mark.parametrize("path", ["K1 auto", "K1 nomax kv_len", "K2 kv_len"])
+def test_plain_versions_match_jax_below_one_key_tile(path, skv):
+    """Skv of 1, 2 and 5 (the audio injection's 5 keys): K1 through "auto" (no clamp,
+    every key), K1 with its clamp and kv_len (0, skv), K2 (x40 inputs) with kv_len (1,
+    skv); against JAX's kernels in interpret mode, float32, the limits above."""
+    B, N, sq = 2, 2, 129
+    mult = 40.0 if path.startswith("K2") else 1.0
+    (q, k, v), (tq, tk, tv) = _both(_rand((B, sq, N, H), 12, mult),
+                                    _rand((B, skv, N, H), 13, mult), _rand((B, skv, N, H), 14))
+    lens = None if path == "K1 auto" else ((0, skv) if path.startswith("K1") else (1, skv))
+    kw = {} if lens is None else dict(kv_len=jnp.asarray(lens, jnp.int32))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash(q, k, v, scale=H**-0.5, block_q=128, block_k=128,
+                        dispatch="nomax" if path == "K1 nomax kv_len" else "auto", **kw)
+    tkv = None if lens is None else torch.tensor(lens)
+    if path == "K1 auto":
+        got = tfa.flash_attention(tq, tk, tv, H**-0.5)
+        np.testing.assert_array_equal(
+            got.numpy(), tfa.flash_attention_nomax(tq, tk, tv, H**-0.5, clamp=None).numpy())
+    elif path == "K1 nomax kv_len":
+        got = tfa.flash_attention(tq, tk, tv, H**-0.5, dispatch="nomax", kv_len=tkv)
+    else:
+        assert float(tfa.logit_bound(tq, tk, tv, H**-0.5)) >= tfa.NOMAX_BOUND
+        got = tfa.flash_attention(tq, tk, tv, H**-0.5, kv_len=tkv)
+        np.testing.assert_array_equal(
+            got.numpy(), tfa.flash_attention_max(tq, tk, tv, H**-0.5, kv_len=tkv).numpy())
+    atol = 2e-3 if path.startswith("K2") else 2e-5
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=atol)
+    if lens is not None and lens[0] == 0:
         assert (got[0] == 0).all()
 
 

@@ -95,6 +95,32 @@ def test_low_precision_modules_are_in_the_blocked_import():
     assert (PKG / "csrc" / "flash_attention_int8.cu").is_file()
 
 
+def test_speech_to_video_image_and_vae38_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.models.s2v", "goal_force_tpu_torch.models.audio",
+              "goal_force_tpu_torch.models.image_encoder", "goal_force_tpu_torch.models.vae38",
+              "goal_force_tpu_torch.pipelines.s2v"):
+        assert m in MODULES
+
+
+def test_speech_to_video_image_and_vae38_presets_equal_jax():
+    from goal_force_tpu.models import image_encoder as jvit
+    from goal_force_tpu.models import s2v as js2v
+    from goal_force_tpu.models import vae38 as jv38
+    from goal_force_tpu_torch.models import image_encoder as tvit
+    from goal_force_tpu_torch.models import s2v as ts2v
+    from goal_force_tpu_torch.models import vae38 as tv38
+
+    pairs = [(ts2v.WAN22_S2V_14B, js2v.S2VConfig()), (ts2v.tiny_s2v(), js2v.tiny_s2v()),
+             (tv38.WAN22_VAE38, jv38.VAE38Config()), (tv38.tiny_vae38(), jv38.tiny_vae38()),
+             (tvit.VIT_H_14, jvit.VIT_H_14)]
+    for a, b in pairs:
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    from goal_force_tpu.pipelines import s2v as jpipe
+    from goal_force_tpu_torch.pipelines import s2v as tpipe
+
+    assert tpipe.MOTION_FRAMES == jpipe.MOTION_FRAMES == 73
+
+
 @pytest.mark.parametrize("name", ["WAN22_A14B", "WAN21_1_3B", "UMT5_XXL", "WAN21_VAE"])
 def test_config_presets_equal_jax(name):
     assert dataclasses.asdict(getattr(tcfg, name)) == dataclasses.asdict(getattr(jcfg, name))

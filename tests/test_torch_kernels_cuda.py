@@ -152,6 +152,57 @@ def test_k2_matches_plain_at_tile_edges(cuda_device, shape, lens):
         assert (tfa.flash_attention_max(q, k, v, H**-0.5, kv_len=kv_len)[0] == 0).all()
 
 
+# Speech-to-video's audio injection: B = 20 latent frames of 1,560 video tokens, each
+# attending to its 5 audio keys. Fewer keys than one tile: TMA zero-fills the rest of the
+# key box, and an unmasked zero key would add exp2(0) = 1 to l and shrink every output.
+AUDIO_SKV = [1, 2, 5, 127]
+
+
+def _audio_lens(skv, device):
+    """Per batch row: 0 .. skv keys, in turn."""
+    return torch.tensor([i % (skv + 1) for i in range(20)], device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", AUDIO_SKV)
+def test_k1_matches_plain_at_the_audio_shape(cuda_device, skv):
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 20, 1560, skv, 4, seed=20 + skv)
+    kv_len = _audio_lens(skv, cuda_device)
+    for kw in (dict(kv_len=kv_len), dict(clamp=None), dict(kv_len=kv_len, clamp=None), {}):
+        got = tfa.flash_attention_nomax(q, k, v, H**-0.5, **kw)
+        ref = tfa.flash_attention_nomax_plain(q, k, v, H**-0.5, **kw)
+        torch.testing.assert_close(got.float(), ref.float(), atol=_bf16_limit(ref), rtol=0)
+        if "kv_len" in kw:
+            assert (got[kv_len == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", AUDIO_SKV)
+def test_k2_matches_plain_at_the_audio_shape(cuda_device, skv):
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 20, 1560, skv, 4, seed=30 + skv)
+    q, k = q * 8, k * 8                        # logits a running max must follow
+    kv_len = _audio_lens(skv, cuda_device)
+    for kw in (dict(kv_len=kv_len), {}):
+        got = tfa.flash_attention_max(q, k, v, H**-0.5, **kw)
+        ref = tfa.flash_attention_max_plain(q, k, v, H**-0.5, **kw)
+        torch.testing.assert_close(got.float(), ref.float(), atol=_bf16_limit(ref), rtol=0)
+        if "kv_len" in kw:
+            assert (got[kv_len == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_unbounded_attention_at_the_audio_shape_launches_k1(cuda_device):
+    """S2V's call: attention() without bounded takes the runtime bound, then K1 (no
+    clamp) on normed inputs."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 20, 1560, 5, 4, seed=40)
+    before = dict(tfa.launch_counts)
+    got = tattn.attention(q, k, v)
+    assert tfa.launch_counts["K1"] == before["K1"] + 1
+    assert tfa.launch_counts["K2"] == before["K2"]
+    ref = tfa.flash_attention_nomax_plain(q, k, v, H**-0.5, clamp=None)
+    torch.testing.assert_close(got.float(), ref.float(), atol=_bf16_limit(ref), rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block", [128, 300])
 @pytest.mark.parametrize("shape,lens", EDGES)
