@@ -43,6 +43,16 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
              are reset just before and read just after.
+7b. sharded - main's first request through the multi-GPU path (ROADMAP M13a's serving
+             half) on one card: an NCCL world of one rank, make_mesh(1, 1, 1) and
+             pipe.shard(mesh), so every collective (Ulysses all-to-alls, tensor-parallel
+             all-reduces, token and batch gathers) runs as a copy over a group of one;
+             frames within 1e-3 of main's, 12 K1 per step, the collectives per step as
+             counted by collectives_per_step; logs step seconds beside main's and PSNR /
+             SSIM of the two frame sets (utils/metrics.py). No multi-GPU time is measured.
+7c. tools  - the base-model demo (--tiny_random --device cuda, 9 frames at 64x96)
+             writes an mp4; extract_first_frame, extract_canny_edges and compare_videos
+             run on it.
 8. teacache - main's first request again with TeaCache (tea_cache_l1_thresh): under 0.03
              every step computes and the frames equal main's bit for bit with main's K1
              launches; under 1e12 the two middle steps skip the blocks, and K1 launches
@@ -969,10 +979,11 @@ PROMPTS = ("a red ball rolls across a wooden table and hits a blue cup",
            "a marble is flicked towards a stack of dominoes")
 
 
-def _serve(pipe, phase, per_request, seeds=(11, 22), steps=STEPS):
+def _serve(pipe, phase, per_request, seeds=(11, 22), steps=STEPS, stages=None):
     """Answer one request per seed with the stages timed; checks each request's frames
     and that it launched exactly `per_request` (a launch-count dict). The counts are set
-    to 0 just before the first request; returns the frames and the counts of the run."""
+    to 0 just before the first request; returns the frames and the counts of the run.
+    stages: a list that gets each request's {stage: seconds}."""
     from goal_force_tpu_torch.ops import flash_attention as fa
 
     pc = pipe.pipe_cfg
@@ -999,6 +1010,8 @@ def _serve(pipe, phase, per_request, seeds=(11, 22), steps=STEPS):
             log(phase, stage=f"request{r}", seconds=total, stages=dict(stage_times),
                 launches=counts, frames_mean=float(frames.mean()), frames_std=float(frames.std()))
             outputs.append(frames)
+            if stages is not None:
+                stages.append(dict(stage_times))
     finally:
         _uninstrument(pipe)
     run_counts = dict(fa.launch_counts)
@@ -1023,10 +1036,121 @@ def phase_main():
     log("main", stage="init", seconds=secs, params=n_params, tokens=pipe.pipe_cfg.tokens,
         memory_gb=torch.cuda.memory_allocated() / 2**30)
     torch.cuda.reset_peak_memory_stats()
-    frames, launches = _serve(pipe, "main", only(K1=K1_PER_REQUEST))
+    stages = []
+    frames, launches = _serve(pipe, "main", only(K1=K1_PER_REQUEST), stages=stages)
     log("main", stage="done", launches=launches,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
-    return pipe, launches, frames
+    return pipe, launches, frames, stages
+
+
+def collectives_per_step(blocks, rows, ffn_chunk):
+    """The collectives one merged-CFG step calls under a mesh: all-reduces for the time
+    and text embeddings, per block the self- and cross-attention's q/k norms and o and
+    each FFN chunk's output; four all-to-alls per block (q, k, v, the output); the
+    token and batch gathers."""
+    chunks = -(-rows // ffn_chunk)
+    return {"all_reduce": 2 + blocks * (2 + 1 + 2 + 1 + chunks), "all_to_all": 4 * blocks,
+            "all_gather": 2}
+
+
+SHARDED_ATOL = 1e-3
+
+
+def phase_sharded(pipe, main_frames, main_stages):
+    """main's first request through the multi-GPU path on one card: an NCCL process
+    group of one rank (a file rendezvous), make_mesh(1, 1, 1) and pipe.shard(mesh), so
+    every collective (the Ulysses all-to-alls, the tensor-parallel all-reduces, the
+    token and batch gathers, the token ids' broadcasts) runs as a copy over a group of
+    one, and K1 runs on the rank's heads after the exchange. The frames must equal
+    main's within SHARDED_ATOL; K1 launches 12 per step as in main; each collective's
+    count per step is collectives_per_step's. Logs the step seconds beside main's and
+    compare_videos (PSNR, SSIM) of the two frame sets. The pipeline then serves
+    unsharded again (over one rank the placed parameters are the whole tensors)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from goal_force_tpu_torch.models.wan_dit import FFN_CHUNK_TOKENS
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.parallel.mesh import make_mesh
+    from goal_force_tpu_torch.utils.metrics import compare_videos
+
+    pc = pipe.pipe_cfg
+    image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
+    rdv = tempfile.mkdtemp(prefix="gf_rdv_")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rdv", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, 1, device="cuda")
+        _, secs = sync_time(lambda: pipe.shard(mesh))
+        log("sharded", stage="shard", seconds=secs, backend=dist.get_backend(),
+            mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
+        steps, unwrap = _step_log(pipe)
+        fa.reset_launch_counts()
+        col.counts.clear()
+        try:
+            frames, secs = sync_time(lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+                                                  seed=11, num_inference_steps=STEPS))
+        finally:
+            unwrap()
+        launches, collectives = dict(fa.launch_counts), dict(col.counts)
+    finally:
+        pipe.mesh = None
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    _check_frames("sharded", frames, pc)
+    diff = float(np.abs(frames - main_frames).max())
+    report = compare_videos(frames, main_frames)
+    blocks = pipe.dit_cfg.num_layers + pipe.cn_cfg.num_layers
+    per_step = collectives_per_step(blocks, 2 * pc.tokens, FFN_CHUNK_TOKENS)
+    want = {k: v * STEPS for k, v in per_step.items()}
+    want["broadcast"] = 2
+    main_steps = [t for k, t in sorted(main_stages[0].items()) if k.startswith("step")]
+    log("sharded", seconds=secs, step_seconds=[t for _, t in steps],
+        main_step_seconds=main_steps, launches=launches, collectives=collectives,
+        collectives_per_step=per_step, max_abs_diff_vs_main=diff,
+        psnr_mean=report["psnr_mean"], psnr_min=report["psnr_min"],
+        ssim_mean=report["ssim_mean"])
+    check(diff <= SHARDED_ATOL, f"sharded: frames differ from main's by {diff}")
+    check(launches == only(K1=K1_PER_REQUEST), f"sharded launched {launches}")
+    check(collectives == want, f"sharded: collectives {collectives}, expected {want}")
+    return launches
+
+
+def phase_tools():
+    """The goal-force tools on the card: the base-model demo (--tiny_random --device
+    cuda, a small clip) writes an mp4; extract_first_frame and extract_canny_edges run
+    on it, and compare_videos holds the clip against itself."""
+    import shutil
+    import tempfile
+
+    from goal_force_tpu_torch.data.video_io import load_video
+    from goal_force_tpu_torch.scripts import compare_videos as cmp
+    from goal_force_tpu_torch.scripts import demo
+    from goal_force_tpu_torch.scripts.extract_canny_edges import extract_canny_edges
+    from goal_force_tpu_torch.scripts.extract_first_frame import extract_first_frame
+
+    tmp = tempfile.mkdtemp(prefix="gf_tools_")
+    try:
+        mp4 = os.path.join(tmp, "demo.mp4")
+        frames, secs = sync_time(lambda: demo.main([
+            "--tiny_random", "--device", "cuda", "--num_frames", "9", "--height", "64",
+            "--width", "96", "--num_inference_steps", "2", "--output", mp4]))
+        check(frames.shape == (9, 64, 96, 3) and bool(np.isfinite(frames).all()),
+              f"tools: demo frames {frames.shape}")
+        written = load_video(mp4)
+        check(written.shape == frames.shape, f"tools: the demo's mp4 holds {written.shape}")
+        first = extract_first_frame(mp4, os.path.join(tmp, "first.png"), 64, 96)
+        canny = extract_canny_edges(mp4, os.path.join(tmp, "canny.mp4"), 9, 64, 96)
+        report = cmp.main([mp4, mp4])
+        check(first.shape == (64, 96, 3) and canny.shape == (9, 64, 96, 3)
+              and report["psnr_min"] == float("inf"),
+              f"tools: first frame {first.shape}, canny {canny.shape}, psnr {report}")
+        log("tools", demo_seconds=secs, mp4_bytes=os.path.getsize(mp4),
+            first_frame_mean=float(first.mean()), canny_edge_share=float(canny.mean()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _step_log(pipe):
@@ -2698,7 +2822,9 @@ def main() -> int:
     phase_small_train()
     phase_small_int8()
     small_s2v_launches = phase_small_s2v()
-    pipe, main_launches, bf16_frames = phase_main()
+    pipe, main_launches, bf16_frames, main_stages = phase_main()
+    sharded_launches = phase_sharded(pipe, bf16_frames[0], main_stages)
+    phase_tools()
     tc_launches = phase_teacache(pipe, bf16_frames[0])
     window_launches = phase_window(pipe, bf16_frames[0])
     cli_launches = phase_cli(pipe)
@@ -2724,6 +2850,7 @@ def main() -> int:
             ("K1 flash_attention_nomax", fwd, 241, main_launches["K1"],
              {"cross": measured["K1"]["cross"], "window_self": measured["K1"]["window_self"],
               "window_cross": measured["K1"]["window_cross"],
+              "sharded_launches": sharded_launches["K1"],
               "teacache_launches": tc_launches["K1"], "window_launches": window_launches["K1"],
               "cli_launches": cli_launches["K1"],
               "full_bf16_launches": full_bf16_launches["K1"],

@@ -78,6 +78,19 @@ def resize_area(frames: np.ndarray, width: int, height: int) -> np.ndarray:
                      for f in frames])
 
 
+def canny_maps(frames: np.ndarray, low: int = 100, high: int = 200) -> np.ndarray:
+    """(T, H, W, 3) in [0, 1] -> Canny edge maps (T, H, W, 3) in {0, 1}: each frame
+    truncated to uint8, ``cv2.Canny(frame, low, high)``, the edges in all three
+    channels (JAX's ``Annotator("canny")``)."""
+    import cv2
+
+    out = []
+    for f in (frames * 255).astype(np.uint8):
+        edges = cv2.Canny(f, low, high)
+        out.append(np.repeat(edges[..., None], 3, axis=-1).astype(np.float32) / 255.0)
+    return np.stack(out)
+
+
 def _read_csv(path: str):
     import pandas
 
@@ -317,13 +330,7 @@ class CannyEdgeDataset:
 
     def canny_control(self, frames: np.ndarray) -> np.ndarray:
         """(T, H, W, 3) in [0, 1] -> Canny maps (T, H, W, 3) in {0, 1}."""
-        import cv2
-
-        out = []
-        for f in (frames * 255).astype(np.uint8):
-            edges = cv2.Canny(f, self.low, self.high)
-            out.append(np.repeat(edges[..., None], 3, axis=-1).astype(np.float32) / 255.0)
-        return np.stack(out)
+        return canny_maps(frames, self.low, self.high)
 
     def __getitem__(self, idx) -> Optional[Dict]:
         try:

@@ -24,6 +24,8 @@ from goal_force_tpu_torch.models.wan_dit import (
     init_patch_embedding_,
     patchify,
 )
+from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel.mesh import current_mesh
 
 
 class _PatchEmbedding(nn.Module):
@@ -83,7 +85,8 @@ def controlnet_injections(cn: GoalForceControlNet, dit_cfg: WanDiTConfig, contro
                           apply_zero_convs: bool = True) -> List[torch.Tensor]:
     """Run the side stack and return the per-layer injections, each (B, S, D).
 
-    control_latents: (B, F, H, W, C) VAE latents of the control video. Each block's state
+    control_latents: (B, F, H, W, C) VAE latents of the control video; under a mesh the
+    side stack runs on this rank's tokens, as the main stream does. Each block's state
     goes through its 1x1 zero conv as soon as it is computed, so only the injections are
     kept. remat: one non-reentrant checkpoint per block with its zero conv fused in, as
     JAX checkpoints each body of its side-stack scan. apply_zero_convs=False returns the
@@ -92,6 +95,8 @@ def controlnet_injections(cn: GoalForceControlNet, dit_cfg: WanDiTConfig, contro
     """
     tokens, _ = patchify(cn.controlnet_patch_embedding.patch_embedding, control_latents,
                          dit_cfg.patch_size)
+    if current_mesh() is not None:
+        tokens = col.split_seq(tokens)   # the main stream's token split
     out = []
     c = tokens
     if not apply_zero_convs:

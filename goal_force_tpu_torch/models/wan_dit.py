@@ -13,6 +13,15 @@ over those modules, one per JAX function, with the same dtype steps:
 - RMSNorm / LayerNorm statistics in float32, cast back before the weight multiply;
   GELU(tanh) and SiLU in float32;
 - RoPE from float32 cos/sin tables; attention through ``ops.attention``.
+
+Under a mesh (``parallel/mesh.py::use_mesh``, parameters placed by
+``parallel/sharding.py::place``) the block functions take this rank's tokens and run the
+layout JAX's ``constrain`` hints ask of GSPMD with explicit collectives
+(``parallel/collectives.py``): q, k, v and ``ffn.0`` give this rank's tensor-parallel
+columns (the q/k RMSNorm sums its squares over "tp" first, as it spans the whole
+projection), self-attention trades tokens for heads over "sp" (Ulysses, in
+``ops.attention.sharded_attention``), cross-attention keeps q token-split against every
+text key, and ``o`` and ``ffn.2`` sum their row-parallel outputs over "tp".
 """
 
 from __future__ import annotations
@@ -27,9 +36,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from goal_force_tpu_torch.configs import WanDiTConfig
-from goal_force_tpu_torch.ops.attention import attention
+from goal_force_tpu_torch.ops.attention import attention, sharded_attention
 from goal_force_tpu_torch.ops.quant import QuantLinear
 from goal_force_tpu_torch.ops.rope import apply_rope, assemble_rope, rope_tables_3d
+from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel.mesh import axis_rank, axis_size, current_mesh
+from goal_force_tpu_torch.parallel.sharding import tp_dim
 
 
 # ---------------------------------------------------------------------------
@@ -44,11 +56,42 @@ def linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.weight, layer.bias)
 
 
+def linear_col(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``linear``; for a column-parallel weight placed on the ambient mesh, this rank's
+    output columns (with its columns of the replicated bias)."""
+    if tp_dim(layer) == 0:
+        return F.linear(x, layer.weight, col.shard_of(layer.bias, 0))
+    return linear(layer, x)
+
+
+def linear_row(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``linear``; for a row-parallel weight placed on the ambient mesh, the sum over
+    "tp" of every rank's partial product, the bias added by the axis's first rank (so
+    over an axis of one the result is ``linear``'s, bit for bit)."""
+    if tp_dim(layer) == 1:
+        bias = layer.bias if axis_rank("tp") == 0 else None
+        return col.all_reduce(F.linear(x, layer.weight, bias))
+    return linear(layer, x)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Normalize in float32, cast to x.dtype, then multiply by the weight."""
     xf = x.float()
     n = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return n.to(x.dtype) * w
+
+
+def rms_norm_of(proj: nn.Module, x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rms_norm`` of `proj`'s output x. Where `proj` is column-parallel x holds this
+    rank's columns: the mean of squares is the sum over "tp" of each rank's mean over
+    its columns divided by the axis size, and the rank's columns of the replicated
+    weight scale the result."""
+    if tp_dim(proj) != 0:
+        return rms_norm(x, w, eps)
+    xf = x.float()
+    ms = col.all_reduce(xf.square().mean(dim=-1, keepdim=True) / axis_size("tp"))
+    n = xf * torch.rsqrt(ms + eps)
+    return n.to(x.dtype) * col.shard_of(w, 0)
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6, w=None, b=None) -> torch.Tensor:
@@ -202,37 +245,59 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_dim: int) -> torch.Tensor:
 # DiT block
 # ---------------------------------------------------------------------------
 
+def _sharded_qkv(p: WanAttention, x, kv, num_heads: int, eps: float):
+    """q of x and k, v of kv after their norms, and whether the columns are this rank's
+    own. Under a mesh they are this rank's tensor-parallel columns (the q/k norms over
+    the whole projection), or every column where a rank's columns would cut heads (then
+    not its own); without one, every column."""
+    q = rms_norm_of(p.q, linear_col(p.q, x), p.norm_q.weight, eps)
+    k = rms_norm_of(p.k, linear_col(p.k, kv), p.norm_k.weight, eps)
+    v = linear_col(p.v, kv)
+    own = tp_dim(p.q) != 0 or num_heads % axis_size("tp") == 0
+    if not own:
+        q, k, v = (col.gather_cols(u) for u in (q, k, v))
+    return q, k, v, own
+
+
 def self_attention(p: WanAttention, x, cos, sin, num_heads: int, eps: float,
                    attn_impl: str = "auto", bounded: bool = False):
+    """Self-attention of x. Under a mesh x, cos and sin hold this rank's tokens: RoPE is
+    applied before the Ulysses exchange of ``sharded_attention``, and o takes this
+    rank's columns of the output."""
     b, s, d = x.shape
-    q = rms_norm(linear(p.q, x), p.norm_q.weight, eps).reshape(b, s, num_heads, -1)
-    k = rms_norm(linear(p.k, x), p.norm_k.weight, eps).reshape(b, s, num_heads, -1)
-    v = linear(p.v, x).reshape(b, s, num_heads, -1)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = attention(q, k, v, impl=attn_impl, bounded=bounded)
-    return linear(p.o, out.reshape(b, s, d))
+    hd = d // num_heads
+    q, k, v, own = _sharded_qkv(p, x, x, num_heads, eps)
+    q = apply_rope(q.reshape(b, s, -1, hd), cos, sin)
+    k = apply_rope(k.reshape(b, s, -1, hd), cos, sin)
+    out = sharded_attention(q, k, v.reshape(b, s, -1, hd), impl=attn_impl,
+                            bounded=bounded).reshape(b, s, -1)
+    return linear_row(p.o, out if own else col.shard_of(out, 2))
 
 
 def cross_attention(p: WanAttention, x, context, num_heads: int, eps: float,
                     attn_impl: str = "auto", bounded: bool = False, num_img_tokens: int = 0):
     """Text cross-attention over every context token (no mask). With num_img_tokens > 0
     the first tokens of `context` are image tokens, attended through k_img/v_img with the
-    same queries; the two attentions' outputs are added before ``o``."""
+    same queries; the two attentions' outputs are added before ``o``. Under a mesh q
+    keeps this rank's tokens against every text key: no exchange before the kernel."""
     b, s, d = x.shape
+    if num_img_tokens and current_mesh() is not None:
+        raise NotImplementedError("the image branch under a mesh is not ported yet "
+                                  "(ROADMAP M13a-train)")
     img, ctx = context[:, :num_img_tokens], context[:, num_img_tokens:]
     t = ctx.shape[1]
-    q = rms_norm(linear(p.q, x), p.norm_q.weight, eps).reshape(b, s, num_heads, -1)
-    k = rms_norm(linear(p.k, ctx), p.norm_k.weight, eps).reshape(b, t, num_heads, -1)
-    v = linear(p.v, ctx).reshape(b, t, num_heads, -1)
-    out = attention(q, k, v, impl=attn_impl, bounded=bounded).reshape(b, s, d)
+    hd = d // num_heads
+    q, k, v, own = _sharded_qkv(p, x, ctx, num_heads, eps)
+    q = q.reshape(b, s, -1, hd)
+    out = attention(q, k.reshape(b, t, -1, hd), v.reshape(b, t, -1, hd), impl=attn_impl,
+                    bounded=bounded).reshape(b, s, -1)
     if num_img_tokens:
         k_img = rms_norm(linear(p.k_img, img), p.norm_k_img.weight, eps).reshape(
             b, num_img_tokens, num_heads, -1)
         v_img = linear(p.v_img, img).reshape(b, num_img_tokens, num_heads, -1)
         out = out + attention(q, k_img, v_img, impl=attn_impl,
                               bounded=bounded).reshape(b, s, d)
-    return linear(p.o, out)
+    return linear_row(p.o, out if own else col.shard_of(out, 2))
 
 
 def dit_block(p: WanBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig,
@@ -258,9 +323,11 @@ def feed_forward(p: WanBlock, h: torch.Tensor) -> torch.Tensor:
     """The block's GELU(tanh) MLP, over chunks of at most FFN_CHUNK_TOKENS tokens. It acts
     on each token alone, so the chunks compute the same function; only one chunk's float32
     GELU temporaries are alive at a time (XLA fuses the GELU and keeps none), which at
-    65,520 tokens and ffn_dim 13,824 is 0.9 GB each instead of 3.6 GB."""
+    65,520 tokens and ffn_dim 13,824 is 0.9 GB each instead of 3.6 GB. Under a mesh
+    ``ffn.0`` is column- and ``ffn.2`` row-parallel: each chunk's output is summed over
+    "tp"."""
     rows = h.reshape(-1, h.shape[-1])
-    out = [linear(p.ffn[2], gelu_tanh(linear(p.ffn[0], c)))
+    out = [linear_row(p.ffn[2], gelu_tanh(linear_col(p.ffn[0], c)))
            for c in rows.split(FFN_CHUNK_TOKENS)]
     return (out[0] if len(out) == 1 else torch.cat(out)).reshape(*h.shape[:-1], -1)
 
@@ -310,14 +377,14 @@ def time_embed(model: WanDiT, cfg: WanDiTConfig, timestep: torch.Tensor, dtype=N
     """timestep (B,) -> t (B, D), t_mod (B, 6, D)."""
     emb = sinusoidal_embedding(cfg.freq_dim, timestep)
     emb = emb.to(dtype if dtype is not None else model.time_embedding[0].weight.dtype)
-    t = linear(model.time_embedding[0], emb)
-    t = linear(model.time_embedding[2], silu_f32(t))
+    t = linear_col(model.time_embedding[0], emb)
+    t = linear_row(model.time_embedding[2], silu_f32(t))
     t_mod = linear(model.time_projection[1], silu_f32(t))
     return t, t_mod.reshape(t.shape[0], 6, cfg.dim)
 
 
 def text_embed(model: WanDiT, x):
-    return linear(model.text_embedding[2], gelu_tanh(linear(model.text_embedding[0], x)))
+    return linear_row(model.text_embedding[2], gelu_tanh(linear_col(model.text_embedding[0], x)))
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -333,7 +400,7 @@ def img_embed(model: WanDiT, clip_feature: torch.Tensor) -> torch.Tensor:
         x = x + p.emb_pos[0].to(x.dtype)
     proj = p.proj
     x = layer_norm(x, 1e-5, proj[0].weight, proj[0].bias)
-    x = linear(proj[3], gelu_erf(linear(proj[1], x)))
+    x = linear_row(proj[3], gelu_erf(linear_col(proj[1], x)))
     return layer_norm(x, 1e-5, proj[4].weight, proj[4].bias)
 
 

@@ -9,6 +9,9 @@ tiny test configs, uses the plain attention, as JAX uses XLA attention for them.
 
 The port names JAX's impls by what runs: JAX "xla" is "plain", "pallas" is "flash" and
 "pallas_int8" is "flash_int8" (K6, int8 q and k, inference only).
+
+``sharded_attention`` is the counterpart of JAX's ``_pallas_sharded``: under a mesh each
+rank runs the kernel on its own heads over the whole sequence (Ulysses).
 """
 
 from __future__ import annotations
@@ -60,3 +63,33 @@ def attention(q, k, v, impl: str = "auto", scale: float | None = None,
     if impl == "flash_int8" and bias is None and kv_len is None:
         return fa.flash_attention_int8(q, k, v, scale=scale)
     return plain_attention(q, k, v, scale, bias, kv_len)
+
+
+def sharded_attention(q, k, v, impl: str = "auto", scale: float | None = None,
+                      bounded: bool = False) -> torch.Tensor:
+    """Self-attention of q, k, v (B, S/sp, N', H) holding this rank's tokens (split
+    over "sp" of the ambient mesh, padded at the end) of its N' heads -> the output in
+    the same layout.
+
+    Where "sp" divides N' the tokens are traded for heads (``seq_to_heads``), the
+    dispatch of ``attention`` runs on this rank's N'/sp heads over every token (K1, or
+    K2 through "auto", on a contiguous buffer) and ``heads_to_seq`` trades back. Where
+    it does not, JAX computes plain attention on the whole tensor; here every rank
+    gathers every token and runs the same dispatch on every head, then keeps its
+    tokens. Padded keys (past ``collectives.valid_tokens()``) are masked. Without a mesh
+    it is ``attention``."""
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.parallel.mesh import axis_size, current_mesh
+
+    if current_mesh() is None:
+        return attention(q, k, v, impl=impl, scale=scale, bounded=bounded)
+    n = axis_size("sp")
+    valid = col.valid_tokens()
+    kv_len = valid if valid is not None and valid != q.shape[1] * n else None
+    if q.shape[2] % n == 0:
+        q, k, v = (col.seq_to_heads(t) for t in (q, k, v))
+        out = attention(q, k, v, impl=impl, scale=scale, bounded=bounded, kv_len=kv_len)
+        return col.heads_to_seq(out)
+    q, k, v = (col.gather_seq(t) for t in (q, k, v))
+    out = attention(q, k, v, impl=impl, scale=scale, bounded=bounded, kv_len=kv_len)
+    return col.split_seq(out)

@@ -1,1 +1,3 @@
-"""Placement of the pipeline's models across memories (host staging of the standby expert)."""
+"""Placement of the pipeline's models: host staging of the standby expert
+(``host_staging``), and multi-GPU serving over a (dp, sp, tp) mesh (``mesh``,
+``collectives``, ``sharding``)."""

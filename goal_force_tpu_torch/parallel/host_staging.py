@@ -133,10 +133,17 @@ class ExpertStager:
     """Keeps one pair resident on `device` and the other on the host; ``swap()`` flips
     them. Both pairs must have the same layout (the same names, shapes and dtypes, as
     two experts of one config and their ControlNets have), because the swap exchanges
-    them slot by slot."""
+    them slot by slot.
 
-    def __init__(self, active: Pair, standby: Pair, device):
+    device_place: ``device_place(pair) -> pair`` gives each tensor of a pair the layout
+    it takes on the device, as JAX's ``device_place`` does; under a mesh it keeps this
+    rank's shards (``parallel/sharding.py::place``). It is applied to both pairs before
+    either moves, so each rank stages only its own shards to host memory and back."""
+
+    def __init__(self, active: Pair, standby: Pair, device, device_place=None):
         self.device = _device(device)
+        if device_place is not None:
+            active, standby = device_place(active), device_place(standby)
         a, s = _layout(active), _layout(standby)
         if a != s:
             diff = next((x, y) for x, y in zip(a + [None], s + [None]) if x != y)

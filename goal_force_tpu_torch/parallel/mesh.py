@@ -1,0 +1,111 @@
+"""The device mesh of the port: ``(dp, sp, tp)`` over ``torch.distributed``.
+
+Port of ``goal_force_tpu/parallel/mesh.py``. One process runs per device; the mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the first ``dp * sp * tp`` ranks,
+with the axes
+
+  dp: data (the batch rows: merged CFG's two branches, or generate_batch's clips);
+  sp: sequence (tokens between blocks; heads inside self-attention, Ulysses);
+  tp: tensor (attention heads and FFN columns; the row-parallel outputs are summed).
+
+JAX hands the collectives to GSPMD through ``constrain`` hints inside its jitted model.
+The port has no counterpart of ``constrain``: its forward functions call the explicit
+collectives of ``parallel/collectives.py`` wherever JAX's layout changes, and
+``parallel/sharding.py`` gives each parameter its local shard. ``use_mesh`` makes a
+mesh ambient for those functions, as in JAX.
+
+A launcher sets each process's rank: ``torchrun --nproc_per_node=N`` on one node.
+``make_mesh`` starts the process group from its environment where none exists; a
+caller without a launcher starts the group itself (``init_process_group`` with its own
+rendezvous) before it calls ``make_mesh``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+MESH_AXES = ("dp", "sp", "tp")
+
+_current_mesh: contextvars.ContextVar = contextvars.ContextVar("gf_torch_mesh",
+                                                                default=None)
+
+
+def _world_size() -> int:
+    """Processes in the default group, or in the launcher's environment before one
+    exists (1 without either)."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _init_process_group(device: torch.device) -> None:
+    """NCCL on CUDA, gloo on the CPU, from the launcher's environment (``env://``)."""
+    if dist.is_initialized():
+        return
+    if "MASTER_ADDR" not in os.environ:
+        raise RuntimeError("no process group: run under torchrun, or call "
+                           "torch.distributed.init_process_group before make_mesh")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+
+
+def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1, device="cuda"):
+    """A DeviceMesh named ("dp", "sp", "tp") over the first dp * sp * tp ranks, the
+    process group started first where none exists. Raises ValueError when the world
+    is smaller than dp * sp * tp * pp, and NotImplementedError for pp > 1."""
+    if pp > 1:
+        raise NotImplementedError("pipeline parallel (pp > 1) is not ported yet "
+                                  "(ROADMAP M13b)")
+    n = dp * sp * tp * pp
+    have = _world_size()
+    if have < n:
+        raise ValueError(f"need {n} devices, have {have}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device = torch.device(device)
+    _init_process_group(device)
+    return DeviceMesh(device.type, torch.arange(n).reshape(dp, sp, tp),
+                      mesh_dim_names=MESH_AXES)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make `mesh` ambient: the forward functions shard over it."""
+    token = _current_mesh.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _current_mesh.reset(token)
+
+
+def current_mesh():
+    return _current_mesh.get()
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a mesh (anything with ``mesh_dim_names`` and ``shape``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_size(axis: str) -> int:
+    """The size of `axis` on the ambient mesh; 1 without one."""
+    mesh = current_mesh()
+    return 1 if mesh is None else axis_sizes(mesh)[axis]
+
+
+def axis_rank(axis: str) -> int:
+    """This process's index along `axis` of the ambient mesh; 0 without one."""
+    mesh = current_mesh()
+    return 0 if mesh is None else mesh.get_local_rank(axis)
+
+
+def axis_group(axis: str):
+    """The process group of `axis` of the ambient mesh."""
+    return current_mesh().get_group(axis)

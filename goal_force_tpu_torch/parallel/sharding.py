@@ -1,0 +1,117 @@
+"""Tensor-parallel placement of the DiT and ControlNet parameters.
+
+Port of ``goal_force_tpu/parallel/sharding.py``'s inference half
+(``inference_param_specs``, ``place``; ``fsdp_specs`` belongs to sharded training,
+ROADMAP M13a-train). A spec is one entry per dimension of the parameter: "tp" where the
+dimension is split over the tensor axis, None where it is whole. The rules are JAX's,
+matched on the JAX leaf names through the names of the port (torch's (out, in) weights):
+
+  column-parallel (the output dimension split): q, k, v of self- and cross-attention,
+  and every ``fc0`` -- the FFN's ``ffn.0``, and, as JAX's name match also takes them, the
+  text, time and image embeddings' first linears;
+  row-parallel (the input dimension split): o, and every ``fc2`` (``ffn.2`` and the
+  embeddings' second linears).
+
+Every other parameter is replicated; so are all biases and the q/k RMSNorm weights,
+which JAX's names do not match either: the forward takes this rank's columns of a
+replicated column bias or norm weight, and adds a row-parallel bias after the sum. With
+a mesh, a spec whose split dimension does not divide by the axis is replicated, as JAX's
+``_divisible`` falls back.
+
+``place`` replaces each split parameter by this rank's slice and marks it (``TP_SPLIT``:
+the split dimension, the axis size and the rank), which the forward functions read
+under a mesh.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from goal_force_tpu_torch.parallel.mesh import axis_sizes
+
+Spec = Tuple[Optional[str], ...]
+
+TP_SPLIT = "_gf_tp_split"
+
+_EMBED = r"(text_embedding|time_embedding)"
+_COLUMN = re.compile(rf"(\.(q|k|v)|(^|\.)ffn\.0|(^|\.){_EMBED}\.0|(^|\.)img_emb\.proj\.1)\.weight$")
+_ROW = re.compile(rf"(\.o|(^|\.)ffn\.2|(^|\.){_EMBED}\.2|(^|\.)img_emb\.proj\.3)\.weight$")
+
+
+def leaf_spec(name: str, ndim: int) -> Spec:
+    """The tensor-parallel spec of one DiT/ControlNet parameter by its name."""
+    spec = [None] * ndim
+    if ndim == 2 and _COLUMN.search(name):
+        spec[0] = "tp"
+    elif ndim == 2 and _ROW.search(name):
+        spec[1] = "tp"
+    return tuple(spec)
+
+
+def _divisible(spec: Spec, shape, sizes: Dict[str, int]) -> Spec:
+    for d, axis in enumerate(spec):
+        if axis is not None and shape[d] % sizes[axis] != 0:
+            return (None,) * len(spec)
+    return spec
+
+
+def inference_param_specs(module: nn.Module, mesh=None) -> Dict[str, Spec]:
+    """{parameter name: spec} of a DiT or ControlNet module; with `mesh`, specs that do
+    not divide fall back to replicated."""
+    sizes = axis_sizes(mesh) if mesh is not None else None
+    out = {}
+    for name, p in module.named_parameters():
+        spec = leaf_spec(name, p.ndim)
+        out[name] = _divisible(spec, p.shape, sizes) if sizes is not None else spec
+    return out
+
+
+@torch.no_grad()
+def place(module: nn.Module, mesh, specs: Optional[Dict[str, Spec]] = None) -> nn.Module:
+    """Keep this rank's slice of every split parameter of `module` (in the memory it
+    is in; a slice is a copy, so the whole tensor is freed) and mark it with its split.
+    A parameter placed for the same split stays as it is (the host stager's pairs and
+    the pipeline's models share modules); one placed over an axis of one holds the
+    whole tensor and takes the new split; one that holds a slice of another split
+    raises ValueError. Returns the module."""
+    from goal_force_tpu_torch.ops.quant import QuantLinear
+
+    if any(isinstance(m, QuantLinear) for m in module.modules()):
+        raise NotImplementedError("int8/fp8 packs under a mesh are not ported yet "
+                                  "(ROADMAP M13a-train)")
+    specs = inference_param_specs(module, mesh) if specs is None else specs
+    sizes = axis_sizes(mesh)
+    for name, p in module.named_parameters():
+        dims = [d for d, axis in enumerate(specs[name]) if axis is not None]
+        split = None
+        if dims:
+            axis = specs[name][dims[0]]
+            split = (dims[0], sizes[axis], mesh.get_local_rank(axis))
+        placed = getattr(p, TP_SPLIT, None)
+        if placed == split:
+            continue
+        if placed is not None and placed[1] > 1:
+            raise ValueError(f"{name} holds rank {placed[2]}'s slice of {placed[1]} along "
+                             f"dim {placed[0]}, not the split {split}: place a module "
+                             "that holds whole tensors")
+        if split is None:
+            delattr(p, TP_SPLIT)
+            continue
+        d, n, rank = split
+        if n > 1:
+            per = p.shape[d] // n
+            p.data = p.data.narrow(d, rank * per, per).clone()
+        setattr(p, TP_SPLIT, split)
+    return module
+
+
+def tp_dim(layer: nn.Module) -> Optional[int]:
+    """The split dimension of a placed linear's weight under the ambient mesh."""
+    from goal_force_tpu_torch.parallel.mesh import current_mesh
+
+    split = getattr(layer.weight, TP_SPLIT, None) if current_mesh() is not None else None
+    return None if split is None else split[0]

@@ -40,6 +40,13 @@ host staging, and serve both experts. Every argument of the JAX ``_generate``,
 ``generate_batch`` and ``from_pretrained`` works, and each combination JAX refuses
 raises the same error; ``noise=`` (the initial latents) is the port's own addition.
 
+Multi-GPU serving (``shard``): one process per GPU (``torchrun``), each building the
+same pipeline and calling ``pipe.shard(make_mesh(dp, sp, tp))``; then every rank calls
+``pipe(...)`` or ``generate_batch(...)`` with the same arguments and gets the whole
+result. Tokens split over "sp" (Ulysses self-attention), heads and FFN columns over
+"tp", batch rows over "dp" (``parallel/``). VACE, the I2V image branch and int8/fp8
+packs under a mesh raise (ROADMAP M13a-train).
+
 Everything runs on the pipeline's device, which is CUDA unless the caller asks for the
 CPU.
 """
@@ -68,7 +75,10 @@ from goal_force_tpu_torch.models import vae as vaem
 from goal_force_tpu_torch.models import wan_dit
 from goal_force_tpu_torch.models.tokenizer import load_tokenizer
 from goal_force_tpu_torch.ops import quant
+from goal_force_tpu_torch.parallel import collectives as col
 from goal_force_tpu_torch.parallel.host_staging import ExpertStager, stage_to_host
+from goal_force_tpu_torch.parallel.mesh import current_mesh, use_mesh
+from goal_force_tpu_torch.parallel.sharding import place
 from goal_force_tpu_torch.pipelines.model_fn import (
     denoise_forward,
     denoise_forward_skip,
@@ -152,10 +162,14 @@ def load_adapters(dit_cfg: WanDiTConfig, vace_path=None, vace_num_layers: int = 
 
 @torch.no_grad()
 def t5_encode_prompts(t5, t5_cfg: T5Config, tokenizer, prompts, device) -> torch.Tensor:
-    """(len(prompts), text_len, dim) embeddings, zero past each prompt's length."""
+    """(len(prompts), text_len, dim) embeddings, zero past each prompt's length. Under
+    a mesh every rank encodes rank 0's ids (the hash tokenizer's ids depend on the
+    process's string-hash seed)."""
     ids, mask = tokenizer(prompts)
     ids = torch.from_numpy(ids).to(device)
     mask = torch.from_numpy(mask).to(device)
+    if current_mesh() is not None:
+        ids, mask = col.broadcast_from_first(ids), col.broadcast_from_first(mask)
     emb = t5m.t5_encode(t5, t5_cfg, ids, mask)
     return emb * (mask[..., None] > 0)
 
@@ -205,6 +219,7 @@ class GoalForcePipeline:
     device: torch.device = torch.device("cuda")
     attn_impl: str = "auto"
     vace_layers: tuple = ()              # DiT layers that take VACE hints
+    mesh: Optional[object] = None        # a DeviceMesh (parallel/mesh.py); set by shard()
     _stager: Optional[ExpertStager] = dataclasses.field(default=None, repr=False)
     _stager_low: bool = dataclasses.field(default=False, repr=False)
 
@@ -320,8 +335,11 @@ class GoalForcePipeline:
         device="cuda",
         adapters: Sequence[str] = (),
         vace_layers: Optional[tuple] = None,
+        tokenizer_path: Optional[str] = None,
     ) -> "GoalForcePipeline":
-        """Random weights drawn on `device` from one generator seeded with `seed`.
+        """Random weights drawn on `device` from one generator seeded with `seed`, and
+        the tokenizer of `tokenizer_path` (a directory or file, as ``from_pretrained``
+        reads it; by default the hash tokenizer, which serves random weights).
 
         adapters: any of "ref_conv" (a Fun-Reference ref_conv in both experts), "vace"
         (at `vace_layers`, JAX's by depth by default, over a context of 2 z + 64
@@ -366,7 +384,7 @@ class GoalForcePipeline:
         if "camera_adapter" in adapters:
             models["camera_adapter"] = camm.init_simple_adapter(
                 dit_cfg.dim, gen, kernel=dit_cfg.patch_size[1], dtype=dtype, device=device)
-        tok = load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len, quiet=True)
+        tok = load_tokenizer(tokenizer_path, t5_cfg.vocab, t5_cfg.text_len, quiet=True)
         return cls(dit_cfg, t5_cfg, vae_cfg, cn_cfg, pipe_cfg or PipelineConfig(), models,
                    tok, dtype, device, vace_layers=layers)
 
@@ -417,18 +435,53 @@ class GoalForcePipeline:
         return cls(dit_cfg, t5_cfg, vae_cfg, cn_cfg, pipe_cfg or PipelineConfig(), models,
                    tok, dtype, device, vace_layers=tuple(vace_layers) if "vace" in sds else ())
 
-    def host_stage_experts(self) -> "GoalForcePipeline":
+    def host_stage_experts(self, device_place=None) -> "GoalForcePipeline":
         """Keep the high-noise expert and its ControlNet on the device and the
         low-noise pair in host memory (pinned on CUDA); ``_expert`` swaps them once per
-        crossing of the boundary. A pipeline with one expert stays as it is."""
+        crossing of the boundary. A pipeline with one expert stays as it is.
+        device_place: the stager's placement of a pair (``shard`` passes its mesh's)."""
         if "dit2" in self.models:
             active, standby = {"dit": self.models["dit"]}, {"dit": self.models["dit2"]}
             if "controlnet" in self.models:
                 active["controlnet"] = self.models["controlnet"]
             if "controlnet2" in self.models:
                 standby["controlnet"] = self.models["controlnet2"]
-            self._stager = ExpertStager(active, standby, self.device)
+            self._stager = ExpertStager(active, standby, self.device, device_place)
             self._stager_low = False
+        return self
+
+    def shard(self, mesh, host_stage_experts: bool = False,
+              pp_microbatches: Optional[int] = None) -> "GoalForcePipeline":
+        """Serve over `mesh` (``parallel/mesh.py::make_mesh``), as JAX's ``shard`` does:
+        every DiT and ControlNet parameter keeps this rank's tensor-parallel shard
+        (``parallel/sharding.py``: q, k, v and ``ffn.0`` by columns, o and ``ffn.2`` by
+        rows), everything else stays replicated, and the mesh is kept, so ``__call__`` and
+        ``generate_batch`` split tokens over "sp" and batch rows over "dp". Every rank
+        calls them with the same arguments and gets the whole result.
+
+        host_stage_experts: keep only the active expert and its ControlNet on the
+        device, each rank staging its own shards of the standby pair in host memory (a
+        pipeline already host-staged has both pairs placed in their memories).
+        pp_microbatches above 1 (pipeline parallel) is not ported (ROADMAP M13b)."""
+        if pp_microbatches is not None and pp_microbatches > 1:
+            raise NotImplementedError("pipeline-parallel microbatches are not ported yet "
+                                      "(ROADMAP M13b)")
+
+        def place_pair(pair):
+            for mod in pair.values():
+                place(mod, mesh)
+            return pair
+
+        self.mesh = mesh
+        if self._stager is not None:
+            place_pair(self._stager.active)
+            stage_to_host(place_pair(self._stager.standby),
+                          pin_memory=self.device.type == "cuda")
+        elif host_stage_experts:
+            self.host_stage_experts(device_place=place_pair)
+        for name in ("dit", "dit2", "controlnet", "controlnet2"):
+            if name in self.models:
+                place(self.models[name], mesh)
         return self
 
     # ------------------------------------------------------------------
@@ -622,7 +675,11 @@ class GoalForcePipeline:
     def _t_mod(self, dit, t_val: float, batch: int) -> np.ndarray:
         """The DiT's modulated timestep input (batch, 6, D) on the host, in float32."""
         tstep = torch.full((batch,), t_val, dtype=self.dtype, device=self.device)
-        return wan_dit.time_embed(dit, self.dit_cfg, tstep)[1].float().cpu().numpy()
+        t_mod = wan_dit.time_embed(dit, self.dit_cfg, tstep)[1].float()
+        if self.mesh is not None:
+            # every rank decides on rank 0's values, so all skip the same steps
+            t_mod = col.broadcast_from_first(t_mod.contiguous())
+        return t_mod.cpu().numpy()
 
     @torch.no_grad()
     def denoise_step_skip(self, dit, latents, t_val: float, sigma: float, sigma_next: float,
@@ -661,7 +718,8 @@ class GoalForcePipeline:
         return fm.euler_step(latents, v.to(latents.dtype), sigma, sigma_next)
 
     def __call__(self, *args, **kwargs) -> np.ndarray:
-        return self._generate(*args, **kwargs)
+        with use_mesh(self.mesh):
+            return self._generate(*args, **kwargs)
 
     def _latents(self, shape, seed: int, noise) -> torch.Tensor:
         return initial_latents(shape, seed, noise, self.device, self.dtype)
@@ -864,8 +922,14 @@ class GoalForcePipeline:
             bar.close()
         return latents
 
+    def generate_batch(self, *args, **kwargs) -> np.ndarray:
+        """Several clips in one batch (``_generate_batch``); under a mesh the batch's
+        rows map onto "dp", as JAX's do."""
+        with use_mesh(self.mesh):
+            return self._generate_batch(*args, **kwargs)
+
     @torch.no_grad()
-    def generate_batch(
+    def _generate_batch(
         self,
         prompts,
         input_images,                       # (B, H, W, 3) float [0, 1] or a list

@@ -12,6 +12,12 @@ Port of ``goal_force_tpu/pipelines/model_fn.py`` (all but its pipeline-parallel 
 - ``temporal_tiled_forward``: sliding windows over the latent frames, blended with
   linear ramps. Each window runs the ControlNet on its slice of the control latents, as
   the JAX package does (the original tiler drops the ControlNet inside windows).
+
+Under a mesh (``parallel/mesh.py::use_mesh``) ``denoise_forward`` splits the batch over
+"dp" (where the axis divides it) and the patch tokens over "sp" after the patch
+embedding (padded to a multiple of the axis), hands each rank its rows of the RoPE
+tables, and gathers tokens and batch before the head: every rank returns the whole
+output, equal to the unsharded one.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from goal_force_tpu_torch.models.wan_dit import (
     time_embed,
     unpatchify,
 )
+from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel.mesh import axis_size, current_mesh
 
 
 def denoise_forward(
@@ -76,6 +84,15 @@ def denoise_forward(
     states are added after blocks 0, s, 2s, ...; VACE hints are added after the blocks
     of vace_layers, scaled by vace_scale. Fun-Reference and VACE each refuse the
     goal-force ControlNet."""
+    mesh = current_mesh()
+    if mesh is not None and vace is not None and vace_context is not None:
+        raise NotImplementedError("VACE under a mesh is not ported yet (ROADMAP M13a-train)")
+    dp_split = mesh is not None and latents.shape[0] % axis_size("dp") == 0
+    if dp_split:
+        latents, timestep, context, y, control_latents, t_mod_offset, reference_latents, \
+            camera_embedding = (col.split_batch(u) for u in (
+                latents, timestep, context, y, control_latents, t_mod_offset,
+                reference_latents, camera_embedding))
     t, t_mod = time_embed(dit, dit_cfg, timestep)
     if t_mod_offset is not None:
         t_mod = t_mod + t_mod_offset.to(t_mod.dtype)
@@ -103,7 +120,30 @@ def denoise_forward(
         tokens = torch.cat([ref.to(tokens.dtype), tokens], dim=1)
         rope_grid = (grid[0] + 1, grid[1], grid[2])
     cos, sin = rope_for_grid(dit_cfg, rope_grid, tokens.device)
+    n_tokens = tokens.shape[1]
+    if mesh is not None:
+        tokens, cos, sin = (col.split_seq(u, dim) for u, dim in ((tokens, 1), (cos, 0), (sin, 0)))
+    with col.sequence_split(n_tokens):
+        tokens = _blocks(dit, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet,
+                         controlnet_cfg, control_latents, use_cn, attn_impl, remat,
+                         block_weights, vace, vace_context, vace_scale, vace_layers)
+    if mesh is not None:
+        tokens = col.gather_seq(tokens, n_tokens)
+    if n_ref:
+        tokens = tokens[:, n_ref:]
+    out = head(dit.head, tokens, t, dit_cfg.eps)
+    out = unpatchify(out, grid, dit_cfg.patch_size, dit_cfg.out_dim)
+    gather = col.gather_batch if dp_split else (lambda u: u)
+    if return_token_states:
+        return gather(out), (gather(tokens_pre), gather(tokens))
+    return gather(out)
 
+
+def _blocks(dit, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet, controlnet_cfg,
+            control_latents, use_cn, attn_impl, remat, block_weights, vace, vace_context,
+            vace_scale, vace_layers):
+    """The block stack with the ControlNet's injections (or its strided raw states, or
+    VACE hints)."""
     stride = controlnet_cfg.stride if (use_cn and controlnet_cfg is not None) else None
     inj = None
     if use_cn:
@@ -140,14 +180,7 @@ def denoise_forward(
             tokens = run(tokens, start=pos)
     else:
         tokens = run(tokens, injections=inj)
-    del inj
-    if n_ref:
-        tokens = tokens[:, n_ref:]
-    out = head(dit.head, tokens, t, dit_cfg.eps)
-    out = unpatchify(out, grid, dit_cfg.patch_size, dit_cfg.out_dim)
-    if return_token_states:
-        return out, (tokens_pre, tokens)
-    return out
+    return tokens
 
 
 def denoise_forward_skip(

@@ -85,7 +85,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.add_argument(f"--{axis}", type=int, default=1,
                        help="mesh axis; above 1 not ported yet (ROADMAP M13)")
     p.add_argument("--pp_microbatches", type=int, default=2)
-    p.add_argument("--use_wandb", action="store_true", help="accepted; metrics go to JSONL")
+    p.add_argument("--use_wandb", action="store_true",
+                   help="also log to wandb (JSONL only where wandb does not import)")
     p.add_argument("--wandb_project", type=str, default="goal_force_tpu")
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda",
@@ -182,7 +183,8 @@ def run(args, models: Dict, dataset, history: Optional[list] = None, **overrides
         max_timestep_boundary=args.max_timestep_boundary,
         min_timestep_boundary=args.min_timestep_boundary,
         train_lora=args.train_lora, lora_rank=args.lora_rank,
-        num_frames=args.num_frames, height=args.height, width=args.width)
+        num_frames=args.num_frames, height=args.height, width=args.width,
+        use_wandb=args.use_wandb, wandb_project=args.wandb_project, run_name=args.run_name)
     return train(dataclasses.replace(cfg, **overrides), models["dit_cfg"], models["t5_cfg"],
                  models["vae_cfg"], models["cn_cfg"], models["frozen"], models["controlnet"],
                  dataset, models["tokenizer"], resume=args.resume, max_steps=args.max_steps,

@@ -54,12 +54,25 @@ from goal_force_tpu_torch.training.train_step import (
 
 
 class MetricsLogger:
-    """JSONL metrics, one record every `log_every` steps."""
+    """JSONL metrics, one record every `log_every` steps. With `use_wandb` each record
+    also goes to a wandb run (``wandb.init(project=, name=, config=)``) where the
+    ``wandb`` package imports; where it does not, the logger says so and writes JSONL
+    only."""
 
-    def __init__(self, output_dir: str, log_every: int = 10):
+    def __init__(self, output_dir: str, log_every: int = 10, use_wandb: bool = False,
+                 project: Optional[str] = None, run_name: Optional[str] = None,
+                 config: Optional[dict] = None):
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "metrics.jsonl")
         self.log_every = log_every
+        self.wandb = None
+        if use_wandb:
+            try:
+                import wandb
+            except ImportError:
+                print("wandb not installed; logging to JSONL only")
+            else:
+                self.wandb = wandb.init(project=project, name=run_name, config=config)
 
     def log(self, step: int, metrics: Dict):
         if step % self.log_every != 0:
@@ -67,6 +80,8 @@ class MetricsLogger:
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self.wandb is not None:
+            self.wandb.log(rec, step=step)
 
 
 @dataclasses.dataclass
@@ -89,6 +104,9 @@ class TrainerConfig:
     lora_rank: int = 32
     pp_microbatches: Optional[int] = None   # not ported: raises
     keep_last_states: int = 2           # full state-K files kept (<= 0 keeps all)
+    use_wandb: bool = False             # also log to wandb where it imports
+    wandb_project: Optional[str] = None
+    run_name: Optional[str] = None
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -156,7 +174,8 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
     state = TrainState(params, optimizer.init(trainable_params(params)), start_step)
     if full_state_file is not None:
         load_train_state(full_state_file, state)
-    logger = MetricsLogger(cfg.output_dir, cfg.log_every)
+    logger = MetricsLogger(cfg.output_dir, cfg.log_every, cfg.use_wandb,
+                           cfg.wandb_project, cfg.run_name, dataclasses.asdict(cfg))
 
     # With a full state, walk the data order again up to the saved step (host only: no
     # tokenizing, no device work); with step-K alone, count on from K as JAX does.

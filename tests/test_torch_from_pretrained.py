@@ -350,3 +350,35 @@ def test_adapter_files_match_jax(files, tmp_path, arg):
         assert "vace" in staged.models and "vace" not in staged._stager.standby
         np.testing.assert_array_equal(
             staged("a ball rolls right", image, noise=torch.from_numpy(noise), **kw), got)
+
+
+def test_init_random_reads_a_tokenizer_directory_as_jax(tmp_path, monkeypatch):
+    """init_random(tokenizer_path=) tokenizes through the directory's SentencePiece
+    model in both packages. JAX's random weights are irrelevant to the ids, so its
+    initialisers are stubbed out (its eager tiny VAE init alone takes ~30 s)."""
+    import os
+    import shutil
+
+    from goal_force_tpu import prompters as jprompters
+    from goal_force_tpu.models import controlnet as jcn
+    from goal_force_tpu.models import t5 as jt5
+    from goal_force_tpu.models import vae as jvae
+    from goal_force_tpu.models import wan_dit as jdit
+
+    src = os.path.join(os.path.dirname(jprompters.__file__), "tokenizer_assets",
+                       "cog", "tokenizer", "spiece.model")
+    d = tmp_path / "umt5_tokenizer"
+    d.mkdir()
+    shutil.copy(src, d / "spiece.model")
+    for mod, name in ((jdit, "init_wan_dit"), (jt5, "init_t5"), (jvae, "init_vae"),
+                      (jcn, "init_from_dit")):
+        monkeypatch.setattr(mod, name, lambda *a, **k: {})
+    jpipe = JaxPipeline.init_random(cn_cfg=None, tokenizer_path=str(d))
+    tpipe = GoalForcePipeline.init_random(cn_cfg=None, tokenizer_path=str(d), device="cpu")
+    prompts = ["a red ball rolls to the right", "a domino falls onto the next one"]
+    ids, mask = tpipe.tokenizer(prompts)
+    rids, rmask = jpipe.tokenizer(prompts)
+    np.testing.assert_array_equal(ids, rids)
+    np.testing.assert_array_equal(mask, rmask)
+    hashed, _ = GoalForcePipeline.init_random(cn_cfg=None, device="cpu").tokenizer(prompts)
+    assert not np.array_equal(ids, hashed)

@@ -102,6 +102,30 @@ def test_speech_to_video_image_and_vae38_modules_are_in_the_blocked_import():
         assert m in MODULES
 
 
+def test_multi_gpu_and_tool_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.parallel.mesh", "goal_force_tpu_torch.parallel.collectives",
+              "goal_force_tpu_torch.parallel.sharding", "goal_force_tpu_torch.utils.metrics",
+              "goal_force_tpu_torch.data.ops", "goal_force_tpu_torch.scripts.demo",
+              "goal_force_tpu_torch.scripts.compare_videos",
+              "goal_force_tpu_torch.scripts.extract_first_frame",
+              "goal_force_tpu_torch.scripts.extract_canny_edges"):
+        assert m in MODULES
+
+
+def test_spawned_children_import_no_jax():
+    """The multi-process tests' children (tests/torch_parallel_children.py) import the
+    port alone; they also check sys.modules at their end."""
+    path = Path(__file__).resolve().parent / "torch_parallel_children.py"
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "goal_force_tpu", "flax"), name
+
+
 def test_speech_to_video_image_and_vae38_presets_equal_jax():
     from goal_force_tpu.models import image_encoder as jvit
     from goal_force_tpu.models import s2v as js2v

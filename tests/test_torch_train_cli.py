@@ -291,3 +291,65 @@ def test_canny_edge_cli_writes_the_jax_artifacts(weights, data, tmp_path, monkey
         "scene-image-condition.png"]
     video = tvio.load_video(outs[0])
     assert video.shape == (F, H, 48, 3)
+
+
+def _wandb_stub(calls):
+    import types
+
+    class Run:
+        def log(self, rec, step=None):
+            calls.append(("log", rec, step))
+
+    def init(**kw):
+        calls.append(("init", kw))
+        return Run()
+
+    stub = types.ModuleType("wandb")
+    stub.init = init
+    return stub
+
+
+@pytest.mark.parametrize("installed", [True, False], ids=["wandb", "no_wandb"])
+def test_metrics_logger_with_use_wandb_equals_jax(tmp_path, monkeypatch, capsys, installed):
+    """With a (stub) wandb module, ``init`` gets JAX's arguments and every logged record
+    reaches wandb and the JSONL file; without one, both loggers say so and write JSONL
+    only. The CLI hands --use_wandb/--wandb_project/--run_name to the trainer's config."""
+    from goal_force_tpu.training.trainer import MetricsLogger as JaxLogger
+
+    from goal_force_tpu_torch.training import trainer as ttrainer
+
+    calls = {"jax": [], "port": []}
+    args = dict(log_every=2, use_wandb=True, project="goal_force_tpu", run_name="r1",
+                config={"lr": 1e-5, "seed": 0})
+    for which, cls in (("jax", JaxLogger), ("port", ttrainer.MetricsLogger)):
+        if installed:
+            monkeypatch.setitem(sys.modules, "wandb", _wandb_stub(calls[which]))
+        else:
+            monkeypatch.setitem(sys.modules, "wandb", None)   # import raises ImportError
+        logger = cls(str(tmp_path / which), **args)
+        for step in (1, 2, 3, 4):
+            logger.log(step, {"loss": 0.5 / step, "grad_norm": np.float32(2.0)})
+    assert calls["port"] == calls["jax"]
+    if installed:
+        assert calls["port"][0] == ("init", {"project": "goal_force_tpu", "name": "r1",
+                                             "config": args["config"]})
+        assert [c[2] for c in calls["port"][1:]] == [2, 4]
+    else:
+        assert calls["port"] == []
+        assert capsys.readouterr().out.count("wandb not installed") == 2
+    jsonl = [open(tmp_path / w / "metrics.jsonl").read() for w in ("jax", "port")]
+    assert jsonl[0] == jsonl[1] and jsonl[1].count("\n") == 2
+    if installed:
+        import json
+
+        assert [c[1] for c in calls["port"][1:]] == [json.loads(line) for line in
+                                                     jsonl[1].splitlines()]
+
+    seen = {}
+    monkeypatch.setattr(ttrainer, "train", lambda cfg, *a, **k: seen.setdefault("cfg", cfg))
+    cli = tcli.parse_args(["--high_noise_model", "h", "--t5_path", "t", "--vae_path", "v",
+                           "--use_wandb", "--wandb_project", "proj", "--run_name", "r2"])
+    tcli.run(cli, dict.fromkeys(("dit_cfg", "t5_cfg", "vae_cfg", "cn_cfg", "frozen",
+                                 "controlnet", "tokenizer")), None)
+    cfg = seen["cfg"]
+    assert (cfg.use_wandb, cfg.wandb_project, cfg.run_name) == (True, "proj", "r2")
