@@ -1054,6 +1054,49 @@ def collectives_per_step(blocks, rows, ffn_chunk):
 
 
 SHARDED_ATOL = 1e-3
+_WORLD = {}
+
+
+def _world_mesh():
+    """The NCCL process group of one rank (a file rendezvous) that ``sharded`` starts
+    and the later sharded phases reuse, and its make_mesh(1, 1, 1); ``_end_world``
+    destroys it."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from goal_force_tpu_torch.parallel.mesh import make_mesh
+
+    if "mesh" not in _WORLD:
+        _WORLD["rdv"] = tempfile.mkdtemp(prefix="gf_rdv_")
+        dist.init_process_group("nccl", init_method=f"file://{_WORLD['rdv']}/rdv", rank=0,
+                                world_size=1)
+        _WORLD["mesh"] = make_mesh(1, 1, 1, device="cuda")
+    return _WORLD["mesh"]
+
+
+def _end_world():
+    import shutil
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    shutil.rmtree(_WORLD.pop("rdv", ""), ignore_errors=True)
+    _WORLD.clear()
+
+
+def _sharded_equal(phase, name, got, want, launches, want_launches):
+    """A sharded call over the world of one against its unsharded twin: the outputs
+    within SHARDED_ATOL (bit-equal expected: every collective is a copy) and the same
+    launches."""
+    got, want = (np.asarray(t.float().cpu()) if torch.is_tensor(t) else t for t in (got, want))
+    diff = float(np.abs(got - want).max())
+    log(phase, stage=f"sharded {name}", launches=launches, max_abs_diff_vs_unsharded=diff,
+        bit_equal=bool(np.array_equal(got, want)))
+    check(diff <= SHARDED_ATOL, f"{phase} sharded {name}: differs from unsharded by {diff}")
+    check(launches == want_launches, f"{phase} sharded {name} launched {launches}, "
+          f"expected {want_launches}")
 
 
 def phase_sharded(pipe, main_frames, main_stages):
@@ -1065,24 +1108,19 @@ def phase_sharded(pipe, main_frames, main_stages):
     main's within SHARDED_ATOL; K1 launches 12 per step as in main; each collective's
     count per step is collectives_per_step's. Logs the step seconds beside main's and
     compare_videos (PSNR, SSIM) of the two frame sets. The pipeline then serves
-    unsharded again (over one rank the placed parameters are the whole tensors)."""
-    import shutil
-    import tempfile
-
+    unsharded again (over one rank the placed parameters are the whole tensors). The
+    process group stays for the later sharded phases."""
     import torch.distributed as dist
 
     from goal_force_tpu_torch.models.wan_dit import FFN_CHUNK_TOKENS
     from goal_force_tpu_torch.ops import flash_attention as fa
     from goal_force_tpu_torch.parallel import collectives as col
-    from goal_force_tpu_torch.parallel.mesh import make_mesh
     from goal_force_tpu_torch.utils.metrics import compare_videos
 
     pc = pipe.pipe_cfg
     image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
-    rdv = tempfile.mkdtemp(prefix="gf_rdv_")
-    dist.init_process_group("nccl", init_method=f"file://{rdv}/rdv", rank=0, world_size=1)
+    mesh = _world_mesh()
     try:
-        mesh = make_mesh(1, 1, 1, device="cuda")
         _, secs = sync_time(lambda: pipe.shard(mesh))
         log("sharded", stage="shard", seconds=secs, backend=dist.get_backend(),
             mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
@@ -1097,8 +1135,6 @@ def phase_sharded(pipe, main_frames, main_stages):
         launches, collectives = dict(fa.launch_counts), dict(col.counts)
     finally:
         pipe.mesh = None
-        dist.destroy_process_group()
-        shutil.rmtree(rdv, ignore_errors=True)
     _check_frames("sharded", frames, pc)
     diff = float(np.abs(frames - main_frames).max())
     report = compare_videos(frames, main_frames)
@@ -1504,10 +1540,21 @@ def phase_t2v_vace():
     mask[:, 120:360, 208:624] = 1.0                          # regenerate the centre
     fa.reset_launch_counts()
     t2v = _variant_request(pipe, "t2v_vace", "t2v_81", lambda: pipe(PROMPTS[0], **kw), 8, shape)
-    _variant_request(pipe, "t2v_vace", "vace_81_with_reference", lambda: pipe(
-        PROMPTS[0], vace_video=video, vace_video_mask=mask, vace_reference_image=image, **kw),
-        12, shape, base=t2v)
+    vace_req = lambda: pipe(PROMPTS[0], vace_video=video, vace_video_mask=mask,
+                            vace_reference_image=image, **kw)
+    vace = _variant_request(pipe, "t2v_vace", "vace_81_with_reference", vace_req, 12, shape,
+                            base=t2v)
     run_counts = dict(fa.launch_counts)
+    # the VACE request again through shard() over the world of one: the hint blocks on
+    # the rank's tokens, the same frames and the same K1 launches
+    pipe.shard(_world_mesh())
+    try:
+        (got, n), secs = sync_time(lambda: picked(vace_req))
+    finally:
+        pipe.mesh = None
+    log("t2v_vace", stage="sharded", seconds=secs)
+    _sharded_equal("t2v_vace", "vace_81_with_reference", got, vace, n,
+                   only(K1=12 * VARIANT_STEPS))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1759,10 +1806,100 @@ def _check_linears():
     log("small_int8", case="linears on the card (max err / max |out|)", **res, ok=True)
 
 
+class _Crc32Tokenizer:
+    """Whitespace words -> 2 + crc32(word) % (vocab - 2), then EOS (1), PAD (0): ids that
+    are the same in every process (the hash tokenizer's follow the process's string-hash
+    seed) and below the small T5's vocabulary."""
+
+    def __init__(self, vocab: int, seq_len: int):
+        self.vocab, self.seq_len = vocab, seq_len
+
+    def __call__(self, texts):
+        import zlib
+
+        ids = np.zeros((len(texts), self.seq_len), np.int32)
+        mask = np.zeros((len(texts), self.seq_len), np.int32)
+        for i, t in enumerate(texts):
+            coded = [2 + zlib.crc32(w.encode()) % (self.vocab - 2) for w in t.split()]
+            coded = coded[:self.seq_len - 1] + [1]
+            ids[i, :len(coded)] = coded
+            mask[i, :len(coded)] = 1
+        return ids, mask
+
+
+class _TeacherForcedInt8:
+    """Within the block, every call of ``flash_attention_int8`` launches K6 and also
+    computes the plain int8 attention on the same q, k, v; the run goes on with K6's
+    output, so every packed linear sees the inputs of the K6 run. The packed linear after
+    each attention (``o``, marked by ``mark``) gets both outputs in turn: ``pairs``
+    collects (K6's input, the plain input, the pack)."""
+
+    def __init__(self, models):
+        from goal_force_tpu_torch.ops import flash_attention as fa
+        from goal_force_tpu_torch.ops import quant
+
+        self.fa, self.quant, self.pairs, self.pending = fa, quant, [], []
+        self.marked = [m for model in models for name, m in model.named_modules()
+                       if isinstance(m, quant.QuantLinear) and name.endswith((".o",))]
+
+    def __enter__(self):
+        fa, quant, pending, pairs = self.fa, self.quant, self.pending, self.pairs
+        self.saved_attn, self.saved_fwd = fa.flash_attention_int8, quant.QuantLinear.forward
+        k6 = self.saved_attn
+
+        def attn(q, k, v, scale, *a, **kw):
+            out = k6(q, k, v, scale, *a, **kw)
+            pending.append(fa.flash_attention_int8_plain(q, k, v, scale, *a, **kw))
+            return out
+
+        saved_fwd = self.saved_fwd
+        marked = {id(m) for m in self.marked}
+
+        def forward(layer, x):
+            if id(layer) in marked:
+                pairs.append((x, pending.pop(0).reshape(x.shape), layer))
+            return saved_fwd(layer, x)
+
+        fa.flash_attention_int8 = attn
+        quant.QuantLinear.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_int8 = self.saved_attn
+        self.quant.QuantLinear.forward = self.saved_fwd
+
+
+def _code_step_check(x_k6, x_plain, pack):
+    """One packed linear on the two attention outputs of the same q, k, v. Each row is
+    quantized with its own scale xs = amax / 127 and codes q = round(x / xs), so
+    y = xs * ws * (q . w) (+ bias): with K6 and the plain version equal to float32
+    rounding, an element near a rounding boundary takes the neighbouring code (|dq| = 1)
+    and a row's amax may move by that rounding (dxs). The outputs then differ by
+    exactly |ws| * (xs * (|dq| . |w|) + |dxs| * |q . w|), to the epilogue's float32
+    rounding (2^-20 of |y| + |bias|): that is the bound, one code step of the linear's range per
+    flipped code. Returns (codes that differ, largest |dq|, worst error / bound)."""
+    xs = [t.float().reshape(-1, t.shape[-1]) for t in (x_k6, x_plain)]
+    sc = [t.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0 for t in xs]
+    q = [torch.round(t / s) for t, s in zip(xs, sc)]
+    w = pack.weight.double()
+    ws = pack.weight_scale.double()
+    dq = (q[0] - q[1]).abs().double()
+    y = [pack(t.reshape(x_k6.shape)).double().reshape(dq.shape[0], -1) for t in (x_k6, x_plain)]
+    bias = 0.0 if pack.bias is None else pack.bias.double().abs()
+    bound = ws * (sc[0].double() * (dq @ w.abs().t())
+                  + (sc[0] - sc[1]).double().abs() * (q[1].double() @ w.t()).abs())
+    bound = bound + 2.0**-20 * (y[1].abs() + bias)
+    err = (y[0] - y[1]).abs()
+    ratio = float((err / bound.clamp(min=1e-30)).max()) if bool((err > 0).any()) else 0.0
+    return int((dq > 0).sum()), float(dq.max()), ratio
+
+
 def phase_small_int8():
     """The small head_dim-128 float32 pipeline with W8A8 packs in its four DiT/ControlNet
-    models: one merged-CFG step and a whole request through K6 against the same with the
-    plain int8 attention (the same function), and the launches (K6 only)."""
+    models and a tokenizer whose ids are the same in every process: one merged-CFG step
+    with K6 against the plain int8 attention, linear by linear on the same inputs
+    (``_code_step_check``), a whole request through K6 against the same with the plain
+    int8 attention (the same function), and the launches (K6 only)."""
     from goal_force_tpu_torch.ops import flash_attention as fa
     from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
 
@@ -1770,6 +1907,7 @@ def phase_small_int8():
     dit_cfg, t5_cfg, vae_cfg, cn_cfg = _small_configs()
     pipe = GoalForcePipeline.init_random(seed=5, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=vae_cfg,
                                          cn_cfg=cn_cfg, dtype=torch.float32, device="cuda")
+    pipe.tokenizer = _Crc32Tokenizer(t5_cfg.vocab, t5_cfg.text_len)
     for cn in ("controlnet", "controlnet2"):   # non-identity ControlNets
         _perturb_zero_convs(pipe.models[cn], 9)
     _quantize(pipe.models)
@@ -1785,6 +1923,9 @@ def phase_small_int8():
     got_step, n_step = picked(step)
     with _PlainInt8():
         ref_step, n_plain = picked(step)
+    with _TeacherForcedInt8([pipe.models["dit"], pipe.models["controlnet"]]) as tf:
+        _, n_forced = picked(step)
+    linears = [_code_step_check(*pair) for pair in tf.pairs]
     tf32_before = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False        # float32 convs in full float32, as in small
     try:
@@ -1794,37 +1935,44 @@ def phase_small_int8():
             ref = pipe("a small check", image, control_signal_video=video, **kw)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32_before
-    # the step's velocity, from the Euler update latents + (0.9375 - 1.0) * v
+    # the step's velocity, from the Euler update latents + (0.9375 - 1.0) * v (logged:
+    # flips compound through the later linears and merged CFG, so it has no bound here)
     v_got, v_ref = ((out - lat) / (0.9375 - 1.0) for out in (got_step, ref_step))
-    top = float(v_ref.abs().max())
     step_err = dict(max=float((v_got - v_ref).abs().max()),
-                    mean=float((v_got - v_ref).abs().mean()))
+                    mean=float((v_got - v_ref).abs().mean()),
+                    top=float(v_ref.abs().max()))
     err = dict(max=float(np.abs(got - ref).max()), mean=float(np.abs(got - ref).mean()))
-    # K6 and the plain version give the same attention to float32 rounding (~1e-6); an
-    # activation that lands that close to a rounding boundary of the next linear's int8
-    # quantization takes the neighbouring code, which moves that token's output by one
-    # code step: at most 1/127 of the largest output the linear can give. The bounds are
-    # those of the CPU tests that hold the port to JAX (tests/test_torch_lowp.py): one
-    # step's velocity within one code step of its largest value, and frames, whose later
-    # steps flip codes of their own, within 3e-2 (2e-3 on average).
-    step_ok = step_err["max"] <= top / 127
+    # Linear by linear (teacher-forced: each o takes K6's output and the plain output of
+    # the same q, k, v), no code moves by more than one step and each output stays
+    # within _code_step_check's derived bound (worst error / bound <= 1). The frames of
+    # a whole request, whose later steps flip codes of their own, within 3e-2 (2e-3 on
+    # average), the bounds of the CPU tests that hold the port to JAX
+    # (tests/test_torch_lowp.py).
+    worst = max(r for _, _, r in linears)
+    linear_ok = len(linears) == 6 and all(d <= 1 for _, d, _ in linears) and worst <= 1.0
     frames_ok = err["max"] <= 3e-2 and err["mean"] <= 2e-3
-    log("small_int8", tokens=5 * 8 * 16, step_launches=n_step, plain_step_launches=n_plain,
-        velocity_abs_err=step_err, velocity_limit=top / 127,
-        launches=n, frames_abs_err=err, frames_limits=dict(max=3e-2, mean=2e-3),
-        ok=step_ok and frames_ok)
-    check(n_step == only(K6=6) and n == only(K6=2 * (2 + 1) * 4) and n_plain == only(),
-          f"small_int8 launched {n_step} / {n} / plain {n_plain}")
-    check(step_ok, f"small_int8: one step differs by {step_err}")
+    log("small_int8", tokens=5 * 8 * 16, token_ids=ctx.shape[1], step_launches=n_step,
+        plain_step_launches=n_plain, forced_step_launches=n_forced,
+        linears=[dict(flipped_codes=f, max_code_step=d, err_over_bound=r)
+                 for f, d, r in linears], worst_err_over_bound=worst,
+        velocity_abs_err=step_err, launches=n, frames_abs_err=err,
+        frames_limits=dict(max=3e-2, mean=2e-3), ok=linear_ok and frames_ok)
+    check(n_step == only(K6=6) and n == only(K6=2 * (2 + 1) * 4) and n_plain == only()
+          and n_forced == only(K6=6), f"small_int8 launched {n_step} / {n} / plain {n_plain} "
+          f"/ forced {n_forced}")
+    check(linear_ok, f"small_int8: a linear after K6 moved past one code step: {linears}")
     check(frames_ok, f"small_int8: K6 vs plain int8 attention frames differ by {err}")
     del pipe
     torch.cuda.empty_cache()
+    return dict(worst_err_over_bound=worst, frames_abs_err=err)
 
 
 def phase_main_int8(pipe, bf16_frames):
     """main's pipeline quantized in place (W8A8 block linears of the four DiT/ControlNet
     models) with attn_impl="flash_int8": the same two requests, 48 K6 and nothing else
-    each, and the mean |frames - bf16 frames| of the same request."""
+    each, and the mean |frames - bf16 frames| of the same request. Then one 2-step
+    request unsharded and through shard(). Returns both requests' launches and the
+    sharded request's."""
     import gc
 
     (_, secs) = sync_time(lambda: _quantize(pipe.models))
@@ -1850,7 +1998,23 @@ def phase_main_int8(pipe, bf16_frames):
         mean_abs_diff_vs_bf16=vs_bf16, max_abs_diff_vs_bf16=max_vs_bf16,
         bf16_mean_abs_diff_between_requests=between, limit=0.1 * between, ok=ok)
     check(ok, f"main_int8: frames differ from bf16's by {vs_bf16} on average")
-    return launches
+    # one 2-step request unsharded, then the same through shard() over the world of one:
+    # the packs split (over one rank: whole), 12 K6 per step and nothing else, the same
+    # frames
+    pc = pipe.pipe_cfg
+    image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
+    req = lambda: pipe(PROMPTS[0], image, control_signal_video=video, seed=11,
+                       num_inference_steps=2)
+    pipe.attn_impl = "flash_int8"
+    try:
+        want, _ = picked(req)
+        pipe.shard(_world_mesh())
+        (got, n), secs = sync_time(lambda: picked(req))
+    finally:
+        pipe.attn_impl, pipe.mesh = "auto", None
+    log("main_int8", stage="sharded", seconds=secs)
+    _sharded_equal("main_int8", "request", got, want, n, only(K6=K6_PER_STEP * 2))
+    return launches, n
 
 
 def phase_full_int8():
@@ -2272,6 +2436,124 @@ def phase_train():
             unchanged=sorted(set(init) - moved), step2_checkpoint_reloads=True, ok=True)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    del state3
+    gc.collect()
+    return launches, dict(cfg=cfg, configs=(dit_cfg, t5_cfg, C.WAN21_VAE, cn_cfg), frozen=frozen,
+                          cn0=cn0, data=data, tokenizer=tok, history=history[:2],
+                          at_step2=at_step2, peak_gb=peak_gb)
+
+
+def train_collectives_per_step(dit_blocks, cn_blocks, t5_blocks, rows, ffn_chunk):
+    """The collectives of one training step under a mesh with every block weight
+    FSDP-split, by kind. The side stack's blocks inject after DiT blocks 0..cn_blocks-1,
+    so DiT block 0 runs without grad (no recompute) and the g = dit_blocks - 1 blocks
+    after it, like every ControlNet block, run forward, are recomputed in the backward
+    and backpropagated. Per block forward (recompute included): 4 all-to-alls (q, k, v,
+    the output), all-reduces for the self-attention q/k norms and o, the cross-attention
+    q/k norms and o, and each of the c FFN chunks, and one all-gather of the block's
+    weights. Per backpropagated block: the 4 all-to-alls' transposes, the q/k norms'
+    shared sums (self q and k, cross q; a ControlNet block's cross k too: its weight
+    trains), the column-parallel inputs' sums (self- and cross-attention, each FFN
+    chunk); a ControlNet block also gathers the "tp" gradients of its 10 sliced weights,
+    6 q/k/v biases, its 4 norm weights and the ffn.0 bias of each chunk, and its weight
+    gather's backward is a reduce-scatter. Once per step: the text and time embeddings'
+    row sums, the gathers of T5 (its embedding and each block), of the DiT's embeddings
+    and its head, of the ControlNet's embeddings and of the tokens before the head, the
+    ControlNet embedding's reduce-scatter, and 4 all-reduces (the replicated gradients,
+    the loss over "dp", the two gradient norms)."""
+    c = -(-rows // ffn_chunk)
+    g = dit_blocks - 1
+    fwd = dit_blocks + g + 2 * cn_blocks
+    return {"all_to_all": 4 * fwd + 4 * (g + cn_blocks),
+            "all_reduce": (6 + c) * fwd + (5 + c) * g + (6 + c) * cn_blocks + 2 + 4,
+            "all_gather": fwd + cn_blocks * (20 + c) + (1 + t5_blocks) + 2 + 1 + 1,
+            "reduce_scatter": cn_blocks + 1}
+
+
+def phase_sharded_train(run):
+    """train's first two steps again through train(mesh=) over the NCCL world of one that
+    ``sharded`` started (make_mesh(1, 1, 1)): the same frozen models, now FSDP-placed by
+    fsdp_specs (over one rank each shard is the whole tensor), the same initial
+    ControlNet, clips and generators. The loss, gradient norm and step-2 ControlNet must
+    equal train's bit for bit (every collective is a copy); each step launches what a
+    train step launches (K1 2, K3 20, K4 7, K5 10) and calls the collectives of
+    train_collectives_per_step. Logs the step seconds and peaks beside train's."""
+    import gc
+    import shutil
+    import tempfile
+
+    from goal_force_tpu_torch.models.wan_dit import FFN_CHUNK_TOKENS
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.training import trainer
+
+    mesh = _world_mesh()
+    out_dir = tempfile.mkdtemp(prefix="gf_train_sharded_")
+    cfg = dataclasses.replace(run["cfg"], output_dir=out_dir)
+    per_step, make = [], trainer.make_train_step
+
+    def counted(*a, **k):
+        step = make(*a, **k)
+
+        def run_step(*sa, **sk):
+            launches, calls = dict(fa.launch_counts), dict(col.counts)
+            out = step(*sa, **sk)
+            torch.cuda.synchronize()
+            per_step.append(({n: fa.launch_counts[n] - launches[n] for n in launches},
+                             {n: col.counts[n] - calls.get(n, 0) for n in col.counts
+                              if col.counts[n] != calls.get(n, 0)}))
+            return out
+        return run_step
+
+    history = []
+    trainer.make_train_step = counted
+    try:
+        fa.reset_launch_counts()
+        col.counts.clear()
+        torch.cuda.reset_peak_memory_stats()
+        state, secs = sync_time(lambda: trainer.train(
+            cfg, *run["configs"], run["frozen"], run["cn0"], run["data"], run["tokenizer"],
+            device="cuda", history=history, max_steps=2, mesh=mesh))
+        launches = dict(fa.launch_counts)
+        peak_gb = max([torch.cuda.max_memory_allocated() / 2**30] +
+                      [v for h in history for k, v in h.items() if k.endswith("_peak_gb")])
+        after = {n: p.to("cpu", copy=True) for n, p in state.params.state_dict().items()}
+    finally:
+        trainer.make_train_step = make
+        shutil.rmtree(out_dir, ignore_errors=True)
+    from goal_force_tpu_torch import configs as C
+
+    dit_cfg, t5_cfg, _, cn_cfg = run["configs"]
+    pc = C.PipelineConfig()
+    want_calls = train_collectives_per_step(dit_cfg.num_layers, cn_cfg.num_layers,
+                                            t5_cfg.num_layers, pc.tokens, FFN_CHUNK_TOKENS)
+    step_launches = only(K1=2, K3=20, K4=7, K5=10)
+    ref = run["history"]
+    same_metrics = [(h["loss"], h["grad_norm"]) == (r["loss"], r["grad_norm"])
+                    for h, r in zip(history, ref)]
+    same_cn = [n for n, t in after.items() if not torch.equal(t, run["at_step2"][n])]
+    for h, r in zip(history, ref):
+        log("sharded_train", stage=f"step{h['step']}", loss=h["loss"], train_loss=r["loss"],
+            grad_norm=h["grad_norm"], train_grad_norm=r["grad_norm"],
+            step_time=h["step_time"], train_step_time=r["step_time"],
+            forward_backward=h["forward_backward"], train_forward_backward=r["forward_backward"],
+            forward_backward_peak_gb=h["forward_backward_peak_gb"],
+            train_forward_backward_peak_gb=r["forward_backward_peak_gb"])
+    log("sharded_train", stage="done", seconds=secs, launches=launches,
+        launches_per_step=[p[0] for p in per_step], collectives_per_step=[p[1] for p in per_step],
+        expected_collectives_per_step=want_calls, max_memory_allocated_gb=peak_gb,
+        train_max_memory_allocated_gb=run["peak_gb"], metrics_equal=same_metrics,
+        controlnet_tensors_differing=same_cn)
+    check([h["step"] for h in history] == [1, 2], f"sharded_train: steps {history}")
+    check(all(same_metrics), "sharded_train: loss or grad_norm differ from train's")
+    check(not same_cn, f"sharded_train: ControlNet tensors differ from train's: {same_cn[:5]}")
+    check(all(p[0] == step_launches for p in per_step),
+          f"sharded_train launched {[p[0] for p in per_step]} per step, expected {step_launches}")
+    check(all(p[1] == want_calls for p in per_step),
+          f"sharded_train: collectives {[p[1] for p in per_step]}, expected {want_calls}")
+    del state, after
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2774,7 +3056,19 @@ def phase_image_branch():
     diff = float((outs["with_clip"].float() - outs["without"].float()).abs().max())
     log("image_branch", stage="compare", max_abs_diff=diff)
     check(diff > 1e-3, f"image_branch: clip_feature changed nothing ({diff})")
-    del dit, outs, x, y, ctx
+    # the forward with the clip_feature again, placed on the world of one: the image
+    # cross-attention on the rank's heads and tokens against the replicated CLIP keys
+    from goal_force_tpu_torch.parallel.mesh import use_mesh
+    from goal_force_tpu_torch.parallel.sharding import place
+
+    mesh = _world_mesh()
+    place(dit, mesh)
+    with torch.no_grad(), use_mesh(mesh):
+        (got, n), secs = sync_time(lambda: picked(
+            lambda: wan_dit.wan_dit_forward(dit, cfg, x, t, ctx, y, clip_feature=clip2)))
+    log("image_branch", stage="sharded", seconds=secs)
+    _sharded_equal("image_branch", "with_clip", got, outs["with_clip"], n, only(K1=12))
+    del dit, outs, x, y, ctx, got
     gc.collect()
     torch.cuda.empty_cache()
     return {k: launches["with_clip"][k] + launches["without"][k] for k in launches["without"]}
@@ -2815,6 +3109,13 @@ def phase_vae38():
 
 
 def main() -> int:
+    try:
+        return _main()
+    finally:
+        _end_world()
+
+
+def _main() -> int:
     card = phase_device()
     phase_build()
     measured = phase_kernels()
@@ -2830,14 +3131,16 @@ def main() -> int:
     cli_launches = phase_cli(pipe)
     unb_launches = phase_unbounded(pipe)
     variants_launches = phase_variants(pipe)
-    int8_launches = phase_main_int8(pipe, bf16_frames)
+    int8_launches, sharded_int8_launches = phase_main_int8(pipe, bf16_frames)
     del pipe, bf16_frames
     t2v_vace_launches = phase_t2v_vace()
     fun_control_launches = phase_fun_control()
     s2v_launches = phase_s2v()
     image_launches = phase_image_branch()
     phase_vae38()
-    train_launches = phase_train()
+    train_launches, train_run = phase_train()
+    sharded_train_launches = phase_sharded_train(train_run)
+    del train_run
     train_cli_launches = phase_train_cli()
     full_launches = phase_full_int8()
     full_bf16_launches = phase_full_bf16()
@@ -2869,16 +3172,20 @@ def main() -> int:
               **{k: measured["K2"][k] for k in ("audio", "s2v_self", "s2v_cross")}}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train",
-              "train_cli_launches": train_cli_launches["K3"]}),
+              "train_cli_launches": train_cli_launches["K3"],
+              "sharded_train_launches": sharded_train_launches["K3"]}),
             ("K4 flash_attention_bwd_dkv", train_src, 76, train_launches["K4"],
              {"cross": measured["K4"]["cross"], "path": "train",
-              "train_cli_launches": train_cli_launches["K4"]}),
+              "train_cli_launches": train_cli_launches["K4"],
+              "sharded_train_launches": sharded_train_launches["K4"]}),
             ("K5 flash_attention_bwd_dq", train_src, 118, train_launches["K5"],
              {"cross": measured["K5"]["cross"], "path": "train",
-              "train_cli_launches": train_cli_launches["K5"]}),
+              "train_cli_launches": train_cli_launches["K5"],
+              "sharded_train_launches": sharded_train_launches["K5"]}),
             ("K6 flash_attention_int8", int8_src, 581, int8_launches["K6"],
              {"cross": measured["K6"]["cross"], "path": "main_int8",
-              "full_int8_launches": full_launches["K6"]})):
+              "full_int8_launches": full_launches["K6"],
+              "sharded_int8_launches": sharded_int8_launches["K6"]})):
         rec = measured[name.split()[0]]["self"]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{tpu}:{line}", "launches": launches,

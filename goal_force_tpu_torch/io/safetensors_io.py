@@ -121,10 +121,11 @@ def load_torch_pth(path: str) -> Dict[str, torch.Tensor]:
 # Goal-force ControlNet checkpoints (reference format)
 # ---------------------------------------------------------------------------
 
-def export_goalforce_controlnet(cn: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The ControlNet's state dict under the reference names, float32 on the CPU."""
-    return {CKPT_PREFIX + k: v.detach().to("cpu", torch.float32)
-            for k, v in cn.state_dict().items()}
+def export_goalforce_controlnet(cn) -> Dict[str, torch.Tensor]:
+    """The ControlNet's state dict (or `cn` itself, a state dict of whole tensors) under
+    the reference names, float32 on the CPU."""
+    sd = cn.state_dict() if isinstance(cn, torch.nn.Module) else cn
+    return {CKPT_PREFIX + k: v.detach().to("cpu", torch.float32) for k, v in sd.items()}
 
 
 def load_goalforce_controlnet(path: str) -> Dict[str, torch.Tensor]:
@@ -152,27 +153,30 @@ def param_tensors(params) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _state_tensors(state) -> Dict[str, torch.Tensor]:
+def state_tensors(state) -> Dict[str, torch.Tensor]:
     out = {f"params.{k}": v for k, v in param_tensors(state.params).items()}
     out.update({f"opt.{k}": v for k, v in state.opt_state.items()})
     out["step"] = torch.tensor(int(state.step), dtype=torch.int64)
     return out
 
 
-def save_train_state(state, path: str) -> None:
+def save_train_state(state, path: str, tensors=None) -> None:
     """Write a ``TrainState``: ``params.*`` (``param_tensors``), ``opt.*`` (the
     optimizer's tensors: AdamW ``exp_avg``/``exp_avg_sq``, ``count``, and the
     accumulation buffers when gradients are accumulated) and ``step``, each in its own
-    dtype."""
-    save_safetensors(_state_tensors(state), path)
+    dtype. tensors: ``state_tensors(state)`` made whole (an FSDP-placed state's)."""
+    save_safetensors(state_tensors(state) if tensors is None else tensors, path)
 
 
-def load_train_state(path: str, state):
+def load_train_state(path: str, state, shard=None):
     """Fill ``state`` (built for the same model and optimizer settings) from `path`, in
     place, and return it. A missing, extra or mis-shaped tensor raises: a changed model
-    or optimizer cannot silently load a stale state."""
+    or optimizer cannot silently load a stale state. shard: ``shard(name, tensor)``
+    gives this rank's part of each whole tensor of the file (an FSDP-placed state)."""
     sd = load_safetensors(path)
-    want = _state_tensors(state)
+    if shard is not None:
+        sd = {k: shard(k, v) for k, v in sd.items()}
+    want = state_tensors(state)
     if set(sd) != set(want):
         missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
         raise KeyError(f"{path}: state mismatch (missing {missing[:5]}, unexpected {extra[:5]})")

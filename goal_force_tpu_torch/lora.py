@@ -21,6 +21,11 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 
 from goal_force_tpu_torch.models.wan_dit import WanBlock, WanDiT
+from goal_force_tpu_torch.ops.quant import QuantLinear
+from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel.fsdp import View, split_of
+from goal_force_tpu_torch.parallel.mesh import current_mesh
+from goal_force_tpu_torch.parallel.sharding import TP_SPLIT
 
 Adapters = Dict[str, Dict[str, torch.Tensor]]
 
@@ -42,9 +47,10 @@ DEFAULT_TARGETS = ("q", "k", "v", "o", "ffn.0", "ffn.2")
 
 
 def _linear(blk: WanBlock, target: str) -> torch.nn.Linear:
+    """The target's linear in `blk`, a block or its gathered view (``parallel/fsdp.py``)."""
     grp, leaf = TARGETS[target]
-    layer = blk.get_submodule(f"{grp}.{leaf}")
-    if type(layer) is not torch.nn.Linear:
+    layer = getattr(getattr(blk, grp), leaf)
+    if isinstance(layer, QuantLinear) or not hasattr(layer, "weight"):
         raise TypeError(f"LoRA needs a plain nn.Linear at {grp}.{leaf}, found "
                         f"{type(layer).__name__}")
     return layer
@@ -57,7 +63,11 @@ def init_lora(gen: torch.Generator, dit: WanDiT, rank: int = 32,
     out = {}
     n_layers = len(dit.blocks)
     for name in targets:
+        grp, leaf = TARGETS[name]
         d_out, d_in = _linear(dit.blocks[0], name).weight.shape
+        split = split_of(dit.blocks[0], f"{grp}.{leaf}.weight")   # an FSDP-placed DiT
+        if split is not None and split[0] is not None:
+            d_out, d_in = (d_out * split[1], d_in) if split[0] == 0 else (d_out, d_in * split[1])
         a = torch.randn((n_layers, d_in, rank), generator=gen, device=gen.device) / rank
         out[name] = {"a": a.to(dtype),
                      "b": torch.zeros((n_layers, rank, d_out), dtype=dtype, device=gen.device)}
@@ -81,17 +91,17 @@ class _Linear:
         self.weight, self.bias = weight, bias
 
 
-class _View:
-    """A module's attributes and items, some of them replaced."""
-
-    def __init__(self, module, replaced: Dict):
-        self._module, self._replaced = module, replaced
-
-    def __getattr__(self, name):
-        return self._replaced[name] if name in self._replaced else getattr(self._module, name)
-
-    def __getitem__(self, i):
-        return self._replaced[str(i)] if str(i) in self._replaced else self._module[i]
+def _merged(weight: torch.Tensor, a, b, scale: float) -> torch.Tensor:
+    """``merged_weight``; where `weight` is this rank's tensor-parallel slice of W
+    (under a mesh) the delta is narrowed to the same slice (the adapters stay
+    replicated), and the result carries the slice's mark."""
+    split = getattr(weight, TP_SPLIT, None) if current_mesh() is not None else None
+    if split is None:
+        return merged_weight(weight, a, b, scale)
+    delta = col.shard_of(((a @ b) * scale).to(weight.dtype).T, split[0], "tp")
+    out = weight + delta
+    setattr(out, TP_SPLIT, split)
+    return out
 
 
 def merged_block(blk: WanBlock, lora: Adapters, i: int, alpha: Optional[float] = None,
@@ -105,8 +115,8 @@ def merged_block(blk: WanBlock, lora: Adapters, i: int, alpha: Optional[float] =
         grp, leaf = TARGETS[name]
         layer = _linear(blk, name)
         groups.setdefault(grp, {})[leaf] = _Linear(
-            merged_weight(layer.weight, ab["a"][i], ab["b"][i], scale), layer.bias)
-    return _View(blk, {g: _View(getattr(blk, g), leaves) for g, leaves in groups.items()})
+            _merged(layer.weight, ab["a"][i], ab["b"][i], scale), layer.bias)
+    return View(blk, {g: View(getattr(blk, g), leaves) for g, leaves in groups.items()})
 
 
 @torch.no_grad()

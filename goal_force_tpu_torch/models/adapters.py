@@ -21,6 +21,9 @@ import torch
 from torch import nn
 
 from goal_force_tpu_torch.configs import WanDiTConfig
+from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel import fsdp
+from goal_force_tpu_torch.parallel.mesh import current_mesh
 from goal_force_tpu_torch.models.wan_dit import (
     Activation,
     WanBlock,
@@ -97,13 +100,19 @@ def vace_hints(vace: Vace, dit_cfg: WanDiTConfig, x_tokens: torch.Tensor,
                attn_impl: str = "auto") -> List[torch.Tensor]:
     """The hints, one (B, S, D) per VACE block, for main-stack tokens x_tokens (B, S, D)
     and the channels-last context (B, F, H, W, vace_in_dim); a context of fewer tokens
-    is zero-padded to S."""
+    is zero-padded to S. Under a mesh x_tokens are this rank's tokens (of
+    ``collectives.valid_tokens()``): the context is padded to that count and split as
+    they are, so the hint blocks run on this rank's tokens as the DiT blocks do."""
+    vace = fsdp.gathered(vace, skip=("vace_blocks",))
     c, _ = patchify(vace.vace_patch_embedding, vace_context, dit_cfg.patch_size)
-    if c.shape[1] < x_tokens.shape[1]:
-        c = torch.cat([c, c.new_zeros(c.shape[0], x_tokens.shape[1] - c.shape[1], c.shape[2])],
-                      dim=1)
+    n_tokens = x_tokens.shape[1] if current_mesh() is None else col.valid_tokens()
+    if c.shape[1] < n_tokens:
+        c = torch.cat([c, c.new_zeros(c.shape[0], n_tokens - c.shape[1], c.shape[2])], dim=1)
+    if current_mesh() is not None:
+        c = col.split_seq(c)
     hints = []
     for i, blk in enumerate(vace.vace_blocks):
+        blk = fsdp.gathered(blk)
         if i == 0:
             c = linear(blk.before_proj, c) + x_tokens
         c = dit_block(blk, c, context, t_mod, cos, sin, dit_cfg, attn_impl)

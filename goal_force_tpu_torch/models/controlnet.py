@@ -25,6 +25,7 @@ from goal_force_tpu_torch.models.wan_dit import (
     patchify,
 )
 from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel import fsdp
 from goal_force_tpu_torch.parallel.mesh import current_mesh
 
 
@@ -74,7 +75,15 @@ def init_from_dit(dit, dit_cfg: WanDiTConfig, cfg: ControlNetConfig, gen: torch.
     return cn.eval().requires_grad_(requires_grad)
 
 
+def _block(blk, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl):
+    return dit_block(fsdp.gathered(blk), c, context, t_mod, rope_cos, rope_sin, dit_cfg,
+                     attn_impl)
+
+
 def _block_and_zero_conv(blk, zc, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl):
+    """A side-stack block and its zero conv, their FSDP shards gathered together (one
+    all-gather) inside the block's checkpoint."""
+    blk, zc = fsdp.gathered(blk, zc)
     c = dit_block(blk, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
     return c, F.linear(c, zc.weight[:, :, 0].to(c.dtype), zc.bias.to(c.dtype))
 
@@ -93,22 +102,25 @@ def controlnet_injections(cn: GoalForceControlNet, dit_cfg: WanDiTConfig, contro
     blocks' raw states instead: the strided mode adds them without zero convs, as the
     reference does.
     """
+    cn = fsdp.gathered(cn, skip=("controlnet_dit", "controlnet_zero_convs_after"))
     tokens, _ = patchify(cn.controlnet_patch_embedding.patch_embedding, control_latents,
                          dit_cfg.patch_size)
     if current_mesh() is not None:
         tokens = col.split_seq(tokens)   # the main stream's token split
     out = []
     c = tokens
+    # under a mesh a recompute carries its forward's context (it runs on autograd's thread)
+    carry = col.carry_context if current_mesh() is not None else (lambda f: f)
     if not apply_zero_convs:
         for blk in cn.controlnet_dit.blocks:
             args = (blk, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
-            c = checkpoint(dit_block, *args, use_reentrant=False) if remat else dit_block(*args)
+            c = checkpoint(carry(_block), *args, use_reentrant=False) if remat else _block(*args)
             out.append(c)
         return out
     for blk, zc in zip(cn.controlnet_dit.blocks, cn.controlnet_zero_convs_after):
         args = (blk, zc, c, context, t_mod, rope_cos, rope_sin, dit_cfg, attn_impl)
         if remat:
-            c, inj = checkpoint(_block_and_zero_conv, *args, use_reentrant=False)
+            c, inj = checkpoint(carry(_block_and_zero_conv), *args, use_reentrant=False)
         else:
             c, inj = _block_and_zero_conv(*args)
         out.append(inj)

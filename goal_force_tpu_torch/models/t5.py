@@ -18,6 +18,7 @@ from torch import nn
 
 from goal_force_tpu_torch.configs import T5Config
 from goal_force_tpu_torch.models.wan_dit import Activation, empty_module
+from goal_force_tpu_torch.parallel import fsdp
 
 
 def t5_layer_norm(x, w, eps: float = 1e-6):
@@ -123,7 +124,9 @@ def t5_block(p: T5Block, x, mask_bias, buckets, num_heads: int):
 
 def t5_encode(model: T5Encoder, cfg: T5Config, ids: torch.Tensor, mask: torch.Tensor):
     """ids, mask: (B, L) int -> embeddings (B, L, dim). The caller zeroes the positions
-    past each prompt's length."""
+    past each prompt's length. An FSDP-placed encoder (``parallel/fsdp.py``) has its
+    embedding and final norm gathered once and each block's weights before the block."""
+    model = fsdp.gathered(model, skip=("blocks",), tp=False)
     x = model.token_embedding.weight[ids.long()]
     l = ids.shape[1]
     buckets = torch.from_numpy(relative_buckets(l, l, cfg.num_buckets, cfg.rel_max_dist)
@@ -131,7 +134,7 @@ def t5_encode(model: T5Encoder, cfg: T5Config, ids: torch.Tensor, mask: torch.Te
     neg = torch.finfo(torch.float32).min
     mask_bias = torch.where(mask[:, None, None, :] == 0, neg, 0.0).float()
     for blk in model.blocks:
-        x = t5_block(blk, x, mask_bias, buckets, cfg.num_heads)
+        x = t5_block(fsdp.gathered(blk, tp=False), x, mask_bias, buckets, cfg.num_heads)
     return t5_layer_norm(x, model.norm.weight)
 
 

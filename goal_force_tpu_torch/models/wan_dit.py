@@ -21,7 +21,11 @@ layout JAX's ``constrain`` hints ask of GSPMD with explicit collectives
 columns (the q/k RMSNorm sums its squares over "tp" first, as it spans the whole
 projection), self-attention trades tokens for heads over "sp" (Ulysses, in
 ``ops.attention.sharded_attention``), cross-attention keeps q token-split against every
-text key, and ``o`` and ``ffn.2`` sum their row-parallel outputs over "tp".
+text key (and, in the I2V image branch, against the replicated image keys, each rank on
+its heads of them), and ``o`` and ``ffn.2`` sum their row-parallel outputs over "tp".
+Under grad the collectives are differentiable (``parallel/collectives.py``), and a block
+placed by ``parallel/fsdp.py`` gathers its whole weights inside its checkpoint, holding
+the tensor-parallel slices in the same view.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from goal_force_tpu_torch.ops.attention import attention, sharded_attention
 from goal_force_tpu_torch.ops.quant import QuantLinear
 from goal_force_tpu_torch.ops.rope import apply_rope, assemble_rope, rope_tables_3d
 from goal_force_tpu_torch.parallel import collectives as col
-from goal_force_tpu_torch.parallel.mesh import axis_rank, axis_size, current_mesh
+from goal_force_tpu_torch.parallel import fsdp
+from goal_force_tpu_torch.parallel.mesh import axis_size, current_mesh
 from goal_force_tpu_torch.parallel.sharding import tp_dim
 
 
@@ -56,10 +61,16 @@ def linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.weight, layer.bias)
 
 
-def linear_col(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def linear_col(layer: nn.Module, x: torch.Tensor, copied: bool = False) -> torch.Tensor:
     """``linear``; for a column-parallel weight placed on the ambient mesh, this rank's
-    output columns (with its columns of the replicated bias)."""
+    output columns (with its columns of the replicated bias). Under grad the replicated
+    input's gradient is summed over "tp" (``copy_to``), unless the caller did so
+    (`copied`) for several linears of one input."""
     if tp_dim(layer) == 0:
+        x = x if copied else col.copy_to(x)
+        if isinstance(layer, QuantLinear):
+            return layer.forward_fn(x, layer.weight, layer.weight_scale,
+                                    col.shard_of(layer.bias, 0))
         return F.linear(x, layer.weight, col.shard_of(layer.bias, 0))
     return linear(layer, x)
 
@@ -67,11 +78,23 @@ def linear_col(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
 def linear_row(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``linear``; for a row-parallel weight placed on the ambient mesh, the sum over
     "tp" of every rank's partial product, the bias added by the axis's first rank (so
-    over an axis of one the result is ``linear``'s, bit for bit)."""
+    over an axis of one the result is ``linear``'s, bit for bit). A W8A8/fp8 pack sums
+    its accumulators instead, and rescales them as the whole product would be."""
     if tp_dim(layer) == 1:
-        bias = layer.bias if axis_rank("tp") == 0 else None
-        return col.all_reduce(F.linear(x, layer.weight, bias))
+        if isinstance(layer, QuantLinear):
+            # the per-token activation scale is the amax over the whole input row, and
+            # the ranks' accumulators are summed before the rescale (and the bias)
+            return layer.forward_fn(x, layer.weight, layer.weight_scale, layer.bias,
+                                    row_amax=_row_amax(x), reduce=col.all_reduce)
+        return col.all_reduce(F.linear(x, layer.weight, col.first_rank_bias(layer.bias)))
     return linear(layer, x)
+
+
+def _row_amax(x: torch.Tensor) -> torch.Tensor:
+    """The amax of each row of x (..., K/tp) over the whole row, every rank's columns:
+    one all-reduce (max) over "tp"."""
+    amax = x.float().abs().amax(dim=-1, keepdim=True)
+    return col.all_reduce_max(amax)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -89,7 +112,7 @@ def rms_norm_of(proj: nn.Module, x: torch.Tensor, w: torch.Tensor, eps: float) -
     if tp_dim(proj) != 0:
         return rms_norm(x, w, eps)
     xf = x.float()
-    ms = col.all_reduce(xf.square().mean(dim=-1, keepdim=True) / axis_size("tp"))
+    ms = col.all_reduce(xf.square().mean(dim=-1, keepdim=True) / axis_size("tp"), shared=True)
     n = xf * torch.rsqrt(ms + eps)
     return n.to(x.dtype) * col.shard_of(w, 0)
 
@@ -250,9 +273,11 @@ def _sharded_qkv(p: WanAttention, x, kv, num_heads: int, eps: float):
     own. Under a mesh they are this rank's tensor-parallel columns (the q/k norms over
     the whole projection), or every column where a rank's columns would cut heads (then
     not its own); without one, every column."""
-    q = rms_norm_of(p.q, linear_col(p.q, x), p.norm_q.weight, eps)
-    k = rms_norm_of(p.k, linear_col(p.k, kv), p.norm_k.weight, eps)
-    v = linear_col(p.v, kv)
+    xs = col.copy_to(x) if tp_dim(p.q) == 0 else x
+    kvs = xs if kv is x else (col.copy_to(kv) if tp_dim(p.k) == 0 else kv)
+    q = rms_norm_of(p.q, linear_col(p.q, xs, copied=True), p.norm_q.weight, eps)
+    k = rms_norm_of(p.k, linear_col(p.k, kvs, copied=True), p.norm_k.weight, eps)
+    v = linear_col(p.v, kvs, copied=True)
     own = tp_dim(p.q) != 0 or num_heads % axis_size("tp") == 0
     if not own:
         q, k, v = (col.gather_cols(u) for u in (q, k, v))
@@ -279,11 +304,10 @@ def cross_attention(p: WanAttention, x, context, num_heads: int, eps: float,
     """Text cross-attention over every context token (no mask). With num_img_tokens > 0
     the first tokens of `context` are image tokens, attended through k_img/v_img with the
     same queries; the two attentions' outputs are added before ``o``. Under a mesh q
-    keeps this rank's tokens against every text key: no exchange before the kernel."""
+    keeps this rank's tokens against every text key: no exchange before the kernel; the
+    image keys are projected whole (their norm spans every head) and each rank keeps its
+    heads of them."""
     b, s, d = x.shape
-    if num_img_tokens and current_mesh() is not None:
-        raise NotImplementedError("the image branch under a mesh is not ported yet "
-                                  "(ROADMAP M13a-train)")
     img, ctx = context[:, :num_img_tokens], context[:, num_img_tokens:]
     t = ctx.shape[1]
     hd = d // num_heads
@@ -295,8 +319,10 @@ def cross_attention(p: WanAttention, x, context, num_heads: int, eps: float,
         k_img = rms_norm(linear(p.k_img, img), p.norm_k_img.weight, eps).reshape(
             b, num_img_tokens, num_heads, -1)
         v_img = linear(p.v_img, img).reshape(b, num_img_tokens, num_heads, -1)
+        if own and q.shape[2] != num_heads:       # this rank's heads of the image keys
+            k_img, v_img = col.shard_of(k_img, 2), col.shard_of(v_img, 2)
         out = out + attention(q, k_img, v_img, impl=attn_impl,
-                              bounded=bounded).reshape(b, s, d)
+                              bounded=bounded).reshape(b, s, -1)
     return linear_row(p.o, out if own else col.shard_of(out, 2))
 
 
@@ -332,8 +358,11 @@ def feed_forward(p: WanBlock, h: torch.Tensor) -> torch.Tensor:
     return (out[0] if len(out) == 1 else torch.cat(out)).reshape(*h.shape[:-1], -1)
 
 
-def _block_with_weights(block_weights, i, blk, *args):
-    return dit_block(block_weights(i, blk), *args)
+def _run_block(block_weights, i, blk, *args):
+    """Block i on its whole weights (gathered here, inside the block's checkpoint, where
+    the block is FSDP-placed: ``parallel/fsdp.py``), merged by `block_weights`."""
+    blk = fsdp.gathered(blk)
+    return dit_block(blk if block_weights is None else block_weights(i, blk), *args)
 
 
 def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,
@@ -354,9 +383,10 @@ def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: Wan
     n_inj = 0 if injections is None else len(injections)
     for i in range(start, len(blocks) if stop is None else stop):
         blk = blocks[i]
-        fn = dit_block if block_weights is None else partial(_block_with_weights,
-                                                             block_weights, i)
+        fn = partial(_run_block, block_weights, i)
         if remat:
+            if current_mesh() is not None:       # the recompute runs on autograd's thread
+                fn = col.carry_context(fn)
             x = checkpoint(fn, blk, x, context, t_mod, cos, sin, cfg, attn_impl,
                            num_img_tokens, use_reentrant=False)
         else:
@@ -414,7 +444,16 @@ def wan_dit_forward(model: WanDiT, cfg: WanDiTConfig, x, timestep, context, y=No
     """Base-model velocity (B, F, H, W, out_dim) for latents x (B, F, H, W, C),
     timestep (B,), context (B, L, text_dim) and optional conditioning y. clip_feature
     (B, T, clip_dim), the image encoder's tokens, is used only where
-    ``cfg.has_image_input``: its embedding goes in front of the text context."""
+    ``cfg.has_image_input``: its embedding goes in front of the text context. Under a
+    mesh the batch splits over "dp" (where it divides) and the patch tokens over "sp",
+    as in ``pipelines/model_fn.py::denoise_forward``; the image and text keys stay whole
+    on every rank, and every rank returns the whole output."""
+    mesh = current_mesh()
+    dp_split = mesh is not None and x.shape[0] % axis_size("dp") == 0
+    if dp_split:
+        x, timestep, context, y, clip_feature = (col.split_batch(u) for u in (
+            x, timestep, context, y, clip_feature))
+    model = fsdp.gathered(model, skip=("blocks",))
     t, t_mod = time_embed(model, cfg, timestep)
     context = text_embed(model, context)
     num_img_tokens = 0
@@ -426,10 +465,16 @@ def wan_dit_forward(model: WanDiT, cfg: WanDiTConfig, x, timestep, context, y=No
         x = torch.cat([x, y.to(x.dtype)], dim=-1)
     tokens, grid = patchify(model.patch_embedding, x, cfg.patch_size)
     cos, sin = rope_for_grid(cfg, grid, tokens.device)
-    tokens = run_blocks(model.blocks, tokens, context, t_mod, cos, sin, cfg,
-                        attn_impl=attn_impl, num_img_tokens=num_img_tokens)
-    out = head(model.head, tokens, t, cfg.eps)
-    return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
+    n_tokens = tokens.shape[1]
+    if mesh is not None:
+        tokens, cos, sin = (col.split_seq(u, d) for u, d in ((tokens, 1), (cos, 0), (sin, 0)))
+    with col.sequence_split(n_tokens):
+        tokens = run_blocks(model.blocks, tokens, context, t_mod, cos, sin, cfg,
+                            attn_impl=attn_impl, num_img_tokens=num_img_tokens)
+    if mesh is not None:
+        tokens = col.gather_seq(tokens, n_tokens)
+    out = unpatchify(head(model.head, tokens, t, cfg.eps), grid, cfg.patch_size, cfg.out_dim)
+    return col.gather_batch(out) if dp_split else out
 
 
 # ---------------------------------------------------------------------------

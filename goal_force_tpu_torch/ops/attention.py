@@ -65,6 +65,20 @@ def attention(q, k, v, impl: str = "auto", scale: float | None = None,
     return plain_attention(q, k, v, scale, bias, kv_len)
 
 
+def _attend(q, k, v, impl, scale, bounded, kv_len):
+    """``attention`` with the keys past kv_len masked. Under grad the training kernels
+    (K3, K4/K5) take no kv_len: the valid tokens, a prefix, attend among themselves and
+    the padded rows' output is zero (their gradient is dropped with them), which is the
+    same function on every valid row."""
+    if kv_len is not None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        out = attention(q[:, :kv_len], k[:, :kv_len], v[:, :kv_len], impl=impl, scale=scale,
+                        bounded=bounded)
+        pad = out.new_zeros((q.shape[0], q.shape[1] - kv_len, *out.shape[2:]))
+        return torch.cat([out, pad], dim=1)
+    return attention(q, k, v, impl=impl, scale=scale, bounded=bounded, kv_len=kv_len)
+
+
 def sharded_attention(q, k, v, impl: str = "auto", scale: float | None = None,
                       bounded: bool = False) -> torch.Tensor:
     """Self-attention of q, k, v (B, S/sp, N', H) holding this rank's tokens (split
@@ -73,11 +87,12 @@ def sharded_attention(q, k, v, impl: str = "auto", scale: float | None = None,
 
     Where "sp" divides N' the tokens are traded for heads (``seq_to_heads``), the
     dispatch of ``attention`` runs on this rank's N'/sp heads over every token (K1, or
-    K2 through "auto", on a contiguous buffer) and ``heads_to_seq`` trades back. Where
-    it does not, JAX computes plain attention on the whole tensor; here every rank
-    gathers every token and runs the same dispatch on every head, then keeps its
-    tokens. Padded keys (past ``collectives.valid_tokens()``) are masked. Without a mesh
-    it is ``attention``."""
+    K2 through "auto", on a contiguous buffer; K3, then K4/K5 in the backward, under
+    grad, whose backward exchanges hand the kernels a contiguous gradient) and
+    ``heads_to_seq`` trades back. Where it does not, JAX computes plain attention on the
+    whole tensor; here every rank gathers every token and runs the same dispatch on
+    every head, then keeps its tokens (under grad, every rank's gradient of them). Padded keys (past ``collectives.valid_tokens()``)
+    are masked (``_attend``). Without a mesh it is ``attention``."""
     from goal_force_tpu_torch.parallel import collectives as col
     from goal_force_tpu_torch.parallel.mesh import axis_size, current_mesh
 
@@ -88,8 +103,9 @@ def sharded_attention(q, k, v, impl: str = "auto", scale: float | None = None,
     kv_len = valid if valid is not None and valid != q.shape[1] * n else None
     if q.shape[2] % n == 0:
         q, k, v = (col.seq_to_heads(t) for t in (q, k, v))
-        out = attention(q, k, v, impl=impl, scale=scale, bounded=bounded, kv_len=kv_len)
-        return col.heads_to_seq(out)
+        return col.heads_to_seq(_attend(q, k, v, impl, scale, bounded, kv_len))
+    # the gathered tokens are the padded sequence, so each rank's slice is a plain
+    # shard: under grad its backward gathers the whole gradient, as the replicated
+    # attention before it needs
     q, k, v = (col.gather_seq(t) for t in (q, k, v))
-    out = attention(q, k, v, impl=impl, scale=scale, bounded=bounded, kv_len=kv_len)
-    return col.split_seq(out)
+    return col.shard_of(_attend(q, k, v, impl, scale, bounded, kv_len), 1, "sp")

@@ -67,41 +67,53 @@ def _matmul_codes(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return acc[:m] if pad else acc
 
 
-def _quant_linear(x, weight, weight_scale, bias, qmax: float, code_dtype) -> torch.Tensor:
+def _quant_linear(x, weight, weight_scale, bias, qmax: float, code_dtype,
+                  row_amax=None, reduce=None) -> torch.Tensor:
     """The W8A8 / fp8 linear on (..., K) x, chunked over rows: each row has its own
-    activation scale, so chunking computes the same function."""
+    activation scale, so chunking computes the same function. A row-parallel linear
+    under a mesh, whose x holds some of each row's columns and whose codes the matching
+    input columns, passes row_amax (..., 1), each row's amax over the whole row, and
+    `reduce`, which sums each chunk's accumulator over the ranks (exact for int8's
+    int32) before the rescale."""
     k, n = x.shape[-1], weight.shape[0]
     rows = x.reshape(-1, k)
+    amax = None if row_amax is None else row_amax.reshape(-1, 1)
 
-    def chunk(xs: torch.Tensor) -> torch.Tensor:
+    def chunk(xs: torch.Tensor, am) -> torch.Tensor:
         xf = xs.float()
-        x_scale = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / qmax
+        if am is None:
+            am = xf.abs().amax(dim=-1, keepdim=True)
+        x_scale = am.clamp(min=1e-8) / qmax
         xf = xf / x_scale
         xq = torch.round(xf).to(code_dtype) if code_dtype == torch.int8 else xf.to(code_dtype)
         del xf
-        y = _matmul_codes(xq, weight).float() * x_scale * weight_scale
+        acc = _matmul_codes(xq, weight)
+        if reduce is not None:
+            acc = reduce(acc)
+        y = acc.float() * x_scale * weight_scale
         if bias is not None:
             y = y + bias.float()
         return y.to(x.dtype)
 
     step = _rows_per_chunk(k, n)
     if rows.shape[0] <= step:
-        return chunk(rows).reshape(*x.shape[:-1], n)
+        return chunk(rows, amax).reshape(*x.shape[:-1], n)
     out = torch.empty((rows.shape[0], n), dtype=x.dtype, device=x.device)
     for r0 in range(0, rows.shape[0], step):
-        out[r0:r0 + step] = chunk(rows[r0:r0 + step])
+        out[r0:r0 + step] = chunk(rows[r0:r0 + step],
+                                  None if amax is None else amax[r0:r0 + step])
     return out.reshape(*x.shape[:-1], n)
 
 
-def int8_linear(x, weight, weight_scale, bias=None) -> torch.Tensor:
+def int8_linear(x, weight, weight_scale, bias=None, row_amax=None, reduce=None) -> torch.Tensor:
     """W8A8: per-token dynamic int8 activations, int8 x int8 -> int32, rescale."""
-    return _quant_linear(x, weight, weight_scale, bias, 127.0, torch.int8)
+    return _quant_linear(x, weight, weight_scale, bias, 127.0, torch.int8, row_amax, reduce)
 
 
-def fp8_linear(x, weight, weight_scale, bias=None) -> torch.Tensor:
+def fp8_linear(x, weight, weight_scale, bias=None, row_amax=None, reduce=None) -> torch.Tensor:
     """scaled_mm semantics: per-token dynamic e4m3 activations, float32 accumulation,
     rescale by x_scale * w_scale."""
-    return _quant_linear(x, weight, weight_scale, bias, FP8_MAX, FP8)
+    return _quant_linear(x, weight, weight_scale, bias, FP8_MAX, FP8, row_amax, reduce)
 
 
 class QuantLinear(nn.Module):

@@ -109,3 +109,45 @@ def axis_rank(axis: str) -> int:
 def axis_group(axis: str):
     """The process group of `axis` of the ambient mesh."""
     return current_mesh().get_group(axis)
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axes_size(axes) -> int:
+    """The product of the sizes of `axes` on the ambient mesh; 1 without one."""
+    n = 1
+    for a in _axes(axes):
+        n *= axis_size(a)
+    return n
+
+
+def axes_rank(axes) -> int:
+    """This process's index in the group of `axes` (the first axis major, as JAX
+    orders a spec's axis tuple); 0 without a mesh."""
+    r = 0
+    for a in _axes(axes):
+        r = r * axis_size(a) + axis_rank(a)
+    return r
+
+
+def axes_group(axes):
+    """The process group of the ranks that differ from this one only along `axes`
+    (several axes at once, e.g. FSDP's ("dp", "sp")). Axes of size one are dropped, so
+    one axis left is that axis's group; a group of several is made on first use by its
+    own members (``use_local_synchronization``) and kept on the mesh."""
+    mesh = current_mesh()
+    axes = tuple(a for a in _axes(axes) if axis_size(a) > 1) or _axes(axes)[:1]
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_gf_axes_groups", {})
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        me = dist.get_rank()
+        row = next(r for r in mesh.mesh.permute(*rest, *dims).reshape(-1, axes_size(axes)).tolist()
+                   if me in r)
+        cache[axes] = dist.new_group(ranks=row, use_local_synchronization=True)
+    return cache[axes]

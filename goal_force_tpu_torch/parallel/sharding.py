@@ -1,8 +1,8 @@
 """Tensor-parallel placement of the DiT and ControlNet parameters.
 
 Port of ``goal_force_tpu/parallel/sharding.py``'s inference half
-(``inference_param_specs``, ``place``; ``fsdp_specs`` belongs to sharded training,
-ROADMAP M13a-train). A spec is one entry per dimension of the parameter: "tp" where the
+(``inference_param_specs``, ``place``; its training half, ``fsdp_specs``, is in
+``parallel/fsdp.py``). A spec is one entry per dimension of the parameter: "tp" where the
 dimension is split over the tensor axis, None where it is whole. The rules are JAX's,
 matched on the JAX leaf names through the names of the port (torch's (out, in) weights):
 
@@ -77,27 +77,37 @@ def place(module: nn.Module, mesh, specs: Optional[Dict[str, Spec]] = None) -> n
     A parameter placed for the same split stays as it is (the host stager's pairs and
     the pipeline's models share modules); one placed over an axis of one holds the
     whole tensor and takes the new split; one that holds a slice of another split
-    raises ValueError. Returns the module."""
+    raises ValueError. W8A8/fp8 packs (``ops/quant.py``) split as JAX splits theirs: a
+    column-parallel pack its codes' rows and its per-output scales, a row-parallel pack
+    its codes' columns only (each output's scale is the amax over its whole input row);
+    the pack module carries the mark. Returns the module."""
     from goal_force_tpu_torch.ops.quant import QuantLinear
 
-    if any(isinstance(m, QuantLinear) for m in module.modules()):
-        raise NotImplementedError("int8/fp8 packs under a mesh are not ported yet "
-                                  "(ROADMAP M13a-train)")
     specs = inference_param_specs(module, mesh) if specs is None else specs
     sizes = axis_sizes(mesh)
-    for name, p in module.named_parameters():
-        dims = [d for d, axis in enumerate(specs[name]) if axis is not None]
-        split = None
-        if dims:
-            axis = specs[name][dims[0]]
-            split = (dims[0], sizes[axis], mesh.get_local_rank(axis))
-        placed = getattr(p, TP_SPLIT, None)
+    packs = {n: m for n, m in module.named_modules() if isinstance(m, QuantLinear)}
+
+    def split_of(spec):
+        dims = [d for d, axis in enumerate(spec) if axis is not None]
+        if not dims:
+            return None
+        axis = spec[dims[0]]
+        return (dims[0], sizes[axis], mesh.get_local_rank(axis))
+
+    def settle(name, placed, split):
+        """True where the tensor needs no new slice."""
         if placed == split:
-            continue
+            return True
         if placed is not None and placed[1] > 1:
             raise ValueError(f"{name} holds rank {placed[2]}'s slice of {placed[1]} along "
                              f"dim {placed[0]}, not the split {split}: place a module "
                              "that holds whole tensors")
+        return False
+
+    for name, p in module.named_parameters():
+        split = split_of(specs[name])
+        if settle(name, getattr(p, TP_SPLIT, None), split):
+            continue
         if split is None:
             delattr(p, TP_SPLIT)
             continue
@@ -106,12 +116,28 @@ def place(module: nn.Module, mesh, specs: Optional[Dict[str, Spec]] = None) -> n
             per = p.shape[d] // n
             p.data = p.data.narrow(d, rank * per, per).clone()
         setattr(p, TP_SPLIT, split)
+    for prefix, pack in packs.items():
+        name = f"{prefix}.weight"
+        spec = _divisible(leaf_spec(name, 2), pack.weight.shape, sizes)
+        split = split_of(spec)
+        if settle(name, getattr(pack, TP_SPLIT, None), split):
+            continue
+        if split is not None and split[1] > 1:
+            d, n, rank = split
+            per = pack.weight.shape[d] // n
+            pack.weight = pack.weight.narrow(d, rank * per, per).clone()
+            if d == 0:
+                pack.weight_scale = pack.weight_scale.narrow(0, rank * per, per).clone()
+        setattr(pack, TP_SPLIT, split)
     return module
 
 
-def tp_dim(layer: nn.Module) -> Optional[int]:
-    """The split dimension of a placed linear's weight under the ambient mesh."""
+def tp_dim(layer) -> Optional[int]:
+    """The split dimension of a placed linear's weight (or pack) under the ambient
+    mesh."""
     from goal_force_tpu_torch.parallel.mesh import current_mesh
 
-    split = getattr(layer.weight, TP_SPLIT, None) if current_mesh() is not None else None
+    if current_mesh() is None:
+        return None
+    split = getattr(layer, TP_SPLIT, None) or getattr(layer.weight, TP_SPLIT, None)
     return None if split is None else split[0]

@@ -44,8 +44,8 @@ Multi-GPU serving (``shard``): one process per GPU (``torchrun``), each building
 same pipeline and calling ``pipe.shard(make_mesh(dp, sp, tp))``; then every rank calls
 ``pipe(...)`` or ``generate_batch(...)`` with the same arguments and gets the whole
 result. Tokens split over "sp" (Ulysses self-attention), heads and FFN columns over
-"tp", batch rows over "dp" (``parallel/``). VACE, the I2V image branch and int8/fp8
-packs under a mesh raise (ROADMAP M13a-train).
+"tp", batch rows over "dp" (``parallel/``); VACE's hint blocks take each rank's
+tokens as the DiT blocks do, and int8/fp8 packs split as JAX splits them.
 
 Everything runs on the pipeline's device, which is CUDA unless the caller asks for the
 CPU.
@@ -453,9 +453,10 @@ class GoalForcePipeline:
     def shard(self, mesh, host_stage_experts: bool = False,
               pp_microbatches: Optional[int] = None) -> "GoalForcePipeline":
         """Serve over `mesh` (``parallel/mesh.py::make_mesh``), as JAX's ``shard`` does:
-        every DiT and ControlNet parameter keeps this rank's tensor-parallel shard
+        every DiT, ControlNet and VACE parameter keeps this rank's tensor-parallel shard
         (``parallel/sharding.py``: q, k, v and ``ffn.0`` by columns, o and ``ffn.2`` by
-        rows), everything else stays replicated, and the mesh is kept, so ``__call__`` and
+        rows; W8A8/fp8 packs their codes, and the per-output scales of the column-
+        parallel ones), everything else stays replicated, and the mesh is kept, so ``__call__`` and
         ``generate_batch`` split tokens over "sp" and batch rows over "dp". Every rank
         calls them with the same arguments and gets the whole result.
 
@@ -479,7 +480,7 @@ class GoalForcePipeline:
                           pin_memory=self.device.type == "cuda")
         elif host_stage_experts:
             self.host_stage_experts(device_place=place_pair)
-        for name in ("dit", "dit2", "controlnet", "controlnet2"):
+        for name in ("dit", "dit2", "controlnet", "controlnet2", "vace"):
             if name in self.models:
                 place(self.models[name], mesh)
         return self

@@ -17,7 +17,11 @@ Under a mesh (``parallel/mesh.py::use_mesh``) ``denoise_forward`` splits the bat
 "dp" (where the axis divides it) and the patch tokens over "sp" after the patch
 embedding (padded to a multiple of the axis), hands each rank its rows of the RoPE
 tables, and gathers tokens and batch before the head: every rank returns the whole
-output, equal to the unsharded one.
+output, equal to the unsharded one. With ``rows_split`` (the training step) the caller
+has split the batch over "dp" already and each rank keeps its rows. Where a module is
+FSDP-placed (``parallel/fsdp.py``) its whole weights are gathered where they are used:
+the DiT's embeddings before the blocks and its head after them, each block inside its
+checkpoint.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from goal_force_tpu_torch.models.wan_dit import (
     unpatchify,
 )
 from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel import fsdp
 from goal_force_tpu_torch.parallel.mesh import axis_size, current_mesh
 
 
@@ -67,6 +72,7 @@ def denoise_forward(
     vace_layers: Sequence[int] = (),
     reference_latents: Optional[torch.Tensor] = None,  # (B, h, w, z) Fun-Reference
     camera_embedding: Optional[torch.Tensor] = None,   # (B, S, D) camera adapter tokens
+    rows_split: bool = False,
 ):
     """Velocity prediction (B, F, H, W, out_dim). remat: recompute every DiT and
     ControlNet block in the backward pass (the training path).
@@ -83,16 +89,20 @@ def denoise_forward(
     head; with a strided ControlNet (controlnet_cfg.stride = s) the side stack's raw
     states are added after blocks 0, s, 2s, ...; VACE hints are added after the blocks
     of vace_layers, scaled by vace_scale. Fun-Reference and VACE each refuse the
-    goal-force ControlNet."""
+    goal-force ControlNet.
+
+    rows_split: under a mesh, the inputs are this rank's rows of the batch already (split
+    over "dp" by the caller), and so is the output."""
     mesh = current_mesh()
-    if mesh is not None and vace is not None and vace_context is not None:
-        raise NotImplementedError("VACE under a mesh is not ported yet (ROADMAP M13a-train)")
-    dp_split = mesh is not None and latents.shape[0] % axis_size("dp") == 0
+    dp_split = (mesh is not None and not rows_split
+                and latents.shape[0] % axis_size("dp") == 0)
     if dp_split:
         latents, timestep, context, y, control_latents, t_mod_offset, reference_latents, \
-            camera_embedding = (col.split_batch(u) for u in (
+            camera_embedding, vace_context = (col.split_batch(u) for u in (
                 latents, timestep, context, y, control_latents, t_mod_offset,
-                reference_latents, camera_embedding))
+                reference_latents, camera_embedding, vace_context))
+    blocks, head_ = dit.blocks, dit.head
+    dit = fsdp.gathered(dit, skip=("blocks", "head"))      # the embeddings, until the blocks
     t, t_mod = time_embed(dit, dit_cfg, timestep)
     if t_mod_offset is not None:
         t_mod = t_mod + t_mod_offset.to(t_mod.dtype)
@@ -124,14 +134,15 @@ def denoise_forward(
     if mesh is not None:
         tokens, cos, sin = (col.split_seq(u, dim) for u, dim in ((tokens, 1), (cos, 0), (sin, 0)))
     with col.sequence_split(n_tokens):
-        tokens = _blocks(dit, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet,
+        del dit
+        tokens = _blocks(blocks, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet,
                          controlnet_cfg, control_latents, use_cn, attn_impl, remat,
                          block_weights, vace, vace_context, vace_scale, vace_layers)
     if mesh is not None:
         tokens = col.gather_seq(tokens, n_tokens)
     if n_ref:
         tokens = tokens[:, n_ref:]
-    out = head(dit.head, tokens, t, dit_cfg.eps)
+    out = head(fsdp.gathered(head_), tokens, t, dit_cfg.eps)
     out = unpatchify(out, grid, dit_cfg.patch_size, dit_cfg.out_dim)
     gather = col.gather_batch if dp_split else (lambda u: u)
     if return_token_states:
@@ -139,7 +150,7 @@ def denoise_forward(
     return gather(out)
 
 
-def _blocks(dit, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet, controlnet_cfg,
+def _blocks(blocks, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet, controlnet_cfg,
             control_latents, use_cn, attn_impl, remat, block_weights, vace, vace_context,
             vace_scale, vace_layers):
     """The block stack with the ControlNet's injections (or its strided raw states, or
@@ -150,7 +161,7 @@ def _blocks(dit, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet, controlnet_c
         inj = controlnet_injections(controlnet, dit_cfg, control_latents.to(tokens.dtype),
                                     ctx, t_mod, cos, sin, attn_impl=attn_impl, remat=remat,
                                     apply_zero_convs=stride is None)
-    run = partial(run_blocks, dit.blocks, context=ctx, t_mod=t_mod, cos=cos, sin=sin,
+    run = partial(run_blocks, blocks, context=ctx, t_mod=t_mod, cos=cos, sin=sin,
                   cfg=dit_cfg, attn_impl=attn_impl, remat=remat, block_weights=block_weights)
     n_layers = dit_cfg.num_layers
     if stride is not None:

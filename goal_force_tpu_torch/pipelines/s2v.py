@@ -191,6 +191,12 @@ class S2VPipeline:
     # Generation
     # ------------------------------------------------------------------
 
+    def shard(self, mesh) -> "S2VPipeline":
+        """Serving over a mesh: not ported yet. JAX's S2V pipeline runs under its
+        ``mesh`` as GSPMD hints over the same activations the VAE's spatial split
+        covers (ROADMAP M13a-vae)."""
+        raise NotImplementedError("S2V under a mesh is not ported yet (ROADMAP M13a-vae)")
+
     def __call__(self, *args, **kwargs) -> np.ndarray:
         return self._generate(*args, **kwargs)
 

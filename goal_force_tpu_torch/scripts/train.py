@@ -16,15 +16,21 @@ expert jointly with the ControlNet, and ``step-K`` then holds their PEFT keys to
 The frozen models are bf16.
 
 The port adds ``--device`` (``cuda`` by default; a run without a card raises unless
-``--device cpu`` is given). ``--dp/--sp/--tp/--pp`` above 1 (multi-GPU, ROADMAP M13)
-are not ported yet and raise. ``--controlnet_stride s`` trains a strided ControlNet:
+``--device cpu`` is given). ``--dp/--sp/--tp`` above 1 train over a mesh, as JAX's
+``scripts/train.py:104-107`` does: one process per GPU, started by
+``torchrun --nproc_per_node N -m goal_force_tpu_torch.scripts.train --dp .. --sp ..
+--tp ..`` (N = dp * sp * tp), every process loading the files; ``make_mesh`` starts the
+process group from torchrun's environment, the frozen models and the ControlNet keep
+their FSDP shards (``parallel/fsdp.py``) and rank 0 writes the checkpoints. ``--pp``
+above 1 (pipeline parallel, ROADMAP M13b) is not ported yet and raises.
+``--controlnet_stride s`` trains a strided ControlNet:
 its blocks copy expert blocks 0, s, 2s, ... and their raw states are added after those
 blocks (no zero convs), each segment between them under remat.
 
-At the A14B default the run does not fit one 80 GB card yet: the frozen expert, T5,
-the ControlNet with its AdamW state and the untiled VAE encodes of a step exceed it
-(the JAX package fits it by sharding over a mesh; ROADMAP M8's training half). Cut
-depth runs on one card.
+At the A14B default the run does not fit one 80 GB card: the frozen expert, T5,
+the ControlNet with its AdamW state and the untiled VAE encodes of a step exceed it.
+Shard it over several cards (--dp/--sp/--tp, as the JAX package fits it), or cut its
+depth to run on one.
 
 ``main`` is four steps that other scripts can call in turn: ``parse_args``,
 ``load_models`` (its configs can be replaced, as for a checkpoint of cut depth),
@@ -40,8 +46,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-_HELP_FIT = ("at the A14B default the run does not fit one 80 GB card yet (ROADMAP M8's "
-             "training half); cut depth does")
+_HELP_FIT = ("at the A14B default the run does not fit one 80 GB card; shard it over "
+             "several (--dp/--sp/--tp under torchrun) or cut its depth")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -83,7 +89,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--width", type=int, default=832)
     for axis in ("dp", "sp", "tp", "pp"):
         p.add_argument(f"--{axis}", type=int, default=1,
-                       help="mesh axis; above 1 not ported yet (ROADMAP M13)")
+                       help="mesh axis (run under torchrun); --pp above 1 is not "
+                            "ported yet (ROADMAP M13b)")
     p.add_argument("--pp_microbatches", type=int, default=2)
     p.add_argument("--use_wandb", action="store_true",
                    help="also log to wandb (JSONL only where wandb does not import)")
@@ -95,17 +102,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def check_supported(args) -> None:
-    mesh = {a: getattr(args, a) for a in ("dp", "sp", "tp", "pp") if getattr(args, a) > 1}
-    if mesh:
-        raise NotImplementedError(f"{mesh}: multi-GPU training is not ported yet (ROADMAP M13)")
+    if args.pp > 1:
+        raise NotImplementedError(f"--pp {args.pp}: pipeline-parallel training is not ported "
+                                  "yet (ROADMAP M13b)")
 
 
 def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
     """The frozen models read strictly from the files of `args` and the initial
     ControlNet (copied from the expert's first blocks, a patch embedding drawn from
     seed 0, zero convs at 0): {"frozen": {dit, t5, vae}, "controlnet", "tokenizer",
-    "dit_cfg", "t5_cfg", "vae_cfg", "cn_cfg"}. `configs_` (dit_cfg, t5_cfg, vae_cfg)
-    replace the A14B ones."""
+    "dit_cfg", "t5_cfg", "vae_cfg", "cn_cfg", "mesh"}. `configs_` (dit_cfg, t5_cfg,
+    vae_cfg) replace the A14B ones. With --dp/--sp/--tp above 1 the mesh is made first
+    (its process group picks this process's GPU) and every model is placed by
+    ``fsdp_specs``; "mesh" is None otherwise."""
     from goal_force_tpu_torch import configs
     from goal_force_tpu_torch.models import controlnet as cnm
     from goal_force_tpu_torch.models import t5 as t5m
@@ -119,7 +128,13 @@ def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
         vae_state_dict,
     )
 
+    from goal_force_tpu_torch.parallel.fsdp import place_fsdp
+    from goal_force_tpu_torch.parallel.mesh import make_mesh
+
     check_supported(args)
+    mesh = None
+    if args.dp * args.sp * args.tp > 1:
+        mesh = make_mesh(args.dp, args.sp, args.tp, device=args.device)
     device = resolve_device(args.device)
     dit_cfg = configs_.get("dit_cfg", configs.WAN22_A14B)
     t5_cfg = configs_.get("t5_cfg", configs.UMT5_XXL)
@@ -137,7 +152,10 @@ def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
               "vae": load(vaem.WanVAE, vae_cfg, args.vae_path, vae_state_dict)}
     cn = cnm.init_from_dit(frozen["dit"], dit_cfg, cn_cfg, torch.Generator(device).manual_seed(0),
                            dtype, device=device)
-    return {"frozen": frozen, "controlnet": cn,
+    if mesh is not None:
+        for m in (*frozen.values(), cn):
+            place_fsdp(m, mesh)
+    return {"frozen": frozen, "controlnet": cn, "mesh": mesh,
             "tokenizer": load_tokenizer(args.tokenizer_path, t5_cfg.vocab, t5_cfg.text_len),
             "dit_cfg": dit_cfg, "t5_cfg": t5_cfg, "vae_cfg": vae_cfg, "cn_cfg": cn_cfg}
 
@@ -188,7 +206,7 @@ def run(args, models: Dict, dataset, history: Optional[list] = None, **overrides
     return train(dataclasses.replace(cfg, **overrides), models["dit_cfg"], models["t5_cfg"],
                  models["vae_cfg"], models["cn_cfg"], models["frozen"], models["controlnet"],
                  dataset, models["tokenizer"], resume=args.resume, max_steps=args.max_steps,
-                 device=args.device, history=history)
+                 device=args.device, history=history, mesh=models.get("mesh"))
 
 
 def main(argv: Optional[List[str]] = None):

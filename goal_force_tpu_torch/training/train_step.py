@@ -19,6 +19,23 @@ the T5 encode run under ``no_grad``, the denoiser forward runs with a checkpoint
 block, ``torch.autograd.grad`` takes the ControlNet's gradients, and the optimizer
 updates the parameters and its state in place. On CUDA every differentiated attention
 goes through ``FlashAttentionFn`` (K3 forward, K4/K5 backward).
+
+Under a mesh (``parallel/mesh.py::use_mesh``; JAX ``train_step.py:130-209``) the batch
+rows split over "dp" and each rank encodes its own rows (a batch that "dp" does not
+divide is computed whole on every dp rank, its loss divided by the axis size, so the
+sums below stay right); the denoiser splits tokens over "sp" and heads and FFN columns
+over "tp", as in serving, and gathers the tokens before the head, so each rank computes
+the loss of its rows on every token: the global mean's share of its rows. The timestep
+id is drawn alike on every rank and the noise at the global shape before the rank takes
+its rows, so a sharded step with a given generator gives the unsharded step's numbers.
+FSDP-placed modules (``parallel/fsdp.py``) gather their weights block by block; the
+gradients of the ControlNet's split parameters leave by the gathers' reduce-scatters,
+those of its replicated parameters and of LoRA's replicated adapters are summed over
+("dp", "sp") in one all-reduce, and over "tp" every rank holds the whole gradient
+already (``parallel/collectives.py``). ``global_norm`` counts each sharded square once
+per shard and each replicated one once. The moments live on the shards. JAX's spatial
+split of the VAE's pixel activations over ("sp", "tp") is not ported (ROADMAP
+M13a-vae): each rank of an sp-tp group encodes its rows whole.
 """
 
 from __future__ import annotations
@@ -36,6 +53,9 @@ from goal_force_tpu_torch.lora import lora_rank, merged_block
 from goal_force_tpu_torch.models import t5 as t5m
 from goal_force_tpu_torch.models import vae as vaem
 from goal_force_tpu_torch.pipelines.goal_force import build_i2v_mask, resolve_device
+from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel import fsdp
+from goal_force_tpu_torch.parallel.mesh import axes_rank, axis_size, current_mesh
 from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
 from goal_force_tpu_torch.schedulers import flow_match as fm
 
@@ -61,9 +81,18 @@ def trainable_params(params) -> Tensors:
     return out
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+def global_norm(tensors, sharded=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32. Under a mesh,
+    `sharded` (one bool per tensor) marks the FSDP shards: their squares are summed over
+    the ("dp", "sp") group, while a replicated tensor counts once (on the group's first
+    rank)."""
+    tensors = list(tensors)
+    if sharded is None or current_mesh() is None:
+        return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+    first = axes_rank(fsdp.AXES) == 0
+    sq = torch.stack([t.float().square().sum() if (s or first) else
+                      t.new_zeros((), dtype=torch.float32) for t, s in zip(tensors, sharded)])
+    return col.sum_over(sq.sum(), fsdp.AXES).sqrt()
 
 
 B1, B2, EPS = 0.9, 0.999, 1e-8      # AdamW betas and epsilon (the JAX optimizer's)
@@ -98,8 +127,9 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Tensors, state: Tensors, params: Tensors) -> bool:
-        """Apply one (micro-)step in place; True when the parameters were updated."""
+    def update(self, grads: Tensors, state: Tensors, params: Tensors, sharded=None) -> bool:
+        """Apply one (micro-)step in place; True when the parameters were updated.
+        sharded: see ``global_norm`` (the clip's norm under a mesh)."""
         k = self.grad_accum_steps
         if k > 1:
             n_acc = int(state["mini_step"])
@@ -113,11 +143,11 @@ class AdamW:
             grads = {n: state[f"acc_grads.{n}"].clone() for n in grads}
             for n in grads:
                 state[f"acc_grads.{n}"].zero_()
-        self._adamw(grads, state, params)
+        self._adamw(grads, state, params, sharded)
         return True
 
-    def _adamw(self, grads: Tensors, state: Tensors, params: Tensors) -> None:
-        norm = global_norm(grads.values())
+    def _adamw(self, grads: Tensors, state: Tensors, params: Tensors, sharded=None) -> None:
+        norm = global_norm(grads.values(), sharded)
         clipped = norm >= self.grad_clip                   # a device tensor: no host sync
         state["count"].add_(1)
         count = state["count"].float()
@@ -145,15 +175,21 @@ def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.01, grad_clip: floa
 def training_loss(dit, cn, dit_cfg: WanDiTConfig, cn_cfg: Optional[ControlNetConfig],
                   x0, noise, sigma, timestep, weight, context, y, control_latents,
                   attn_impl: str = "auto", remat: bool = True,
-                  block_weights=None) -> torch.Tensor:
+                  block_weights=None, share: float = 1.0) -> torch.Tensor:
     """Weighted v-MSE of the denoiser (float32 scalar). block_weights: see
-    ``denoise_forward`` (LoRA's merge)."""
+    ``denoise_forward`` (LoRA's merge). Under a mesh the inputs are this rank's rows of
+    the batch and `share` is their part of the global mean (rows / global rows, or
+    1 / dp where every dp rank computes the whole batch): the losses of the ranks of a
+    "dp" group add up to the global one."""
     latents = fm.add_noise(x0, noise, sigma)
     target = fm.training_target(x0, noise)
     v = denoise_forward(dit, dit_cfg, latents, timestep, context, y=y, controlnet=cn,
                         controlnet_cfg=cn_cfg, control_latents=control_latents,
-                        attn_impl=attn_impl, remat=remat, block_weights=block_weights)
+                        attn_impl=attn_impl, remat=remat, block_weights=block_weights,
+                        rows_split=current_mesh() is not None)
     loss = (v.float() - target.float()).square().mean()
+    if share != 1.0:
+        loss = loss * share
     return loss * weight
 
 
@@ -207,7 +243,7 @@ def make_train_step(
     docstring); lora_alpha defaults to the adapters' rank.
     """
     if pp_microbatches:
-        raise NotImplementedError("pipeline-parallel training is not ported yet")
+        raise NotImplementedError("pipeline-parallel training is not ported yet (ROADMAP M13b)")
     schedule = fm.make_schedule(num_steps=1000, shift=5.0, sigma_min=0.0,
                                 extra_one_step=True, training=True)
     lo = int(min_timestep_boundary * schedule.num_train_timesteps)
@@ -223,6 +259,10 @@ def make_train_step(
         b, t = video.shape[:2]
         if t != num_frames:
             raise ValueError(f"batch has {t} frames, the step was made for {num_frames}")
+        rows = _rows(b)
+        if rows is not None:
+            batch = {k: col.split_batch(v) for k, v in batch.items()}
+            video = batch["video"]
         with torch.no_grad():
             # Encode in the VAE's own dtype (float32 pixels would run it in float32).
             vae_dtype = next(vae.parameters()).dtype
@@ -249,13 +289,16 @@ def make_train_step(
             tid = int(torch.randint(lo, hi, (1,), generator=generator, device=device))
         if not lo <= tid < hi:
             raise ValueError(f"tid {tid} outside [{lo}, {hi})")
+        shape = (b,) + tuple(x0.shape[1:])          # the global batch's latents
         if noise is None:
             if generator is None:
                 raise ValueError("pass a generator, or tid= and noise=")
-            noise = torch.randn(x0.shape, generator=generator, device=device, dtype=x0.dtype)
+            noise = torch.randn(shape, generator=generator, device=device, dtype=x0.dtype)
         noise = noise.to(device=device, dtype=x0.dtype)
+        if rows is not None:
+            noise = col.split_batch(noise)
         sigma = float(schedule.sigmas[tid])
-        timestep = torch.full((b,), float(schedule.timesteps[tid]), dtype=x0.dtype,
+        timestep = torch.full((x0.shape[0],), float(schedule.timesteps[tid]), dtype=x0.dtype,
                               device=device)
         weight = float(schedule.training_weights[tid])
 
@@ -269,27 +312,69 @@ def make_train_step(
             alpha = lora_alpha or lora_rank(lora)
             block_weights = lambda i, blk: merged_block(blk, lora, i, alpha)
         params = trainable_params(state.params)
+        share = 1.0
+        if current_mesh() is not None:
+            share = x0.shape[0] / b if rows is not None else 1.0 / axis_size("dp")
         with _stage(timings, "forward_backward", device):
             with torch.enable_grad():
                 loss = training_loss(dit, cn, dit_cfg, cn_cfg if cn is not None else None,
                                      x0, noise, sigma, timestep, weight, context, y,
                                      control_latents if cn is not None else None,
                                      attn_impl=attn_impl, remat=True,
-                                     block_weights=block_weights)
+                                     block_weights=block_weights, share=share)
                 # a strided ControlNet never uses its zero convs: their gradients are
                 # zero, as JAX's are
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                             materialize_grads=True)
         grads = dict(zip(params, grads))
+        sharded = None
+        if current_mesh() is not None:
+            sharded = [s is not None and s[0] is not None
+                       for s in param_splits(state.params).values()]
+            _sum_replicated(grads, sharded)
+            loss = col.sum_over(loss.detach().clone(), ("dp",))
         with _stage(timings, "optimizer", device):
-            gnorm = global_norm(grads.values())
-            optimizer.update(grads, state.opt_state, params)
+            gnorm = global_norm(grads.values(), sharded)
+            optimizer.update(grads, state.opt_state, params, sharded)
         state.step += 1
         metrics = {"loss": float(loss.detach()), "grad_norm": float(gnorm),
                    "timestep": float(schedule.timesteps[tid])}
         return state, metrics
 
     return step
+
+
+def _rows(b: int):
+    """Under a mesh whose "dp" divides the batch's b rows, this rank's row count; else
+    None (no mesh, or every dp rank computes the whole batch)."""
+    if current_mesh() is None or b % axis_size("dp") != 0:
+        return None
+    return b // axis_size("dp")
+
+
+def param_splits(params) -> Dict[str, Optional[tuple]]:
+    """The FSDP split (``fsdp.split_of``) of each trainable tensor, by the names of
+    ``trainable_params``; None for LoRA's adapters and for modules never placed."""
+    if isinstance(params, torch.nn.Module):
+        return {n: fsdp.split_of(params, n) for n in trainable_params(params)}
+    out = {n: None for n in trainable_params({"lora": params["lora"]})}
+    if params.get("controlnet") is not None:
+        out.update({f"controlnet.{n}": s for n, s in param_splits(params["controlnet"]).items()})
+    return out
+
+
+def _sum_replicated(grads: Tensors, sharded) -> None:
+    """Sum, in place, the gradients of the replicated trainable tensors over the
+    ("dp", "sp") group: one all-reduce of one flat buffer per dtype."""
+    names = [n for n, s in zip(grads, sharded) if not s]
+    for dtype in sorted({grads[n].dtype for n in names}, key=str):
+        group = [n for n in names if grads[n].dtype == dtype]
+        flat = col.sum_over(torch.cat([grads[n].reshape(-1) for n in group]), fsdp.AXES)
+        off = 0
+        for n in group:
+            g = grads[n]
+            grads[n] = flat[off:off + g.numel()].view_as(g)
+            off += g.numel()
 
 
 def host_batch(video: np.ndarray, control: np.ndarray, ids: np.ndarray, mask: np.ndarray,

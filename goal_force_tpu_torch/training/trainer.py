@@ -16,6 +16,13 @@ ControlNet's).
 
 Each step draws its timestep and noise from a ``torch.Generator`` seeded from
 (seed, step), so a resume replays exactly without replaying any random stream.
+
+``train(mesh=)`` (JAX ``trainer.py:112,186``) runs the loop under the mesh: every rank
+runs it alike. The frozen models and the ControlNet are FSDP-placed where they are not
+yet (``parallel/fsdp.py``; the adapters stay replicated). Rank 0 alone writes
+``metrics.jsonl`` and the checkpoints, after every rank has gathered the shards, so the
+files hold whole tensors, as an unsharded run writes them; a full-state resume reads the
+whole tensors and keeps each rank's shards.
 """
 
 from __future__ import annotations
@@ -41,14 +48,19 @@ from goal_force_tpu_torch.io.safetensors_io import (
     load_train_state,
     save_safetensors,
     save_train_state,
+    state_tensors,
     train_state_path,
 )
 from goal_force_tpu_torch.lora import init_lora, lora_from_peft, lora_to_peft
+from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel import fsdp
+from goal_force_tpu_torch.parallel.mesh import MESH_AXES, axes_rank, current_mesh, use_mesh
 from goal_force_tpu_torch.pipelines.goal_force import resolve_device
 from goal_force_tpu_torch.training.train_step import (
     TrainState,
     make_optimizer,
     make_train_step,
+    param_splits,
     trainable_params,
 )
 
@@ -75,7 +87,7 @@ class MetricsLogger:
                 self.wandb = wandb.init(project=project, name=run_name, config=config)
 
     def log(self, step: int, metrics: Dict):
-        if step % self.log_every != 0:
+        if step % self.log_every != 0 or not _writer():
             return
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         with open(self.path, "a") as f:
@@ -120,11 +132,23 @@ def _pixels(frames, device) -> torch.Tensor:
     return (torch.as_tensor(np.asarray(frames, np.float32), device=device) * 2.0 - 1.0)[None]
 
 
+def _writer() -> bool:
+    """Whether this process writes files: the first rank of the ambient mesh; without
+    one, rank 0 of a process group, or the process without one."""
+    import torch.distributed as dist
+
+    if current_mesh() is not None:
+        return axes_rank(MESH_AXES) == 0
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
           frozen: Dict[str, torch.nn.Module], controlnet: Optional[torch.nn.Module], dataset,
           tokenizer, resume: bool = False, max_steps: Optional[int] = None, device="cuda",
-          history: Optional[list] = None) -> TrainState:
-    """Run the training loop and return the final state.
+          history: Optional[list] = None, mesh=None) -> TrainState:
+    """Run the training loop and return the final state; with `mesh`
+    (``parallel/mesh.py::make_mesh``) every rank calls it alike and trains its shards
+    (see the module docstring).
 
     frozen: {"dit", "t5", "vae"} modules on `device`; controlnet: the initial ControlNet
     (copied, never changed; None trains the LoRA adapters alone, with
@@ -134,6 +158,13 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
     seconds of its stages (synchronised, so only for measurement).
     """
     device = resolve_device(device)
+    with use_mesh(mesh):
+        return _train(cfg, dit_cfg, t5_cfg, vae_cfg, cn_cfg, frozen, controlnet, dataset,
+                      tokenizer, resume, max_steps, device, history, mesh)
+
+
+def _train(cfg, dit_cfg, t5_cfg, vae_cfg, cn_cfg, frozen, controlnet, dataset, tokenizer,
+           resume, max_steps, device, history, mesh) -> TrainState:
     if controlnet is None and not cfg.train_lora:
         raise ValueError("ControlNet training needs a controlnet")
     for name, m in (*frozen.items(), ("controlnet", controlnet)):
@@ -148,6 +179,9 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
         train_lora=cfg.train_lora, pp_microbatches=cfg.pp_microbatches)
 
     cn = None if controlnet is None else copy.deepcopy(controlnet).requires_grad_(True)
+    if mesh is not None:
+        for m in (*frozen.values(), *([cn] if cn is not None else [])):
+            fsdp.place_fsdp(m, mesh)
     start_step, full_state_file, lora = 0, None, None
     if resume:
         latest = find_latest_checkpoint(cfg.output_dir)
@@ -161,7 +195,9 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
                 lora = lora_from_peft(load_safetensors(latest), dit_cfg.num_layers)
                 lora = {t: {k: v.to(device) for k, v in ab.items()} for t, ab in lora.items()}
             else:
-                cn.load_state_dict(load_goalforce_controlnet(latest))
+                whole = load_goalforce_controlnet(latest)
+                cn.load_state_dict({k: fsdp.shard_tensor(v, fsdp.split_of(cn, k))
+                                    for k, v in whole.items()})
     params = cn
     if cfg.train_lora:
         if lora is None:
@@ -173,7 +209,7 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
         params = {"lora": lora, **({"controlnet": cn} if cn is not None else {})}
     state = TrainState(params, optimizer.init(trainable_params(params)), start_step)
     if full_state_file is not None:
-        load_train_state(full_state_file, state)
+        load_train_state(full_state_file, state, shard=_sharder(state))
     logger = MetricsLogger(cfg.output_dir, cfg.log_every, cfg.use_wandb,
                            cfg.wandb_project, cfg.run_name, dataclasses.asdict(cfg))
 
@@ -215,23 +251,54 @@ def train(cfg: TrainerConfig, dit_cfg, t5_cfg, vae_cfg, cn_cfg,
     return state
 
 
+def _state_splits(state: TrainState) -> Dict[str, Optional[tuple]]:
+    """The FSDP split of each tensor of ``state_tensors(state)``, by its name there: a
+    parameter's and its moments' (and accumulated gradients') are the parameter's."""
+    splits = param_splits(state.params)
+    out = {f"params.{n}": s for n, s in splits.items()}
+    for name in state.opt_state:
+        kind, _, pname = name.partition(".")
+        out[f"opt.{name}"] = splits.get(pname) if kind in ("exp_avg", "exp_avg_sq",
+                                                            "acc_grads") else None
+    return out
+
+
+def _sharder(state: TrainState):
+    """``load_train_state``'s shard function for an FSDP-placed state (None otherwise)."""
+    splits = _state_splits(state)
+    if not any(s is not None and s[0] is not None for s in splits.values()):
+        return None
+    return lambda name, t: fsdp.shard_tensor(t, splits.get(name))
+
+
 def save_checkpoint(state: TrainState, output_dir: str, step: int, keep_states: int = 2):
     """Full state-K.safetensors (then prune older ones to the newest `keep_states`) and
     the reference-format step-K.safetensors (never pruned): the ControlNet, or with LoRA
-    the adapters' PEFT keys plus the ControlNet's keys when it trains jointly."""
-    save_train_state(state, train_state_path(output_dir, step))
-    if keep_states and keep_states > 0:
-        pat = re.compile(r"state-(\d+)\.safetensors$")
-        steps = sorted(int(m.group(1)) for f in os.listdir(output_dir) if (m := pat.match(f)))
-        for old in steps[:-keep_states]:
-            os.remove(train_state_path(output_dir, old))
-    path = os.path.join(output_dir, f"step-{step}.safetensors")
-    params = state.params
-    if isinstance(params, dict):
-        sd = lora_to_peft(params["lora"])
-        if params.get("controlnet") is not None:
-            sd.update(export_goalforce_controlnet(params["controlnet"]))
-    else:
-        sd = export_goalforce_controlnet(params)
-    save_safetensors(sd, path)
-    print(f"saved {path}")
+    the adapters' PEFT keys plus the ControlNet's keys when it trains jointly. With an
+    FSDP-placed state every rank gathers the whole tensors and rank 0 writes them; the
+    others wait for it."""
+    splits = _state_splits(state)
+    whole = {k: fsdp.full_tensor(t, splits.get(k)) for k, t in state_tensors(state).items()}
+    if _writer():
+        save_train_state(state, train_state_path(output_dir, step), tensors=whole)
+        if keep_states and keep_states > 0:
+            pat = re.compile(r"state-(\d+)\.safetensors$")
+            steps = sorted(int(m.group(1)) for f in os.listdir(output_dir)
+                           if (m := pat.match(f)))
+            for old in steps[:-keep_states]:
+                os.remove(train_state_path(output_dir, old))
+        path = os.path.join(output_dir, f"step-{step}.safetensors")
+        params = state.params
+        cn = {k[len("params."):]: v for k, v in whole.items() if k.startswith("params.")}
+        if isinstance(params, dict):
+            sd = lora_to_peft(params["lora"])
+            if params.get("controlnet") is not None:
+                sd.update(export_goalforce_controlnet(
+                    {k[len("controlnet."):]: v for k, v in cn.items()
+                     if k.startswith("controlnet.")}))
+        else:
+            sd = export_goalforce_controlnet(cn)
+        save_safetensors(sd, path)
+        print(f"saved {path}")
+    if current_mesh() is not None:
+        col.barrier()

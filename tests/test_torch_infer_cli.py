@@ -197,6 +197,10 @@ def _argv(weights, csv_paths, out_dir, *extra):
 def test_main_writes_the_jax_clis_artifacts(weights, csv_dir, tmp_path, monkeypatch):
     pytest.importorskip("cv2")
     argv = _argv(weights, [str(csv_dir / "rows.csv")], tmp_path / "port")
+    answered = []                           # the frames main() answers, row by row
+    answer_row = infer.answer_row
+    monkeypatch.setattr(infer, "answer_row", lambda *a, **k: answered.append(
+        answer_row(*a, **k)) or answered[-1])
     bases = infer.main(argv + ["--device", "cpu"])
     assert len(bases) == 2                  # ball.png and grey.png
     # the JAX CLI on the same files writes the same names
@@ -214,10 +218,10 @@ def test_main_writes_the_jax_clis_artifacts(weights, csv_dir, tmp_path, monkeypa
     # writer on those frames writes a file that decodes to the same frames
     args = infer.parse_args(argv + ["--device", "cpu"])
     pipe = infer.load_pipeline(args)
-    for base, sample in zip(bases, infer.row_samples(
+    assert len(answered) == len(bases)
+    for base, frames, sample in zip(bases, answered, infer.row_samples(
             str(csv_dir / "rows.csv"), args, pipe.pipe_cfg)):
         assert os.path.basename(base).startswith(f"step-7_{sample['file_id']}__prj_force_")
-        frames = infer.answer_row(pipe, sample, args, progress=False)
         want = pipe(sample["prompt"], sample["video"][0],
                     control_signal_video=sample["control_video"], seed=5)
         assert frames.shape == (FRAMES, H, W, 3)

@@ -126,12 +126,23 @@ def test_t5_matches_jax():
 
 @pytest.fixture(scope="module")
 def vaes():
+    """The tiny VAE in both packages on the same weights: the port's random draw with
+    non-zero attention projections (so the mid-block attention matters), converted to
+    JAX by its torch converter and loaded back into the port through io/from_jax.py
+    (jitting JAX's own init of the tiny VAE costs ~40 s of compiling on a loaded CPU)."""
+    from goal_force_tpu.io import torch_convert as tc
+
     cfg = jcfg.tiny_vae()
-    params = jax.jit(lambda k: jvae.init_vae(k, cfg, jnp.float32))(jax.random.PRNGKey(0))
-    # non-zero attention projections so the mid-block attention matters
-    for side in ("encoder", "decoder"):
-        w = params[side]["mid_attn"]["proj"]["w"]
-        params[side]["mid_attn"]["proj"]["w"] = jax.random.normal(jax.random.PRNGKey(3), w.shape) * 0.1
+    src = tvae.init_vae(_cfg(tcfg.VAEConfig, cfg), torch.Generator().manual_seed(0),
+                        torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for mod in src.modules():
+            if isinstance(getattr(mod, "proj", None), torch.nn.Conv2d):
+                mod.proj.weight.copy_(torch.randn(mod.proj.weight.shape, generator=gen) * 0.1)
+    params = jax.tree_util.tree_map(
+        jnp.asarray, tc.vae_params_from_torch({k: v.numpy() for k, v in src.state_dict().items()},
+                                              cfg))
     model = tdit.empty_module(tvae.WanVAE, _cfg(tcfg.VAEConfig, cfg), device="cpu")
     model.load_state_dict(from_jax.vae_state_dict(_np(params)))
     return cfg, params, model

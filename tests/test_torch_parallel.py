@@ -10,7 +10,10 @@ JAX references are computed here and cross as files; each world joins through a
   (1, 4, 1) on 18 tokens (padded to 20, the padded keys masked); and with 2 heads, which
   do not divide sp * tp, at (1, 2, 2) (every token gathered) and (1, 1, 4) (a rank's
   columns cut a head: every column gathered). Every rank's output is held against JAX's
-  unsharded ``denoise_forward`` (2e-4, JAX's own bound) and the port's (1e-5).
+  unsharded ``denoise_forward`` (2e-4, JAX's own bound) and the port's (1e-5). In the
+  same world at (1, 2, 2): a t2v ``denoise_forward`` with VACE hints after blocks 0 and
+  1, and an I2V ``wan_dit_forward`` with a clip_feature (the image branch), each against
+  JAX's unsharded function (2e-4).
 - world 2: ``generate_batch`` of two clips over dp = 2; a TeaCache request over sp = 2
   at a threshold that skips both middle steps, every rank logging the same decisions;
   a plain request over tp = 2 with host-staged experts. Frames within the tiny
@@ -18,8 +21,8 @@ JAX references are computed here and cross as files; each world joins through a
   plain request against the port's alone, which test_torch_pipeline.py holds to JAX's).
 
 In process: ``inference_param_specs`` against JAX's, dimension by dimension through
-``io/from_jax.py``; ``make_mesh``'s and ``shard``'s refusals; ``ExpertStager`` with
-``device_place``.
+``io/from_jax.py``; ``make_mesh``'s and ``shard``'s refusals and ``place`` on W8A8
+packs; ``ExpertStager`` with ``device_place``.
 """
 
 import dataclasses
@@ -39,10 +42,13 @@ from goal_force_tpu import configs as jcfg
 from goal_force_tpu.io import torch_convert as tc
 from goal_force_tpu.parallel import inference_param_specs as jax_param_specs
 from goal_force_tpu.parallel import make_mesh as jax_make_mesh
+from goal_force_tpu.models import wan_dit as jax_dit
+from goal_force_tpu.models.adapters import vace_from_torch
 from goal_force_tpu.pipelines.model_fn import denoise_forward as jax_denoise_forward
 
 from goal_force_tpu_torch import configs as tcfg
 from goal_force_tpu_torch.io.from_jax import params_from_jax
+from goal_force_tpu_torch.models import adapters as adm
 from goal_force_tpu_torch.models import controlnet as cnm
 from goal_force_tpu_torch.models import wan_dit
 from goal_force_tpu_torch.ops.quant import quantize_linear_modules
@@ -113,14 +119,55 @@ CASES = {"ulysses": ((1, 2, 2), "base", "tokens72"),
          "cut_heads": ((1, 1, 4), "two_heads", "tokens18")}
 
 
-def test_sharded_denoise_forward_matches_jax(tmp_path):
+def _extra_cases():
+    """VACE (a t2v DiT, hints after blocks 0 and 1, scale 0.7) and the image branch (an
+    I2V DiT with img_emb and k_img/v_img, 6 CLIP tokens): the port's state dicts and
+    inputs, and JAX's unsharded outputs."""
+    rng = np.random.default_rng(11)
+    arr = lambda *s: rng.normal(size=s).astype(np.float32)
+    gen = torch.Generator().manual_seed(12)
+    dit_cfg = dataclasses.replace(tcfg.tiny_pipeline_configs()[0], in_dim=4)
+    jdit_cfg = dataclasses.replace(jcfg.tiny_pipeline_configs()[0], in_dim=4)
+    dit = wan_dit.init_wan_dit(dit_cfg, gen, torch.float32, device="cpu")
+    vace = adm.init_vace(dit_cfg, gen, (0, 1), 12, torch.float32, device="cpu")
+    x, ctx, vc = arr(2, 3, 4, 6, 4), arr(2, 8, dit_cfg.text_dim), arr(2, 3, 4, 6, 12)
+    t = np.array([500.0, 500.0], np.float32)
+    jp = (tc.dit_params_from_torch(numpy_sd(dit), jdit_cfg),
+          vace_from_torch(numpy_sd(vace), jdit_cfg, (0, 1)))
+    jp = jax.tree_util.tree_map(jnp.asarray, jp)
+    vace_ref = np.asarray(jax_denoise_forward(jp[0], jdit_cfg, x, t, ctx, vace_params=jp[1],
+                                              vace_context=vc, vace_scale=0.7,
+                                              vace_layers=(0, 1), attn_impl="xla"))
+    icfg = dataclasses.replace(tcfg.tiny_dit(), has_image_input=True)
+    jicfg = dataclasses.replace(jcfg.tiny_dit(), has_image_input=True)
+    idit = wan_dit.init_wan_dit(icfg, gen, torch.float32, device="cpu")
+    wan_dit.init_image_branch_(idit, gen, clip_dim=48)
+    ix, iy, ictx, clip = arr(2, 2, 4, 6, 16), arr(2, 2, 4, 6, 20), arr(2, 5, 32), arr(2, 6, 48)
+    it = np.array([900.0, 300.0], np.float32)
+    ip = jax.tree_util.tree_map(jnp.asarray, tc.dit_params_from_torch(numpy_sd(idit), jicfg))
+    image_ref = np.asarray(jax_dit.wan_dit_forward(ip, jicfg, ix, it, ictx, iy,
+                                                   clip_feature=clip))
+    spec = {"vace": dict(dit=dit.state_dict(), vace=vace.state_dict(), cfg=dit_cfg,
+                         inputs=[torch.from_numpy(a) for a in (x, t, ctx, vc)]),
+            "image_branch": dict(dit=idit.state_dict(), cfg=icfg,
+                                 inputs=[torch.from_numpy(a) for a in (ix, it, ictx, iy, clip)])}
+    return spec, {"vace": vace_ref, "image_branch": image_ref}
+
+
+@pytest.fixture(scope="module")
+def denoise_world(tmp_path_factory):
+    """Spawn the world of 4 (``torch_parallel_children.denoise_cases``) and compute the
+    JAX and unsharded references meanwhile."""
+    tmp_path = tmp_path_factory.mktemp("denoise_world")
     models = {"base": _models(4, 0), "two_heads": _models(2, 1)}
     base_cfg = models["base"][0][2]
     inputs = {"tokens72": _inputs(0, 3, 8, 12, base_cfg), "tokens18": _inputs(1, 3, 4, 6, base_cfg)}
+    extra, extra_refs = _extra_cases()
     torch.save({"cases": CASES,
                 "models": {k: (m[0].state_dict(), m[1].state_dict(), m[2], m[3])
                            for k, (m, _) in models.items()},
-                "inputs": {k: tuple(torch.from_numpy(a) for a in v) for k, v in inputs.items()}},
+                "inputs": {k: tuple(torch.from_numpy(a) for a in v) for k, v in inputs.items()},
+                "extra": extra},
                tmp_path / "cases.pt")
     ctx4 = spawn(children.denoise_cases, 4, tmp_path)
     refs = {}
@@ -136,12 +183,29 @@ def test_sharded_denoise_forward_matches_jax(tmp_path):
                                    control_latents=torch.from_numpy(cl)).numpy()
         refs[model, name] = ref, port
     join(ctx4)
+    return tmp_path, refs, extra_refs
+
+
+def test_sharded_denoise_forward_matches_jax(denoise_world):
+    tmp_path, refs, _ = denoise_world
     for case, (_, model, name) in CASES.items():
         ref, port = refs[model, name]
         for rank in range(4):
             got = np.load(tmp_path / f"out-{case}-{rank}.npy")
             np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4, err_msg=case)
             np.testing.assert_allclose(got, port, atol=1e-5, err_msg=case)
+
+
+@pytest.mark.parametrize("case", ["vace", "image_branch"])
+def test_vace_and_image_branch_under_a_mesh_match_jax(denoise_world, case):
+    """At (1, 2, 2): VACE's hint blocks on each rank's tokens (the context padded and
+    split as the DiT's tokens are), and the image cross-attention on each rank's heads
+    and tokens against the replicated CLIP keys; every rank's output within 2e-4 of
+    JAX's unsharded function."""
+    tmp_path, _, extra_refs = denoise_world
+    for rank in range(4):
+        got = np.load(tmp_path / f"out-{case}-{rank}.npy")
+        np.testing.assert_allclose(got, extra_refs[case], rtol=2e-4, atol=2e-4, err_msg=case)
 
 
 def test_sharded_pipeline_matches_jax(tmp_path):
@@ -249,11 +313,18 @@ def test_make_mesh_and_shard_refusals(monkeypatch):
     tpipe = GoalForcePipeline.init_random(device="cpu")
     with pytest.raises(NotImplementedError, match="M13b"):
         tpipe.shard(None, pp_microbatches=2)
+    # W8A8 packs are placed: ffn.0 (column-parallel) keeps its codes' rows and its
+    # scales, ffn.2 (row-parallel) its codes' columns and every scale
     mesh = types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=(1, 1, 2),
                                  get_local_rank=lambda axis: 1)
-    quantize_linear_modules(tpipe.models["dit"], ("ffn",))
-    with pytest.raises(NotImplementedError, match="M13a-train"):
-        place(tpipe.models["dit"], mesh)
+    blk = quantize_linear_modules(tpipe.models["dit"], ("ffn",)).blocks[0]
+    whole = {i: (blk.ffn[i].weight.clone(), blk.ffn[i].weight_scale.clone()) for i in (0, 2)}
+    place(tpipe.models["dit"], mesh)
+    (c0, s0), (c2, s2) = whole[0], whole[2]
+    assert torch.equal(blk.ffn[0].weight, c0[c0.shape[0] // 2:])
+    assert torch.equal(blk.ffn[0].weight_scale, s0[s0.shape[0] // 2:])
+    assert torch.equal(blk.ffn[2].weight, c2[:, c2.shape[1] // 2:])
+    assert torch.equal(blk.ffn[2].weight_scale, s2)
 
 
 def test_expert_stager_places_both_pairs_before_staging():

@@ -1,0 +1,436 @@
+"""The port's multi-GPU training (``parallel/fsdp.py``, the differentiable collectives,
+``train_step``/``trainer``/the CLI under a mesh) and W8A8 packs under a mesh, against the
+JAX package's unsharded functions.
+
+In process: ``fsdp_specs`` against JAX's for every parameter of the tiny DiT,
+ControlNet, T5 and VAE, dimension by dimension through ``io/from_jax.py``; the CLI's
+refusals.
+
+One spawned world of 4 gloo ranks (``torch_parallel_children.train_cases``; the
+children import no JAX, the parent computes the JAX references meanwhile, inputs and
+weights cross as files, a ``file://`` rendezvous in tmp_path) holds: each collective's
+forward and gradient against the unsharded function; the sharded train step at (2, 2, 1)
+and (1, 2, 2) on JAX's draws; a LoRA + ControlNet step; W8A8 packs at (1, 2, 2); and
+``train(mesh=)`` over the first two ranks, its files and its resume.
+"""
+
+import copy
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from goal_force_tpu import configs as jcfg
+from goal_force_tpu import lora as jlora
+from goal_force_tpu.models import controlnet as jcnm
+from goal_force_tpu.models import t5 as jt5m
+from goal_force_tpu.models import vae as jvaem
+from goal_force_tpu.models import wan_dit as jdit
+from goal_force_tpu.ops.attention import attention as jax_attention
+from goal_force_tpu.ops.quant import quantize_linear_tree
+from goal_force_tpu.parallel import fsdp_specs as jax_fsdp_specs
+from goal_force_tpu.parallel import make_mesh as jax_make_mesh
+from goal_force_tpu.pipelines.model_fn import denoise_forward as jax_denoise_forward
+from goal_force_tpu.training import train_step as jts
+
+from goal_force_tpu_torch import configs as tcfg
+from goal_force_tpu_torch.io.from_jax import (
+    controlnet_state_dict,
+    dit_state_dict,
+    lora_from_jax,
+    params_from_jax,
+)
+from goal_force_tpu_torch.parallel.fsdp import fsdp_specs
+from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+from goal_force_tpu_torch.training.trainer import TrainerConfig, train
+
+import torch_parallel_children as children
+from test_torch_parallel import join, spawn
+from test_torch_training import _build
+
+
+def _shape_markers(tree, specs):
+    """Each leaf as zeros, or, where its spec splits dimension d, 1 + its index along d
+    (shapes only: the leaves may be ShapeDtypeStructs)."""
+    def leaf(a, spec):
+        dims = [d for d, axis in enumerate(tuple(spec)) if axis is not None]
+        out = np.zeros(a.shape, np.float32)
+        if dims:
+            shape = [1] * len(a.shape)
+            shape[dims[0]] = a.shape[dims[0]]
+            out += np.arange(1, a.shape[dims[0]] + 1, dtype=np.float32).reshape(shape)
+        return out
+
+    return jax.tree_util.tree_map(leaf, tree, specs,
+                                  is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+
+
+def _varying(t):
+    return tuple(k for k in range(t.ndim) if t.shape[k] > 1 and
+                 not bool((t == t.narrow(k, 0, 1)).all()))
+
+
+@pytest.fixture(scope="module")
+def tiny_trees():
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = jcfg.tiny_pipeline_configs()
+    ks = jax.random.split(jax.random.PRNGKey(0), 4)
+    shapes = lambda f, k: jax.eval_shape(f, k)
+    dit = shapes(lambda k: jdit.init_wan_dit(k, dit_cfg, jnp.float32), ks[0])
+    tree = {"dit": dit,
+            "t5": shapes(lambda k: jt5m.init_t5(k, t5_cfg, jnp.float32), ks[1]),
+            "vae": shapes(lambda k: jvaem.init_vae(k, vae_cfg, jnp.float32), ks[2]),
+            "controlnet": shapes(lambda k: jcnm.init_from_dit(
+                k, jdit.init_wan_dit(k, dit_cfg, jnp.float32), dit_cfg, cn_cfg, jnp.float32),
+                ks[3])}
+    models = GoalForcePipeline.init_random(device="cpu").models
+    return tree, {k: models[k] for k in tree}
+
+
+@pytest.mark.parametrize("dims", [(2, 2, 1), (4, 1, 1), (1, 2, 2)])
+def test_fsdp_specs_equal_jax(tiny_trees, dims):
+    """JAX's fsdp_specs (min_size 1024) on its stacked (in, out) leaves equal the port's
+    on its per-block torch layouts, dimension by dimension through params_from_jax; the
+    VAE's convs and every modulation stay replicated, the layer axis is never split."""
+    tree, models = tiny_trees
+    specs = jax_fsdp_specs(tree, jax_make_mesh(*dims), min_size=1024)
+    sds = params_from_jax(_shape_markers(tree, specs))
+    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=dims)
+    split = set()
+    for name, module in models.items():
+        port = fsdp_specs(module, mesh, min_size=1024)
+        assert port.keys() == sds[name].keys(), name
+        for k, spec in port.items():
+            assert len(spec) == sds[name][k].ndim
+            got = tuple(d for d, a in enumerate(spec) if a)
+            assert _varying(sds[name][k]) == got, (name, k, spec)
+            assert all(a in (None, ("dp", "sp")) for a in spec)
+            if got:
+                split.add(f"{name}.{k}")
+    assert {"dit.blocks.0.self_attn.q.weight", "dit.blocks.1.ffn.0.weight",
+            "dit.patch_embedding.weight", "t5.token_embedding.weight",
+            "controlnet.controlnet_zero_convs_after.0.weight",
+            "controlnet.controlnet_patch_embedding.patch_embedding.weight"} <= split
+    assert not any(k.startswith("vae.") or "modulation" in k for k in split)
+
+
+# ---------------------------------------------------------------------------
+# The spawned world of 4
+# ---------------------------------------------------------------------------
+
+CASES = {"dp_sp": ((2, 2, 1), False), "sp_tp": ((1, 2, 2), False), "lora": ((1, 2, 2), True)}
+QPATHS = ("self_attn", "cross_attn", "ffn")
+
+
+def _batch(t5_cfg, b=2, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"video": rng.uniform(-1, 1, (b, 5, 32, 32, 3)).astype(np.float32),
+            "control": rng.uniform(-1, 1, (b, 5, 32, 32, 3)).astype(np.float32),
+            "ids": rng.integers(2, t5_cfg.vocab, (b, t5_cfg.text_len)).astype(np.int32),
+            "mask": np.ones((b, t5_cfg.text_len), np.int32)}
+
+
+RNG = 1      # the JAX step's key
+
+
+def _jax_draws(vae_cfg):
+    """The timestep id and noise that JAX's step draws from its key."""
+    k_t, k_n = jax.random.split(jax.random.PRNGKey(RNG))
+    return (int(jax.random.randint(k_t, (), 0, 358)),
+            np.array(jax.random.normal(k_n, (2, 2, 4, 4, vae_cfg.z_dim), jnp.float32)))
+
+
+def _jax_steps(params, cfgs, batch, lora):
+    """JAX's unsharded make_train_step, ControlNet alone and LoRA + ControlNet, on its
+    own draws: {with LoRA: (metrics, first moments, updated tensors)}."""
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = cfgs
+    rng = jax.random.PRNGKey(RNG)
+    frozen = {k: params[k] for k in ("dit", "t5", "vae")}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    out = {}
+    for with_lora in (False, True):
+        opt = jts.make_optimizer()
+        step = jts.make_train_step(dit_cfg, t5_cfg, vae_cfg, cn_cfg, opt, num_frames=5,
+                                   train_lora=with_lora)
+        cn = jax.tree_util.tree_map(jnp.array, params["controlnet"])
+        trainable = {"lora": jax.tree_util.tree_map(jnp.array, lora), "controlnet": cn} \
+            if with_lora else cn
+        state = jts.TrainState(trainable, opt.init(trainable), jnp.zeros((), jnp.int32))
+        state, m = step(state, frozen, jbatch, rng)
+        out[with_lora] = ({k: float(v) for k, v in m.items()},
+                          _flat(state.opt_state[1][0].mu, with_lora), _flat(state.params, with_lora))
+    return out
+
+
+def _flat(tree, with_lora):
+    """A JAX trainable tree as the port's trainable_params names."""
+    np_tree = jax.tree_util.tree_map(np.asarray, tree)
+    if not with_lora:
+        return dict(controlnet_state_dict(np_tree))
+    out = {f"lora.{t}.{k}": torch.from_numpy(np.array(v))
+           for t, ab in np_tree["lora"].items() for k, v in ab.items()}
+    out.update({f"controlnet.{k}": v for k, v in controlnet_state_dict(np_tree["controlnet"]).items()})
+    return out
+
+
+def _int8_spec():
+    """A DiT of 4 heads of 128 (so (1, 2, 2) runs Ulysses on one head per rank) and its
+    ControlNet, packed W8A8 by JAX, and JAX's unsharded "pallas_int8" velocity."""
+    dit_cfg = jcfg.WanDiTConfig(dim=512, in_dim=36, ffn_dim=512, out_dim=16, text_dim=32,
+                                freq_dim=32, num_heads=4, num_layers=2, rope_max_len=64)
+    cn_cfg = jcfg.ControlNetConfig(num_layers=1, in_channels=16)
+    dit = jdit.init_wan_dit(jax.random.PRNGKey(0), dit_cfg, jnp.float32)
+    cn = jcnm.init_from_dit(jax.random.PRNGKey(1), dit, dit_cfg, cn_cfg, jnp.float32)
+    rng = np.random.default_rng(3)
+    cn["zero_convs"] = {k: jnp.asarray(rng.normal(size=v.shape).astype(np.float32) * 0.05)
+                        for k, v in cn["zero_convs"].items()}
+    arr = lambda *s: rng.normal(size=s).astype(np.float32)
+    inp = dict(latents=arr(2, 2, 8, 12, 16), timestep=np.full((2,), 937.5, np.float32),
+               context=arr(2, 7, 32), y=arr(2, 2, 8, 12, 20), control_latents=arr(2, 2, 8, 12, 16))
+    jd = dict(dit, blocks=quantize_linear_tree(dit["blocks"], paths=QPATHS))
+    jc = dict(cn, blocks=quantize_linear_tree(cn["blocks"], paths=QPATHS))
+    np_ = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    tdc = tcfg.WanDiTConfig(**{k: getattr(dit_cfg, k) for k in dit_cfg.__dataclass_fields__})
+    spec = dict(configs=(tdc, tcfg.ControlNetConfig(num_layers=1, in_channels=16)),
+                dit=dit_state_dict(np_(jd)), controlnet=controlnet_state_dict(np_(jc)),
+                inputs={k: torch.from_numpy(v) for k, v in inp.items()})
+
+    def reference():
+        with pltpu.force_tpu_interpret_mode():
+            ref = jax_denoise_forward(
+                jd, dit_cfg, *(jnp.asarray(inp[k]) for k in ("latents", "timestep", "context")),
+                y=jnp.asarray(inp["y"]), controlnet_params=jc, controlnet_cfg=cn_cfg,
+                control_latents=jnp.asarray(inp["control_latents"]), attn_impl="pallas_int8")
+        return np.asarray(ref)
+
+    return spec, reference
+
+
+def _clips(n, seed):
+    rng = np.random.default_rng(seed)
+    return [{"video": rng.uniform(0, 1, (5, 32, 32, 3)).astype(np.float32),
+             "control_video": rng.uniform(0, 1, (5, 32, 32, 3)).astype(np.float32),
+             "prompt": f"a ball rolls, clip {i}"} for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Spawn the world of 4 (``torch_parallel_children.train_cases``) and compute the
+    references meanwhile: JAX's unsharded steps and int8 velocity, and the port's
+    unsharded trainer (the children need only the weights, inputs and draws)."""
+    d = tmp_path_factory.mktemp("train_world")
+    params, mods, cfgs, t_cfgs = _build(lambda j: (jcfg if j else tcfg).tiny_pipeline_configs())
+    batch = _batch(cfgs[1])
+    lora = jlora.init_lora(jax.random.PRNGKey(4), params["dit"], rank=4)
+    rng = np.random.default_rng(5)
+    for ab in lora.values():          # B = 0 would make the merge an identity
+        ab["b"] = jnp.asarray(rng.normal(size=ab["b"].shape).astype(np.float32) * 0.1)
+    jl = jax.tree_util.tree_map(np.asarray, lora)
+    tid, noise = _jax_draws(cfgs[2])
+    sds = {k: m.state_dict() for k, m in mods.items()}
+    int8, int8_ref = _int8_spec()
+    data = _clips(3, 7)
+    pipe = GoalForcePipeline.init_random(device="cpu")
+    token_ids = {c["prompt"]: tuple(a[0] for a in pipe.tokenizer([c["prompt"]])) for c in data}
+    tokenizer = children.FixedTokenizer(token_ids)
+    torch.save({"step": dict(cases=CASES, state_dicts=sds, configs=t_cfgs, tid=tid,
+                             noise=torch.from_numpy(noise), lora=lora_from_jax(jl),
+                             batch={k: torch.from_numpy(v) for k, v in batch.items()}),
+                "int8": int8,
+                "trainer": dict(state_dicts=sds, configs=t_cfgs, data=data, token_ids=token_ids)},
+               d / "train.pt")
+    ctx = spawn(children.train_cases, 4, d)
+    refs = {"steps": _jax_steps(params, cfgs, batch, lora), "int8": int8_ref(),
+            "int8_spec": int8, "lora": jl}
+    cfg = TrainerConfig(output_dir=str(d / "unsharded"), save_steps=1, log_every=1,
+                        num_epochs=1, num_frames=5, height=32, width=32, keep_last_states=2)
+    frozen = {k: copy.deepcopy(mods[k]) for k in ("dit", "t5", "vae")}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # as the children run: the CPU GEMMs' sums then agree
+    try:
+        train(cfg, *t_cfgs, frozen, mods["controlnet"], data, tokenizer, device="cpu",
+              max_steps=2)
+    finally:
+        torch.set_num_threads(threads)
+    join(ctx, timeout=240)
+    return d, refs
+
+
+def test_collective_gradients_match_the_unsharded_functions(world):
+    """Each collective's forward and gradient, on every rank of (1, 2, 2) and (2, 2, 1),
+    equal the unsharded function's (float64 inputs: to 1e-12)."""
+    d, _ = world
+    for rank in range(4):
+        errs = torch.load(d / f"collectives-{rank}.pt")
+        assert len(errs) == 23
+        for name, err in errs.items():
+            assert err <= 1e-12, (rank, name, err)
+
+
+@pytest.mark.parametrize("case", ["ulysses", "gathered"])
+def test_sharded_attention_gradient_matches_jax(world, case):
+    """sharded_attention under grad over sp = 4 (18 tokens padded to 20; 4 heads trade
+    for tokens, 2 heads gather every token), K3's and K4/K5's plain versions: the output
+    and dq, dk, dv equal JAX's attention and its gradient (float32: 1e-5)."""
+    d, _ = world
+    for rank in range(4):
+        got = torch.load(d / f"attention-{rank}.pt")
+        q, k, v, w = (jnp.asarray(t.numpy()) for t in got[case + ".inputs"])
+        loss = lambda q_, k_, v_: (jax_attention(q_, k_, v_, impl="xla") * w).sum()
+        ref = [jax_attention(q, k, v, impl="xla"), *jax.grad(loss, argnums=(0, 1, 2))(q, k, v)]
+        for name, g, r in zip(("out", "dq", "dk", "dv"), got[case], ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{case} {name} rank {rank}")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_train_step_matches_jax(world, case):
+    """One train step over the mesh of the case (FSDP placement at min_size 1024, B = 2),
+    on JAX's tid and noise, against JAX's unsharded make_train_step, on every rank: the
+    loss and gradient norm (1e-4 relative), every first moment (1e-3 of its largest),
+    every updated tensor (2e-5, Adam's first step moving each by ~lr), and the frozen
+    models unchanged. The tolerances are test_torch_training.py's and test_torch_lora.py's."""
+    d, refs = world
+    metrics, mu, new = refs["steps"][CASES[case][1]]
+    for rank in range(4):
+        got = torch.load(d / f"step-{case}-{rank}.pt")
+        assert got["frozen_unchanged"]
+        assert got["metrics"]["timestep"] == metrics["timestep"]
+        assert got["metrics"]["loss"] == pytest.approx(metrics["loss"], rel=1e-4)
+        assert got["metrics"]["grad_norm"] == pytest.approx(metrics["grad_norm"], rel=1e-4)
+        assert got["mu"].keys() == mu.keys() == new.keys()
+        for n, ref in mu.items():
+            scale = max(float(ref.abs().max()), 1e-12)
+            torch.testing.assert_close(got["mu"][n], ref, rtol=0, atol=1e-3 * scale)
+            np.testing.assert_allclose(got["new"][n].numpy(), new[n].numpy(), atol=2e-5,
+                                       rtol=0, err_msg=f"{case} {n}")
+
+
+def test_w8a8_packs_under_a_mesh_match_jax(world):
+    """At (1, 2, 2) each rank's int8 codes and scales are the slices of JAX's packs, bit
+    for bit (column-parallel: the codes' rows and the scales; row-parallel: the codes'
+    columns, the scales whole), and the sharded "flash_int8" velocity (K6's plain
+    version) is within one code step (1/127 of its largest value) of JAX's unsharded
+    "pallas_int8" (test_torch_lowp.py's bound). Under "sp" the cross-attention's
+    queries are this rank's tokens, so K6 quantizes them in tiles of those rows: more
+    codes flip than between JAX and the unsharded port (1.7e-4 of the largest value on
+    average here, against 5e-5), each by one code step."""
+    d, refs = world
+    ref = refs["int8"]
+    sd = refs["int8_spec"]["dit"]
+    top = np.abs(ref).max()
+    for rank in range(4):
+        got = torch.load(d / f"int8-{rank}.pt")
+        tp = got["tp"]
+        assert len(got["packs"]) == 2 * (4 * 2 + 2)
+        for name, (codes, scale) in got["packs"].items():
+            full_c, full_s = sd[f"{name}.weight"], sd[f"{name}.weight_scale"]
+            if name.endswith(("q", "k", "v", "ffn.0")):
+                per = full_c.shape[0] // 2
+                want_c, want_s = full_c[tp * per:(tp + 1) * per], full_s[tp * per:(tp + 1) * per]
+            else:
+                per = full_c.shape[1] // 2
+                want_c, want_s = full_c[:, tp * per:(tp + 1) * per], full_s
+            assert torch.equal(codes, want_c) and torch.equal(scale, want_s), name
+        np.testing.assert_allclose(got["out"].numpy(), ref, rtol=0, atol=top / 127)
+
+
+def test_trainer_under_a_mesh_writes_the_unsharded_files_and_resumes(world):
+    """train(mesh=) at (2, 1, 1) with FSDP placement at min_size 1024, B = 1 (every dp
+    rank computes the clip, its loss halved, so the sums over the group are exact): the
+    ControlNet's large tensors are halves on each rank, yet rank 0's step-K and state-K
+    files (gathered) equal the unsharded trainer's byte for byte, and a run resumed from
+    state-1 (re-sharded) writes the same step-2 and state-2 as the uninterrupted one;
+    metrics.jsonl has the same losses."""
+    d, _ = world
+    import json
+
+    for rank in range(4):
+        got = torch.load(d / f"trainer-{rank}.pt")
+        assert got["split"], rank
+        for name, shape in got["split"].items():
+            assert np.prod(shape) * 2 == np.prod(got["whole"][name]), (rank, name, shape)
+
+    for name in ("step-1", "step-2", "state-2"):
+        want = (d / "unsharded" / f"{name}.safetensors").read_bytes()
+        assert (d / "trainer-0" / f"{name}.safetensors").read_bytes() == want, name
+        assert (d / "trainer-1" / f"{name}.safetensors").read_bytes() == want, name
+    read = lambda p: [(r["step"], r["loss"]) for r in map(json.loads, p.read_text().splitlines())]
+    assert read(d / "trainer-0" / "metrics.jsonl") == read(d / "unsharded" / "metrics.jsonl")
+
+
+def test_backward_on_another_thread_keeps_the_mesh(tmp_path, monkeypatch):
+    """On CUDA autograd runs the backward, and the checkpointed blocks' recompute, on
+    its device thread, where the caller's ambient mesh and token split are not set. Here
+    the sharded step's torch.autograd.grad runs on a new thread (whose context is empty
+    alike) in a world of one (gloo, FSDP-placed at min_size 1024): the collectives'
+    backwards keep their forward's groups and the recompute its forward's context, so
+    the step equals the unsharded one bit for bit."""
+    import threading
+
+    import torch.distributed as dist
+
+    from goal_force_tpu_torch.parallel import fsdp
+    from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from goal_force_tpu_torch.training import train_step as ts
+
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = tcfg.tiny_pipeline_configs()
+    models = GoalForcePipeline.init_random(device="cpu").models
+    with torch.no_grad():
+        for zc in models["controlnet"].controlnet_zero_convs_after:
+            zc.weight.fill_(0.01)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(t5_cfg, b=1).items()}
+
+    def run(mesh):
+        frozen = {k: copy.deepcopy(models[k]) for k in ("dit", "t5", "vae")}
+        cn = copy.deepcopy(models["controlnet"]).requires_grad_(True)
+        opt = ts.make_optimizer(lr=1e-3)
+        step = ts.make_train_step(dit_cfg, t5_cfg, vae_cfg, cn_cfg, opt, num_frames=5)
+        with use_mesh(mesh):
+            if mesh is not None:
+                for m in (*frozen.values(), cn):
+                    fsdp.place_fsdp(m, mesh, fsdp.fsdp_specs(m, mesh, min_size=1024))
+            state = ts.TrainState(cn, opt.init(ts.trainable_params(cn)))
+            _, metrics = step(state, frozen, batch, torch.Generator().manual_seed(3))
+        return metrics, cn.state_dict()
+
+    ref_metrics, ref = run(None)
+    grad = torch.autograd.grad
+
+    def on_another_thread(*args, **kwargs):
+        out = {}
+        worker = threading.Thread(target=lambda: out.update(g=grad(*args, **kwargs)))
+        worker.start()
+        worker.join()
+        return out["g"]
+
+    monkeypatch.setattr(torch.autograd, "grad", on_another_thread)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    try:
+        metrics, got = run(make_mesh(1, 1, 1, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert metrics == ref_metrics
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+
+
+def test_what_is_not_ported_raises_naming_its_roadmap_item():
+    """Pipeline parallelism raises naming M13b (the train step's pp_microbatches,
+    fsdp_specs over a "pp" axis); S2V under a mesh names M13a-vae."""
+    from goal_force_tpu_torch.pipelines.s2v import S2VPipeline
+    from goal_force_tpu_torch.training import train_step as ts
+
+    cfgs = tcfg.tiny_pipeline_configs()
+    with pytest.raises(NotImplementedError, match="M13b"):
+        ts.make_train_step(*cfgs, ts.make_optimizer(), pp_microbatches=2)
+    module = GoalForcePipeline.init_random(device="cpu").models["controlnet"]
+    for mesh, kw in (((1, 1, 1), dict(pp_stage_fsdp=True)), ((1, 1, 1), dict(axes=("pp",)))):
+        with pytest.raises(NotImplementedError, match="M13b"):
+            fsdp_specs(module, types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"),
+                                                     shape=mesh), **kw)
+    with pytest.raises(NotImplementedError, match="M13a-vae"):
+        S2VPipeline.shard(None, None)

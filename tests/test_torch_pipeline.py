@@ -1,7 +1,8 @@
 """The port's goal-force pipeline against the JAX pipeline at the tiny configs (CPU, f32).
 
-The port is built from the JAX pipeline's own weights (io/from_jax.py) and given the
-exact noise JAX draws, so both run the same function on the same inputs. Four steps
+Both pipelines hold the same random weights (the port's, converted by the JAX package's
+torch converter) and the port is given the exact noise JAX draws, so both run the same
+function on the same inputs. Four steps
 cross the expert switch (t = 1000, 937.5 | 833.3, 625). The same holds with W8A8 packs in
 the four DiT/ControlNet models, within a bound derived from one activation code step.
 """
@@ -15,16 +16,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from goal_force_tpu import configs as jcfg
-from goal_force_tpu.configs import PipelineConfig
 from goal_force_tpu.data import ControlSpec, render_control_video
-from goal_force_tpu.models import controlnet as jcn
-from goal_force_tpu.models import t5 as jt5
-from goal_force_tpu.models import vae as jvae
-from goal_force_tpu.models import wan_dit as jdit
-from goal_force_tpu.models.tokenizer import load_tokenizer
 from goal_force_tpu.ops.quant import quantize_linear_tree
-from goal_force_tpu.pipelines import GoalForcePipeline as JaxPipeline
 
 from goal_force_tpu_torch import configs as tcfg
 from goal_force_tpu_torch.io.from_jax import params_from_jax
@@ -37,30 +30,13 @@ QPATHS = ("self_attn", "cross_attn", "ffn")
 
 @pytest.fixture(scope="module")
 def pipes():
-    dit_cfg, t5_cfg, vae_cfg, cn_cfg = jcfg.tiny_pipeline_configs()
-    # the JAX package's own random init, jitted (eager, the VAE init alone takes ~30 s)
-    ks = jax.random.split(jax.random.PRNGKey(0), 6)
-    f32 = jnp.float32
-    init = jax.jit(lambda k: dict(dit=jdit.init_wan_dit(k[0], dit_cfg, f32),
-                                  dit2=jdit.init_wan_dit(k[1], dit_cfg, f32),
-                                  t5=jt5.init_t5(k[2], t5_cfg, f32),
-                                  vae=jvae.init_vae(k[3], vae_cfg, f32)))
-    params = init(ks)
-    for name, dit, k in (("controlnet", "dit", ks[4]), ("controlnet2", "dit2", ks[5])):
-        params[name] = jcn.init_from_dit(k, params[dit], dit_cfg, cn_cfg, f32)
-    jpipe = JaxPipeline(dit_cfg, t5_cfg, vae_cfg, cn_cfg, PipelineConfig(), params,
-                        load_tokenizer(None, t5_cfg.vocab, t5_cfg.text_len, quiet=True), f32)
-    # non-zero zero convs, so the ControlNet changes the result
-    rng = np.random.default_rng(4)
-    for name in ("controlnet", "controlnet2"):
-        zc = jpipe.params[name]["zero_convs"]
-        zc["w"] = jnp.asarray(rng.normal(size=zc["w"].shape).astype(np.float32) * 0.05)
-        zc["b"] = jnp.asarray(rng.normal(size=zc["b"].shape).astype(np.float32) * 0.05)
-    tree = jax.tree_util.tree_map(np.asarray, jpipe.params)
-    t_cfgs = tcfg.tiny_pipeline_configs()
-    tpipe = GoalForcePipeline.from_state_dicts(params_from_jax(tree), *t_cfgs,
-                                               dtype=torch.float32, device="cpu")
-    return jpipe, tpipe
+    """The JAX and port pipelines (two experts, each with its ControlNet, non-zero zero
+    convs) on the same random weights: the port's draw, converted by the JAX package's
+    torch converter (tests/test_torch_variant_pipes.py::pair); jitting JAX's own init of
+    the tiny models costs a minute of compiling on a loaded CPU."""
+    from test_torch_variant_pipes import pair
+
+    return pair(seed=0)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """ControlNet training on the port against the JAX package (CPU, float32).
 
-The port's modules are built from the JAX package's own random weights
-(io/from_jax.py); every input is made with numpy from a seed and handed to both. The
+Both packages hold the same random weights (the port's draw, converted to JAX by the
+JAX package's torch converter and loaded back through io/from_jax.py); every input is
+made with numpy from a seed and handed to both. The
 zero convs are set nonzero, so the ControlNet blocks get a gradient (at their zero
 init only the zero convs do).
 """
@@ -18,10 +19,6 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from goal_force_tpu import configs as jcfg
-from goal_force_tpu.models import controlnet as jcn
-from goal_force_tpu.models import t5 as jt5
-from goal_force_tpu.models import vae as jvae
-from goal_force_tpu.models import wan_dit as jdit
 from goal_force_tpu.pipelines.model_fn import denoise_forward as jdenoise
 from goal_force_tpu.schedulers import flow_match as jfm
 from goal_force_tpu.training import train_step as jts
@@ -47,22 +44,39 @@ def _small_head128_configs(jax_side: bool):
 
 
 def _build(configs_fn, seed=0):
-    """JAX params (nonzero zero convs) and the port's modules with the same weights."""
+    """JAX params (nonzero zero convs) and the port's modules with the same weights. The
+    weights are the port's random draw, carried into JAX by the JAX package's own torch
+    converter (goal_force_tpu/io/torch_convert.py) and back through io/from_jax.py, which
+    the port's modules load: jitting JAX's init of the tiny models costs a minute of
+    compiling on a loaded CPU."""
+    from goal_force_tpu.io import torch_convert as tc
+    from goal_force_tpu_torch.models import controlnet as tcn_init
+    from goal_force_tpu_torch.models import t5 as tt5_init
+    from goal_force_tpu_torch.models import vae as tvae_init
+    from goal_force_tpu_torch.models import wan_dit as tdit_init
+
     dit_cfg, t5_cfg, vae_cfg, cn_cfg = configs_fn(True)
-    ks = jax.random.split(jax.random.PRNGKey(seed), 4)
-    f32 = jnp.float32
-    params = jax.jit(lambda k: dict(dit=jdit.init_wan_dit(k[0], dit_cfg, f32),
-                                    t5=jt5.init_t5(k[1], t5_cfg, f32),
-                                    vae=jvae.init_vae(k[2], vae_cfg, f32)))(ks)
-    cn = jcn.init_from_dit(ks[3], params["dit"], dit_cfg, cn_cfg, f32)
+    t_cfgs = configs_fn(False)
+    gen = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    dit = tdit_init.init_wan_dit(t_cfgs[0], gen, f32, device="cpu")
+    src = {"dit": dit, "t5": tt5_init.init_t5(t_cfgs[1], gen, f32, device="cpu"),
+           "vae": tvae_init.init_vae(t_cfgs[2], gen, f32, device="cpu"),
+           "controlnet": tcn_init.init_from_dit(dit, t_cfgs[0], t_cfgs[3], gen, f32,
+                                                device="cpu")}
     rng = np.random.default_rng(seed + 4)
-    for name in ("w", "b"):
-        zc = cn["zero_convs"][name]
-        cn["zero_convs"][name] = jnp.asarray(rng.normal(size=zc.shape).astype(np.float32) * 0.05)
-    params["controlnet"] = cn
+    with torch.no_grad():
+        for zc in src["controlnet"].controlnet_zero_convs_after:
+            for t in (zc.weight, zc.bias):
+                t.copy_(torch.from_numpy(rng.normal(size=t.shape).astype(np.float32) * 0.05))
+    np_sd = lambda m: {k: v.numpy() for k, v in m.state_dict().items()}
+    conv = {"dit": lambda sd: tc.dit_params_from_torch(sd, dit_cfg),
+            "t5": lambda sd: tc.t5_params_from_torch(sd, t5_cfg),
+            "vae": lambda sd: tc.vae_params_from_torch(sd, vae_cfg),
+            "controlnet": lambda sd: tc.controlnet_params_from_torch(sd, cn_cfg)}
+    params = {k: jax.tree_util.tree_map(jnp.asarray, conv[k](np_sd(m))) for k, m in src.items()}
     tree = jax.tree_util.tree_map(np.asarray, params)
     sds = params_from_jax(tree)
-    t_cfgs = configs_fn(False)
     ctors = {"dit": (WanDiT, t_cfgs[0]), "t5": (T5Encoder, t_cfgs[1]),
              "vae": (WanVAE, t_cfgs[2]), "controlnet": (GoalForceControlNet, t_cfgs[0], t_cfgs[3])}
     mods = {}

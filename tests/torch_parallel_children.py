@@ -42,7 +42,10 @@ def _done(d, rank):
 
 def denoise_cases(rank, world, d):
     """Sharded ``denoise_forward`` for every case of ``cases.pt``: (mesh dims, model
-    name, input name) -> out-{case}-{rank}.npy."""
+    name, input name) -> out-{case}-{rank}.npy; then at (1, 2, 2) VACE's
+    ``denoise_forward`` and the image branch's ``wan_dit_forward`` -> out-vace-{rank}.npy
+    and out-image_branch-{rank}.npy."""
+    from goal_force_tpu_torch.models import adapters as adm
     from goal_force_tpu_torch.models import controlnet as cnm
     from goal_force_tpu_torch.models import wan_dit
     from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
@@ -65,6 +68,28 @@ def denoise_cases(rank, world, d):
             out = denoise_forward(dit, dit_cfg, x, t, ctx, y=y, controlnet=cn,
                                   controlnet_cfg=cn_cfg, control_latents=cl)
         np.save(os.path.join(d, f"out-{case}-{rank}.npy"), out.numpy())
+    extra = spec["extra"]
+    mesh = make_mesh(1, 2, 2, device="cpu")
+    v = extra["vace"]
+    dit = wan_dit.empty_module(wan_dit.WanDiT, v["cfg"], device="cpu")
+    dit.load_state_dict(v["dit"])
+    vace = adm.vace_from_state_dict(v["vace"], v["cfg"], 2, device="cpu")
+    place(dit, mesh)
+    place(vace, mesh)
+    x, t, ctx, vc = v["inputs"]
+    with torch.no_grad(), use_mesh(mesh):
+        out = denoise_forward(dit, v["cfg"], x, t, ctx, vace=vace, vace_context=vc,
+                              vace_scale=0.7, vace_layers=(0, 1))
+    np.save(os.path.join(d, f"out-vace-{rank}.npy"), out.numpy())
+    i = extra["image_branch"]
+    dit = wan_dit.empty_module(wan_dit.WanDiT, i["cfg"], device="cpu",
+                               **wan_dit.dit_kwargs(i["dit"]))
+    dit.load_state_dict(i["dit"])
+    place(dit, mesh)
+    x, t, ctx, y, clip = i["inputs"]
+    with torch.no_grad(), use_mesh(mesh):
+        out = wan_dit.wan_dit_forward(dit, i["cfg"], x, t, ctx, y, clip_feature=clip)
+    np.save(os.path.join(d, f"out-image_branch-{rank}.npy"), out.numpy())
     _done(d, rank)
 
 
@@ -111,4 +136,257 @@ def pipeline_cases(rank, world, d):
               tuple(staged._stager.active["dit"].blocks[0].self_attn.o.weight.shape)]
     np.save(os.path.join(d, f"plain-{rank}.npy"), out)
     np.save(os.path.join(d, f"shards-{rank}.npy"), np.array(shards))
+    _done(d, rank)
+
+
+# ---------------------------------------------------------------------------
+# Training (test_torch_parallel_train.py)
+# ---------------------------------------------------------------------------
+
+def _save(d, name, obj):
+    torch.save(obj, os.path.join(d, name))
+
+
+def _collective_cases(rank, d):
+    """Each collective's forward and gradient against the unsharded function it stands
+    for, on seeded tensors that every rank draws alike: the largest errors go to
+    collectives-{rank}.pt. Then sharded_attention under grad (K3's and K4/K5's plain
+    versions through "flash") over sp = 4, with 18 tokens padded to 20: the whole output
+    and gradients go to attention-{rank}.pt for the parent to hold against JAX."""
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.parallel.mesh import (axes_rank, axis_group, axis_rank,
+                                                     make_mesh, use_mesh)
+
+    gen = torch.Generator().manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=torch.float64)
+    errs = {}
+
+    def close(name, got, want):
+        errs[name] = max(errs.get(name, 0.0), float((got.detach() - want).abs().max()))
+
+    def leaf(x):
+        return x.clone().requires_grad_(True)
+
+    with use_mesh(make_mesh(1, 2, 2, device="cpu")):
+        sp, tp = axis_rank("sp"), axis_rank("tp")
+        toks, heads = slice(3 * sp, 3 * sp + 3), slice(2 * sp, 2 * sp + 2)
+        X, W = rnd(2, 6, 4, 3), rnd(2, 6, 4, 3)
+        x = leaf(X[:, toks])
+        y = col.seq_to_heads(x)                          # my tokens -> my heads
+        (y * W[:, :, heads]).sum().backward()
+        close("seq_to_heads", y, X[:, :, heads])
+        close("seq_to_heads.grad", x.grad, W[:, toks])
+        x = leaf(X[:, :, heads])
+        y = col.heads_to_seq(x)
+        (y * W[:, toks]).sum().backward()
+        close("heads_to_seq", y, X[:, toks])
+        close("heads_to_seq.grad", x.grad, W[:, :, heads])
+        P, W, Wr = rnd(2, 5, 3), rnd(5, 3), rnd(2, 5, 3)
+        # the sums are in place, on an operation's output (a linear's), never a leaf
+        x = leaf(P[tp])
+        y = col.all_reduce(x * 1)                        # row-parallel sum, replicated use
+        (y * W).sum().backward()
+        close("all_reduce", y, P.sum(0))
+        close("all_reduce.grad", x.grad, W)
+        x = leaf(P[tp])
+        y = col.all_reduce(x * 1, shared=True)           # each rank uses the sum alone
+        (y * Wr[tp]).sum().backward()
+        close("all_reduce_shared", y, P.sum(0))
+        close("all_reduce_shared.grad", x.grad, Wr.sum(0))
+        x = leaf(P[0])
+        y = col.copy_to(x)                               # column-parallel input
+        (y * Wr[tp]).sum().backward()
+        close("copy_to.grad", x.grad, Wr.sum(0))
+        X, W = rnd(3, 4), rnd(3, 4)
+        x = leaf(X)
+        y = col.shard_of(x, 1)
+        (y * W[:, 2 * tp:2 * tp + 2]).sum().backward()
+        close("shard_of", y, X[:, 2 * tp:2 * tp + 2])
+        close("shard_of.grad", x.grad, W)
+        b = leaf(X[0])
+        y = col.all_reduce(P[tp][:4, :4].T.clone() + col.first_rank_bias(b))
+        (y * W).sum().backward()
+        close("first_rank_bias", y, P.sum(0)[:4, :4].T + X[0])
+        close("first_rank_bias.grad", b.grad, W.sum(0))
+        X, W = rnd(2, 6, 3), rnd(2, 6, 3)
+        x = leaf(X[:, toks])
+        y = col.gather_seq(x)                            # the consumer is replicated
+        (y * W).sum().backward()
+        close("gather_seq", y, X)
+        close("gather_seq.grad", x.grad, W[:, toks])
+        x = leaf(X[:, :, 0][:, 3 * tp:3 * tp + 3])
+        y = col.gather_cols(x)
+        (y * W[:, :, 0]).sum().backward()
+        close("gather_cols", y, X[:, :, 0])
+        close("gather_cols.grad", x.grad, W[:, 3 * tp:3 * tp + 3, 0])
+        X = rnd(2, 5, 3)
+        x = leaf(X)
+        y = col.split_seq(x)                             # 5 tokens padded to 6
+        (y * W[:, toks]).sum().backward()
+        close("split_seq", y, torch.cat([X, X.new_zeros(2, 1, 3)], 1)[:, toks])
+        total = x.grad.clone()
+        dist.all_reduce(total, group=axis_group("sp"))
+        close("split_seq.grad", total, W[:, :5])         # each rank its tokens' part
+    with use_mesh(make_mesh(2, 2, 1, device="cpu")):
+        r, dp = axes_rank(("dp", "sp")), axis_rank("dp")
+        X, W = rnd(4, 3), rnd(4, 3)
+        x = leaf(X[2 * dp:2 * dp + 2])
+        y = col.gather_batch(x)
+        (y * W).sum().backward()
+        close("gather_batch", y, X)
+        close("gather_batch.grad", x.grad, W[2 * dp:2 * dp + 2])
+        P, Wr = rnd(4, 5), rnd(4, 4, 5)
+        x = leaf(P[r])
+        y = col.all_gather_flat(x, ("dp", "sp"))          # FSDP: each rank uses it alone
+        (y * Wr[r]).sum().backward()
+        close("all_gather_flat", y, P)
+        close("all_gather_flat.grad", x.grad, Wr[:, r].sum(0))
+    _save(d, f"collectives-{rank}.pt", errs)
+
+    from goal_force_tpu_torch.ops.attention import sharded_attention
+
+    out = {}
+    for name, heads in (("ulysses", 4), ("gathered", 2)):
+        q, k, v, w = (rnd(1, 18, heads, 128).float() for _ in range(4))
+        with use_mesh(make_mesh(1, 4, 1, device="cpu")):
+            mine = [leaf(col.split_seq(t)) for t in (q, k, v)]
+            with col.sequence_split(18):
+                o = sharded_attention(*mine, impl="flash")
+            o = col.gather_seq(o, 18)
+            (o * w).sum().backward()
+            out[name] = [o.detach()] + [col.gather_seq(t.grad, 18) for t in mine]
+        out[name + ".inputs"] = (q, k, v, w)
+    _save(d, f"attention-{rank}.pt", out)
+
+
+def _load_modules(sds, cfgs):
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models import vae as vaem
+    from goal_force_tpu_torch.models import wan_dit
+
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = cfgs
+    ctors = {"dit": (wan_dit.WanDiT, dit_cfg), "t5": (t5m.T5Encoder, t5_cfg),
+             "vae": (vaem.WanVAE, vae_cfg),
+             "controlnet": (cnm.GoalForceControlNet, dit_cfg, cn_cfg)}
+    out = {}
+    for name, (cls, *c) in ctors.items():
+        m = wan_dit.empty_module(cls, *c, device="cpu")
+        m.load_state_dict(sds[name])
+        out[name] = m.eval().requires_grad_(False)
+    return out
+
+
+def _step_cases(rank, d, spec):
+    """One sharded train step per case (mesh, with LoRA or not) on the parent's draws:
+    the metrics, the whole first moments and updated tensors, and whether the frozen
+    models kept every shard -> step-{case}-{rank}.pt."""
+    from goal_force_tpu_torch.parallel import fsdp
+    from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from goal_force_tpu_torch.training import train_step as ts
+
+    for case, (dims, with_lora) in spec["cases"].items():
+        mods = _load_modules(spec["state_dicts"], spec["configs"])
+        mesh = make_mesh(*dims, device="cpu")
+        with use_mesh(mesh):
+            for m in mods.values():
+                fsdp.place_fsdp(m, mesh, fsdp.fsdp_specs(m, mesh, min_size=1024))
+            frozen = {k: mods[k] for k in ("dit", "t5", "vae")}
+            before = {k: {n: p.clone() for n, p in m.state_dict().items()}
+                      for k, m in frozen.items()}
+            cn = mods["controlnet"].requires_grad_(True)
+            params = cn
+            if with_lora:
+                params = {"lora": {t: {k: v.clone().requires_grad_(True) for k, v in ab.items()}
+                                   for t, ab in spec["lora"].items()}, "controlnet": cn}
+            opt = ts.make_optimizer()
+            step = ts.make_train_step(*spec["configs"], opt, num_frames=5, train_lora=with_lora)
+            state = ts.TrainState(params, opt.init(ts.trainable_params(params)), 0)
+            state, metrics = step(state, frozen, dict(spec["batch"]), tid=spec["tid"],
+                                  noise=spec["noise"])
+            splits = ts.param_splits(state.params)
+            trained = ts.trainable_params(state.params)
+            mu = {n: fsdp.full_tensor(state.opt_state[f"exp_avg.{n}"], splits[n]) for n in trained}
+            new = {n: fsdp.full_tensor(p.detach(), splits[n]) for n, p in trained.items()}
+            same = all(torch.equal(p, before[k][n]) for k, m in frozen.items()
+                       for n, p in m.state_dict().items())
+        _save(d, f"step-{case}-{rank}.pt", dict(metrics=metrics, mu=mu, new=new,
+                                                frozen_unchanged=same))
+
+
+def _int8_case(rank, d, spec):
+    """W8A8 packs under (1, 2, 2): this rank's codes and scales, and the sharded
+    ``denoise_forward`` with "flash_int8" -> int8-{rank}.pt."""
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.ops import quant
+    from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from goal_force_tpu_torch.parallel.sharding import place
+    from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
+
+    dit_cfg, cn_cfg = spec["configs"]
+    dit = wan_dit.empty_module(wan_dit.WanDiT, dit_cfg, device="cpu")
+    quant.pack_like_state_dict(dit, spec["dit"])
+    dit.load_state_dict(spec["dit"])
+    cn = wan_dit.empty_module(cnm.GoalForceControlNet, dit_cfg, cn_cfg, device="cpu")
+    quant.pack_like_state_dict(cn, spec["controlnet"])
+    cn.load_state_dict(spec["controlnet"])
+    mesh = make_mesh(1, 2, 2, device="cpu")
+    place(dit, mesh)
+    place(cn, mesh)
+    packs = {n: (m.weight.clone(), m.weight_scale.clone()) for n, m in dit.named_modules()
+             if isinstance(m, quant.QuantLinear)}
+    x = spec["inputs"]
+    with torch.no_grad(), use_mesh(mesh):
+        out = denoise_forward(dit, dit_cfg, x["latents"], x["timestep"], x["context"], y=x["y"],
+                              controlnet=cn, controlnet_cfg=cn_cfg,
+                              control_latents=x["control_latents"], attn_impl="flash_int8")
+    _save(d, f"int8-{rank}.pt", dict(packs=packs, out=out, tp=mesh.get_local_rank("tp")))
+
+
+def _trainer_case(rank, d, spec):
+    """train(mesh=) over two ranks at (2, 1, 1), every model FSDP-placed at min_size
+    1024 first: ranks 0-1 train 2 steps without a break, ranks 2-3 one step, then resume
+    from the full state for the second. The shapes of the split tensors of the state
+    trained last, and their whole shapes -> trainer-{rank}.pt."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from goal_force_tpu_torch.parallel import fsdp
+    from goal_force_tpu_torch.parallel.mesh import MESH_AXES
+    from goal_force_tpu_torch.training.train_step import param_splits
+    from goal_force_tpu_torch.training.trainer import TrainerConfig, train
+
+    meshes = [DeviceMesh("cpu", torch.arange(base, base + 2).reshape(2, 1, 1),
+                         mesh_dim_names=MESH_AXES) for base in (0, 2)]
+    mine = 0 if rank < 2 else 1
+    mesh = meshes[mine]
+    out_dir = os.path.join(d, f"trainer-{mine}")
+    mods = _load_modules(spec["state_dicts"], spec["configs"])
+    whole = {n: tuple(p.shape) for n, p in mods["controlnet"].named_parameters()}
+    for m in mods.values():       # train() leaves placed parameters as they are
+        fsdp.place_fsdp(m, mesh, fsdp.fsdp_specs(m, mesh, min_size=1024))
+    frozen = {k: mods[k] for k in ("dit", "t5", "vae")}
+    cfg = TrainerConfig(output_dir=out_dir, save_steps=1, log_every=1, num_epochs=1,
+                        num_frames=5, height=32, width=32, keep_last_states=2)
+    run = lambda **kw: train(cfg, *spec["configs"][:3], spec["configs"][3], frozen,
+                             mods["controlnet"], spec["data"], FixedTokenizer(spec["token_ids"]),
+                             device="cpu", mesh=mesh, **kw)
+    if mine == 0:
+        state = run(max_steps=2)
+    else:
+        run(max_steps=1)
+        state = run(resume=True, max_steps=1)
+    split = {n: tuple(p.shape) for n, p in state.params.named_parameters()
+             if (param_splits(state.params)[n] or (None,))[0] is not None}
+    _save(d, f"trainer-{rank}.pt", dict(split=split, whole=whole))
+
+
+def train_cases(rank, world, d):
+    """The training checks of ``train.pt`` in a world of 4."""
+    _join(rank, world, d)
+    spec = torch.load(os.path.join(d, "train.pt"), weights_only=False)
+    _collective_cases(rank, d)
+    _step_cases(rank, d, spec["step"])
+    _int8_case(rank, d, spec["int8"])
+    _trainer_case(rank, d, spec["trainer"])
     _done(d, rank)
