@@ -29,6 +29,13 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              at the image branch's B = 2, 32,760 x 257; times kernel, plain version, K6's
              quantize step, the runtime bound's reductions and host sync, and SDPA (as a
              yardstick only) at the path shapes.
+3b. ring   - ring attention's per-rank functions (parallel/ring_attention.py) at full
+             width for 4 virtual ranks on the one card (bf16, B = 1, 32,760 tokens as 4
+             blocks of 8,190, 40x128 heads), fed each rank's queries and the K/V blocks in
+             its rotation order: self (16 K3) and 512-key cross as 4 x 128 (16 K3) against
+             the plain whole attention, then the backward (16 K4 + 16 K5) against the plain
+             backward; times one virtual rank's forward and backward. No shift runs: no
+             multi-GPU time is measured.
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
 5. small_train - one training loss + backward at that size, kernels vs plain attention
@@ -49,7 +56,9 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              all-reduces, token and batch gathers) runs as a copy over a group of one;
              frames within 1e-3 of main's, 12 K1 per step, the collectives per step as
              counted by collectives_per_step; logs step seconds beside main's and PSNR /
-             SSIM of the two frame sets (utils/metrics.py). No multi-GPU time is measured.
+             SSIM of the two frame sets (utils/metrics.py); then the request again with
+             attn_impl="ring" ("sp" = 1: "auto", main's frames and launches). No
+             multi-GPU time is measured.
 7c. tools  - the base-model demo (--tiny_random --device cuda, 9 frames at 64x96)
              writes an mp4; extract_first_frame, extract_canny_edges and compare_videos
              run on it.
@@ -103,6 +112,9 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              decode of 23 latent frames is the largest that fit), each 20 K1 per step;
              (d) one step with every self-attention's norm_q x8 (8 K2 + 12 K1), and the
              same step with and without the runtime bound's host sync, timed.
+15b'. sharded_s2v - request (b) again with the pipeline's mesh set to the NCCL world of
+             one (every attention takes its heads and batch rows and gathers them back):
+             frames equal to (b)'s, the same K1/K2 launches, the collectives counted.
 15c. image_branch - the CLIP ViT-H/14 vision tower at full width encodes one 480x832
              frame; an I2V DiT at Wan2.1-I2V-14B-480P widths (in_dim 36, 4 of 40 layers,
              img_emb, k_img/v_img) runs one forward at B = 2, 81x480x832, with the
@@ -114,6 +126,11 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
              the frozen models, the checkpoint and the launches per step, and logs the
              stage split and peak memory.
+16b. sharded_train - train's first two steps through train(mesh=) over the NCCL world
+             of one, FSDP-placed, the VAE encodes through the spatial split
+             (parallel/spatial.py: no axis splits over one rank, the latents are
+             gathered): bit-equal to train, the launches and collectives per step, the
+             encodes' seconds and peaks beside train's.
 17. train_cli - the training CLI's functions at train's config on reference-format
              files (the expert as safetensors shards, umt5 and the VAE as .pth; Balls,
              Dominos and Plants CSVs with 832x480 mp4 clips): LoRA adapters (rank 32)
@@ -130,8 +147,9 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              which must repeat the first step for step; logs init, stages, each swap and
              peak memory.
 
-The second-to-last line is nvidia-smi's "name, power.limit"; before it, one JSON line
-lists each kernel's launches, error and times; the last line is the result JSON.
+Each phase logs {"stage": "start"} with its start time "t" first. The second-to-last line
+is nvidia-smi's "name, power.limit"; before it, one JSON line lists each kernel's
+launches, error and times; the last line is the result JSON.
 """
 
 from __future__ import annotations
@@ -646,6 +664,104 @@ def _forward_kernels(timed=True):
     return out
 
 
+RING_RANKS = 4     # virtual ranks of the ring phase: 32,760 tokens as 4 blocks of 8,190
+
+
+def _rotation(blocks, r):
+    """Virtual rank r's K/V blocks in the order the ring delivers them: its own, then
+    rank r-1's, and so on."""
+    n = len(blocks)
+    return [blocks[(r - i) % n] for i in range(n)]
+
+
+def phase_ring(measured):
+    """Ring attention's per-rank functions (parallel/ring_attention.py) at full width for
+    RING_RANKS virtual ranks on the one card, fed directly with each rank's queries and
+    the K/V blocks in its rotation order (the shift, the only collective, is not run: no
+    multi-GPU time is measured). bf16, B = 1, 32,760 tokens, 40 x 128 heads, split into 4
+    blocks of 8,190: self (16 K3) and cross against 512 keys as 4 x 128 (16 K3), each
+    merged output against the plain whole attention at K1's limits for the shape (self
+    1e-3, cross 1e-2, and the mean signed error) and the merged lse within 1e-5; then
+    the backward (16 K4 + 16 K5) under the merged o and lse, the dk/dv shares summed by
+    the blocks' owners, against the plain backward's dq, dk and dv at two bf16 ulps of
+    their largest (K4/K5's limit). Times one virtual rank's forward and backward beside a
+    quarter of this run's K3 and K4 + K5 at the training self shape."""
+    import gc
+
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.parallel.ring_attention import ring_backward, ring_forward
+
+    gen = torch.Generator("cuda").manual_seed(4322)
+    scale = 128**-0.5
+    n = RING_RANKS
+    q, k, v, do = (_rand(TRAIN_SELF, gen, torch.bfloat16) for _ in range(4))
+    kc, vc = (_rand(TRAIN_CROSS_KV, gen, torch.bfloat16) for _ in range(2))
+    qs, dos = q.chunk(n, dim=1), do.chunk(n, dim=1)
+    launches = only()
+    rec = {}
+    limits = {"self": dict(atol=1e-3, rtol=0.0), "cross": dict(atol=1e-2, rtol=0.0)}
+    for kind, kk, vv in (("self", k, v), ("cross", kc, vc)):
+        blocks = list(zip(kk.chunk(n, dim=1), vv.chunk(n, dim=1)))
+        res, cnt = picked(lambda: [ring_forward(qs[r], _rotation(blocks, r), scale)
+                                   for r in range(n)])
+        check(cnt == only(K3=n * n), f"ring {kind} forward launched {cnt}")
+        launches["K3"] += cnt["K3"]
+        o = torch.cat([o for o, _ in res], dim=1)
+        lse = torch.cat([l for _, l in res], dim=2)
+        del res
+        o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, kk, vv, scale)
+        err = compare(f"ring {kind} o {TRAIN_SELF}x{tuple(kk.shape)} as {n} blocks", o, o_ref,
+                      phase="ring", **limits[kind])
+        compare(f"ring {kind} lse", lse, lse_ref, atol=1e-5, rtol=1e-5, phase="ring")
+        rec[kind] = dict(max_abs_err=err, fwd_rank_ms=event_ms(
+            lambda: ring_forward(qs[0], _rotation(blocks, 0), scale)))
+        if kind == "cross":
+            del o, lse, o_ref, lse_ref
+            continue
+        # the backward under the merged o and lse, as _RingFn runs it
+        dk, dv = torch.zeros_like(k, dtype=torch.float32), torch.zeros_like(v, dtype=torch.float32)
+        per = TRAIN_SELF[1] // n
+
+        def backward(r):
+            def block_grads(i, dk_i, dv_i):
+                j = (r - i) % n                   # the block's owner
+                dk[:, j * per:(j + 1) * per] += dk_i.float()
+                dv[:, j * per:(j + 1) * per] += dv_i.float()
+            return ring_backward(qs[r], o.chunk(n, dim=1)[r], lse.chunk(n, dim=2)[r].contiguous(),
+                                 dos[r], _rotation(blocks, r), scale, block_grads)
+
+        dq, cnt = picked(lambda: torch.cat([backward(r) for r in range(n)], dim=1))
+        check(cnt == only(K4=n * n, K5=n * n), f"ring backward launched {cnt}")
+        launches["K4"] += cnt["K4"]
+        launches["K5"] += cnt["K5"]
+        dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, o_ref, do, lse_ref, scale)
+        rec["bwd_err"] = max(
+            compare("ring dk (16 K4)", dk.to(k.dtype), dk_ref, atol=bf16_limit(dk_ref), rtol=0.0,
+                    phase="ring"),
+            compare("ring dv (16 K4)", dv.to(v.dtype), dv_ref, atol=bf16_limit(dv_ref), rtol=0.0,
+                    phase="ring"))
+        del dk_ref, dv_ref
+        dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o_ref, do, lse_ref, scale)
+        rec["bwd_err"] = max(rec["bwd_err"], compare("ring dq (16 K5)", dq, dq_ref,
+                                                     atol=bf16_limit(dq_ref), rtol=0.0,
+                                                     phase="ring"))
+        del dq_ref, o_ref, lse_ref
+        o0, lse0 = o.chunk(n, dim=1)[0], lse.chunk(n, dim=2)[0].contiguous()
+        rec["bwd_rank_ms"] = event_ms(lambda: ring_backward(
+            qs[0], o0, lse0, dos[0], _rotation(blocks, 0), scale, lambda i, a, b: None))
+        del o, lse, dq, dk, dv
+        gc.collect()
+        torch.cuda.empty_cache()
+    quarter = {"K3": measured["K3"]["self"]["ms"] / n,
+               "K4_K5": (measured["K4"]["self"]["ms"] + measured["K5"]["self"]["ms"]) / n}
+    log("ring", virtual_ranks=n, launches=launches, self_fwd_rank_ms=rec["self"]["fwd_rank_ms"],
+        k3_self_ms_over_4=quarter["K3"], cross_fwd_rank_ms=rec["cross"]["fwd_rank_ms"],
+        k3_cross_ms_over_4=measured["K3"]["cross"]["ms"] / n,
+        self_bwd_rank_ms=rec["bwd_rank_ms"], k4_k5_self_ms_over_4=quarter["K4_K5"],
+        note="one card, virtual ranks: no shift runs, no multi-GPU time is measured")
+    return launches, rec
+
+
 def bf16_limit(ref) -> float:
     """Two bf16 ulps at the largest |ref|: kernel and plain version round float32 sums
     that differ only in summation order to bf16, so a right kernel is within one ulp."""
@@ -1106,7 +1222,9 @@ def phase_sharded(pipe, main_frames, main_stages):
     token and batch gathers, the token ids' broadcasts) runs as a copy over a group of
     one, and K1 runs on the rank's heads after the exchange. The frames must equal
     main's within SHARDED_ATOL; K1 launches 12 per step as in main; each collective's
-    count per step is collectives_per_step's. Logs the step seconds beside main's and
+    count per step is collectives_per_step's. Then the same request with
+    attn_impl="ring": over one rank "sp" is 1, so the ring falls back to "auto" as JAX's
+    does, with main's frames, launches and the same collectives. Logs the step seconds beside main's and
     compare_videos (PSNR, SSIM) of the two frame sets. The pipeline then serves
     unsharded again (over one rank the placed parameters are the whole tensors). The
     process group stays for the later sharded phases."""
@@ -1127,12 +1245,22 @@ def phase_sharded(pipe, main_frames, main_stages):
         steps, unwrap = _step_log(pipe)
         fa.reset_launch_counts()
         col.counts.clear()
+        request = lambda: pipe(PROMPTS[0], image, control_signal_video=video, seed=11,
+                               num_inference_steps=STEPS)
         try:
-            frames, secs = sync_time(lambda: pipe(PROMPTS[0], image, control_signal_video=video,
-                                                  seed=11, num_inference_steps=STEPS))
+            frames, secs = sync_time(request)
         finally:
             unwrap()
         launches, collectives = dict(fa.launch_counts), dict(col.counts)
+        # "sp" is 1 over one rank, so attn_impl="ring" is "auto" there, as in JAX
+        impl, pipe.attn_impl = pipe.attn_impl, "ring"
+        fa.reset_launch_counts()
+        col.counts.clear()
+        try:
+            ring_frames, ring_secs = sync_time(request)
+        finally:
+            pipe.attn_impl = impl
+        ring_launches, ring_collectives = dict(fa.launch_counts), dict(col.counts)
     finally:
         pipe.mesh = None
     _check_frames("sharded", frames, pc)
@@ -1151,6 +1279,11 @@ def phase_sharded(pipe, main_frames, main_stages):
     check(diff <= SHARDED_ATOL, f"sharded: frames differ from main's by {diff}")
     check(launches == only(K1=K1_PER_REQUEST), f"sharded launched {launches}")
     check(collectives == want, f"sharded: collectives {collectives}, expected {want}")
+    log("sharded", stage="attn_impl=ring", seconds=ring_secs, collectives=ring_collectives)
+    _sharded_equal("sharded", "attn_impl=ring (sp = 1: auto)", ring_frames, main_frames,
+                   ring_launches, only(K1=K1_PER_REQUEST))
+    check(ring_collectives == want, f"sharded ring: collectives {ring_collectives}, "
+          f"expected {want}")
     return launches
 
 
@@ -2460,14 +2593,21 @@ def train_collectives_per_step(dit_blocks, cn_blocks, t5_blocks, rows, ffn_chunk
     row sums, the gathers of T5 (its embedding and each block), of the DiT's embeddings
     and its head, of the ControlNet's embeddings and of the tokens before the head, the
     ControlNet embedding's reduce-scatter, and 4 all-reduces (the replicated gradients,
-    the loss over "dp", the two gradient norms)."""
+    the loss over "dp", the two gradient norms). The VAE's spatial split adds
+    SPLIT_GATHERS_PER_STEP all-gathers (each encode's latents; over one rank no axis is
+    split, so no halo shifts and no gather of the mid-block's keys)."""
     c = -(-rows // ffn_chunk)
     g = dit_blocks - 1
     fwd = dit_blocks + g + 2 * cn_blocks
     return {"all_to_all": 4 * fwd + 4 * (g + cn_blocks),
             "all_reduce": (6 + c) * fwd + (5 + c) * g + (6 + c) * cn_blocks + 2 + 4,
-            "all_gather": fwd + cn_blocks * (20 + c) + (1 + t5_blocks) + 2 + 1 + 1,
+            "all_gather": (fwd + cn_blocks * (20 + c) + (1 + t5_blocks) + 2 + 1 + 1
+                           + SPLIT_GATHERS_PER_STEP),
             "reduce_scatter": cn_blocks + 1}
+
+
+SPLIT_GATHERS_PER_STEP = 3      # the latents of the video, control and first-frame encodes
+ENCODES = ("vae_encode_video", "vae_encode_control", "vae_encode_first_frame")
 
 
 def phase_sharded_train(run):
@@ -2477,7 +2617,10 @@ def phase_sharded_train(run):
     ControlNet, clips and generators. The loss, gradient norm and step-2 ControlNet must
     equal train's bit for bit (every collective is a copy); each step launches what a
     train step launches (K1 2, K3 20, K4 7, K5 10) and calls the collectives of
-    train_collectives_per_step. Logs the step seconds and peaks beside train's."""
+    train_collectives_per_step. The three VAE encodes run split (parallel/spatial.py):
+    over one rank no axis splits, so no halo moves, but the split's plumbing and its
+    latent gathers run. Logs the step seconds, the encodes' seconds and peaks beside
+    train's, and the split's collectives apart from the others."""
     import gc
     import shutil
     import tempfile
@@ -2538,10 +2681,14 @@ def phase_sharded_train(run):
             step_time=h["step_time"], train_step_time=r["step_time"],
             forward_backward=h["forward_backward"], train_forward_backward=r["forward_backward"],
             forward_backward_peak_gb=h["forward_backward_peak_gb"],
-            train_forward_backward_peak_gb=r["forward_backward_peak_gb"])
+            train_forward_backward_peak_gb=r["forward_backward_peak_gb"],
+            **{f"{e}{p}": h[e + p] for e in ENCODES for p in ("", "_peak_gb")},
+            **{f"train_{e}{p}": r[e + p] for e in ENCODES for p in ("", "_peak_gb")})
     log("sharded_train", stage="done", seconds=secs, launches=launches,
         launches_per_step=[p[0] for p in per_step], collectives_per_step=[p[1] for p in per_step],
-        expected_collectives_per_step=want_calls, max_memory_allocated_gb=peak_gb,
+        expected_collectives_per_step=want_calls,
+        split_collectives_per_step={"all_gather": SPLIT_GATHERS_PER_STEP, "shift": 0},
+        max_memory_allocated_gb=peak_gb,
         train_max_memory_allocated_gb=run["peak_gb"], metrics_equal=same_metrics,
         controlnet_tensors_differing=same_cn)
     check([h["step"] for h in history] == [1, 2], f"sharded_train: steps {history}")
@@ -2938,10 +3085,12 @@ def phase_s2v():
                      (pc.num_frames, pc.height, pc.width, 3), S2V_K1_PER_STEP)
     xb = _s2v_request_inputs(23, S2V_POSE_FRAMES, pc.height, pc.width, pose=True)
     audio_b = np.ascontiguousarray(audio[..., :S2V_POSE_FRAMES - 1])
-    _s2v_request(pipe, "s2v", f"b_pose_{S2V_POSE_FRAMES}", lambda: pipe(
-        prompt, x["image"], audio_embeds=audio_b, s2v_pose_video=xb["pose"],
-        num_frames=S2V_POSE_FRAMES, **kw), (S2V_POSE_FRAMES, pc.height, pc.width, 3),
-        S2V_K1_PER_STEP, base=a)
+    request_b = lambda: pipe(prompt, x["image"], audio_embeds=audio_b,
+                             s2v_pose_video=xb["pose"], num_frames=S2V_POSE_FRAMES, **kw)
+    before = dict(fa.launch_counts)
+    b = _s2v_request(pipe, "s2v", f"b_pose_{S2V_POSE_FRAMES}", request_b,
+                     (S2V_POSE_FRAMES, pc.height, pc.width, 3), S2V_K1_PER_STEP, base=a)
+    b_launches = {k: fa.launch_counts[k] - before[k] for k in before}
     xc = _s2v_request_inputs(24, S2V_MOTION_FRAMES, 448, pc.width, motion=True)
     audio_c = np.ascontiguousarray(audio[..., :S2V_MOTION_FRAMES - 1])
     _s2v_request(pipe, "s2v", f"c_motion_448_{S2V_MOTION_FRAMES}", lambda: pipe(
@@ -2950,10 +3099,42 @@ def phase_s2v():
         S2V_K1_PER_STEP)
     run_counts = dict(fa.launch_counts)
     run_counts["K2"] += _s2v_unbounded_step(pipe, audio, x["image"])
+    sharded_launches = phase_sharded_s2v(pipe, request_b, b, b_launches,
+                                         (S2V_POSE_FRAMES, pc.height, pc.width, 3))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return run_counts
+    return run_counts, sharded_launches
+
+
+def phase_sharded_s2v(pipe, request, frames_b, launches_b, frames_shape):
+    """Request (b) again with the S2V pipeline's mesh set to the NCCL world of one rank
+    (pipe.shard(make_mesh(1, 1, 1))): every attention takes its heads over ("sp", "tp")
+    and its batch rows over "dp" (all of them, over one rank) and gathers them back, the
+    token ids are broadcast from rank 0. Frames must equal (b)'s (bit-equal expected:
+    every collective is a copy) and K1/K2 launch as in (b); logs the collectives. No
+    multi-GPU time is measured."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.parallel import collectives as col
+
+    log("sharded_s2v", stage="start")
+    pipe.shard(_world_mesh())
+    col.counts.clear()
+    before = dict(fa.launch_counts)
+    try:
+        frames = _s2v_request(pipe, "sharded_s2v", "b_pose_sharded", request, frames_shape,
+                              S2V_K1_PER_STEP)
+    finally:
+        pipe.mesh = None
+    calls = dict(col.counts)
+    launches = {k: fa.launch_counts[k] - before[k] for k in before}
+    _sharded_equal("sharded_s2v", "b_pose", frames, frames_b, launches, launches_b)
+    # per step: CFG's two forwards x (4 self, 4 text cross, 2 audio) attentions, each
+    # gathering its heads and its rows; the prompts' ids and mask broadcast once
+    want = {"all_gather": 2 * S2V_K1_PER_STEP * S2V_STEPS, "broadcast": 2}
+    log("sharded_s2v", collectives=calls, expected_collectives=want)
+    check(calls == want, f"sharded_s2v: collectives {calls}, expected {want}")
+    return launches
 
 
 def _s2v_unbounded_step(pipe, audio, image):
@@ -3115,35 +3296,43 @@ def main() -> int:
         _end_world()
 
 
+def started(phase, fn, *args):
+    """fn(*args), its phase's start time logged first."""
+    log(phase, stage="start")
+    return fn(*args)
+
+
 def _main() -> int:
     card = phase_device()
-    phase_build()
-    measured = phase_kernels()
-    phase_small()
-    phase_small_train()
-    phase_small_int8()
-    small_s2v_launches = phase_small_s2v()
-    pipe, main_launches, bf16_frames, main_stages = phase_main()
-    sharded_launches = phase_sharded(pipe, bf16_frames[0], main_stages)
-    phase_tools()
-    tc_launches = phase_teacache(pipe, bf16_frames[0])
-    window_launches = phase_window(pipe, bf16_frames[0])
-    cli_launches = phase_cli(pipe)
-    unb_launches = phase_unbounded(pipe)
-    variants_launches = phase_variants(pipe)
-    int8_launches, sharded_int8_launches = phase_main_int8(pipe, bf16_frames)
+    started("build", phase_build)
+    measured = started("kernels", phase_kernels)
+    ring_launches, ring_rec = started("ring", phase_ring, measured)
+    started("small", phase_small)
+    started("small_train", phase_small_train)
+    started("small_int8", phase_small_int8)
+    small_s2v_launches = started("small_s2v", phase_small_s2v)
+    pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
+    sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
+    started("tools", phase_tools)
+    tc_launches = started("teacache", phase_teacache, pipe, bf16_frames[0])
+    window_launches = started("window", phase_window, pipe, bf16_frames[0])
+    cli_launches = started("cli", phase_cli, pipe)
+    unb_launches = started("unbounded", phase_unbounded, pipe)
+    variants_launches = started("variants", phase_variants, pipe)
+    int8_launches, sharded_int8_launches = started("main_int8", phase_main_int8, pipe,
+                                                   bf16_frames)
     del pipe, bf16_frames
-    t2v_vace_launches = phase_t2v_vace()
-    fun_control_launches = phase_fun_control()
-    s2v_launches = phase_s2v()
-    image_launches = phase_image_branch()
-    phase_vae38()
-    train_launches, train_run = phase_train()
-    sharded_train_launches = phase_sharded_train(train_run)
+    t2v_vace_launches = started("t2v_vace", phase_t2v_vace)
+    fun_control_launches = started("fun_control", phase_fun_control)
+    s2v_launches, sharded_s2v_launches = started("s2v", phase_s2v)
+    image_launches = started("image_branch", phase_image_branch)
+    started("vae38", phase_vae38)
+    train_launches, train_run = started("train", phase_train)
+    sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
-    train_cli_launches = phase_train_cli()
-    full_launches = phase_full_int8()
-    full_bf16_launches = phase_full_bf16()
+    train_cli_launches = started("train_cli", phase_train_cli)
+    full_launches = started("full_int8", phase_full_int8)
+    full_bf16_launches = started("full_bf16", phase_full_bf16)
     fwd = "goal_force_tpu_torch/csrc/flash_attention.cu"
     train_src = "goal_force_tpu_torch/csrc/flash_attention_bwd.cu"
     int8_src = "goal_force_tpu_torch/csrc/flash_attention_int8.cu"
@@ -3163,24 +3352,33 @@ def _main() -> int:
               "t2v_vace_launches": t2v_vace_launches["K1"],
               "fun_control_launches": fun_control_launches["K1"],
               "s2v_launches": s2v_launches["K1"], "small_s2v_launches": small_s2v_launches["K1"],
+              "sharded_s2v_launches": sharded_s2v_launches["K1"],
               "image_branch_launches": image_launches["K1"],
               **{k: measured["K1"][k] for k in ("audio", "s2v_self", "s2v_cross",
                                                 "image_cross")}}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],
+              "sharded_s2v_launches": sharded_s2v_launches["K2"],
               **{k: measured["K2"][k] for k in ("audio", "s2v_self", "s2v_cross")}}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K3"],
+              "ring_launches": ring_launches["K3"],
+              "ring_self_fwd_rank_ms": ring_rec["self"]["fwd_rank_ms"],
+              "ring_cross_fwd_rank_ms": ring_rec["cross"]["fwd_rank_ms"],
+              "ring_max_abs_err": {k: ring_rec[k]["max_abs_err"] for k in ("self", "cross")},
               "sharded_train_launches": sharded_train_launches["K3"]}),
             ("K4 flash_attention_bwd_dkv", train_src, 76, train_launches["K4"],
              {"cross": measured["K4"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K4"],
+              "ring_launches": ring_launches["K4"], "ring_bwd_rank_ms": ring_rec["bwd_rank_ms"],
+              "ring_bwd_max_abs_err": ring_rec["bwd_err"],
               "sharded_train_launches": sharded_train_launches["K4"]}),
             ("K5 flash_attention_bwd_dq", train_src, 118, train_launches["K5"],
              {"cross": measured["K5"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K5"],
+              "ring_launches": ring_launches["K5"],
               "sharded_train_launches": sharded_train_launches["K5"]}),
             ("K6 flash_attention_int8", int8_src, 581, int8_launches["K6"],
              {"cross": measured["K6"]["cross"], "path": "main_int8",

@@ -18,7 +18,11 @@ Port of ``goal_force_tpu/models/s2v.py``:
 
 Every attention goes through ``ops.attention.attention`` without ``bounded``, as JAX's
 does: on the card each call takes the runtime logit bound (one host sync) and then K1
-without clamp or K2. Modules hold the parameters under the reference's names, the keys
+without clamp or K2. Under an ambient mesh (``S2VPipeline.mesh``) each attention splits
+its heads over ("sp", "tp") and its batch rows over "dp", and each rank takes the bound
+on its own heads (JAX's per-shard ``lax.cond``), so ranks may run different kernels;
+with ``attn_impl="ring"`` the tokens ring over "sp" instead where the lengths divide.
+Modules hold the parameters under the reference's names, the keys
 that JAX's ``s2v_params_from_torch`` reads (including the reference's spelling
 ``casual_audio_encoder``); ``s2v_from_state_dict`` loads them strictly.
 """

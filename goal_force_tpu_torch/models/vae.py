@@ -148,15 +148,19 @@ class WanVAE(nn.Module):
 # Primitive ops (channels-first activations)
 # ---------------------------------------------------------------------------
 
-def causal_conv3d(conv: nn.Conv3d, x, t_stride: int = 1, causal_pad: bool = True):
+def causal_conv3d(conv: nn.Conv3d, x, t_stride: int = 1, causal_pad: bool = True,
+                  split=None):
     """Conv3d with 2*(kt//2) zero frames in front (none with causal_pad=False) and
-    symmetric spatial zero padding."""
+    symmetric spatial zero padding; over a rank's block of a spatial split
+    (``parallel/spatial.py``) the padding along a split axis is the neighbours' halo."""
     kt, kh, kw = conv.weight.shape[2:]
     pt = 2 * (kt // 2) if causal_pad else 0
     if pt:
         x = F.pad(x, (0, 0, 0, 0, pt, 0))
-    return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                    stride=(t_stride, 1, 1), padding=(0, kh // 2, kw // 2))
+    w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+    if split is not None:
+        return split.conv(x, w, b, (t_stride, 1, 1), (0, kh // 2, kw // 2))
+    return F.conv3d(x, w, b, stride=(t_stride, 1, 1), padding=(0, kh // 2, kw // 2))
 
 
 def spatial_norm(p: RMSNormC, x, eps: float = 1e-12):
@@ -171,26 +175,34 @@ def silu(x):
     return F.silu(x.float()).to(x.dtype)
 
 
-def residual_block(p: ResidualBlock, x):
-    h = x if p.shortcut is None else causal_conv3d(p.shortcut, x)
+def residual_block(p: ResidualBlock, x, split=None):
+    h = x if p.shortcut is None else causal_conv3d(p.shortcut, x, split=split)
     r = p.residual
-    y = causal_conv3d(r[2], silu(spatial_norm(r[0], x)))
-    y = causal_conv3d(r[6], silu(spatial_norm(r[3], y)))
+    y = causal_conv3d(r[2], silu(spatial_norm(r[0], x)), split=split)
+    y = causal_conv3d(r[6], silu(spatial_norm(r[3], y)), split=split)
     return y + h
 
 
-def attention_block(p: AttentionBlock, x):
-    """Single-head per-frame spatial attention. x: (B, C, T, H, W)."""
+def attention_block(p: AttentionBlock, x, split=None):
+    """Single-head per-frame spatial attention. x: (B, C, T, H, W). Over a rank's block
+    of a spatial split its pixels are the queries, and the keys and values of every
+    rank's block are gathered."""
     b, c, t, hh, ww = x.shape
     h = x.permute(0, 2, 1, 3, 4).reshape(b * t, c, hh, ww)
     h = spatial_norm(p.norm, h)
-    qkv = F.conv2d(h, p.to_qkv.weight.to(h.dtype), p.to_qkv.bias.to(h.dtype))
+    w_qkv, b_qkv = p.to_qkv.weight.to(h.dtype), p.to_qkv.bias.to(h.dtype)
+    qkv = F.conv2d(h, w_qkv, b_qkv) if split is None else split.conv(h, w_qkv, b_qkv, (1, 1),
+                                                                     (0, 0))
     qkv = qkv.reshape(b * t, 3, c, hh * ww).transpose(2, 3)       # (BT, 3, HW, C)
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    if split is not None and split.split_any:
+        kv = split.gather(qkv[:, 1:].reshape(b * t, 2, hh, ww, c))
+        k, v = kv.flatten(2, 3).unbind(1)
     logits = torch.einsum("bsc,btc->bst", q.float(), k.float())
     probs = torch.softmax(logits * (c**-0.5), dim=-1).to(x.dtype)
     out = torch.einsum("bst,btc->bsc", probs, v).transpose(1, 2).reshape(b * t, c, hh, ww)
-    out = F.conv2d(out, p.proj.weight.to(out.dtype), p.proj.bias.to(out.dtype))
+    w_o, b_o = p.proj.weight.to(out.dtype), p.proj.bias.to(out.dtype)
+    out = F.conv2d(out, w_o, b_o) if split is None else split.conv(out, w_o, b_o, (1, 1), (0, 0))
     return x + out.reshape(b, t, c, hh, ww).permute(0, 2, 1, 3, 4)
 
 
@@ -201,9 +213,14 @@ def _conv2d_frames(conv: nn.Conv2d, x, stride: int = 1, padding=(1, 1)):
                     padding=(0, *padding))
 
 
-def downsample_spatial(p: Resample, x):
-    """ZeroPad2d((0,1,0,1)) + conv 3x3 stride 2."""
-    return _conv2d_frames(p.resample[1], F.pad(x, (0, 1, 0, 1)), stride=2, padding=(0, 0))
+def downsample_spatial(p: Resample, x, split=None):
+    """ZeroPad2d((0,1,0,1)) + conv 3x3 stride 2; over a rank's block of a spatial split
+    the padding row and column come from the neighbours below and to the right."""
+    if split is None:
+        return _conv2d_frames(p.resample[1], F.pad(x, (0, 1, 0, 1)), stride=2, padding=(0, 0))
+    conv = p.resample[1]
+    return split.conv(split.pad_after(x), conv.weight.to(x.dtype)[:, :, None],
+                      conv.bias.to(x.dtype), (1, 2, 2), (0, 0, 0))
 
 
 def upsample_spatial(p: Resample, x):
@@ -212,12 +229,12 @@ def upsample_spatial(p: Resample, x):
     return _conv2d_frames(p.resample[1], x)
 
 
-def downsample3d_time(conv: nn.Conv3d, x):
+def downsample3d_time(conv: nn.Conv3d, x, split=None):
     """Frame 0, then the stride-2 conv over the frames without causal padding (nothing
     where there are fewer frames than the kernel: one frame encodes as itself)."""
     if x.shape[2] < conv.weight.shape[2]:
         return x[:, :, :1]
-    tail = causal_conv3d(conv, x, t_stride=2, causal_pad=False)
+    tail = causal_conv3d(conv, x, t_stride=2, causal_pad=False, split=split)
     return torch.cat([x[:, :, :1], tail], dim=2)
 
 
@@ -231,15 +248,19 @@ def upsample3d_time(conv: nn.Conv3d, x):
     return torch.cat([x[:, :, :1], y], dim=2)
 
 
-def _run_plan(plan, mods, x):
+def _run_plan(plan, mods, x, split=None):
+    """The plan's modules in turn; a spatial split (encoder only) moves to the next level
+    after each spatial downsample."""
     for op, p in zip(plan, mods):
         kind = op[0]
         if kind == "res":
-            x = residual_block(p, x)
-        elif kind == "down2d":
-            x = downsample_spatial(p, x)
-        elif kind == "down3d":
-            x = downsample3d_time(p.time_conv, downsample_spatial(p, x))
+            x = residual_block(p, x, split)
+        elif kind in ("down2d", "down3d"):
+            x = downsample_spatial(p, x, split)
+            if split is not None:
+                split.halve()
+            if kind == "down3d":
+                x = downsample3d_time(p.time_conv, x, split)
         elif kind == "up2d":
             x = upsample_spatial(p, x)
         elif kind == "up3d":
@@ -259,18 +280,22 @@ def _to_cl(x):
 # Encoder / decoder (channels-last in and out)
 # ---------------------------------------------------------------------------
 
-def encode(vae: WanVAE, cfg: VAEConfig, video):
-    """video (B, T, H, W, 3) in [-1,1], T = 1+4k -> unscaled mu (B, 1+k, H/8, W/8, z)."""
+def encode(vae: WanVAE, cfg: VAEConfig, video, split=None):
+    """video (B, T, H, W, 3) in [-1,1], T = 1+4k -> unscaled mu (B, 1+k, H/8, W/8, z).
+
+    split: a ``parallel/spatial.py::SpatialSplit`` at the pixels' level, whose rank's
+    block `video` is: the result is then that rank's block of the latents, and the split
+    is left at their level."""
     if video.shape[1] % 4 != 1:
         raise ValueError(f"encode expects T = 1+4k frames, got T={video.shape[1]}")
     enc = vae.encoder
-    x = causal_conv3d(enc.conv1, _to_cf(video))
-    x = _run_plan(encoder_plan(cfg), enc.downsamples, x)
-    x = residual_block(enc.middle[0], x)
-    x = attention_block(enc.middle[1], x)
-    x = residual_block(enc.middle[2], x)
-    x = causal_conv3d(enc.head[2], silu(spatial_norm(enc.head[0], x)))
-    moments = causal_conv3d(vae.conv1, x)
+    x = causal_conv3d(enc.conv1, _to_cf(video), split=split)
+    x = _run_plan(encoder_plan(cfg), enc.downsamples, x, split)
+    x = residual_block(enc.middle[0], x, split)
+    x = attention_block(enc.middle[1], x, split)
+    x = residual_block(enc.middle[2], x, split)
+    x = causal_conv3d(enc.head[2], silu(spatial_norm(enc.head[0], x)), split=split)
+    moments = causal_conv3d(vae.conv1, x, split=split)
     return _to_cl(moments[:, : cfg.z_dim])
 
 
@@ -297,9 +322,9 @@ def latent_scale(cfg: VAEConfig, dtype, device):
     return mean, std
 
 
-def encode_video(vae: WanVAE, cfg: VAEConfig, video):
-    """Scaled encode: (mu - mean) / std."""
-    mu = encode(vae, cfg, video)
+def encode_video(vae: WanVAE, cfg: VAEConfig, video, split=None):
+    """Scaled encode: (mu - mean) / std (of a rank's block under a spatial split)."""
+    mu = encode(vae, cfg, video, split)
     mean, std = latent_scale(cfg, mu.dtype, mu.device)
     return (mu - mean) / std
 

@@ -40,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from goal_force_tpu_torch.configs import WanDiTConfig
-from goal_force_tpu_torch.ops.attention import attention, sharded_attention
+from goal_force_tpu_torch.ops.attention import sharded_attention, sharded_cross_attention
 from goal_force_tpu_torch.ops.quant import QuantLinear
 from goal_force_tpu_torch.ops.rope import apply_rope, assemble_rope, rope_tables_3d
 from goal_force_tpu_torch.parallel import collectives as col
@@ -304,25 +304,26 @@ def cross_attention(p: WanAttention, x, context, num_heads: int, eps: float,
     """Text cross-attention over every context token (no mask). With num_img_tokens > 0
     the first tokens of `context` are image tokens, attended through k_img/v_img with the
     same queries; the two attentions' outputs are added before ``o``. Under a mesh q
-    keeps this rank's tokens against every text key: no exchange before the kernel; the
-    image keys are projected whole (their norm spans every head) and each rank keeps its
-    heads of them."""
+    keeps this rank's tokens against every text key: no exchange before the kernel (with
+    attn_impl "ring", where JAX's condition holds, the keys split over "sp" and rotate:
+    ``sharded_cross_attention``); the image keys are projected whole (their norm spans
+    every head) and each rank keeps its heads of them."""
     b, s, d = x.shape
     img, ctx = context[:, :num_img_tokens], context[:, num_img_tokens:]
     t = ctx.shape[1]
     hd = d // num_heads
     q, k, v, own = _sharded_qkv(p, x, ctx, num_heads, eps)
     q = q.reshape(b, s, -1, hd)
-    out = attention(q, k.reshape(b, t, -1, hd), v.reshape(b, t, -1, hd), impl=attn_impl,
-                    bounded=bounded).reshape(b, s, -1)
+    out = sharded_cross_attention(q, k.reshape(b, t, -1, hd), v.reshape(b, t, -1, hd),
+                                  impl=attn_impl, bounded=bounded).reshape(b, s, -1)
     if num_img_tokens:
         k_img = rms_norm(linear(p.k_img, img), p.norm_k_img.weight, eps).reshape(
             b, num_img_tokens, num_heads, -1)
         v_img = linear(p.v_img, img).reshape(b, num_img_tokens, num_heads, -1)
         if own and q.shape[2] != num_heads:       # this rank's heads of the image keys
             k_img, v_img = col.shard_of(k_img, 2), col.shard_of(v_img, 2)
-        out = out + attention(q, k_img, v_img, impl=attn_impl,
-                              bounded=bounded).reshape(b, s, -1)
+        out = out + sharded_cross_attention(q, k_img, v_img, impl=attn_impl,
+                                            bounded=bounded).reshape(b, s, -1)
     return linear_row(p.o, out if own else col.shard_of(out, 2))
 
 

@@ -5,15 +5,18 @@ Each function acts over one axis of the ambient mesh (``parallel/mesh.py``), or 
 several at once (the FSDP group ``("dp", "sp")``), and calls its collective whatever
 the axis's size: over a group of one it is a copy, so a world of one process runs the
 same code as a multi-GPU one. ``counts`` counts the calls by kind ("all_to_all",
-"all_gather", "all_reduce", "reduce_scatter", "broadcast"), backward calls included,
-for the launch checks of ``chip_smoke.py``.
+"all_gather", "all_reduce", "reduce_scatter", "broadcast", "shift"), backward calls
+included, for the launch checks of ``chip_smoke.py``.
 
 Layouts: tokens are split over "sp" between blocks, padded at the end to a multiple of
 the axis size (``split_seq``; ``valid_tokens()`` then holds the real count, and the
 padded keys are masked in attention); inside self-attention ``seq_to_heads`` trades
 tokens for heads (Ulysses) and ``heads_to_seq`` trades them back; the outputs of the
 row-parallel linears are summed over "tp" (``all_reduce``); batch rows are split over
-"dp" (``split_batch``) and gathered at the end (``gather_batch``).
+"dp" (``split_batch``) and gathered at the end (``gather_batch``). ``shift`` hands each
+rank its neighbour's tensor along one axis (JAX's ``ppermute`` by one): with wraparound
+the K/V blocks of ring attention (``parallel/ring_attention.py``), without it the halo
+rows and columns of the VAE's spatial split (``parallel/spatial.py``).
 
 Gradients. Every collective is an ``autograd.Function`` whose backward is its
 transpose; under ``no_grad`` (serving) it records nothing and issues the same one
@@ -329,6 +332,49 @@ def split_batch(x: Optional[torch.Tensor], axis: str = "dp") -> Optional[torch.T
 
 def gather_batch(x: torch.Tensor, axis: str = "dp") -> torch.Tensor:
     return _gather(x, 0, axis)
+
+
+def _shift(x: torch.Tensor, step: int, wrap: bool, ax: _Axis) -> torch.Tensor:
+    """Rank r's result is rank (r - step)'s x; without wrap, zeros where that rank lies
+    outside the axis. One batch of point-to-point sends and receives over the axis."""
+    n, r = ax.n, ax.rank
+    src, dst = r - step, r + step
+    if wrap:
+        if n == 1:
+            return x.view_as(x)
+        src, dst = src % n, dst % n
+    x = x.contiguous()
+    out = torch.empty_like(x) if 0 <= src < n else torch.zeros_like(x)
+    peer = lambda i: dist.get_global_rank(ax.group, i)
+    ops = ([dist.P2POp(dist.isend, x, peer(dst), ax.group)] if 0 <= dst < n else []) + \
+          ([dist.P2POp(dist.irecv, out, peer(src), ax.group)] if 0 <= src < n else [])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        counts["shift"] += 1
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """Each rank's x handed to the rank `step` further along the axis; the backward hands
+    the gradient back the other way (with the same wraparound)."""
+
+    @staticmethod
+    def forward(ctx, x, step, wrap, ax):
+        ctx.step, ctx.wrap, ctx.ax = step, wrap, ax
+        return _shift(x, step, wrap, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, -ctx.step, ctx.wrap, ctx.ax), None, None, None
+
+
+def shift(x: torch.Tensor, axis: str = "sp", step: int = 1, wrap: bool = True) -> torch.Tensor:
+    """The tensor of the rank `step` places before this one along `axis` (every rank's x
+    has one shape): with wrap, around the ring (over one rank, x itself); without it, the
+    ranks that have no such neighbour get zeros (the edge's zero padding; over one rank,
+    zeros). Its backward is the shift the other way."""
+    return _Shift.apply(x, step, wrap, _Axis(axis))
 
 
 def broadcast_from_first(x: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ its specs inside the jitted train step, without DTensor and without
   group (checkpoints), and this rank's shard of a whole tensor (resume).
 
 The pipeline-parallel options of JAX's ``fsdp_specs`` (``pp_stage_fsdp``, a "pp" axis)
-raise: pipeline parallelism is ROADMAP M13b.
+raise: pipeline parallelism is ROADMAP M13b-pp.
 """
 
 from __future__ import annotations
@@ -109,10 +109,10 @@ def fsdp_specs(module: nn.Module, mesh, axes=AXES, min_size: int = MIN_SIZE,
     """{parameter name: spec} of `module`: per port dimension, the axes tuple it is split
     over, or None (JAX's ``fsdp_specs`` read through ``jax_leaf``). `mesh` is a mesh or
     anything with ``mesh_dim_names`` and ``shape``. `pp_stage_fsdp` and a "pp" axis
-    raise (ROADMAP M13b)."""
+    raise (ROADMAP M13b-pp)."""
     sizes = axis_sizes(mesh)
     if pp_stage_fsdp or "pp" in axes or sizes.get("pp", 1) > 1:
-        raise NotImplementedError("FSDP over a pipeline axis is not ported yet (ROADMAP M13b)")
+        raise NotImplementedError("FSDP over a pipeline axis is not ported yet (ROADMAP M13b-pp)")
     axes = tuple(axes)
     n = _group_size(sizes, axes)
     out = {}

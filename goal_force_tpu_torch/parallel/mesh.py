@@ -62,7 +62,7 @@ def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1, device="cuda")
     is smaller than dp * sp * tp * pp, and NotImplementedError for pp > 1."""
     if pp > 1:
         raise NotImplementedError("pipeline parallel (pp > 1) is not ported yet "
-                                  "(ROADMAP M13b)")
+                                  "(ROADMAP M13b-pp)")
     n = dp * sp * tp * pp
     have = _world_size()
     if have < n:

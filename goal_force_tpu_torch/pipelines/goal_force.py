@@ -463,10 +463,10 @@ class GoalForcePipeline:
         host_stage_experts: keep only the active expert and its ControlNet on the
         device, each rank staging its own shards of the standby pair in host memory (a
         pipeline already host-staged has both pairs placed in their memories).
-        pp_microbatches above 1 (pipeline parallel) is not ported (ROADMAP M13b)."""
+        pp_microbatches above 1 (pipeline parallel) is not ported (ROADMAP M13b-pp)."""
         if pp_microbatches is not None and pp_microbatches > 1:
             raise NotImplementedError("pipeline-parallel microbatches are not ported yet "
-                                      "(ROADMAP M13b)")
+                                      "(ROADMAP M13b-pp)")
 
         def place_pair(pair):
             for mod in pair.values():

@@ -12,10 +12,17 @@ the decode are untiled and in float32, as JAX's.
 
 The port's additions: ``noise=`` (the initial latents; the two packages' random streams
 differ), ``device`` (CUDA unless the CPU is asked for) and ``dtype``; ``attn_impl`` takes
-the port's names ("auto", "plain", "flash", "flash_int8"). ``input_audio=`` raises a
+the port's names ("auto", "plain", "flash", "flash_int8", "ring"). ``input_audio=`` raises a
 ``TypeError`` as the JAX package does (its ``audio_features`` passes ``batch_frames`` to
 ``Wav2Vec2Features.extract``, which has no such parameter): pass ``audio_embeds``, from
 ``models/audio.py`` (``Wav2Vec2Features.extract`` and ``get_audio_embed_bucket_fps``).
+
+Under a mesh (the ``mesh`` field, or ``shard(mesh)``; every rank calls the pipeline
+alike) a request runs with the mesh ambient, as JAX's ``__call__`` does: every S2V
+attention then splits its heads over ("sp", "tp") and its batch rows over "dp" and
+gathers them back, or with ``attn_impl="ring"`` rings its tokens over "sp"
+(``ops/attention.py::attention``); the linears, the audio injection's projections and
+the VAE stay replicated, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ class S2VPipeline:
     dtype: torch.dtype = torch.bfloat16
     device: torch.device = torch.device("cuda")
     attn_impl: str = "auto"
+    mesh: Optional[object] = None
 
     # ------------------------------------------------------------------
     # Construction
@@ -192,13 +200,18 @@ class S2VPipeline:
     # ------------------------------------------------------------------
 
     def shard(self, mesh) -> "S2VPipeline":
-        """Serving over a mesh: not ported yet. JAX's S2V pipeline runs under its
-        ``mesh`` as GSPMD hints over the same activations the VAE's spatial split
-        covers (ROADMAP M13a-vae)."""
-        raise NotImplementedError("S2V under a mesh is not ported yet (ROADMAP M13a-vae)")
+        """Serve over `mesh` (``parallel/mesh.py::make_mesh``): sets the ``mesh`` field and
+        returns the pipeline. The weights stay whole on every rank; the attentions split
+        their work (see the module docstring)."""
+        self.mesh = mesh
+        return self
 
     def __call__(self, *args, **kwargs) -> np.ndarray:
-        return self._generate(*args, **kwargs)
+        """Generate one clip (see ``_generate``), with the pipeline's mesh ambient."""
+        from goal_force_tpu_torch.parallel.mesh import use_mesh
+
+        with use_mesh(self.mesh):
+            return self._generate(*args, **kwargs)
 
     @torch.no_grad()
     def _generate(

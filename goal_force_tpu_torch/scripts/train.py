@@ -22,7 +22,7 @@ The port adds ``--device`` (``cuda`` by default; a run without a card raises unl
 --tp ..`` (N = dp * sp * tp), every process loading the files; ``make_mesh`` starts the
 process group from torchrun's environment, the frozen models and the ControlNet keep
 their FSDP shards (``parallel/fsdp.py``) and rank 0 writes the checkpoints. ``--pp``
-above 1 (pipeline parallel, ROADMAP M13b) is not ported yet and raises.
+above 1 (pipeline parallel, ROADMAP M13b-pp) is not ported yet and raises.
 ``--controlnet_stride s`` trains a strided ControlNet:
 its blocks copy expert blocks 0, s, 2s, ... and their raw states are added after those
 blocks (no zero convs), each segment between them under remat.
@@ -90,7 +90,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     for axis in ("dp", "sp", "tp", "pp"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help="mesh axis (run under torchrun); --pp above 1 is not "
-                            "ported yet (ROADMAP M13b)")
+                            "ported yet (ROADMAP M13b-pp)")
     p.add_argument("--pp_microbatches", type=int, default=2)
     p.add_argument("--use_wandb", action="store_true",
                    help="also log to wandb (JSONL only where wandb does not import)")
@@ -104,7 +104,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def check_supported(args) -> None:
     if args.pp > 1:
         raise NotImplementedError(f"--pp {args.pp}: pipeline-parallel training is not ported "
-                                  "yet (ROADMAP M13b)")
+                                  "yet (ROADMAP M13b-pp)")
 
 
 def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:

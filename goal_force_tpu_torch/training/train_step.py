@@ -33,9 +33,11 @@ gradients of the ControlNet's split parameters leave by the gathers' reduce-scat
 those of its replicated parameters and of LoRA's replicated adapters are summed over
 ("dp", "sp") in one all-reduce, and over "tp" every rank holds the whole gradient
 already (``parallel/collectives.py``). ``global_norm`` counts each sharded square once
-per shard and each replicated one once. The moments live on the shards. JAX's spatial
-split of the VAE's pixel activations over ("sp", "tp") is not ported (ROADMAP
-M13a-vae): each rank of an sp-tp group encodes its rows whole.
+per shard and each replicated one once. The moments live on the shards. The three VAE
+encodes split their pixels over ("sp", "tp") as JAX constrains them
+(``train_step.py:141-165``): each rank of an sp-tp group encodes its block of rows and
+columns, exchanging halos, and the latents are gathered back whole on every rank
+(``parallel/spatial.py``); this runs under any mesh, also where "sp" and "tp" are 1.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from goal_force_tpu_torch.pipelines.goal_force import build_i2v_mask, resolve_de
 from goal_force_tpu_torch.parallel import collectives as col
 from goal_force_tpu_torch.parallel import fsdp
 from goal_force_tpu_torch.parallel.mesh import axes_rank, axis_size, current_mesh
+from goal_force_tpu_torch.parallel.spatial import split_encode_video
 from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
 from goal_force_tpu_torch.schedulers import flow_match as fm
 
@@ -243,7 +246,7 @@ def make_train_step(
     docstring); lora_alpha defaults to the adapters' rank.
     """
     if pp_microbatches:
-        raise NotImplementedError("pipeline-parallel training is not ported yet (ROADMAP M13b)")
+        raise NotImplementedError("pipeline-parallel training is not ported yet (ROADMAP M13b-pp)")
     schedule = fm.make_schedule(num_steps=1000, shift=5.0, sigma_min=0.0,
                                 extra_one_step=True, training=True)
     lo = int(min_timestep_boundary * schedule.num_train_timesteps)
@@ -267,13 +270,14 @@ def make_train_step(
             # Encode in the VAE's own dtype (float32 pixels would run it in float32).
             vae_dtype = next(vae.parameters()).dtype
             video = video.to(vae_dtype)
+            encode = vaem.encode_video if current_mesh() is None else split_encode_video
             with _stage(timings, "vae_encode_video", device):
-                x0 = vaem.encode_video(vae, vae_cfg, video)
+                x0 = encode(vae, vae_cfg, video)
             with _stage(timings, "vae_encode_control", device):
-                control_latents = vaem.encode_video(vae, vae_cfg, batch["control"].to(vae_dtype))
+                control_latents = encode(vae, vae_cfg, batch["control"].to(vae_dtype))
             with _stage(timings, "vae_encode_first_frame", device):
                 first = torch.cat([video[:, :1], torch.zeros_like(video[:, 1:])], dim=1)
-                cond = vaem.encode_video(vae, vae_cfg, first)
+                cond = encode(vae, vae_cfg, first)
                 del first
             lat_f = (t - 1) // 4 + 1
             mask = torch.from_numpy(build_i2v_mask(t, lat_f, cond.shape[2], cond.shape[3]))

@@ -304,14 +304,14 @@ def test_make_mesh_and_shard_refusals(monkeypatch):
     assert not dist.is_initialized()
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         make_mesh(sp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="M13b"):
+    with pytest.raises(NotImplementedError, match="M13b-pp"):
         make_mesh(pp=2, device="cpu")
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     with pytest.raises(RuntimeError, match="no process group"):
         make_mesh(1, 1, 1, device="cpu")
     assert not dist.is_initialized()
     tpipe = GoalForcePipeline.init_random(device="cpu")
-    with pytest.raises(NotImplementedError, match="M13b"):
+    with pytest.raises(NotImplementedError, match="M13b-pp"):
         tpipe.shard(None, pp_microbatches=2)
     # W8A8 packs are placed: ffn.0 (column-parallel) keeps its codes' rows and its
     # scales, ffn.2 (row-parallel) its codes' columns and every scale

@@ -9,12 +9,16 @@ refusals.
 One spawned world of 4 gloo ranks (``torch_parallel_children.train_cases``; the
 children import no JAX, the parent computes the JAX references meanwhile, inputs and
 weights cross as files, a ``file://`` rendezvous in tmp_path) holds: each collective's
-forward and gradient against the unsharded function; the sharded train step at (2, 2, 1)
-and (1, 2, 2) on JAX's draws; a LoRA + ControlNet step; W8A8 packs at (1, 2, 2); and
-``train(mesh=)`` over the first two ranks, its files and its resume.
+forward and gradient against the unsharded function; ring attention and its gradient
+against JAX's ring under a JAX mesh of the same shape, and its fallbacks; the VAE's
+split encode against JAX's whole encode; the tiny S2V pipeline under (1, 2, 2) against
+JAX's; the sharded train step at (2, 2, 1) and (1, 2, 2) on JAX's draws; a LoRA +
+ControlNet step; W8A8 packs at (1, 2, 2); and ``train(mesh=)`` over the first two ranks,
+its files and its resume.
 """
 
 import copy
+import dataclasses
 import types
 
 import jax
@@ -26,7 +30,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from goal_force_tpu import configs as jcfg
 from goal_force_tpu import lora as jlora
+from goal_force_tpu.configs import PipelineConfig as JaxPipelineConfig
+from goal_force_tpu.io import torch_convert as jtc
 from goal_force_tpu.models import controlnet as jcnm
+from goal_force_tpu.models import s2v as js2v
 from goal_force_tpu.models import t5 as jt5m
 from goal_force_tpu.models import vae as jvaem
 from goal_force_tpu.models import wan_dit as jdit
@@ -34,6 +41,8 @@ from goal_force_tpu.ops.attention import attention as jax_attention
 from goal_force_tpu.ops.quant import quantize_linear_tree
 from goal_force_tpu.parallel import fsdp_specs as jax_fsdp_specs
 from goal_force_tpu.parallel import make_mesh as jax_make_mesh
+from goal_force_tpu.parallel import use_mesh as jax_use_mesh
+from goal_force_tpu.pipelines.s2v import S2VPipeline as JaxS2V
 from goal_force_tpu.pipelines.model_fn import denoise_forward as jax_denoise_forward
 from goal_force_tpu.training import train_step as jts
 
@@ -44,12 +53,14 @@ from goal_force_tpu_torch.io.from_jax import (
     lora_from_jax,
     params_from_jax,
 )
+from goal_force_tpu_torch.models import s2v as ts2v
 from goal_force_tpu_torch.parallel.fsdp import fsdp_specs
 from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
 from goal_force_tpu_torch.training.trainer import TrainerConfig, train
 
 import torch_parallel_children as children
 from test_torch_parallel import join, spawn
+from test_torch_s2v import random_state_dict
 from test_torch_training import _build
 
 
@@ -216,6 +227,131 @@ def _clips(n, seed):
              "prompt": f"a ball rolls, clip {i}"} for i in range(n)]
 
 
+RING_MESHES = ((1, 4, 1), (1, 2, 2))
+KV_LEN = 10
+
+
+def _ring_spec():
+    """Seeded float32 inputs of the ring cases: q, k, v of 16 tokens and a 512-key
+    cross k, v (B = 2, 4 heads of 24), the loss weights, and 18-token q, k, v."""
+    rng = np.random.default_rng(11)
+    arr = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    return dict(inputs=(arr(2, 16, 4, 24), arr(2, 16, 4, 24), arr(2, 16, 4, 24),
+                        arr(2, 512, 4, 24), arr(2, 512, 4, 24), arr(2, 16, 4, 24)),
+                padded=(arr(1, 18, 4, 24), arr(1, 18, 4, 24), arr(1, 18, 4, 24)),
+                meshes=RING_MESHES, kv_len=KV_LEN)
+
+
+def _jax_ring(dims, q, k, v, w=None, kv_len=None):
+    """JAX attention(impl="ring") under a JAX mesh of `dims` (jitted), and with `w` the
+    gradient of sum(out * w) as well."""
+    def f(q, k, v):
+        return jax_attention(q, k, v, impl="ring", kv_len=kv_len)
+
+    def both(q, k, v):
+        loss = lambda *a: (f(*a) * w).sum()
+        return (f(q, k, v), *jax.grad(loss, argnums=(0, 1, 2))(q, k, v))
+
+    with jax_use_mesh(jax_make_mesh(*dims)):
+        out = jax.jit(f if w is None else both)(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    return [np.asarray(t) for t in (out if w is not None else (out,))]
+
+
+def _ring_refs(spec):
+    """JAX's ring (and fallback) outputs and gradients for every case of ``_ring_cases``."""
+    q, k, v, kc, vc, w = spec["inputs"]
+    refs = {}
+    for dims in spec["meshes"]:
+        tag = "x".join(map(str, dims))
+        for kind, kk, vv in (("self", k, v), ("cross", kc, vc)):
+            both = _jax_ring(dims, q, kk, vv, jnp.asarray(w.numpy()))
+            refs[f"attention-{kind}-{tag}"] = both[:1]
+            refs[f"dit-{kind}-{tag}"] = both
+    refs["fallback-padded"] = _jax_ring((1, 4, 1), *spec["padded"])
+    refs["fallback-kv_len"] = _jax_ring((1, 4, 1), q, k, v, kv_len=KV_LEN)
+    refs["fallback-sp1"] = _jax_ring((2, 1, 2), q, k, v)
+    return refs
+
+
+VAE_CASES = {"2x2-32x32": ((1, 2, 2), 32, 32), "4x1-32x32": ((1, 4, 1), 32, 32),
+             "4x1-40x24-uneven": ((1, 4, 1), 40, 24), "4x1-16x24-empty": ((1, 4, 1), 16, 24)}
+
+
+def _vae_spec(sd):
+    """The tiny VAE with its mid-block attention's output projection drawn (it starts at
+    0, which would hide the gathered keys), a 5-frame video per case, and a function
+    computing JAX's encode_video of each whole video (its reference)."""
+    rng = np.random.default_rng(12)
+    sd = {k: v.clone() for k, v in sd.items()}
+    for name in ("encoder.middle.1.proj.weight", "encoder.middle.1.proj.bias"):
+        sd[name] = torch.from_numpy(rng.normal(size=sd[name].shape).astype(np.float32) * 0.1)
+    jcfg_vae = jcfg.tiny_vae()
+    params = jax.tree_util.tree_map(jnp.asarray, jtc.vae_params_from_torch(
+        {k: v.numpy() for k, v in sd.items()}, jcfg_vae))
+    cases = {name: (dims, torch.from_numpy(rng.uniform(-1, 1, (1, 5, h, w, 3)).astype(np.float32)))
+             for name, (dims, h, w) in VAE_CASES.items()}
+    enc = jax.jit(lambda p, x: jvaem.encode_video(p, jcfg_vae, x))
+
+    def reference():
+        return {name: np.asarray(enc(params, jnp.asarray(x.numpy())))
+                for name, (_, x) in cases.items()}
+
+    return dict(sd=sd, cfg=tcfg.tiny_vae(), cases=cases), reference
+
+
+S2V_FRAMES, S2V_SIZE, S2V_SEED = 5, 64, 3
+
+
+def _s2v_spec():
+    """The tiny S2V pipeline's seeded state dicts (test_torch_s2v_pipeline.py's), a pose
+    request, JAX's noise and the parent's token ids; and a function computing JAX's
+    frames under a JAX mesh of (1, 2, 2) for "auto" and "ring"."""
+    from goal_force_tpu_torch.models import t5 as tt5
+    from goal_force_tpu_torch.models import vae as tvae
+    from goal_force_tpu_torch.models.tokenizer import load_tokenizer
+
+    cfg = dataclasses.replace(js2v.tiny_s2v(num_layers=1), audio_inject_layers=(0,))
+    t_cfg = ts2v.S2VConfig(**dataclasses.asdict(cfg))
+    gen = torch.Generator().manual_seed(7)
+    sds = {"s2v": random_state_dict(t_cfg, seed=8),
+           "t5": {k: v.numpy() for k, v in tt5.init_t5(tcfg.tiny_t5(), gen, torch.float32,
+                                                       device="cpu").state_dict().items()},
+           "vae": {k: v.numpy() for k, v in tvae.init_vae(tcfg.tiny_vae(), gen,
+                                                          device="cpu").state_dict().items()}}
+    rng = np.random.default_rng(13)
+    image = rng.uniform(size=(S2V_SIZE, S2V_SIZE, 3)).astype(np.float32)
+    audio = rng.normal(size=(1, 25, 16, S2V_FRAMES - 1)).astype(np.float32)
+    pose = rng.uniform(size=(S2V_FRAMES - 2, S2V_SIZE, S2V_SIZE, 3)).astype(np.float32)
+    prompt = "a person speaks"
+    kw = dict(audio_embeds=audio, s2v_pose_video=pose, seed=S2V_SEED, num_frames=S2V_FRAMES,
+              num_inference_steps=2, cfg_scale=5.0)
+    noise = torch.from_numpy(np.array(jax.random.normal(
+        jax.random.PRNGKey(S2V_SEED), (1, (S2V_FRAMES - 1) // 4 + 1, S2V_SIZE // 8,
+                                       S2V_SIZE // 8, 4), jnp.float32)))
+    tok = load_tokenizer(None, tcfg.tiny_t5().vocab, tcfg.tiny_t5().text_len, quiet=True)
+    negative = tcfg.PipelineConfig().negative_prompt
+    token_ids = {p: tuple(a[0] for a in tok([p])) for p in (prompt, negative)}
+    spec = dict(state_dicts={k: {n: torch.from_numpy(v) for n, v in sd.items()}
+                             for k, sd in sds.items()},
+                cfg=t_cfg, t5_cfg=tcfg.tiny_t5(), vae_cfg=tcfg.tiny_vae(),
+                token_ids=token_ids, args=(prompt, image), kwargs=dict(kw, noise=noise))
+
+    def reference():
+        jpipe = JaxS2V.from_pretrained(sds["s2v"], sds["t5"], sds["vae"], cfg=cfg,
+                                       t5_cfg=jcfg.tiny_t5(), vae_cfg=jcfg.tiny_vae(),
+                                       pipe_cfg=JaxPipelineConfig(), dtype=jnp.float32)
+        jpipe.mesh = jax_make_mesh(1, 2, 2)
+        out = {}
+        for impl in ("auto", "ring"):
+            # the jitted denoise step reads attn_impl when it is first built
+            jpipe.attn_impl = impl
+            jpipe.__dict__.pop("_denoise_step", None)
+            out[impl] = jpipe(prompt, image, **kw)
+        return out
+
+    return spec, reference
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Spawn the world of 4 (``torch_parallel_children.train_cases``) and compute the
@@ -232,6 +368,9 @@ def world(tmp_path_factory):
     tid, noise = _jax_draws(cfgs[2])
     sds = {k: m.state_dict() for k, m in mods.items()}
     int8, int8_ref = _int8_spec()
+    ring = _ring_spec()
+    vae, vae_ref = _vae_spec(sds["vae"])
+    s2v, s2v_ref = _s2v_spec()
     data = _clips(3, 7)
     pipe = GoalForcePipeline.init_random(device="cpu")
     token_ids = {c["prompt"]: tuple(a[0] for a in pipe.tokenizer([c["prompt"]])) for c in data}
@@ -239,12 +378,13 @@ def world(tmp_path_factory):
     torch.save({"step": dict(cases=CASES, state_dicts=sds, configs=t_cfgs, tid=tid,
                              noise=torch.from_numpy(noise), lora=lora_from_jax(jl),
                              batch={k: torch.from_numpy(v) for k, v in batch.items()}),
-                "int8": int8,
+                "int8": int8, "ring": ring, "vae": vae, "s2v": s2v,
                 "trainer": dict(state_dicts=sds, configs=t_cfgs, data=data, token_ids=token_ids)},
                d / "train.pt")
     ctx = spawn(children.train_cases, 4, d)
     refs = {"steps": _jax_steps(params, cfgs, batch, lora), "int8": int8_ref(),
-            "int8_spec": int8, "lora": jl}
+            "int8_spec": int8, "lora": jl, "ring": _ring_refs(ring), "vae": vae_ref(),
+            "s2v": s2v_ref()}
     cfg = TrainerConfig(output_dir=str(d / "unsharded"), save_steps=1, log_every=1,
                         num_epochs=1, num_frames=5, height=32, width=32, keep_last_states=2)
     frozen = {k: copy.deepcopy(mods[k]) for k in ("dit", "t5", "vae")}
@@ -261,11 +401,12 @@ def world(tmp_path_factory):
 
 def test_collective_gradients_match_the_unsharded_functions(world):
     """Each collective's forward and gradient, on every rank of (1, 2, 2) and (2, 2, 1),
-    equal the unsharded function's (float64 inputs: to 1e-12)."""
+    and the shift with and without wraparound over (1, 4, 1), equal the unsharded
+    function's (float64 inputs: to 1e-12)."""
     d, _ = world
     for rank in range(4):
         errs = torch.load(d / f"collectives-{rank}.pt")
-        assert len(errs) == 23
+        assert len(errs) == 27
         for name, err in errs.items():
             assert err <= 1e-12, (rank, name, err)
 
@@ -286,18 +427,86 @@ def test_sharded_attention_gradient_matches_jax(world, case):
                                        err_msg=f"{case} {name} rank {rank}")
 
 
+@pytest.mark.parametrize("case", [f"{p}-{k}-{'x'.join(map(str, m))}" for m in RING_MESHES
+                                  for p in ("attention", "dit") for k in ("self", "cross")])
+def test_ring_attention_matches_jax(world, case):
+    """impl="ring" at (1, 4, 1) and (1, 2, 2), self (16 tokens) and cross (512 keys), on
+    every rank, against JAX's attention(impl="ring") under a JAX mesh of the same shape
+    (float32: 1e-5): ``attention`` on the whole tensors, and the DiT's token-split layout
+    (``sharded_attention``, ``sharded_cross_attention``) with dq, dk and dv against
+    jax.grad of JAX's ring. The blocks rotated (shifts counted)."""
+    d, refs = world
+    for rank in range(4):
+        got, shifts = torch.load(d / f"ring-{rank}.pt")[case]
+        assert shifts > 0
+        assert len(got) == len(refs["ring"][case])
+        for name, g, r in zip(("out", "dq", "dk", "dv"), got, refs["ring"][case]):
+            np.testing.assert_allclose(g.numpy(), r, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{case} {name} rank {rank}")
+
+
+@pytest.mark.parametrize("case", ["padded", "kv_len", "sp1"])
+def test_ring_falls_back_where_jax_does(world, case):
+    """Where JAX's condition for the ring fails (18 tokens over "sp" = 4, which the port
+    pads to 20; a kv_len; "sp" = 1 at (2, 1, 2)) the port runs no ring (no shift) and
+    equals JAX's attention(impl="ring"), which falls back alike (float32: 1e-5)."""
+    d, refs = world
+    for rank in range(4):
+        got, shifts = torch.load(d / f"ring-{rank}.pt")[f"fallback-{case}"]
+        assert shifts == 0
+        np.testing.assert_allclose(got[0].numpy(), refs["ring"][f"fallback-{case}"][0],
+                                   rtol=1e-5, atol=1e-5, err_msg=f"{case} rank {rank}")
+
+
+@pytest.mark.parametrize("case", list(VAE_CASES))
+def test_split_encode_matches_jax(world, case):
+    """The VAE's split encode_video at (sp, tp) = (2, 2) and (4, 1) on the tiny VAE (its
+    mid-block attention's projection drawn), at 32x32, 40 rows over "sp" = 4 (5 blocks
+    of 8: 2, 1, 1, 1) and 16 rows over "sp" = 4 (two ranks hold none): every rank's
+    whole latents are within 1e-5 of max|JAX| of JAX encode_video on the whole video
+    (float32), and the halos moved."""
+    d, refs = world
+    ref = refs["vae"][case]
+    for rank in range(4):
+        z, shifts = torch.load(d / f"vae-{rank}.pt")[case]
+        assert shifts > 0
+        assert tuple(z.shape) == ref.shape
+        np.testing.assert_allclose(z.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=f"{case} rank {rank}")
+
+
+@pytest.mark.parametrize("impl", ["auto", "ring"])
+def test_s2v_under_a_mesh_matches_jax(world, impl):
+    """The tiny S2V pipeline (one block with its audio injection) through shard() over
+    (1, 2, 2), a pose request (5 frames at 64x64, 2 steps, CFG 5), against JAX's
+    S2VPipeline with the same attn_impl and a JAX mesh of (1, 2, 2), on the same weights
+    and noise: frames within 1e-3 on every rank. With "auto" each attention split its
+    heads and gathered them; with "ring" the self-attention rang (shifts counted)."""
+    d, refs = world
+    ref = refs["s2v"][impl]
+    for rank in range(4):
+        frames, calls = torch.load(d / f"s2v-{rank}.pt")[impl]
+        assert frames.shape == ref.shape == (S2V_FRAMES, S2V_SIZE, S2V_SIZE, 3)
+        np.testing.assert_allclose(frames.numpy(), ref, rtol=0, atol=1e-3, err_msg=f"rank {rank}")
+        assert calls["all_gather"] > 0
+        assert (calls.get("shift", 0) > 0) == (impl == "ring")
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_sharded_train_step_matches_jax(world, case):
     """One train step over the mesh of the case (FSDP placement at min_size 1024, B = 2),
     on JAX's tid and noise, against JAX's unsharded make_train_step, on every rank: the
     loss and gradient norm (1e-4 relative), every first moment (1e-3 of its largest),
     every updated tensor (2e-5, Adam's first step moving each by ~lr), and the frozen
-    models unchanged. The tolerances are test_torch_training.py's and test_torch_lora.py's."""
+    models unchanged. The tolerances are test_torch_training.py's and test_torch_lora.py's.
+    Every case splits the VAE's rows over "sp" (and at (1, 2, 2) its columns over "tp"),
+    so the encodes exchanged halos."""
     d, refs = world
     metrics, mu, new = refs["steps"][CASES[case][1]]
     for rank in range(4):
         got = torch.load(d / f"step-{case}-{rank}.pt")
         assert got["frozen_unchanged"]
+        assert got["shifts"] > 0
         assert got["metrics"]["timestep"] == metrics["timestep"]
         assert got["metrics"]["loss"] == pytest.approx(metrics["loss"], rel=1e-4)
         assert got["metrics"]["grad_norm"] == pytest.approx(metrics["grad_norm"], rel=1e-4)
@@ -419,18 +628,15 @@ def test_backward_on_another_thread_keeps_the_mesh(tmp_path, monkeypatch):
 
 
 def test_what_is_not_ported_raises_naming_its_roadmap_item():
-    """Pipeline parallelism raises naming M13b (the train step's pp_microbatches,
-    fsdp_specs over a "pp" axis); S2V under a mesh names M13a-vae."""
-    from goal_force_tpu_torch.pipelines.s2v import S2VPipeline
+    """Pipeline parallelism raises naming M13b-pp (the train step's pp_microbatches,
+    fsdp_specs over a "pp" axis)."""
     from goal_force_tpu_torch.training import train_step as ts
 
     cfgs = tcfg.tiny_pipeline_configs()
-    with pytest.raises(NotImplementedError, match="M13b"):
+    with pytest.raises(NotImplementedError, match="M13b-pp"):
         ts.make_train_step(*cfgs, ts.make_optimizer(), pp_microbatches=2)
     module = GoalForcePipeline.init_random(device="cpu").models["controlnet"]
     for mesh, kw in (((1, 1, 1), dict(pp_stage_fsdp=True)), ((1, 1, 1), dict(axes=("pp",)))):
-        with pytest.raises(NotImplementedError, match="M13b"):
+        with pytest.raises(NotImplementedError, match="M13b-pp"):
             fsdp_specs(module, types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"),
                                                      shape=mesh), **kw)
-    with pytest.raises(NotImplementedError, match="M13a-vae"):
-        S2VPipeline.shard(None, None)

@@ -221,7 +221,7 @@ def test_train_cli_refuses_what_is_not_ported(weights, data, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tcli.main(argv)
-    with pytest.raises(NotImplementedError, match="M13b"):
+    with pytest.raises(NotImplementedError, match="M13b-pp"):
         tcli.main(argv + ["--device", "cpu", "--pp", "2"])
     # --dp is ported: without a launcher's world of 2 it raises make_mesh's error
     with pytest.raises(ValueError, match="need 2 devices, have 1"):

@@ -227,6 +227,16 @@ def _collective_cases(rank, d):
         total = x.grad.clone()
         dist.all_reduce(total, group=axis_group("sp"))
         close("split_seq.grad", total, W[:, :5])         # each rank its tokens' part
+    with use_mesh(make_mesh(1, 4, 1, device="cpu")):
+        r = axis_rank("sp")
+        X, W = rnd(4, 3, 2), rnd(4, 3, 2)
+        zero = torch.zeros_like(X[0])
+        for name, wrap in (("shift", True), ("shift_edge", False)):
+            x = leaf(X[r])
+            y = col.shift(x, "sp", 1, wrap=wrap)         # rank r gets rank r - 1's
+            (y * W[r]).sum().backward()
+            close(name, y, X[(r - 1) % 4] if wrap or r > 0 else zero)
+            close(name + ".grad", x.grad, W[(r + 1) % 4] if wrap or r < 3 else zero)
     with use_mesh(make_mesh(2, 2, 1, device="cpu")):
         r, dp = axes_rank(("dp", "sp")), axis_rank("dp")
         X, W = rnd(4, 3), rnd(4, 3)
@@ -281,6 +291,7 @@ def _step_cases(rank, d, spec):
     """One sharded train step per case (mesh, with LoRA or not) on the parent's draws:
     the metrics, the whole first moments and updated tensors, and whether the frozen
     models kept every shard -> step-{case}-{rank}.pt."""
+    from goal_force_tpu_torch.parallel import collectives as col
     from goal_force_tpu_torch.parallel import fsdp
     from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
     from goal_force_tpu_torch.training import train_step as ts
@@ -302,8 +313,10 @@ def _step_cases(rank, d, spec):
             opt = ts.make_optimizer()
             step = ts.make_train_step(*spec["configs"], opt, num_frames=5, train_lora=with_lora)
             state = ts.TrainState(params, opt.init(ts.trainable_params(params)), 0)
+            col.counts.clear()
             state, metrics = step(state, frozen, dict(spec["batch"]), tid=spec["tid"],
                                   noise=spec["noise"])
+            shifts = col.counts["shift"]
             splits = ts.param_splits(state.params)
             trained = ts.trainable_params(state.params)
             mu = {n: fsdp.full_tensor(state.opt_state[f"exp_avg.{n}"], splits[n]) for n in trained}
@@ -311,7 +324,7 @@ def _step_cases(rank, d, spec):
             same = all(torch.equal(p, before[k][n]) for k, m in frozen.items()
                        for n, p in m.state_dict().items())
         _save(d, f"step-{case}-{rank}.pt", dict(metrics=metrics, mu=mu, new=new,
-                                                frozen_unchanged=same))
+                                                frozen_unchanged=same, shifts=shifts))
 
 
 def _int8_case(rank, d, spec):
@@ -381,11 +394,119 @@ def _trainer_case(rank, d, spec):
     _save(d, f"trainer-{rank}.pt", dict(split=split, whole=whole))
 
 
+def _ring_cases(rank, d, spec):
+    """Ring attention at (1, 4, 1) and (1, 2, 2), self (16 tokens) and cross (512 keys):
+    ``attention(impl="ring")`` on the whole tensors, and the DiT's layout (this rank's
+    tokens and "tp" heads) through ``sharded_attention`` / ``sharded_cross_attention``
+    under grad, gathered whole with dq, dk and dv; then the fallbacks (18 tokens padded
+    to 20, a kv_len, "sp" = 1). Each case's outputs and shifts -> ring-{rank}.pt."""
+    from goal_force_tpu_torch.ops.attention import (attention, sharded_attention,
+                                                     sharded_cross_attention)
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.parallel.mesh import axis_rank, axis_size, make_mesh, use_mesh
+
+    q, k, v, kc, vc, w = spec["inputs"]
+    out = {}
+
+    def heads(t):
+        per = t.shape[2] // axis_size("tp")
+        return t.narrow(2, axis_rank("tp") * per, per)
+
+    def whole(t):
+        return col._gather(col.gather_seq(t), 2, "tp")
+
+    for dims in spec["meshes"]:
+        tag = "x".join(map(str, dims))
+        with use_mesh(make_mesh(*dims, device="cpu")):
+            for kind, kk, vv in (("self", k, v), ("cross", kc, vc)):
+                col.counts.clear()
+                with torch.no_grad():
+                    o = attention(q, kk, vv, impl="ring")
+                out[f"attention-{kind}-{tag}"] = ([o], col.counts["shift"])
+                col.counts.clear()
+                mq = heads(col.split_seq(q)).clone().requires_grad_(True)
+                if kind == "self":
+                    mk, mv = (heads(col.split_seq(t)).clone().requires_grad_(True)
+                              for t in (kk, vv))
+                    o = sharded_attention(mq, mk, mv, impl="ring")
+                else:
+                    mk, mv = (heads(t).clone().requires_grad_(True) for t in (kk, vv))
+                    o = sharded_cross_attention(mq, mk, mv, impl="ring")
+                (o * heads(col.split_seq(w))).sum().backward()
+                with torch.no_grad():
+                    if kind == "self":
+                        dk, dv = whole(mk.grad), whole(mv.grad)
+                    else:         # each rank holds its queries' part of the keys' gradient
+                        dk, dv = (col._gather(col.sum_over(g.clone(), ("sp",)), 2, "tp")
+                                  for g in (mk.grad, mv.grad))
+                    out[f"dit-{kind}-{tag}"] = ([whole(o), whole(mq.grad), dk, dv],
+                                                col.counts["shift"])
+    q18, k18, v18 = spec["padded"]
+    with torch.no_grad():
+        with use_mesh(make_mesh(1, 4, 1, device="cpu")):
+            col.counts.clear()
+            with col.sequence_split(18):
+                o = sharded_attention(*(col.split_seq(t) for t in (q18, k18, v18)), impl="ring")
+            out["fallback-padded"] = ([col.gather_seq(o, 18)], col.counts["shift"])
+            col.counts.clear()
+            o = attention(q, k, v, impl="ring", kv_len=spec["kv_len"])
+            out["fallback-kv_len"] = ([o], col.counts["shift"])
+        with use_mesh(make_mesh(2, 1, 2, device="cpu")):
+            col.counts.clear()
+            out["fallback-sp1"] = ([attention(q, k, v, impl="ring")], col.counts["shift"])
+    _save(d, f"ring-{rank}.pt", out)
+
+
+def _vae_cases(rank, d, spec):
+    """The split ``encode_video`` of each case's video over its mesh (every rank gets the
+    whole latents) and the shifts it made -> vae-{rank}.pt."""
+    from goal_force_tpu_torch.models import vae as vaem
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from goal_force_tpu_torch.parallel.spatial import split_encode_video
+
+    vae = wan_dit.empty_module(vaem.WanVAE, spec["cfg"], device="cpu")
+    vae.load_state_dict(spec["sd"])
+    out = {}
+    for name, (dims, video) in spec["cases"].items():
+        col.counts.clear()
+        with torch.no_grad(), use_mesh(make_mesh(*dims, device="cpu")):
+            z = split_encode_video(vae, spec["cfg"], video)
+        out[name] = (z, col.counts["shift"])
+    _save(d, f"vae-{rank}.pt", out)
+
+
+def _s2v_cases(rank, d, spec):
+    """The tiny S2V pipeline under (1, 2, 2) through ``shard``, with "auto" and "ring":
+    each request's frames and collectives -> s2v-{rank}.pt."""
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.parallel.mesh import make_mesh
+    from goal_force_tpu_torch.pipelines.s2v import S2VPipeline
+
+    sds = spec["state_dicts"]
+    pipe = S2VPipeline.from_pretrained(sds["s2v"], sds["t5"], sds["vae"], cfg=spec["cfg"],
+                                       t5_cfg=spec["t5_cfg"], vae_cfg=spec["vae_cfg"],
+                                       dtype=torch.float32, device="cpu")
+    pipe.tokenizer = FixedTokenizer(spec["token_ids"])
+    pipe.shard(make_mesh(1, 2, 2, device="cpu"))
+    out = {}
+    for impl in ("auto", "ring"):
+        pipe.attn_impl = impl
+        col.counts.clear()
+        frames = pipe(*spec["args"], **spec["kwargs"])
+        out[impl] = (torch.from_numpy(frames), dict(col.counts))
+    _save(d, f"s2v-{rank}.pt", out)
+
+
 def train_cases(rank, world, d):
     """The training checks of ``train.pt`` in a world of 4."""
     _join(rank, world, d)
     spec = torch.load(os.path.join(d, "train.pt"), weights_only=False)
     _collective_cases(rank, d)
+    _ring_cases(rank, d, spec["ring"])
+    _vae_cases(rank, d, spec["vae"])
+    _s2v_cases(rank, d, spec["s2v"])
     _step_cases(rank, d, spec["step"])
     _int8_case(rank, d, spec["int8"])
     _trainer_case(rank, d, spec["trainer"])
