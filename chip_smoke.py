@@ -36,6 +36,19 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              the plain whole attention, then the backward (16 K4 + 16 K5) against the plain
              backward; times one virtual rank's forward and backward. No shift runs: no
              multi-GPU time is measured.
+3c. pp     - pipeline parallel (models/wan_dit.py: GPipeStage and gpipe, the schedule of
+             pp_run_blocks) at full A14B width for 4 virtual stages on the one card, in
+             tick order, each stage's output handed to the next directly (no shift runs:
+             no multi-GPU time is measured): bf16, 8 blocks (2 per stage), the merged-CFG
+             batch of 2 (32,760 tokens, 512 text keys) as 2 microbatches, 3 ControlNet
+             injections (the third on stage 1). Serving: each microbatch's output
+             bit-equal to run_blocks on its row alone, 32 K1 (bubble ticks skip their
+             blocks). Training: one forward + backward under remat through the schedule
+             (every tick computes, bubbles too): the gradients of the input and the
+             injections within two bf16 ulps of run_blocks' backward per microbatch, and
+             K3/K4/K5 launched 40/16 times run_blocks' (20 stage-ticks of 2 blocks).
+             Logs the seconds of each against run_blocks, each stage's weights and the
+             most memory one of its ticks adds, and the bubble share (3/5).
 4. small   - a head_dim-128 float32 pipeline at a small size, kernels vs plain
              attention (float32 convs without TF32 for the check).
 5. small_train - one training loss + backward at that size, kernels vs plain attention
@@ -51,7 +64,8 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
              are reset just before and read just after.
 7b. sharded - main's first request through the multi-GPU path (ROADMAP M13a's serving
-             half) on one card: an NCCL world of one rank, make_mesh(1, 1, 1) and
+             half) on one card: an NCCL world of one rank, make_mesh(1, 1, 1, pp=1) (the
+             3-axis mesh, checked) and
              pipe.shard(mesh), so every collective (Ulysses all-to-alls, tensor-parallel
              all-reduces, token and batch gathers) runs as a copy over a group of one;
              frames within 1e-3 of main's, 12 K1 per step, the collectives per step as
@@ -762,6 +776,161 @@ def phase_ring(measured):
     return launches, rec
 
 
+PP_STAGES, PP_BLOCKS, PP_INJECTIONS = 4, 8, 3   # 2 blocks per stage; block 2's injection
+                                                # lands on stage 1
+
+
+def _pp_stages(blocks, x, ctx, t_mod, cos, sin, cfg, injections, remat=False):
+    """PP_STAGES virtual stages of the GPipe schedule (2 microbatches), each with its
+    layers' injections."""
+    from goal_force_tpu_torch.models import wan_dit
+
+    per = PP_BLOCKS // PP_STAGES
+    return [wan_dit.GPipeStage(blocks, x, ctx, t_mod, cos, sin, cfg, s, PP_STAGES, 2,
+                               injections[s * per:(s + 1) * per], remat=remat)
+            for s in range(PP_STAGES)]
+
+
+def _pp_schedule(stages):
+    """pp_run_blocks' ticks over virtual stages on one card: each stage's output handed to
+    the next directly (stage 0 receives zeros, as the shift without wraparound gives it),
+    and the drained slots summed over the stages (the psum over "pp")."""
+    from goal_force_tpu_torch.models import wan_dit
+
+    drained = wan_dit.gpipe(stages, lambda outs: [torch.zeros_like(outs[0])] + outs[:-1])
+    return wan_dit.from_microbatches(sum(drained))
+
+
+def phase_pp():
+    """Pipeline parallel (models/wan_dit.py: GPipeStage and gpipe, the schedule of
+    pp_run_blocks) at full A14B width for PP_STAGES virtual stages on the one card, run in
+    tick order with each stage's output handed to the next directly: no shift runs, and
+    no multi-GPU time is measured. bf16, PP_BLOCKS blocks (2 per stage), the merged-CFG
+    batch of 2 (32,760 tokens, 512 text keys) as 2 microbatches, 3 ControlNet injections
+    (after blocks 0-2: the third on stage 1). Serving: each microbatch's output bit-equal
+    to run_blocks over the 8 blocks on its row alone, 32 K1 (2 per block per microbatch:
+    the bubble ticks skip their blocks). Training: one forward + backward of sum(out * w)
+    under remat through the schedule, where every tick computes (the bubbles too: the
+    gates keep every buffer in the graph): the gradients of the input and of the
+    injections within two bf16 ulps of their largest (K4/K5's limit) of run_blocks'
+    backward per microbatch, and K3/K4/K5 launched 40 / 16 times as often (20 stage-ticks
+    of 2 blocks against 2 x 8 blocks). Logs the seconds of each against run_blocks, each
+    stage's weights and the largest memory a tick of it adds, and the bubble share."""
+    import gc
+
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.models import wan_dit
+
+    cfg = dataclasses.replace(C.WAN22_A14B, num_layers=PP_BLOCKS)
+    bf16 = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(4323)
+    blocks = torch.nn.ModuleList(wan_dit.empty_module(wan_dit.WanBlock, cfg, dtype=bf16,
+                                                      device="cuda") for _ in range(PP_BLOCKS))
+    with torch.no_grad():
+        for blk in blocks:
+            wan_dit.init_block_(blk, gen)
+    blocks.requires_grad_(False)
+    cos, sin = wan_dit.rope_for_grid(cfg, (21, 30, 52), "cuda")
+    x, w = (_rand((2, 32760, cfg.dim), gen, bf16) for _ in range(2))
+    ctx = _rand((2, 512, cfg.dim), gen, bf16)
+    t_mod = _rand((2, 6, cfg.dim), gen, bf16, 0.1)
+    inj = [_rand((2, 32760, cfg.dim), gen, bf16, 0.1) for _ in range(PP_INJECTIONS)]
+    args = (ctx, t_mod, cos, sin, cfg)
+    rec = {"stage_weights_gib": [sum(p.numel() * p.element_size() for b in range(s * 2, s * 2 + 2)
+                                     for p in blocks[b].parameters()) / 2**30
+                                 for s in range(PP_STAGES)]}
+    launches = only()
+
+    peaks = [0.0] * PP_STAGES
+
+    def measured(stages):
+        """Each stage's ticks recording the most memory one of them adds (synchronised)."""
+        for st in stages:
+            def run(t, received, st=st, tick=st.tick):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = tick(t, received)
+                torch.cuda.synchronize()
+                peaks[st.stage] = max(peaks[st.stage],
+                                      (torch.cuda.max_memory_allocated() - base) / 2**30)
+                return out
+            st.tick = run
+        return stages
+
+    with torch.no_grad():
+        (got, cnt), rec["serve_s"] = sync_time(lambda: picked(lambda: _pp_schedule(
+            measured(_pp_stages(blocks, x, *args, inj)))))
+        check(cnt == only(K1=2 * 2 * PP_BLOCKS), f"pp serving launched {cnt}")
+        launches["K1"] += cnt["K1"]
+        rec["serve_tick_peak_gib"] = list(peaks)
+        rec["serve_run_blocks_s"] = 0.0
+        for m in range(2):
+            (ref, cnt), secs = sync_time(lambda: picked(lambda: wan_dit.run_blocks(
+                blocks, x[m:m + 1], ctx[m:m + 1], t_mod[m:m + 1], cos, sin, cfg,
+                injections=[i[m:m + 1] for i in inj])))
+            rec["serve_run_blocks_s"] += secs
+            # the same blocks and kernels on the same rows: bit-equal expected; the check
+            # is K1's self-shape limit
+            rec[f"serve_bit_equal_{m}"] = torch.equal(got[m:m + 1], ref)
+            compare(f"pp serving microbatch {m} (bit-equal: {rec[f'serve_bit_equal_{m}']})",
+                    got[m:m + 1], ref, atol=1e-3, rtol=0.0, phase="pp")
+        del got, ref
+    per_call = None
+    xg = x.clone().requires_grad_(True)
+    ig = [i.clone().requires_grad_(True) for i in inj]
+    refs = []
+    rec["train_run_blocks_s"] = 0.0
+    for m in range(2):
+        xm = x[m:m + 1].clone().requires_grad_(True)
+        im = [i[m:m + 1].clone().requires_grad_(True) for i in inj]
+
+        def ref_step():
+            out = wan_dit.run_blocks(blocks, xm, ctx[m:m + 1], t_mod[m:m + 1], cos, sin, cfg,
+                                     injections=im, remat=True)
+            return torch.autograd.grad(out, [xm, *im], w[m:m + 1])
+
+        (grads, cnt), secs = sync_time(lambda: picked(ref_step))
+        rec["train_run_blocks_s"] += secs
+        per_call = cnt if per_call is None else {k: per_call[k] + cnt[k] for k in cnt}
+        refs.append(grads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def pp_step():
+        out = _pp_schedule(_pp_stages(blocks, xg, *args, ig, remat=True))
+        return torch.autograd.grad(out, [xg, *ig], w)
+
+    (grads, cnt), rec["train_s"] = sync_time(lambda: picked(pp_step))
+    rec["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ticks = 2 + PP_STAGES - 1
+    want = {k: v * ticks * PP_STAGES * 2 // (2 * PP_BLOCKS) for k, v in per_call.items()}
+    check(all(v * ticks * PP_STAGES * 2 % (2 * PP_BLOCKS) == 0 for v in per_call.values())
+          and cnt == want and cnt["K3"] > 0 and cnt["K4"] > 0 and cnt["K5"] > 0,
+          f"pp training launched {cnt}, expected {want} (run_blocks: {per_call})")
+    for k in ("K3", "K4", "K5"):
+        launches[k] += cnt[k]
+    errs = []
+    for name, i in (("dx", 0), *((f"d injection {j}", j + 1) for j in range(PP_INJECTIONS))):
+        for m in range(2):
+            ref = refs[m][i]
+            errs.append(compare(f"pp {name} microbatch {m} (training)", grads[i][m:m + 1], ref,
+                                atol=bf16_limit(ref), rtol=0.0, phase="pp"))
+    rec["train_max_abs_err"] = max(errs)
+    rec["bubble_share"] = (PP_STAGES - 1) / ticks
+    log("pp", virtual_stages=PP_STAGES, blocks=PP_BLOCKS, microbatches=2, launches=launches,
+        run_blocks_launches_train=per_call, **rec,
+        bubbles="serving skips the bubble ticks' blocks; training computes them (3/5 of its "
+                "stage-ticks), as JAX's gates do",
+        note="one card, virtual stages fed directly: no shift runs, no multi-GPU time is "
+             "measured")
+    del blocks, grads, refs, xg, ig, x, w, inj
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def bf16_limit(ref) -> float:
     """Two bf16 ulps at the largest |ref|: kernel and plain version round float32 sums
     that differ only in summation order to bf16, so a right kernel is within one ulp."""
@@ -1175,8 +1344,9 @@ _WORLD = {}
 
 def _world_mesh():
     """The NCCL process group of one rank (a file rendezvous) that ``sharded`` starts
-    and the later sharded phases reuse, and its make_mesh(1, 1, 1); ``_end_world``
-    destroys it."""
+    and the later sharded phases reuse, and its make_mesh(1, 1, 1, pp=1): pp = 1 keeps
+    the 3-axis mesh, so every sharded phase also checks that a mesh without pipeline
+    stages runs as before; ``_end_world`` destroys it."""
     import tempfile
 
     import torch.distributed as dist
@@ -1187,7 +1357,9 @@ def _world_mesh():
         _WORLD["rdv"] = tempfile.mkdtemp(prefix="gf_rdv_")
         dist.init_process_group("nccl", init_method=f"file://{_WORLD['rdv']}/rdv", rank=0,
                                 world_size=1)
-        _WORLD["mesh"] = make_mesh(1, 1, 1, device="cuda")
+        _WORLD["mesh"] = make_mesh(1, 1, 1, pp=1, device="cuda")
+        check(_WORLD["mesh"].mesh_dim_names == ("dp", "sp", "tp"),
+              f"make_mesh(pp=1) made {_WORLD['mesh'].mesh_dim_names}")
     return _WORLD["mesh"]
 
 
@@ -3307,6 +3479,7 @@ def _main() -> int:
     started("build", phase_build)
     measured = started("kernels", phase_kernels)
     ring_launches, ring_rec = started("ring", phase_ring, measured)
+    pp_launches, pp_rec = started("pp", phase_pp)
     started("small", phase_small)
     started("small_train", phase_small_train)
     started("small_int8", phase_small_int8)
@@ -3349,6 +3522,8 @@ def _main() -> int:
               **{k: measured["K1"][k] for k in ("ref_self", "ref_cross", "batch_self",
                                                 "batch_cross")},
               "variants_launches": variants_launches["K1"],
+              "pp_launches": pp_launches["K1"], "pp_serve_s": pp_rec["serve_s"],
+              "pp_serve_run_blocks_s": pp_rec["serve_run_blocks_s"],
               "t2v_vace_launches": t2v_vace_launches["K1"],
               "fun_control_launches": fun_control_launches["K1"],
               "s2v_launches": s2v_launches["K1"], "small_s2v_launches": small_s2v_launches["K1"],
@@ -3368,18 +3543,23 @@ def _main() -> int:
               "ring_self_fwd_rank_ms": ring_rec["self"]["fwd_rank_ms"],
               "ring_cross_fwd_rank_ms": ring_rec["cross"]["fwd_rank_ms"],
               "ring_max_abs_err": {k: ring_rec[k]["max_abs_err"] for k in ("self", "cross")},
-              "sharded_train_launches": sharded_train_launches["K3"]}),
+              "sharded_train_launches": sharded_train_launches["K3"],
+              "pp_launches": pp_launches["K3"], "pp_train_s": pp_rec["train_s"],
+              "pp_train_run_blocks_s": pp_rec["train_run_blocks_s"],
+              "pp_train_max_abs_err": pp_rec["train_max_abs_err"]}),
             ("K4 flash_attention_bwd_dkv", train_src, 76, train_launches["K4"],
              {"cross": measured["K4"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K4"],
               "ring_launches": ring_launches["K4"], "ring_bwd_rank_ms": ring_rec["bwd_rank_ms"],
               "ring_bwd_max_abs_err": ring_rec["bwd_err"],
-              "sharded_train_launches": sharded_train_launches["K4"]}),
+              "sharded_train_launches": sharded_train_launches["K4"],
+              "pp_launches": pp_launches["K4"]}),
             ("K5 flash_attention_bwd_dq", train_src, 118, train_launches["K5"],
              {"cross": measured["K5"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K5"],
               "ring_launches": ring_launches["K5"],
-              "sharded_train_launches": sharded_train_launches["K5"]}),
+              "sharded_train_launches": sharded_train_launches["K5"],
+              "pp_launches": pp_launches["K5"]}),
             ("K6 flash_attention_int8", int8_src, 581, int8_launches["K6"],
              {"cross": measured["K6"]["cross"], "path": "main_int8",
               "full_int8_launches": full_launches["K6"],

@@ -45,8 +45,8 @@ from goal_force_tpu_torch.ops.quant import QuantLinear
 from goal_force_tpu_torch.ops.rope import apply_rope, assemble_rope, rope_tables_3d
 from goal_force_tpu_torch.parallel import collectives as col
 from goal_force_tpu_torch.parallel import fsdp
-from goal_force_tpu_torch.parallel.mesh import axis_size, current_mesh
-from goal_force_tpu_torch.parallel.sharding import tp_dim
+from goal_force_tpu_torch.parallel.mesh import axis_rank, axis_size, current_mesh
+from goal_force_tpu_torch.parallel.sharding import PP_STAGE, tp_dim
 
 
 # ---------------------------------------------------------------------------
@@ -366,13 +366,23 @@ def _run_block(block_weights, i, blk, *args):
     return dit_block(blk if block_weights is None else block_weights(i, blk), *args)
 
 
+def _check_stage(blk, i: int) -> None:
+    """Refuse a block that another pipeline stage holds (placed on a "pp" mesh)."""
+    stage = blk.__dict__.get(PP_STAGE)
+    if stage is not None and current_mesh() is not None and stage != axis_rank("pp"):
+        raise ValueError(f"block {i} lives on pipeline stage {stage}, not on this rank's "
+                         f"stage {axis_rank('pp')}: on a mesh with a \"pp\" axis the trunk "
+                         "runs through pp_run_blocks (pp_microbatches)")
+
+
 def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,
                injections: Optional[List[torch.Tensor]] = None, attn_impl: str = "auto",
                remat: bool = False, block_weights=None, start: int = 0,
                stop: Optional[int] = None, num_img_tokens: int = 0):
     """Run x through blocks[start:stop]; injections[i] (the ControlNet outputs) is added
-    after block i for every i < len(injections). Indices are the blocks' own in
-    `blocks`, so a segment's block i still gets injections[i] and block_weights(i, ...).
+    after block i for every i < len(injections) where it is not None. Indices are the
+    blocks' own in `blocks`, so a segment's block i still gets injections[i] and
+    block_weights(i, ...).
 
     remat: recompute each block in the backward pass instead of keeping its activations
     (one non-reentrant checkpoint per block, as JAX checkpoints each scan body). The
@@ -384,6 +394,7 @@ def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: Wan
     n_inj = 0 if injections is None else len(injections)
     for i in range(start, len(blocks) if stop is None else stop):
         blk = blocks[i]
+        _check_stage(blk, i)
         fn = partial(_run_block, block_weights, i)
         if remat:
             if current_mesh() is not None:       # the recompute runs on autograd's thread
@@ -392,9 +403,143 @@ def run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: Wan
                            num_img_tokens, use_reentrant=False)
         else:
             x = fn(blk, x, context, t_mod, cos, sin, cfg, attn_impl, num_img_tokens)
-        if i < n_inj:
+        if i < n_inj and injections[i] is not None:
             x = x + injections[i].to(x.dtype)
     return x
+
+
+class GPipeStage:
+    """One stage of the GPipe schedule of ``pp_run_blocks`` (JAX ``wan_dit.py:283-460``):
+    stage `stage` of `pp` runs blocks [stage * L/pp, (stage + 1) * L/pp) of `blocks`,
+    one microbatch per tick, over n_micro + pp - 1 ticks.
+
+    Microbatch j holds the strided rows {j, n_micro + j, ...} of x, context and t_mod.
+    At tick t stage 0 takes microbatch t (t < n_micro) in place of what it received;
+    stage s works on microbatch clip(t - s) and adds its own layers' injections for it;
+    stage pp - 1 drains its output into slot t - (pp - 1). ``tick(t, received)`` returns
+    what the stage hands to the next one (``gpipe`` runs the ticks; ``pp_run_blocks``
+    moves the outputs with a shift over "pp", a one-card check of several virtual stages
+    directly), ``drained()`` the (n_micro, mb, S, D) slots (zeros on the other stages).
+
+    injections: this stage's layers' injections, in order ((B, S, D) each; fewer than
+    L/pp where the ControlNet ends). anchor: under grad, a zero scalar added to every
+    tick's output (``collectives.stage_take``'s), which ties each stage's hand-offs to
+    the trained ControlNet also where the stage has no injection.
+
+    Under grad every tick keeps JAX's 0/1 gates: each tick computes its blocks (a bubble
+    tick, whose output no drain ever reads, too), the feed is g * x + (1 - g) * received
+    and the drain w * out + (1 - w) * slot, so every received buffer and every output
+    stays in the graph and the backward runs each hand-off's transpose on every rank, in
+    the same order. Without grad (serving) a bubble tick skips its blocks and hands on
+    what it received.
+    """
+
+    def __init__(self, blocks, x, context, t_mod, cos, sin, cfg: WanDiTConfig, stage: int,
+                 pp: int, n_micro: int, injections=None, anchor=None, attn_impl="auto",
+                 remat=False, block_weights=None, num_img_tokens: int = 0):
+        self.per = cfg.num_layers // pp
+        self.stage, self.pp, self.n_micro = stage, pp, n_micro
+        self.ticks = n_micro + pp - 1
+        self.lo = stage * self.per
+        self.x, self.context, self.t_mod = x, context, t_mod
+        self.injections = [None] * self.lo + list(injections or [])
+        self.anchor = anchor
+        self.grad = torch.is_grad_enabled()
+        self.run = partial(run_blocks, blocks, cos=cos, sin=sin, cfg=cfg, attn_impl=attn_impl,
+                           remat=remat, block_weights=block_weights, start=self.lo,
+                           stop=self.lo + self.per, num_img_tokens=num_img_tokens)
+        self.outs = [torch.zeros_like(self.rows(x, 0)) for _ in range(n_micro)]
+
+    def rows(self, t, m: int):
+        """Microbatch m's rows of t."""
+        return t[m::self.n_micro]
+
+    def blocks(self, buf, m: int):
+        inj = [None if u is None else self.rows(u, m) for u in self.injections]
+        out = self.run(buf, context=self.rows(self.context, m), t_mod=self.rows(self.t_mod, m),
+                       injections=inj if self.injections else None)
+        return out if self.anchor is None else out + self.anchor
+
+    def tick(self, t: int, received):
+        s, n = self.stage, self.n_micro
+        m = min(max(t - s, 0), n - 1)
+        feeding = s == 0 and t < n
+        drain = s == self.pp - 1 and t >= self.pp - 1
+        dst = min(max(t - (self.pp - 1), 0), n - 1)
+        feed = lambda: self.rows(self.x, min(t, n - 1)).contiguous()
+        if self.grad:
+            g, w = float(feeding), float(drain)
+            out = self.blocks(g * feed() + (1 - g) * received, m)
+            self.outs[dst] = w * out + (1 - w) * self.outs[dst]
+            return out
+        buf = feed() if feeding else received
+        if not 0 <= t - s < n:              # a bubble tick
+            return buf
+        out = self.blocks(buf, m)
+        if drain:
+            self.outs[dst] = out
+        return out
+
+    def drained(self):
+        return torch.stack(self.outs)
+
+
+def gpipe(stages: Sequence[GPipeStage], hand_off) -> List[torch.Tensor]:
+    """Every tick of the schedule for `stages` (the ``GPipeStage``s this process runs, in
+    stage order): each stage's tick on what it received, then ``hand_off(outs)`` gives
+    what each receives at the next tick (zeros at the first). Returns each stage's
+    drained slots."""
+    received = [torch.zeros_like(st.rows(st.x, 0)) for st in stages]
+    ticks = stages[0].ticks
+    for t in range(ticks):
+        outs = [st.tick(t, r) for st, r in zip(stages, received)]
+        if t + 1 < ticks:
+            received = hand_off(outs)
+    return [st.drained() for st in stages]
+
+
+def from_microbatches(outs: torch.Tensor) -> torch.Tensor:
+    """(n_micro, mb, S, D) drained slots -> (B, S, D): microbatch m's rows back in place
+    m, n_micro + m, ..."""
+    return outs.transpose(0, 1).reshape(-1, *outs.shape[2:])
+
+
+def pp_run_blocks(blocks: Sequence[WanBlock], x, context, t_mod, cos, sin, cfg: WanDiTConfig,
+                  *, n_micro: int, injections: Optional[List[torch.Tensor]] = None,
+                  remat: bool = False, attn_impl: str = "auto", block_weights=None,
+                  num_img_tokens: int = 0):
+    """The block trunk in a GPipe schedule over the ambient mesh's "pp" axis (JAX
+    ``wan_dit.py::pp_run_blocks``); without a mesh, or with no "pp" axis or one of size
+    1, ``run_blocks``. x (B, S, D), context, t_mod and the injections are this rank's rows
+    and tokens, alike on every stage; the result too.
+
+    n_micro becomes the largest divisor of B that is at most n_micro (B = 1: one
+    microbatch walking the stages). This rank runs ``GPipeStage`` for its stage: its
+    L/pp blocks (only those have storage here where the DiT was placed with stage pins),
+    its layers' injections (``collectives.stage_take``, whose backward hands each
+    injection's gradient from its stage to every stage); between ticks each stage's
+    output goes to the next stage (``collectives.shift`` over "pp" without wraparound;
+    its backward hands the gradient back), and the drained result, held by stage pp - 1
+    alone, is summed over "pp" (JAX's psum), so every rank returns it. Raises ValueError
+    where "pp" does not divide the layers."""
+    pp = axis_size("pp")
+    if pp == 1:
+        return run_blocks(blocks, x, context, t_mod, cos, sin, cfg, injections=injections,
+                          attn_impl=attn_impl, remat=remat, block_weights=block_weights,
+                          num_img_tokens=num_img_tokens)
+    if cfg.num_layers % pp:
+        raise ValueError(f"num_layers {cfg.num_layers} not divisible by pp {pp}")
+    b = x.shape[0]
+    n_micro = max(1, min(n_micro, b))
+    while b % n_micro:
+        n_micro -= 1
+    anchor, mine = None, None
+    if injections:
+        anchor, *mine = col.stage_take(list(injections), cfg.num_layers // pp)
+    st = GPipeStage(blocks, x, context, t_mod, cos, sin, cfg, axis_rank("pp"), pp, n_micro,
+                    mine, anchor, attn_impl, remat, block_weights, num_img_tokens)
+    (drained,) = gpipe([st], lambda outs: [col.shift(outs[0], "pp", 1, wrap=False)])
+    return from_microbatches(col.all_reduce(drained, "pp"))   # only stage pp - 1's is not 0
 
 
 def head(p: WanHead, x, t, eps: float = 1e-6):

@@ -16,7 +16,9 @@ row-parallel linears are summed over "tp" (``all_reduce``); batch rows are split
 "dp" (``split_batch``) and gathered at the end (``gather_batch``). ``shift`` hands each
 rank its neighbour's tensor along one axis (JAX's ``ppermute`` by one): with wraparound
 the K/V blocks of ring attention (``parallel/ring_attention.py``), without it the halo
-rows and columns of the VAE's spatial split (``parallel/spatial.py``).
+rows and columns of the VAE's spatial split (``parallel/spatial.py``) and the
+activations handed from one pipeline stage to the next (``models/wan_dit.py::
+pp_run_blocks``), whose stages take their layers' injections with ``stage_take``.
 
 Gradients. Every collective is an ``autograd.Function`` whose backward is its
 transpose; under ``no_grad`` (serving) it records nothing and issues the same one
@@ -30,7 +32,10 @@ collective. The rules keep one invariant per axis:
   - over "dp" and "sp" each rank holds its own rows' and tokens' part of a gradient
     (``split_seq`` and ``split_batch`` are plain slices, the padded tokens get none;
     ``gather_seq`` and ``gather_batch``, whose consumer is replicated, hand each rank
-    its slice back), and the training step sums the parts over the FSDP group once.
+    its slice back), and the training step sums the parts over the FSDP group once;
+  - over "pp" (the pipeline's stages) every rank holds the whole gradient of the
+    replicated ControlNet's injections (``stage_take``), and the training step sums
+    the LoRA adapters' gradients, which only their block's stage computes.
 
 A backward runs on autograd's device thread, where the caller's context variables (the
 ambient mesh, the token split) are not set: each collective's forward keeps its group,
@@ -377,6 +382,50 @@ def shift(x: torch.Tensor, axis: str = "sp", step: int = 1, wrap: bool = True) -
     return _Shift.apply(x, step, wrap, _Axis(axis))
 
 
+class _StageTake(torch.autograd.Function):
+    """Stage r's `per` consecutive tensors of a list that every rank of the axis holds
+    alike (indices [r * per, (r + 1) * per) that exist), and a zero scalar. The list is
+    replicated over the axis and each tensor used by one stage only, so the backward
+    hands each tensor's gradient from the stage that took it to every rank of the axis
+    (one broadcast per tensor, in the list's order): every rank holds the whole
+    gradient, as over "tp"."""
+
+    @staticmethod
+    def forward(ctx, ax, per, *xs):
+        ctx.ax, ctx.per, ctx.n = ax, per, len(xs)
+        ctx.like = dict(size=xs[0].shape, dtype=xs[0].dtype, device=xs[0].device)
+        lo = ax.rank * per
+        return (xs[0].new_zeros(()), *(x.view_as(x) for x in xs[lo:lo + per]))
+
+    @staticmethod
+    def backward(ctx, g_anchor, *gs):
+        ax, per = ctx.ax, ctx.per
+        lo = ax.rank * per
+        out = []
+        for i in range(ctx.n):
+            owner = i // per
+            g = gs[i - lo].contiguous() if owner == ax.rank else torch.empty(**ctx.like)
+            dist.broadcast(g, src=dist.get_global_rank(ax.group, owner), group=ax.group)
+            counts["broadcast"] += 1
+            out.append(g)
+        return (None, None, *out)
+
+
+def stage_take(xs, per: int, axis: str = "pp"):
+    """(anchor, *mine): this rank's `per` tensors of the list `xs` (equal shapes, alike on
+    every rank of the axis), stage-major: rank r of the axis takes [r * per, (r + 1) *
+    per), fewer or none where the list ends, as JAX's pipeline takes its stage's layers
+    of the zero-padded injections. Under grad, where `xs` require it, anchor is a zero
+    scalar tied to every tensor of `xs` (a stage adds it to its outputs, so its
+    hand-offs take part in the backward also where it took no tensor), and the backward
+    broadcasts each tensor's gradient from its stage; otherwise anchor is None and
+    nothing is recorded."""
+    ax = _Axis(axis)
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return (None, *xs[ax.rank * per:(ax.rank + 1) * per])
+    return _StageTake.apply(ax, per, *xs)
+
+
 def broadcast_from_first(x: torch.Tensor) -> torch.Tensor:
     """Rank 0's `x` on every rank of the world, in place (host decisions that every
     rank must take alike)."""
@@ -439,5 +488,5 @@ def sum_over(x: torch.Tensor, axes=("dp", "sp")) -> torch.Tensor:
 def barrier() -> None:
     """Every rank of the ambient mesh waits for the others (one barrier per axis in
     turn, which together reach every rank of the mesh)."""
-    for axis in ("dp", "sp", "tp"):
+    for axis in current_mesh().mesh_dim_names:
         dist.barrier(group=_Axis(axis).group)

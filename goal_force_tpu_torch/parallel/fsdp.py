@@ -15,7 +15,8 @@ its specs inside the jitted train step, without DTensor and without
   ("dp", "sp") where that group's size divides it, else the leaf stays replicated.
 - ``place_fsdp(module, mesh, specs)``: each rank keeps its slice of every split
   parameter (the parameter object stays, its data becomes the slice); the splits are
-  recorded on the owning submodules (``FSDP``), so a deep copy keeps them.
+  recorded on the owning submodules (``FSDP``: (dim or None, group size, rank, axes)),
+  so a deep copy keeps them.
 - ``gathered(*modules, skip=())``: what the forward functions read in place of a placed
   module: one all-gather over the ("dp", "sp") group rebuilds the whole of every split
   parameter of the modules (their submodules under `skip` excepted), in one flat buffer
@@ -29,8 +30,15 @@ its specs inside the jitted train step, without DTensor and without
 - ``full_tensor`` and ``shard_tensor``: the whole tensor of a shard on every rank of the
   group (checkpoints), and this rank's shard of a whole tensor (resume).
 
-The pipeline-parallel options of JAX's ``fsdp_specs`` (``pp_stage_fsdp``, a "pp" axis)
-raise: pipeline parallelism is ROADMAP M13b-pp.
+On a mesh with a "pp" axis (pipeline parallel) JAX's pins hold too: a main DiT's
+stacked block leaves (not under ``min_size``, not 4-D, not a modulation) take "pp" on
+their layer axis (``pin_pp_layers``, a ``sharding.StageSpec`` here: block i on stage
+i // (L / pp)) and stay whole within the stage's group, or with ``pp_stage_fsdp`` are
+split over ("dp", "sp") within it as well; every other leaf splits over `axes` as
+given, "pp" included where it divides (``axes=("pp", "dp", "sp")``), else over them
+without "pp". ``place_fsdp`` keeps a pinned parameter on its stage's ranks only (no
+storage elsewhere) and records each split with the axes it is over, so ``gathered``,
+``full_tensor`` and the train step use that group.
 """
 
 from __future__ import annotations
@@ -43,11 +51,18 @@ import torch
 from torch import nn
 
 from goal_force_tpu_torch.parallel import collectives as col
-from goal_force_tpu_torch.parallel.mesh import axes_rank, axis_sizes, current_mesh
-from goal_force_tpu_torch.parallel.sharding import TP_SPLIT, leaf_spec
+from goal_force_tpu_torch.parallel.mesh import axes_rank, axis_sizes, current_mesh, use_mesh
+from goal_force_tpu_torch.parallel.sharding import (
+    TP_SPLIT,
+    StageSpec,
+    drop_storage,
+    leaf_spec,
+    mark_stage,
+    pp_stage,
+)
 
 AXES = ("dp", "sp")
-FSDP = "_gf_fsdp"          # on a submodule: {parameter name: (dim or None, n, rank)}
+FSDP = "_gf_fsdp"          # on a submodule: {parameter name: (dim or None, n, rank, axes)}
 MIN_SIZE = 2**15
 ALIGN = 128                # elements between tensors of a flat gather buffer
 
@@ -101,23 +116,26 @@ def jax_leaf(module: nn.Module, name: str, shape) -> Tuple[tuple, list, bool]:
 
 
 def _group_size(sizes: Dict[str, int], axes) -> int:
-    return math.prod(sizes[a] for a in axes)
+    return math.prod(sizes.get(a, 1) for a in axes)
 
 
 def fsdp_specs(module: nn.Module, mesh, axes=AXES, min_size: int = MIN_SIZE,
-               pp_stage_fsdp: bool = False) -> Dict[str, Spec]:
+               pp_stage_fsdp: bool = False, pin_pp_layers: bool = True) -> Dict[str, Spec]:
     """{parameter name: spec} of `module`: per port dimension, the axes tuple it is split
     over, or None (JAX's ``fsdp_specs`` read through ``jax_leaf``). `mesh` is a mesh or
-    anything with ``mesh_dim_names`` and ``shape``. `pp_stage_fsdp` and a "pp" axis
-    raise (ROADMAP M13b-pp)."""
+    anything with ``mesh_dim_names`` and ``shape``. On a "pp" axis a main DiT's pinned
+    block leaves get ``StageSpec``s (`pin_pp_layers`; split within the stage too with
+    `pp_stage_fsdp`), and a "pp" in `axes` splits the other leaves over it too where it
+    divides them."""
     sizes = axis_sizes(mesh)
-    if pp_stage_fsdp or "pp" in axes or sizes.get("pp", 1) > 1:
-        raise NotImplementedError("FSDP over a pipeline axis is not ported yet (ROADMAP M13b-pp)")
-    axes = tuple(axes)
-    n = _group_size(sizes, axes)
+    axes_full = tuple(axes)                           # the unpinned leaves' axes
+    axes = tuple(a for a in axes_full if a != "pp")   # "pp" is the pinned leaves' layer axis
+    n, n_full = _group_size(sizes, axes), _group_size(sizes, axes_full)
     out = {}
     for name, p in module.named_parameters():
         out[name] = (None,) * p.ndim
+        if p.numel() == 0:         # another stage's block, placed before: nothing to split
+            continue
         jshape, dims, stacked = jax_leaf(module, name, p.shape)
         if math.prod(jshape) < min_size or len(jshape) == 0 or len(jshape) >= 4:
             continue
@@ -127,15 +145,25 @@ def fsdp_specs(module: nn.Module, mesh, axes=AXES, min_size: int = MIN_SIZE,
         cand = list(range(start, len(jshape)))
         if not cand:
             continue
+        stage = pp_stage(module, name, sizes) if pin_pp_layers and stacked else None
+        if stage is not None and not pp_stage_fsdp:
+            out[name] = StageSpec(out[name], stage)
+            continue
         best = max(cand, key=lambda d: jshape[d])
-        if jshape[best] % n != 0 or dims[best] is None:
-            continue   # a JAX split of a layer axis (never at these sizes) stays whole
+        group = axes
+        if stage is None and "pp" in axes_full and jshape[best] % n_full == 0:
+            group = axes_full              # an unpinned leaf over every axis, "pp" too
+        elif jshape[best] % n != 0:
+            group = None
         port = dims[best]
-        if p.shape[port] % n != 0:
-            continue   # a patch embedding split over C * patch where C does not divide
+        # a JAX split of a layer axis (never at these sizes), or of a patch embedding over
+        # C * patch where C does not divide, stays whole
+        if group is None or port is None or p.shape[port] % _group_size(sizes, group) != 0:
+            group = None
         spec = [None] * p.ndim
-        spec[port] = axes
-        out[name] = tuple(spec)
+        if group is not None:
+            spec[port] = group
+        out[name] = tuple(spec) if stage is None else StageSpec(spec, stage)
     return out
 
 
@@ -144,31 +172,45 @@ def _split_dim(spec: Spec) -> Optional[int]:
     return dims[0] if dims else None
 
 
+def _split_axes(spec: Spec) -> Optional[Tuple[str, ...]]:
+    d = _split_dim(spec)
+    return None if d is None else tuple(spec[d])
+
+
 @torch.no_grad()
 def place_fsdp(module: nn.Module, mesh, specs: Optional[Dict[str, Spec]] = None,
                axes=AXES) -> nn.Module:
     """Keep this rank's slice of every split parameter of `module` (the spec's dimension
-    over the group of `axes`, in ``axes_rank`` order) and record each split on its owning
-    submodule. Parameters placed before stay as they are (for the same group size and
+    over the group of the spec's axes, in ``axes_rank`` order) and record each split on
+    its owning submodule; a parameter of a ``StageSpec`` of another pipeline stage keeps
+    no storage. Parameters placed before stay as they are (for the same group size and
     rank; another raises ValueError). Returns the module."""
-    from goal_force_tpu_torch.parallel.mesh import use_mesh
-
     specs = fsdp_specs(module, mesh, axes) if specs is None else specs
     sizes = axis_sizes(mesh)
-    n = _group_size(sizes, axes)
     with use_mesh(mesh):
-        rank = axes_rank(axes)
+        mine = axes_rank("pp")
+        groups = {_split_axes(sp) for sp in specs.values()} | {tuple(axes)}
+        ranks = {g: axes_rank(g) for g in groups if g}
     for name, p in module.named_parameters():
         owner, _, leaf = _owner(module, name)
         rec = owner.__dict__.setdefault(FSDP, {})
+        spec = specs[name]
+        group = _split_axes(spec) or tuple(axes)
+        want = (_split_dim(spec), _group_size(sizes, group), ranks[group], group)
+        stage = getattr(spec, "stage", None)
+        if stage is not None:
+            mark_stage(module, name, stage)
+            if stage != mine:
+                want = (None, 1, 0, ())
         if leaf in rec:                # placed before: its shard stays
-            if rec[leaf][1:] != (n, rank):
+            if rec[leaf][1:3] != want[1:3]:
                 raise ValueError(f"{name} is placed as rank {rec[leaf][2]} of {rec[leaf][1]}, "
-                                 f"not rank {rank} of {n}")
+                                 f"not rank {want[2]} of {want[1]}")
             continue
-        want = (_split_dim(specs[name]), n, rank)
-        d = want[0]
-        if d is not None and n > 1:
+        if stage is not None and stage != mine:
+            p.data = drop_storage(p.data)
+        elif want[0] is not None and want[1] > 1:
+            d, n, rank = want[:3]
             per = p.shape[d] // n
             p.data = p.data.narrow(d, rank * per, per).clone()
         rec[leaf] = want
@@ -218,7 +260,8 @@ def _tp_slice(name: str, t: torch.Tensor) -> torch.Tensor:
 
 def gathered(*modules: nn.Module, skip: Iterable[str] = (), tp: bool = True):
     """Views of `modules` with every FSDP-split parameter whole (one all-gather per dtype
-    over the ("dp", "sp") group for all of them; under grad its backward reduce-scatters)
+    and group of axes, ("dp", "sp") unless placed otherwise, for all of them; under grad
+    its backward reduce-scatters)
     and, with `tp`, the tensor-parallel linears holding this rank's "tp" slice. Without
     a mesh, or for modules never placed, the modules themselves. Returns one view for one
     module, else a tuple."""
@@ -234,15 +277,15 @@ def gathered(*modules: nn.Module, skip: Iterable[str] = (), tp: bool = True):
                     entries.append((mi, path, sub, leaf, p, rec.get(leaf)))
     whole = {}
     split = [e for e in entries if e[5] is not None and e[5][0] is not None]
-    for dtype in sorted({e[4].dtype for e in split}, key=str):
-        group = [e for e in split if e[4].dtype == dtype]
+    for dtype, axes in sorted({(e[4].dtype, e[5][3]) for e in split}, key=str):
+        group = [e for e in split if e[4].dtype == dtype and e[5][3] == axes]
         pieces, index = [], []
         for e in group:
             flat = e[4].reshape(-1)
             pad = -flat.numel() % ALIGN
             index.append(len(pieces))
             pieces += [flat, flat.new_zeros(pad)] if pad else [flat]
-        g = col.all_gather_flat(torch.cat(pieces), AXES)          # (n, total)
+        g = col.all_gather_flat(torch.cat(pieces), axes)          # (n, total)
         # one split: its backward writes the gradient buffer once (slices would each
         # add a buffer of zeros)
         parts = g.split([t.numel() for t in pieces], dim=1)
@@ -287,8 +330,8 @@ def _build(module, tree: Dict):
 # ---------------------------------------------------------------------------
 
 def split_of(module: nn.Module, name: str):
-    """(dim or None, n, rank) of a parameter of a placed module; None where the module
-    was never placed."""
+    """(dim or None, n, rank, axes) of a parameter of a placed module; None where the
+    module was never placed."""
     owner, _, leaf = _owner(module, name)
     return owner.__dict__.get(FSDP, {}).get(leaf)
 
@@ -296,11 +339,11 @@ def split_of(module: nn.Module, name: str):
 @torch.no_grad()
 def full_tensor(t: torch.Tensor, split) -> torch.Tensor:
     """The whole tensor of which `t` is this rank's shard (``split`` from ``split_of``);
-    all ranks of the group call it together."""
+    all ranks of the split's group call it together."""
     if split is None or split[0] is None:
         return t
     d, n = split[0], split[1]
-    g = col.all_gather_flat(t.reshape(-1).contiguous(), AXES)
+    g = col.all_gather_flat(t.reshape(-1).contiguous(), split[3])
     shape = list(t.shape)
     shape[d] *= n
     return g.reshape(n, *t.shape).movedim(0, d).reshape(shape)
@@ -310,6 +353,6 @@ def shard_tensor(t: torch.Tensor, split) -> torch.Tensor:
     """This rank's shard of a whole tensor (a copy), by ``split``."""
     if split is None or split[0] is None or split[1] == 1:
         return t
-    d, n, rank = split
+    d, n, rank = split[:3]
     per = t.shape[d] // n
     return t.narrow(d, rank * per, per).clone()

@@ -1,9 +1,13 @@
-"""The device mesh of the port: ``(dp, sp, tp)`` over ``torch.distributed``.
+"""The device mesh of the port: ``(dp, sp, tp)``, or ``(pp, dp, sp, tp)``, over
+``torch.distributed``.
 
 Port of ``goal_force_tpu/parallel/mesh.py``. One process runs per device; the mesh is a
-``torch.distributed.device_mesh.DeviceMesh`` over the first ``dp * sp * tp`` ranks,
+``torch.distributed.device_mesh.DeviceMesh`` over the first ``pp * dp * sp * tp`` ranks,
 with the axes
 
+  pp: pipeline stages of the DiT trunk (``models/wan_dit.py::pp_run_blocks``), present
+      only where pp > 1, outermost: the rank at mesh index (a, b, c, d) is
+      ((a * dp + b) * sp + c) * tp + d, JAX's device order;
   dp: data (the batch rows: merged CFG's two branches, or generate_batch's clips);
   sp: sequence (tokens between blocks; heads inside self-attention, Ulysses);
   tp: tensor (attention heads and FFN columns; the row-parallel outputs are summed).
@@ -12,7 +16,8 @@ JAX hands the collectives to GSPMD through ``constrain`` hints inside its jitted
 The port has no counterpart of ``constrain``: its forward functions call the explicit
 collectives of ``parallel/collectives.py`` wherever JAX's layout changes, and
 ``parallel/sharding.py`` gives each parameter its local shard. ``use_mesh`` makes a
-mesh ambient for those functions, as in JAX.
+mesh ambient for those functions, as in JAX. An axis that the mesh lacks has size 1 and
+index 0 (``axis_size``, ``axis_rank``).
 
 A launcher sets each process's rank: ``torchrun --nproc_per_node=N`` on one node.
 ``make_mesh`` starts the process group from its environment where none exists; a
@@ -31,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 MESH_AXES = ("dp", "sp", "tp")
+MESH_AXES_PP = ("pp", "dp", "sp", "tp")
 
 _current_mesh: contextvars.ContextVar = contextvars.ContextVar("gf_torch_mesh",
                                                                 default=None)
@@ -57,12 +63,10 @@ def _init_process_group(device: torch.device) -> None:
 
 
 def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1, device="cuda"):
-    """A DeviceMesh named ("dp", "sp", "tp") over the first dp * sp * tp ranks, the
+    """A DeviceMesh named ("dp", "sp", "tp") over the first dp * sp * tp ranks, or with
+    pp > 1 one named ("pp", "dp", "sp", "tp") over the first pp * dp * sp * tp, the
     process group started first where none exists. Raises ValueError when the world
-    is smaller than dp * sp * tp * pp, and NotImplementedError for pp > 1."""
-    if pp > 1:
-        raise NotImplementedError("pipeline parallel (pp > 1) is not ported yet "
-                                  "(ROADMAP M13b-pp)")
+    is smaller than that."""
     n = dp * sp * tp * pp
     have = _world_size()
     if have < n:
@@ -71,8 +75,11 @@ def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1, device="cuda")
 
     device = torch.device(device)
     _init_process_group(device)
-    return DeviceMesh(device.type, torch.arange(n).reshape(dp, sp, tp),
-                      mesh_dim_names=MESH_AXES)
+    if pp == 1:
+        return DeviceMesh(device.type, torch.arange(n).reshape(dp, sp, tp),
+                          mesh_dim_names=MESH_AXES)
+    return DeviceMesh(device.type, torch.arange(n).reshape(pp, dp, sp, tp),
+                      mesh_dim_names=MESH_AXES_PP)
 
 
 @contextlib.contextmanager
@@ -95,15 +102,19 @@ def axis_sizes(mesh) -> Dict[str, int]:
 
 
 def axis_size(axis: str) -> int:
-    """The size of `axis` on the ambient mesh; 1 without one."""
+    """The size of `axis` on the ambient mesh; 1 without one or where it lacks the
+    axis."""
     mesh = current_mesh()
-    return 1 if mesh is None else axis_sizes(mesh)[axis]
+    return 1 if mesh is None else axis_sizes(mesh).get(axis, 1)
 
 
 def axis_rank(axis: str) -> int:
-    """This process's index along `axis` of the ambient mesh; 0 without one."""
+    """This process's index along `axis` of the ambient mesh; 0 without one or where it
+    lacks the axis."""
     mesh = current_mesh()
-    return 0 if mesh is None else mesh.get_local_rank(axis)
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(axis)
 
 
 def axis_group(axis: str):
@@ -134,11 +145,13 @@ def axes_rank(axes) -> int:
 
 def axes_group(axes):
     """The process group of the ranks that differ from this one only along `axes`
-    (several axes at once, e.g. FSDP's ("dp", "sp")). Axes of size one are dropped, so
-    one axis left is that axis's group; a group of several is made on first use by its
-    own members (``use_local_synchronization``) and kept on the mesh."""
+    (several axes at once, e.g. FSDP's ("dp", "sp")). Axes of size one are dropped, and
+    so are axes the mesh lacks, so one axis left is that axis's group; a group of several
+    is made on first use by its own members (``use_local_synchronization``) and kept on
+    the mesh."""
     mesh = current_mesh()
-    axes = tuple(a for a in _axes(axes) if axis_size(a) > 1) or _axes(axes)[:1]
+    present = tuple(a for a in _axes(axes) if a in mesh.mesh_dim_names)
+    axes = tuple(a for a in present if axis_size(a) > 1) or present[:1]
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     cache = mesh.__dict__.setdefault("_gf_axes_groups", {})

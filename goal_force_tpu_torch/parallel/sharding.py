@@ -21,6 +21,15 @@ a mesh, a spec whose split dimension does not divide by the axis is replicated, 
 ``place`` replaces each split parameter by this rank's slice and marks it (``TP_SPLIT``:
 the split dimension, the axis size and the rank), which the forward functions read
 under a mesh.
+
+On a mesh with a "pp" axis (pipeline parallel), JAX also pins the stacked layer axis of
+the main DiT's blocks to "pp" where the axis divides the layers, not the ControlNet's
+(``inference_param_specs``, JAX ``sharding.py:58-82``): block i lives on stage
+i // (L / pp). The port's blocks are modules of their own, so such a spec is a
+``StageSpec``, the dimensions' spec with the stage that holds the parameter; ``place``
+keeps it (with its "tp" slice) on that stage's ranks only and leaves it without storage
+elsewhere (``PP_STAGE`` on the block names the stage, and ``run_blocks`` refuses a block
+of another stage).
 """
 
 from __future__ import annotations
@@ -36,6 +45,40 @@ from goal_force_tpu_torch.parallel.mesh import axis_sizes
 Spec = Tuple[Optional[str], ...]
 
 TP_SPLIT = "_gf_tp_split"
+PP_STAGE = "_gf_pp_stage"    # on a block pinned to one pipeline stage: that stage
+
+
+class StageSpec(tuple):
+    """The spec of a parameter that lives on one pipeline stage only: one entry per
+    dimension, as any spec, and ``stage``, the index along "pp" of the ranks that hold
+    it (JAX's "pp" on the stacked layer axis)."""
+
+    def __new__(cls, dims, stage: int):
+        spec = super().__new__(cls, dims)
+        spec.stage = stage
+        return spec
+
+
+_BLOCK = re.compile(r"^blocks\.(\d+)\.")
+
+
+def pp_stage(module: nn.Module, name: str, sizes: Dict[str, int]) -> Optional[int]:
+    """The pipeline stage that holds parameter `name` of `module` on a mesh of `sizes`:
+    for a block of a main DiT (``WanDiT``; JAX's pipelined "dit" trees) where "pp" > 1
+    divides the layers, its block's index // (L / pp); None elsewhere."""
+    from goal_force_tpu_torch.models.wan_dit import WanDiT
+
+    pp = sizes.get("pp", 1)
+    m = _BLOCK.match(name)
+    if pp == 1 or m is None or not isinstance(module, WanDiT) or len(module.blocks) % pp:
+        return None
+    return int(m.group(1)) // (len(module.blocks) // pp)
+
+
+def drop_storage(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of t's dtype and device: what a rank keeps of a parameter that
+    another pipeline stage holds."""
+    return t.new_empty((0,))
 
 _EMBED = r"(text_embedding|time_embedding)"
 _COLUMN = re.compile(rf"(\.(q|k|v)|(^|\.)ffn\.0|(^|\.){_EMBED}\.0|(^|\.)img_emb\.proj\.1)\.weight$")
@@ -61,13 +104,25 @@ def _divisible(spec: Spec, shape, sizes: Dict[str, int]) -> Spec:
 
 def inference_param_specs(module: nn.Module, mesh=None) -> Dict[str, Spec]:
     """{parameter name: spec} of a DiT or ControlNet module; with `mesh`, specs that do
-    not divide fall back to replicated."""
+    not divide fall back to replicated, and on a "pp" axis a main DiT's blocks take
+    ``StageSpec``s."""
     sizes = axis_sizes(mesh) if mesh is not None else None
     out = {}
     for name, p in module.named_parameters():
         spec = leaf_spec(name, p.ndim)
-        out[name] = _divisible(spec, p.shape, sizes) if sizes is not None else spec
+        if sizes is not None:
+            spec = _divisible(spec, p.shape, sizes)
+            stage = pp_stage(module, name, sizes)
+            if stage is not None:
+                spec = StageSpec(spec, stage)
+        out[name] = spec
     return out
+
+
+def mark_stage(module: nn.Module, name: str, stage: int) -> None:
+    """Mark the block of parameter `name` ("blocks.<i>. ...") as held by `stage`."""
+    owner = module.get_submodule(_BLOCK.match(name).group(0)[:-1])
+    owner.__dict__[PP_STAGE] = stage
 
 
 @torch.no_grad()
@@ -86,6 +141,14 @@ def place(module: nn.Module, mesh, specs: Optional[Dict[str, Spec]] = None) -> n
     specs = inference_param_specs(module, mesh) if specs is None else specs
     sizes = axis_sizes(mesh)
     packs = {n: m for n, m in module.named_modules() if isinstance(m, QuantLinear)}
+    mine = mesh.get_local_rank("pp") if sizes.get("pp", 1) > 1 else 0
+
+    def elsewhere(name, stage):
+        """True where another stage holds the parameter (its block marked)."""
+        if stage is None:
+            return False
+        mark_stage(module, name, stage)
+        return stage != mine
 
     def split_of(spec):
         dims = [d for d, axis in enumerate(spec) if axis is not None]
@@ -105,6 +168,9 @@ def place(module: nn.Module, mesh, specs: Optional[Dict[str, Spec]] = None) -> n
         return False
 
     for name, p in module.named_parameters():
+        if elsewhere(name, getattr(specs[name], "stage", None)):
+            p.data = drop_storage(p.data)
+            continue
         split = split_of(specs[name])
         if settle(name, getattr(p, TP_SPLIT, None), split):
             continue
@@ -118,6 +184,9 @@ def place(module: nn.Module, mesh, specs: Optional[Dict[str, Spec]] = None) -> n
         setattr(p, TP_SPLIT, split)
     for prefix, pack in packs.items():
         name = f"{prefix}.weight"
+        if elsewhere(name, pp_stage(module, name, sizes)):
+            pack.weight, pack.weight_scale = drop_storage(pack.weight), drop_storage(pack.weight_scale)
+            continue
         spec = _divisible(leaf_spec(name, 2), pack.weight.shape, sizes)
         split = split_of(spec)
         if settle(name, getattr(pack, TP_SPLIT, None), split):

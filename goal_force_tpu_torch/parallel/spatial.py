@@ -2,8 +2,10 @@
 
 JAX's train step (``goal_force_tpu/training/train_step.py:141-165``) constrains the
 pixel-space inputs of its three encodes to ("dp", None, "sp", "tp", None): the rows split
-over "sp", the columns over "tp", and GSPMD exchanges the convolutions' halos. Here each
-rank of an sp-tp group encodes its own block of rows and columns with explicit halos
+over "sp", the columns over "tp", and GSPMD exchanges the convolutions' halos. On a mesh
+with a "pp" axis the rows split over ("pp", "sp"), "pp" major (JAX ``train_step.py:152``:
+the encodes run before the pipelined trunk, on every rank). Here each
+rank of a rows-by-columns group encodes its own block of rows and columns with explicit halos
 (``collectives.shift`` without wraparound: the ranks at the image's edge receive zeros,
 the convolution's own zero padding), and the latents are gathered back whole.
 
@@ -16,7 +18,7 @@ convolutions keep their padding, so over one rank the encode runs the same convo
 as the whole one.
 
 Per layer of the encoder (``models/vae.py::encode``): each 3x3x3 convolution takes one row
-from each neighbour over "sp", then one column from each neighbour over "tp", the new rows
+from each neighbour over the row axes, then one column from each neighbour over "tp", the new rows
 included (the corners arrive that way); the 1x1x1 convolutions, the norms (over channels,
 per pixel) and the time downsample need nothing; ``downsample_spatial``'s zero row and
 column below and to the right become the first row of the rank below and the first column
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from goal_force_tpu_torch.parallel import collectives as col
+from goal_force_tpu_torch.parallel.mesh import current_mesh
 
 Ranges = List[Tuple[int, int]]
 
@@ -57,13 +60,21 @@ def _halve(ranges: Ranges, size: int) -> Ranges:
     return [(min(-(-a // 2), half), min(-(-b // 2), half)) for a, b in ranges]
 
 
+def row_axes() -> tuple:
+    """The axes the rows split over: ("pp", "sp") on a mesh with a "pp" axis, else
+    ("sp",)."""
+    mesh = current_mesh()
+    return ("pp", "sp") if mesh is not None and "pp" in mesh.mesh_dim_names else ("sp",)
+
+
 class SpatialSplit:
-    """Every rank's rows (over "sp") and columns (over "tp") of one level of the encoder,
-    for this rank of the ambient mesh. ``halve`` moves it to the next level after a
-    spatial downsample."""
+    """Every rank's rows (over ``row_axes()``) and columns (over "tp") of one level of the
+    encoder, for this rank of the ambient mesh. ``halve`` moves it to the next level
+    after a spatial downsample."""
 
     def __init__(self, height: int, width: int, block: int):
-        self.sp, self.tp = col._Axis("sp"), col._Axis("tp")
+        self.rows = row_axes()
+        self.sp, self.tp = col._Axis(self.rows), col._Axis("tp")
         self.size = [height, width]
         self.ranges = [deal(height, self.sp.n, block), deal(width, self.tp.n, block)]
 
@@ -107,7 +118,7 @@ class SpatialSplit:
         one column from each neighbour over a split "tp" (the new rows included), and the
         padding (t, h, w) left to the convolution: 0 along a split axis."""
         padding = list(padding)
-        for i, (axis, n) in enumerate((("sp", self.sp.n), ("tp", self.tp.n))):
+        for i, (axis, n) in enumerate(((self.rows, self.sp.n), ("tp", self.tp.n))):
             if padding[1 + i] and n > 1:
                 if padding[1 + i] != 1:
                     raise ValueError(f"the split exchanges one-pixel halos, got {padding}")
@@ -122,7 +133,7 @@ class SpatialSplit:
         neighbours' row and column are written)."""
         out = F.pad(x, (0, 1, 0, 1))
         if self.sp.n > 1:
-            out[..., -1:, :-1] = col.shift(self._edge(x, 3, True), "sp", -1, wrap=False)
+            out[..., -1:, :-1] = col.shift(self._edge(x, 3, True), self.rows, -1, wrap=False)
         if self.tp.n > 1:
             out[..., -1:] = col.shift(self._edge(out, 4, True), "tp", -1, wrap=False)
         return out
@@ -149,7 +160,7 @@ class SpatialSplit:
         pad = [0] * (2 * x.dim())
         pad[2 * (x.dim() - 3) + 1] = big[0] - (rh[1] - rh[0])
         pad[2 * (x.dim() - 4) + 1] = big[1] - (cw[1] - cw[0])
-        parts = col._all_gather(F.pad(x, pad), col._Axis(("sp", "tp")))
+        parts = col._all_gather(F.pad(x, pad), col._Axis(self.rows + ("tp",)))
         out = []
         for s, (a, b) in enumerate(rows):
             row = [parts[s * len(cols) + t].narrow(2, 0, b - a).narrow(3, 0, d - c)
@@ -160,8 +171,8 @@ class SpatialSplit:
 
 def split_encode_video(vae, cfg, video: torch.Tensor) -> torch.Tensor:
     """``models/vae.py::encode_video`` of the whole video (B, T, H, W, 3), split over
-    ("sp", "tp") of the ambient mesh: each rank encodes its block of rows and columns,
-    and every rank gets the whole latents (B, L, H/8, W/8, z)."""
+    the row axes and "tp" of the ambient mesh: each rank encodes its block of rows and
+    columns, and every rank gets the whole latents (B, L, H/8, W/8, z)."""
     from goal_force_tpu_torch.models import vae as vaem
 
     split = SpatialSplit(video.shape[2], video.shape[3], cfg.upsampling_factor)

@@ -45,7 +45,10 @@ same pipeline and calling ``pipe.shard(make_mesh(dp, sp, tp))``; then every rank
 ``pipe(...)`` or ``generate_batch(...)`` with the same arguments and gets the whole
 result. Tokens split over "sp" (Ulysses self-attention), heads and FFN columns over
 "tp", batch rows over "dp" (``parallel/``); VACE's hint blocks take each rank's
-tokens as the DiT blocks do, and int8/fp8 packs split as JAX splits them.
+tokens as the DiT blocks do, and int8/fp8 packs split as JAX splits them. On a mesh with
+a "pp" axis (``make_mesh(dp, sp, tp, pp=)``) each rank keeps only its stage's blocks of
+each expert and the trunk runs in JAX's GPipe schedule, the merged-CFG pair as two
+microbatches by default (``pp_microbatches``).
 
 Everything runs on the pipeline's device, which is CUDA unless the caller asks for the
 CPU.
@@ -77,7 +80,7 @@ from goal_force_tpu_torch.models.tokenizer import load_tokenizer
 from goal_force_tpu_torch.ops import quant
 from goal_force_tpu_torch.parallel import collectives as col
 from goal_force_tpu_torch.parallel.host_staging import ExpertStager, stage_to_host
-from goal_force_tpu_torch.parallel.mesh import current_mesh, use_mesh
+from goal_force_tpu_torch.parallel.mesh import axis_sizes, current_mesh, use_mesh
 from goal_force_tpu_torch.parallel.sharding import place
 from goal_force_tpu_torch.pipelines.model_fn import (
     denoise_forward,
@@ -220,6 +223,7 @@ class GoalForcePipeline:
     attn_impl: str = "auto"
     vace_layers: tuple = ()              # DiT layers that take VACE hints
     mesh: Optional[object] = None        # a DeviceMesh (parallel/mesh.py); set by shard()
+    pp_microbatches: Optional[int] = None   # pipeline-parallel microbatches (shard())
     _stager: Optional[ExpertStager] = dataclasses.field(default=None, repr=False)
     _stager_low: bool = dataclasses.field(default=False, repr=False)
 
@@ -463,10 +467,14 @@ class GoalForcePipeline:
         host_stage_experts: keep only the active expert and its ControlNet on the
         device, each rank staging its own shards of the standby pair in host memory (a
         pipeline already host-staged has both pairs placed in their memories).
-        pp_microbatches above 1 (pipeline parallel) is not ported (ROADMAP M13b-pp)."""
-        if pp_microbatches is not None and pp_microbatches > 1:
-            raise NotImplementedError("pipeline-parallel microbatches are not ported yet "
-                                      "(ROADMAP M13b-pp)")
+        pp_microbatches: every denoise call runs the trunk pipeline-parallel in this many
+        microbatches (``models/wan_dit.py::pp_run_blocks``); on a mesh whose "pp" axis
+        exceeds 1 it defaults to 2, so the merged-CFG posi/nega batch feeds the pipeline
+        as two microbatches. There each rank holds only its stage's blocks of each DiT
+        (the ControlNets stay whole), also in the standby pair it stages."""
+        if pp_microbatches is None and axis_sizes(mesh).get("pp", 1) > 1:
+            pp_microbatches = 2
+        self.pp_microbatches = pp_microbatches
 
         def place_pair(pair):
             for mod in pair.values():
@@ -664,7 +672,8 @@ class GoalForcePipeline:
             dit, self.dit_cfg, x, tstep, context if merged else context[:b],
             y=None if y is None else twice(y), controlnet=cn, controlnet_cfg=self.cn_cfg,
             control_latents=None if cn is None else twice(control_latents),
-            attn_impl=self.attn_impl, return_token_states=return_residual, **kw)
+            attn_impl=self.attn_impl, return_token_states=return_residual,
+            pp_microbatches=self.pp_microbatches, **kw)
         if return_residual:
             v, (pre, post) = v
         if merged:
@@ -711,7 +720,7 @@ class GoalForcePipeline:
             v = denoise_forward(dit, self.dit_cfg, x2, t2, context, y=y2,
                                 controlnet=cn if cl2 is not None else None,
                                 controlnet_cfg=self.cn_cfg, control_latents=cl2,
-                                attn_impl=self.attn_impl)
+                                attn_impl=self.attn_impl, pp_microbatches=self.pp_microbatches)
             return v[b:] + cfg_scale * (v[:b] - v[b:])
 
         v = temporal_tiled_forward(window_fn, latents, y, window, stride,

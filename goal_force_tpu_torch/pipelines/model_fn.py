@@ -1,6 +1,6 @@
 """The denoiser forward: DiT + ControlNet side stack + conditioning.
 
-Port of ``goal_force_tpu/pipelines/model_fn.py`` (all but its pipeline-parallel trunk):
+Port of ``goal_force_tpu/pipelines/model_fn.py``:
 
 - ``denoise_forward``: time embed (+ the motion controller's offset) -> text embed -> y
   concat -> patchify (+ camera tokens, Fun-Reference tokens in front) -> RoPE ->
@@ -21,7 +21,9 @@ output, equal to the unsharded one. With ``rows_split`` (the training step) the 
 has split the batch over "dp" already and each rank keeps its rows. Where a module is
 FSDP-placed (``parallel/fsdp.py``) its whole weights are gathered where they are used:
 the DiT's embeddings before the blocks and its head after them, each block inside its
-checkpoint.
+checkpoint. With ``pp_microbatches`` the trunk runs in JAX's GPipe schedule over the
+mesh's "pp" axis (``models/wan_dit.py::pp_run_blocks``); on a mesh whose "pp" exceeds 1
+it must be given, as the blocks then live on their stages.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from goal_force_tpu_torch.models.wan_dit import (
     WanDiT,
     head,
     patchify,
+    pp_run_blocks,
     reference_tokens,
     rope_for_grid,
     run_blocks,
@@ -73,6 +76,7 @@ def denoise_forward(
     reference_latents: Optional[torch.Tensor] = None,  # (B, h, w, z) Fun-Reference
     camera_embedding: Optional[torch.Tensor] = None,   # (B, S, D) camera adapter tokens
     rows_split: bool = False,
+    pp_microbatches: Optional[int] = None,
 ):
     """Velocity prediction (B, F, H, W, out_dim). remat: recompute every DiT and
     ControlNet block in the backward pass (the training path).
@@ -92,7 +96,21 @@ def denoise_forward(
     goal-force ControlNet.
 
     rows_split: under a mesh, the inputs are this rank's rows of the batch already (split
-    over "dp" by the caller), and so is the output."""
+    over "dp" by the caller), and so is the output.
+
+    pp_microbatches: run the block trunk pipeline-parallel in this many microbatches
+    (``pp_run_blocks``: over the ambient mesh's "pp" axis, ``run_blocks`` where it has
+    none). As in JAX it refuses the strided ControlNet and VACE, which run the trunk in
+    segments."""
+    use_cn = controlnet is not None and control_latents is not None
+    if pp_microbatches and ((use_cn and controlnet_cfg is not None
+                             and controlnet_cfg.stride is not None) or vace is not None):
+        raise NotImplementedError(
+            "pp_microbatches cannot be combined with strided-ControlNet or "
+            "VACE segmented execution; shard without a pp axis for these modes")
+    if not pp_microbatches and axis_size("pp") > 1:
+        raise ValueError("on a mesh with a \"pp\" axis the trunk runs pipelined: pass "
+                         "pp_microbatches (the blocks live on their stages)")
     mesh = current_mesh()
     dp_split = (mesh is not None and not rows_split
                 and latents.shape[0] % axis_size("dp") == 0)
@@ -114,7 +132,6 @@ def denoise_forward(
     if camera_embedding is not None:
         tokens = tokens + camera_embedding.to(tokens.dtype)
     tokens_pre = tokens if return_token_states else None
-    use_cn = controlnet is not None and control_latents is not None
     n_ref = 0
     rope_grid = grid
     if reference_latents is not None:
@@ -137,7 +154,8 @@ def denoise_forward(
         del dit
         tokens = _blocks(blocks, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet,
                          controlnet_cfg, control_latents, use_cn, attn_impl, remat,
-                         block_weights, vace, vace_context, vace_scale, vace_layers)
+                         block_weights, vace, vace_context, vace_scale, vace_layers,
+                         pp_microbatches)
     if mesh is not None:
         tokens = col.gather_seq(tokens, n_tokens)
     if n_ref:
@@ -152,9 +170,9 @@ def denoise_forward(
 
 def _blocks(blocks, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet, controlnet_cfg,
             control_latents, use_cn, attn_impl, remat, block_weights, vace, vace_context,
-            vace_scale, vace_layers):
+            vace_scale, vace_layers, pp_microbatches):
     """The block stack with the ControlNet's injections (or its strided raw states, or
-    VACE hints)."""
+    VACE hints), pipelined with pp_microbatches."""
     stride = controlnet_cfg.stride if (use_cn and controlnet_cfg is not None) else None
     inj = None
     if use_cn:
@@ -189,6 +207,10 @@ def _blocks(blocks, dit_cfg, tokens, ctx, t_mod, cos, sin, controlnet, controlne
             pos = layer + 1
         if pos < n_layers:
             tokens = run(tokens, start=pos)
+    elif pp_microbatches:
+        tokens = pp_run_blocks(blocks, tokens, ctx, t_mod, cos, sin, dit_cfg,
+                               n_micro=pp_microbatches, injections=inj, remat=remat,
+                               attn_impl=attn_impl, block_weights=block_weights)
     else:
         tokens = run(tokens, injections=inj)
     return tokens

@@ -19,18 +19,21 @@ The port adds ``--device`` (``cuda`` by default; a run without a card raises unl
 ``--device cpu`` is given). ``--dp/--sp/--tp`` above 1 train over a mesh, as JAX's
 ``scripts/train.py:104-107`` does: one process per GPU, started by
 ``torchrun --nproc_per_node N -m goal_force_tpu_torch.scripts.train --dp .. --sp ..
---tp ..`` (N = dp * sp * tp), every process loading the files; ``make_mesh`` starts the
-process group from torchrun's environment, the frozen models and the ControlNet keep
-their FSDP shards (``parallel/fsdp.py``) and rank 0 writes the checkpoints. ``--pp``
-above 1 (pipeline parallel, ROADMAP M13b-pp) is not ported yet and raises.
-``--controlnet_stride s`` trains a strided ControlNet:
+--tp .. --pp .. --pp_microbatches ..`` (N = pp * dp * sp * tp), every process loading
+the files; ``make_mesh`` starts the process group from torchrun's environment, the
+frozen models and the ControlNet keep their FSDP shards (``parallel/fsdp.py``) and rank
+0 writes the checkpoints. ``--pp`` above 1 pipelines the DiT trunk over that many
+stages (JAX's GPipe schedule, ``--pp_microbatches`` microbatches): each rank keeps only
+its stage's blocks of the frozen expert, and the ControlNet, which is not pipelined,
+keeps its layers whole (``fsdp_specs(pin_pp_layers=False)``). As in JAX, a strided
+ControlNet cannot train pipelined. ``--controlnet_stride s`` trains a strided ControlNet:
 its blocks copy expert blocks 0, s, 2s, ... and their raw states are added after those
 blocks (no zero convs), each segment between them under remat.
 
 At the A14B default the run does not fit one 80 GB card: the frozen expert, T5,
 the ControlNet with its AdamW state and the untiled VAE encodes of a step exceed it.
-Shard it over several cards (--dp/--sp/--tp, as the JAX package fits it), or cut its
-depth to run on one.
+Shard it over several cards (--dp/--sp/--tp/--pp, as the JAX package fits it), or cut
+its depth to run on one.
 
 ``main`` is four steps that other scripts can call in turn: ``parse_args``,
 ``load_models`` (its configs can be replaced, as for a checkpoint of cut depth),
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 _HELP_FIT = ("at the A14B default the run does not fit one 80 GB card; shard it over "
-             "several (--dp/--sp/--tp under torchrun) or cut its depth")
+             "several (--dp/--sp/--tp/--pp under torchrun) or cut its depth")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -87,10 +90,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--num_frames", type=int, default=81)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=832)
-    for axis in ("dp", "sp", "tp", "pp"):
-        p.add_argument(f"--{axis}", type=int, default=1,
-                       help="mesh axis (run under torchrun); --pp above 1 is not "
-                            "ported yet (ROADMAP M13b-pp)")
+    for axis in ("dp", "sp", "tp"):
+        p.add_argument(f"--{axis}", type=int, default=1, help="mesh axis (run under torchrun)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages over the DiT trunk (GPipe; run under "
+                        "torchrun)")
     p.add_argument("--pp_microbatches", type=int, default=2)
     p.add_argument("--use_wandb", action="store_true",
                    help="also log to wandb (JSONL only where wandb does not import)")
@@ -101,20 +105,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def check_supported(args) -> None:
-    if args.pp > 1:
-        raise NotImplementedError(f"--pp {args.pp}: pipeline-parallel training is not ported "
-                                  "yet (ROADMAP M13b-pp)")
-
-
 def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
     """The frozen models read strictly from the files of `args` and the initial
     ControlNet (copied from the expert's first blocks, a patch embedding drawn from
     seed 0, zero convs at 0): {"frozen": {dit, t5, vae}, "controlnet", "tokenizer",
     "dit_cfg", "t5_cfg", "vae_cfg", "cn_cfg", "mesh"}. `configs_` (dit_cfg, t5_cfg,
-    vae_cfg) replace the A14B ones. With --dp/--sp/--tp above 1 the mesh is made first
-    (its process group picks this process's GPU) and every model is placed by
-    ``fsdp_specs``; "mesh" is None otherwise."""
+    vae_cfg) replace the A14B ones. With --dp/--sp/--tp/--pp above 1 the mesh is made
+    first (its process group picks this process's GPU) and every model is placed by
+    ``fsdp_specs``, the ControlNet with ``pin_pp_layers=False``; "mesh" is None
+    otherwise."""
     from goal_force_tpu_torch import configs
     from goal_force_tpu_torch.models import controlnet as cnm
     from goal_force_tpu_torch.models import t5 as t5m
@@ -128,13 +127,12 @@ def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
         vae_state_dict,
     )
 
-    from goal_force_tpu_torch.parallel.fsdp import place_fsdp
+    from goal_force_tpu_torch.parallel.fsdp import fsdp_specs, place_fsdp
     from goal_force_tpu_torch.parallel.mesh import make_mesh
 
-    check_supported(args)
     mesh = None
-    if args.dp * args.sp * args.tp > 1:
-        mesh = make_mesh(args.dp, args.sp, args.tp, device=args.device)
+    if args.dp * args.sp * args.tp * args.pp > 1:
+        mesh = make_mesh(args.dp, args.sp, args.tp, pp=args.pp, device=args.device)
     device = resolve_device(args.device)
     dit_cfg = configs_.get("dit_cfg", configs.WAN22_A14B)
     t5_cfg = configs_.get("t5_cfg", configs.UMT5_XXL)
@@ -153,8 +151,10 @@ def load_models(args, dtype=torch.bfloat16, **configs_) -> Dict:
     cn = cnm.init_from_dit(frozen["dit"], dit_cfg, cn_cfg, torch.Generator(device).manual_seed(0),
                            dtype, device=device)
     if mesh is not None:
-        for m in (*frozen.values(), cn):
+        for m in frozen.values():
             place_fsdp(m, mesh)
+        # the ControlNet's side stack is not pipelined: its layers stay whole
+        place_fsdp(cn, mesh, fsdp_specs(cn, mesh, pin_pp_layers=False))
     return {"frozen": frozen, "controlnet": cn, "mesh": mesh,
             "tokenizer": load_tokenizer(args.tokenizer_path, t5_cfg.vocab, t5_cfg.text_len),
             "dit_cfg": dit_cfg, "t5_cfg": t5_cfg, "vae_cfg": vae_cfg, "cn_cfg": cn_cfg}
@@ -202,7 +202,8 @@ def run(args, models: Dict, dataset, history: Optional[list] = None, **overrides
         min_timestep_boundary=args.min_timestep_boundary,
         train_lora=args.train_lora, lora_rank=args.lora_rank,
         num_frames=args.num_frames, height=args.height, width=args.width,
-        use_wandb=args.use_wandb, wandb_project=args.wandb_project, run_name=args.run_name)
+        use_wandb=args.use_wandb, wandb_project=args.wandb_project, run_name=args.run_name,
+        pp_microbatches=args.pp_microbatches if args.pp > 1 else None)
     return train(dataclasses.replace(cfg, **overrides), models["dit_cfg"], models["t5_cfg"],
                  models["vae_cfg"], models["cn_cfg"], models["frozen"], models["controlnet"],
                  dataset, models["tokenizer"], resume=args.resume, max_steps=args.max_steps,
@@ -211,7 +212,6 @@ def run(args, models: Dict, dataset, history: Optional[list] = None, **overrides
 
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
-    check_supported(args)
     dataset = build_datasets(args)
     return run(args, load_models(args), dataset)
 

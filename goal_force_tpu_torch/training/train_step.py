@@ -38,6 +38,16 @@ encodes split their pixels over ("sp", "tp") as JAX constrains them
 (``train_step.py:141-165``): each rank of an sp-tp group encodes its block of rows and
 columns, exchanging halos, and the latents are gathered back whole on every rank
 (``parallel/spatial.py``); this runs under any mesh, also where "sp" and "tp" are 1.
+On a mesh with a "pp" axis the rows split over ("pp", "sp"), "pp" major, as JAX's
+``train_step.py:147-153`` orders them.
+
+``pp_microbatches`` (JAX ``train_step.py:61-83, 101-199``) runs the denoiser's trunk in
+the GPipe schedule over "pp" (``models/wan_dit.py::pp_run_blocks``): every stage computes
+the ControlNet and the loss alike, the injections' gradients come back whole to every
+stage, and the LoRA adapters' gradients, which only their block's stage computes, are
+summed over "pp" with the other replicated gradients. A trainable tensor split over "pp"
+itself (``fsdp_specs(axes=("pp", ...))``) raises: every stage computes its whole
+gradient, which a reduce-scatter over "pp" would count pp times.
 """
 
 from __future__ import annotations
@@ -84,18 +94,25 @@ def trainable_params(params) -> Tensors:
     return out
 
 
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    return t.float().square().sum(dtype=torch.float64)
+
+
 def global_norm(tensors, sharded=None) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32. Under a mesh,
-    `sharded` (one bool per tensor) marks the FSDP shards: their squares are summed over
-    the ("dp", "sp") group, while a replicated tensor counts once (on the group's first
-    rank)."""
+    """sqrt of the sum of squares of every element (float32). Each square is a float32,
+    the sums are float64 and only the root is rounded to float32, so the order of the
+    sums, a whole tensor's or its shards' summed over the group, does not reach the
+    result: the clip scales every gradient by it, and a last bit that moved would move
+    every update. Under a mesh, `sharded` (one bool per tensor) marks the FSDP shards:
+    their squares are summed over the ("dp", "sp") group, while a replicated tensor
+    counts once (on the group's first rank)."""
     tensors = list(tensors)
     if sharded is None or current_mesh() is None:
-        return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+        return torch.stack([_square_sum(t) for t in tensors]).sum().sqrt().float()
     first = axes_rank(fsdp.AXES) == 0
-    sq = torch.stack([t.float().square().sum() if (s or first) else
-                      t.new_zeros((), dtype=torch.float32) for t, s in zip(tensors, sharded)])
-    return col.sum_over(sq.sum(), fsdp.AXES).sqrt()
+    sq = torch.stack([_square_sum(t) if (s or first) else
+                      t.new_zeros((), dtype=torch.float64) for t, s in zip(tensors, sharded)])
+    return col.sum_over(sq.sum(), fsdp.AXES).sqrt().float()
 
 
 B1, B2, EPS = 0.9, 0.999, 1e-8      # AdamW betas and epsilon (the JAX optimizer's)
@@ -178,18 +195,20 @@ def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.01, grad_clip: floa
 def training_loss(dit, cn, dit_cfg: WanDiTConfig, cn_cfg: Optional[ControlNetConfig],
                   x0, noise, sigma, timestep, weight, context, y, control_latents,
                   attn_impl: str = "auto", remat: bool = True,
-                  block_weights=None, share: float = 1.0) -> torch.Tensor:
+                  block_weights=None, share: float = 1.0,
+                  pp_microbatches: Optional[int] = None) -> torch.Tensor:
     """Weighted v-MSE of the denoiser (float32 scalar). block_weights: see
     ``denoise_forward`` (LoRA's merge). Under a mesh the inputs are this rank's rows of
     the batch and `share` is their part of the global mean (rows / global rows, or
     1 / dp where every dp rank computes the whole batch): the losses of the ranks of a
-    "dp" group add up to the global one."""
+    "dp" group add up to the global one. pp_microbatches: the pipelined trunk."""
     latents = fm.add_noise(x0, noise, sigma)
     target = fm.training_target(x0, noise)
     v = denoise_forward(dit, dit_cfg, latents, timestep, context, y=y, controlnet=cn,
                         controlnet_cfg=cn_cfg, control_latents=control_latents,
                         attn_impl=attn_impl, remat=remat, block_weights=block_weights,
-                        rows_split=current_mesh() is not None)
+                        rows_split=current_mesh() is not None,
+                        pp_microbatches=pp_microbatches)
     loss = (v.float() - target.float()).square().mean()
     if share != 1.0:
         loss = loss * share
@@ -244,9 +263,9 @@ def make_train_step(
 
     train_lora: state.params is {"lora": adapters[, "controlnet": cn]} (see the module
     docstring); lora_alpha defaults to the adapters' rank.
+    pp_microbatches: with a mesh that has a "pp" axis > 1, pipeline the DiT trunk over it
+    in this many microbatches.
     """
-    if pp_microbatches:
-        raise NotImplementedError("pipeline-parallel training is not ported yet (ROADMAP M13b-pp)")
     schedule = fm.make_schedule(num_steps=1000, shift=5.0, sigma_min=0.0,
                                 extra_one_step=True, training=True)
     lo = int(min_timestep_boundary * schedule.num_train_timesteps)
@@ -325,7 +344,8 @@ def make_train_step(
                                      x0, noise, sigma, timestep, weight, context, y,
                                      control_latents if cn is not None else None,
                                      attn_impl=attn_impl, remat=True,
-                                     block_weights=block_weights, share=share)
+                                     block_weights=block_weights, share=share,
+                                     pp_microbatches=pp_microbatches)
                 # a strided ControlNet never uses its zero convs: their gradients are
                 # zero, as JAX's are
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
@@ -333,8 +353,9 @@ def make_train_step(
         grads = dict(zip(params, grads))
         sharded = None
         if current_mesh() is not None:
-            sharded = [s is not None and s[0] is not None
-                       for s in param_splits(state.params).values()]
+            splits = param_splits(state.params)
+            _refuse_pp_splits(splits)
+            sharded = [s is not None and s[0] is not None for s in splits.values()]
             _sum_replicated(grads, sharded)
             loss = col.sum_over(loss.detach().clone(), ("dp",))
         with _stage(timings, "optimizer", device):
@@ -367,13 +388,27 @@ def param_splits(params) -> Dict[str, Optional[tuple]]:
     return out
 
 
+def _refuse_pp_splits(splits) -> None:
+    for n, s in splits.items():
+        if s is not None and s[0] is not None and "pp" in s[3] and axis_size("pp") > 1:
+            raise NotImplementedError(
+                f"{n} is split over {s[3]}: a trainable tensor split over the pipeline's "
+                "\"pp\" axis is not supported (place it over (\"dp\", \"sp\"))")
+
+
 def _sum_replicated(grads: Tensors, sharded) -> None:
     """Sum, in place, the gradients of the replicated trainable tensors over the
-    ("dp", "sp") group: one all-reduce of one flat buffer per dtype."""
+    ("dp", "sp") group, and those of LoRA's adapters over ("pp", "dp", "sp") (only the
+    stage of an adapter's block computes its gradient; every stage computes the
+    ControlNet's whole): one all-reduce of one flat buffer per dtype and group."""
     names = [n for n, s in zip(grads, sharded) if not s]
-    for dtype in sorted({grads[n].dtype for n in names}, key=str):
-        group = [n for n in names if grads[n].dtype == dtype]
-        flat = col.sum_over(torch.cat([grads[n].reshape(-1) for n in group]), fsdp.AXES)
+    pp = axis_size("pp") > 1
+    keys = {(grads[n].dtype, pp and n.startswith("lora.")) for n in names}
+    for dtype, over_pp in sorted(keys, key=str):
+        group = [n for n in names
+                 if grads[n].dtype == dtype and (pp and n.startswith("lora.")) == over_pp]
+        axes = ("pp",) + fsdp.AXES if over_pp else fsdp.AXES
+        flat = col.sum_over(torch.cat([grads[n].reshape(-1) for n in group]), axes)
         off = 0
         for n in group:
             g = grads[n]

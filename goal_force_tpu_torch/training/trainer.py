@@ -19,7 +19,8 @@ Each step draws its timestep and noise from a ``torch.Generator`` seeded from
 
 ``train(mesh=)`` (JAX ``trainer.py:112,186``) runs the loop under the mesh: every rank
 runs it alike. The frozen models and the ControlNet are FSDP-placed where they are not
-yet (``parallel/fsdp.py``; the adapters stay replicated). Rank 0 alone writes
+yet (``parallel/fsdp.py``; the adapters stay replicated; on a "pp" mesh the DiT's blocks
+stay on their stages and ``pp_microbatches`` pipelines the trunk). Rank 0 alone writes
 ``metrics.jsonl`` and the checkpoints, after every rank has gathered the shards, so the
 files hold whole tensors, as an unsharded run writes them; a full-state resume reads the
 whole tensors and keeps each rank's shards.
@@ -54,7 +55,7 @@ from goal_force_tpu_torch.io.safetensors_io import (
 from goal_force_tpu_torch.lora import init_lora, lora_from_peft, lora_to_peft
 from goal_force_tpu_torch.parallel import collectives as col
 from goal_force_tpu_torch.parallel import fsdp
-from goal_force_tpu_torch.parallel.mesh import MESH_AXES, axes_rank, current_mesh, use_mesh
+from goal_force_tpu_torch.parallel.mesh import axes_rank, current_mesh, use_mesh
 from goal_force_tpu_torch.pipelines.goal_force import resolve_device
 from goal_force_tpu_torch.training.train_step import (
     TrainState,
@@ -114,7 +115,7 @@ class TrainerConfig:
     seed: int = 0
     train_lora: bool = False            # LoRA adapters on the frozen DiT
     lora_rank: int = 32
-    pp_microbatches: Optional[int] = None   # not ported: raises
+    pp_microbatches: Optional[int] = None   # pipeline-parallel microbatches ("pp" mesh)
     keep_last_states: int = 2           # full state-K files kept (<= 0 keeps all)
     use_wandb: bool = False             # also log to wandb where it imports
     wandb_project: Optional[str] = None
@@ -138,7 +139,7 @@ def _writer() -> bool:
     import torch.distributed as dist
 
     if current_mesh() is not None:
-        return axes_rank(MESH_AXES) == 0
+        return axes_rank(current_mesh().mesh_dim_names) == 0
     return not dist.is_initialized() or dist.get_rank() == 0
 
 

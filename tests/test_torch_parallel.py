@@ -253,16 +253,20 @@ def test_sharded_pipeline_matches_jax(tmp_path):
 
 def _markers(tree, specs):
     """Each leaf of `tree` as zeros, or, where its spec splits dimension d, 1 + its index
-    along d: after the name map the port's tensor varies exactly along its split dim."""
+    along d, plus 1000 * (1 + its layer) where the spec pins the layer axis (dimension 0)
+    to "pp": after the name map the port's tensor varies exactly along its split dim, and
+    a pinned block's tensor holds its layer."""
     def leaf(a, spec):
         a = np.asarray(a)
-        dims = [d for d, axis in enumerate(tuple(spec)) if axis is not None]
-        if not dims:
-            return np.zeros(a.shape, np.float32)
-        shape = [1] * a.ndim
-        shape[dims[0]] = a.shape[dims[0]]
-        return np.broadcast_to(np.arange(1, a.shape[dims[0]] + 1, dtype=np.float32)
-                               .reshape(shape), a.shape).copy()
+        out = np.zeros(a.shape, np.float32)
+        for d, axis in enumerate(tuple(spec)):
+            if axis is None:
+                continue
+            shape = [1] * a.ndim
+            shape[d] = a.shape[d]
+            out += (1000.0 if axis == "pp" else 1.0) * np.arange(
+                1, a.shape[d] + 1, dtype=np.float32).reshape(shape)
+        return out
 
     return jax.tree_util.tree_map(leaf, tree, specs,
                                   is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
@@ -273,46 +277,75 @@ def _varying(t):
                  not bool((t == t.narrow(k, 0, 1)).all()))
 
 
-@pytest.mark.parametrize("tp", [2, 3])
+@pytest.mark.parametrize("tp", [2, 3, pytest.param((2, 2), id="pp2-tp2"),
+                                pytest.param((4, 1), id="pp4-tp1")])
 def test_inference_param_specs_equal_jax(tp):
     """JAX's specs (substring matches on its leaf names, ``_divisible``'s fallback: at
     tp = 3 the FFN's 128 columns stay whole) equal the port's, dimension by dimension
     through ``params_from_jax``: the text and time embeddings' fc0/fc2 are split as
-    JAX's names make them, and every bias and norm weight is replicated."""
+    JAX's names make them, and every bias and norm weight is replicated. On a "pp" mesh
+    (tp given as (pp, tp)) every block parameter of the DiT, and none of the
+    ControlNet's, is pinned to its block's stage where pp divides the 2 layers (pp = 2),
+    and nothing is where it does not (pp = 4), as JAX pins the stacked layer axis."""
+    pp, tp = tp if isinstance(tp, tuple) else (1, tp)
     (dit, cn, _, _), ((jdit, jcn), _, _) = _models(4, 0)
     tree = {"dit": jdit, "controlnet": jcn}
-    specs = jax_param_specs(tree, jax_make_mesh(dp=1, sp=1, tp=tp))
+    devices = jax.devices()[:pp * tp] if pp * tp <= len(jax.devices()) else None
+    specs = jax_param_specs(tree, jax_make_mesh(dp=1, sp=1, tp=tp, pp=pp, devices=devices))
     sds = params_from_jax(_markers(jax.tree_util.tree_map(np.asarray, tree), specs))
-    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=(1, 1, tp))
-    split = set()
+    names = ("dp", "sp", "tp") if pp == 1 else ("pp", "dp", "sp", "tp")
+    mesh = types.SimpleNamespace(mesh_dim_names=names, shape=(1, 1, tp) if pp == 1 else
+                                 (pp, 1, 1, tp))
+    split, pinned = set(), set()
     for name, module in (("dit", dit), ("controlnet", cn)):
         port = inference_param_specs(module, mesh)
         assert port.keys() == sds[name].keys()
         for k, spec in port.items():
-            assert len(spec) == sds[name][k].ndim
-            assert _varying(sds[name][k]) == tuple(d for d, a in enumerate(spec) if a), k
+            marks = sds[name][k]
+            assert len(spec) == marks.ndim
+            assert _varying(marks % 1000) == tuple(d for d, a in enumerate(spec) if a), k
+            layer = int(marks.flatten()[0] // 1000)
+            assert getattr(spec, "stage", None) == (None if layer == 0 else layer - 1), k
+            if layer:
+                pinned.add(f"{name}.{k}")
             if any(spec):
                 split.add(k)
     assert {"text_embedding.0.weight", "time_embedding.2.weight",
             "blocks.0.self_attn.q.weight", "blocks.1.cross_attn.o.weight"} <= split
-    assert ("blocks.0.ffn.0.weight" in split) == (tp == 2)
+    assert ("blocks.0.ffn.0.weight" in split) == (tp != 3)     # 128 columns
     assert not any(k.endswith(("bias", "norm_q.weight")) for k in split)
+    assert pinned == ({f"dit.{k}" for k in sds["dit"] if k.startswith("blocks.")}
+                      if pp == 2 else set())
 
 
 def test_make_mesh_and_shard_refusals(monkeypatch):
+    """make_mesh refuses a world smaller than the mesh, "pp" included, with JAX's message,
+    and a call without a process group. shard() on a mesh with pp = 2 (here as rank 1 of
+    it) sets pp_microbatches to 2, as JAX's does, and keeps only stage 1's block of each
+    DiT (stage 0's holds no storage) and every ControlNet block."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert not dist.is_initialized()
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         make_mesh(sp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="M13b-pp"):
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
         make_mesh(pp=2, device="cpu")
+    with pytest.raises(ValueError, match="need 16 devices, have 8"):
+        jax_make_mesh(dp=2, sp=2, tp=2, pp=2)
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     with pytest.raises(RuntimeError, match="no process group"):
         make_mesh(1, 1, 1, device="cpu")
     assert not dist.is_initialized()
     tpipe = GoalForcePipeline.init_random(device="cpu")
-    with pytest.raises(NotImplementedError, match="M13b-pp"):
-        tpipe.shard(None, pp_microbatches=2)
+    pp_mesh = types.SimpleNamespace(mesh_dim_names=("pp", "dp", "sp", "tp"), shape=(2, 1, 1, 1),
+                                    get_local_rank=lambda axis: 1 if axis == "pp" else 0)
+    tpipe.shard(pp_mesh)
+    assert tpipe.pp_microbatches == 2
+    for name in ("dit", "dit2"):
+        blocks = tpipe.models[name].blocks
+        assert all(p.numel() == 0 for p in blocks[0].parameters())
+        assert blocks[1].self_attn.q.weight.shape == (tpipe.dit_cfg.dim,) * 2
+    assert all(p.numel() for p in tpipe.models["controlnet"].parameters())
+    tpipe = GoalForcePipeline.init_random(device="cpu")
     # W8A8 packs are placed: ffn.0 (column-parallel) keeps its codes' rows and its
     # scales, ffn.2 (row-parallel) its codes' columns and every scale
     mesh = types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=(1, 1, 2),

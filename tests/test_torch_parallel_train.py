@@ -1,10 +1,10 @@
 """The port's multi-GPU training (``parallel/fsdp.py``, the differentiable collectives,
-``train_step``/``trainer``/the CLI under a mesh) and W8A8 packs under a mesh, against the
-JAX package's unsharded functions.
+``train_step``/``trainer``/the CLI under a mesh), W8A8 packs under a mesh and pipeline
+parallelism over a "pp" axis, against the JAX package's functions.
 
 In process: ``fsdp_specs`` against JAX's for every parameter of the tiny DiT,
-ControlNet, T5 and VAE, dimension by dimension through ``io/from_jax.py``; the CLI's
-refusals.
+ControlNet, T5 and VAE, dimension by dimension through ``io/from_jax.py``, on meshes
+with and without "pp"; the pipeline's refusals against JAX's.
 
 One spawned world of 4 gloo ranks (``torch_parallel_children.train_cases``; the
 children import no JAX, the parent computes the JAX references meanwhile, inputs and
@@ -13,8 +13,11 @@ forward and gradient against the unsharded function; ring attention and its grad
 against JAX's ring under a JAX mesh of the same shape, and its fallbacks; the VAE's
 split encode against JAX's whole encode; the tiny S2V pipeline under (1, 2, 2) against
 JAX's; the sharded train step at (2, 2, 1) and (1, 2, 2) on JAX's draws; a LoRA +
-ControlNet step; W8A8 packs at (1, 2, 2); and ``train(mesh=)`` over the first two ranks,
-its files and its resume.
+ControlNet step; W8A8 packs at (1, 2, 2); the pipelined trunk, ``denoise_forward`` and a
+``shard()`` request at (pp, dp, sp, tp) meshes against JAX's under JAX meshes of the same
+shape, the pipelined train step and the encodes split over ("pp", "sp"); and
+``train(mesh=)`` over two ranks at dp = 2 and at pp = 2, its files (byte-equal to an
+unsharded trainer's, which runs in a fresh process of its own) and its resume.
 """
 
 import copy
@@ -56,24 +59,28 @@ from goal_force_tpu_torch.io.from_jax import (
 from goal_force_tpu_torch.models import s2v as ts2v
 from goal_force_tpu_torch.parallel.fsdp import fsdp_specs
 from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
-from goal_force_tpu_torch.training.trainer import TrainerConfig, train
 
 import torch_parallel_children as children
 from test_torch_parallel import join, spawn
 from test_torch_s2v import random_state_dict
 from test_torch_training import _build
+from test_torch_variant_pipes import FRAMES, H, W, images, jax_noise, numpy_sd, pair
 
 
 def _shape_markers(tree, specs):
-    """Each leaf as zeros, or, where its spec splits dimension d, 1 + its index along d
-    (shapes only: the leaves may be ShapeDtypeStructs)."""
+    """Each leaf as zeros, or, where its spec splits dimension d, 1 + its index along d,
+    plus 1000 * (1 + its layer) where the spec pins the layer axis (dimension 0) to
+    "pp" (shapes only: the leaves may be ShapeDtypeStructs)."""
     def leaf(a, spec):
-        dims = [d for d, axis in enumerate(tuple(spec)) if axis is not None]
+        spec = tuple(spec)
         out = np.zeros(a.shape, np.float32)
-        if dims:
+        for d, axis in enumerate(spec):
+            if axis is None:
+                continue
             shape = [1] * len(a.shape)
-            shape[dims[0]] = a.shape[dims[0]]
-            out += np.arange(1, a.shape[dims[0]] + 1, dtype=np.float32).reshape(shape)
+            shape[d] = a.shape[d]
+            scale = 1000.0 if axis == "pp" else 1.0
+            out += scale * np.arange(1, a.shape[d] + 1, dtype=np.float32).reshape(shape)
         return out
 
     return jax.tree_util.tree_map(leaf, tree, specs,
@@ -101,38 +108,71 @@ def tiny_trees():
     return tree, {k: models[k] for k in tree}
 
 
-@pytest.mark.parametrize("dims", [(2, 2, 1), (4, 1, 1), (1, 2, 2)])
+PP_SPECS = [pytest.param(((2, 1, 2, 1), {}), id="pp2-sp2"),
+            pytest.param(((2, 2, 1, 1), dict(pp_stage_fsdp=True)), id="pp2-dp2-stage_fsdp"),
+            pytest.param(((2, 1, 2, 1), dict(pin_pp_layers=False)), id="pp2-sp2-unpinned"),
+            pytest.param(((2, 2, 1, 1), dict(axes=("pp", "dp", "sp"))), id="pp2-dp2-pp_axes")]
+
+
+@pytest.mark.parametrize("dims", [(2, 2, 1), (4, 1, 1), (1, 2, 2)] + PP_SPECS)
 def test_fsdp_specs_equal_jax(tiny_trees, dims):
     """JAX's fsdp_specs (min_size 1024) on its stacked (in, out) leaves equal the port's
     on its per-block torch layouts, dimension by dimension through params_from_jax; the
-    VAE's convs and every modulation stay replicated, the layer axis is never split."""
+    VAE's convs and every modulation stay replicated, the layer axis is never split.
+    On (pp, dp, sp, tp) meshes, for pp_stage_fsdp True and False, pin_pp_layers=False
+    and a "pp" in axes: where JAX pins a DiT block leaf's layer axis to "pp" the port's
+    spec is a StageSpec of the block's stage (L / pp blocks per stage), and no other."""
     tree, models = tiny_trees
-    specs = jax_fsdp_specs(tree, jax_make_mesh(*dims), min_size=1024)
+    kw = {}
+    if len(dims) == 2:
+        (pp, dp, sp, tp), kw = dims
+        jmesh = jax_make_mesh(dp, sp, tp, pp=pp)
+        mesh = types.SimpleNamespace(mesh_dim_names=("pp", "dp", "sp", "tp"),
+                                     shape=(pp, dp, sp, tp))
+    else:
+        pp = 1
+        jmesh = jax_make_mesh(*dims)
+        mesh = types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=dims)
+    specs = jax_fsdp_specs(tree, jmesh, min_size=1024, **kw)
     sds = params_from_jax(_shape_markers(tree, specs))
-    mesh = types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"), shape=dims)
-    split = set()
+    axes = tuple(kw.get("axes", ("dp", "sp")))
+    split, pinned = set(), set()
     for name, module in models.items():
-        port = fsdp_specs(module, mesh, min_size=1024)
+        port = fsdp_specs(module, mesh, min_size=1024, **kw)
         assert port.keys() == sds[name].keys(), name
+        per = len(getattr(module, "blocks", ())) // pp
         for k, spec in port.items():
             assert len(spec) == sds[name][k].ndim
+            marks = sds[name][k]
             got = tuple(d for d, a in enumerate(spec) if a)
-            assert _varying(sds[name][k]) == got, (name, k, spec)
-            assert all(a in (None, ("dp", "sp")) for a in spec)
+            assert _varying(marks % 1000) == got, (name, k, spec)
+            assert all(a in (None, axes, tuple(a for a in axes if a != "pp")) for a in spec)
+            layer = int(marks.flatten()[0] // 1000)
+            stage = getattr(spec, "stage", None)
+            assert (stage is None) == (layer == 0), (name, k, spec)
+            if stage is not None:
+                assert stage == (layer - 1) // per, (name, k, stage)
+                pinned.add(f"{name}.{k}")
             if got:
                 split.add(f"{name}.{k}")
     assert {"dit.blocks.0.self_attn.q.weight", "dit.blocks.1.ffn.0.weight",
             "dit.patch_embedding.weight", "t5.token_embedding.weight",
             "controlnet.controlnet_zero_convs_after.0.weight",
-            "controlnet.controlnet_patch_embedding.patch_embedding.weight"} <= split
-    assert not any(k.startswith("vae.") or "modulation" in k for k in split)
+            "controlnet.controlnet_patch_embedding.patch_embedding.weight"} <= split | pinned
+    assert not any(k.startswith("vae.") or "modulation" in k for k in split | pinned)
+    assert bool(pinned) == (pp > 1 and kw.get("pin_pp_layers", True))
+    assert all(k.startswith("dit.blocks.") for k in pinned)
 
 
 # ---------------------------------------------------------------------------
 # The spawned world of 4
 # ---------------------------------------------------------------------------
 
-CASES = {"dp_sp": ((2, 2, 1), False), "sp_tp": ((1, 2, 2), False), "lora": ((1, 2, 2), True)}
+# mesh dims (dp, sp, tp), or (dp, sp, tp, pp) for the pipelined step; with LoRA or not
+CASES = {"dp_sp": ((2, 2, 1), False), "sp_tp": ((1, 2, 2), False), "lora": ((1, 2, 2), True),
+         "pp_sp": ((1, 2, 1, 2), False), "pp_dp": ((2, 1, 1, 2), False),
+         "pp_lora": ((1, 1, 1, 2), True)}
+PP_STEP = "pp_sp"    # the pipelined case held to JAX's step under a JAX mesh of its shape
 QPATHS = ("self_attn", "cross_attn", "ffn")
 
 
@@ -155,24 +195,29 @@ def _jax_draws(vae_cfg):
 
 
 def _jax_steps(params, cfgs, batch, lora):
-    """JAX's unsharded make_train_step, ControlNet alone and LoRA + ControlNet, on its
-    own draws: {with LoRA: (metrics, first moments, updated tensors)}."""
+    """JAX's make_train_step on its own draws, ControlNet alone and LoRA + ControlNet
+    unsharded, and ControlNet alone pipelined (pp_microbatches 2) under a JAX mesh of
+    PP_STEP's shape: {False, True, PP_STEP: (metrics, first moments, updated tensors)}."""
     dit_cfg, t5_cfg, vae_cfg, cn_cfg = cfgs
     rng = jax.random.PRNGKey(RNG)
     frozen = {k: params[k] for k in ("dit", "t5", "vae")}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    dp, sp, tp, pp = CASES[PP_STEP][0]
     out = {}
-    for with_lora in (False, True):
+    for key, with_lora, mesh in ((False, False, None), (True, True, None),
+                                 (PP_STEP, False, jax_make_mesh(dp, sp, tp, pp=pp))):
         opt = jts.make_optimizer()
         step = jts.make_train_step(dit_cfg, t5_cfg, vae_cfg, cn_cfg, opt, num_frames=5,
-                                   train_lora=with_lora)
+                                   train_lora=with_lora,
+                                   pp_microbatches=2 if mesh is not None else None)
         cn = jax.tree_util.tree_map(jnp.array, params["controlnet"])
         trainable = {"lora": jax.tree_util.tree_map(jnp.array, lora), "controlnet": cn} \
             if with_lora else cn
         state = jts.TrainState(trainable, opt.init(trainable), jnp.zeros((), jnp.int32))
-        state, m = step(state, frozen, jbatch, rng)
-        out[with_lora] = ({k: float(v) for k, v in m.items()},
-                          _flat(state.opt_state[1][0].mu, with_lora), _flat(state.params, with_lora))
+        with jax_use_mesh(mesh):
+            state, m = step(state, frozen, jbatch, rng)
+        out[key] = ({k: float(v) for k, v in m.items()},
+                    _flat(state.opt_state[1][0].mu, with_lora), _flat(state.params, with_lora))
     return out
 
 
@@ -273,8 +318,10 @@ def _ring_refs(spec):
     return refs
 
 
+# mesh dims (dp, sp, tp), or (dp, sp, tp, pp): rows over ("pp", "sp")
 VAE_CASES = {"2x2-32x32": ((1, 2, 2), 32, 32), "4x1-32x32": ((1, 4, 1), 32, 32),
-             "4x1-40x24-uneven": ((1, 4, 1), 40, 24), "4x1-16x24-empty": ((1, 4, 1), 16, 24)}
+             "4x1-40x24-uneven": ((1, 4, 1), 40, 24), "4x1-16x24-empty": ((1, 4, 1), 16, 24),
+             "pp2xsp2-32x32": ((1, 2, 1, 2), 32, 32), "pp2xtp2-40x24": ((1, 1, 2, 2), 40, 24)}
 
 
 def _vae_spec(sd):
@@ -352,11 +399,76 @@ def _s2v_spec():
     return spec, reference
 
 
+PP_CFG = dict(dim=96, in_dim=12, ffn_dim=128, out_dim=4, text_dim=32, freq_dim=32,
+              num_heads=4, num_layers=4, rope_max_len=32)     # JAX test_pipeline_parallel.py's
+# mesh dims (dp, sp, tp, pp), batch rows, injections (3, after blocks 0-2) or not
+PP_TRUNK = {"pp2-inj": ((1, 1, 1, 2), 4, True), "pp4-inj": ((1, 1, 1, 4), 4, True),
+            "pp2xsp2-inj": ((1, 2, 1, 2), 4, True), "pp2xdp2": ((2, 1, 1, 2), 4, False),
+            "pp2-b1-inj": ((1, 1, 1, 2), 1, True)}
+PP_MESH = (1, 2, 1, 2)     # denoise_forward's and shard()'s: (dp, sp, tp, pp)
+
+
+def _pp_spec(params, mods, t_cfgs):
+    """The pipeline-parallel cases: the trunk (a 4-layer DiT, B = 4, 24 tokens), the tiny
+    denoise_forward with the ControlNet on the step's weights, and a 2-step request of a
+    pipeline pair (``pair``) with JAX's noise; and a function computing JAX's results
+    under JAX meshes of the same shapes (jitted)."""
+    from goal_force_tpu.ops.rope import assemble_rope as jassemble, rope_tables_3d as jtables
+    from goal_force_tpu_torch.models import wan_dit as tdit
+    from goal_force_tpu_torch.ops.rope import assemble_rope, rope_tables_3d
+
+    cfg, jc = tcfg.WanDiTConfig(**PP_CFG), jcfg.WanDiTConfig(**PP_CFG)
+    dit = tdit.init_wan_dit(cfg, torch.Generator().manual_seed(21), torch.float32, device="cpu")
+    jp = jax.tree_util.tree_map(jnp.asarray, jtc.dit_params_from_torch(numpy_sd(dit), jc))
+    rng = np.random.default_rng(22)
+    arr = lambda *sh: rng.normal(size=sh).astype(np.float32)
+    x, ctx, t_mod, inj = arr(4, 24, 96), arr(4, 6, 96), arr(4, 6, 96) * 0.1, arr(3, 4, 24, 96) * 0.1
+    cos, sin = assemble_rope(rope_tables_3d(cfg.head_dim, cfg.rope_max_len), 2, 3, 4, device="cpu")
+    jcos, jsin = jassemble(jtables(jc.head_dim, jc.rope_max_len), 2, 3, 4)
+    lat, y, cl = arr(2, 3, 8, 8, 4), arr(2, 3, 8, 8, 8), arr(2, 3, 8, 8, 4)
+    tctx, ts = arr(2, 5, t_cfgs[0].text_dim), np.full((2,), 500.0, np.float32)
+    jpipe, tpipe = pair(seed=2)
+    prompt, image, cv = "a ball rolls right", images(3), images(7, frames=FRAMES)
+    kw = dict(control_signal_video=cv, num_frames=FRAMES, num_inference_steps=2)
+    noise = jax_noise(0, (1, (FRAMES - 1) // 4 + 1, H // 8, W // 8, tpipe.vae_cfg.z_dim))
+    t = lambda a: torch.from_numpy(a)
+    spec = dict(
+        trunk=dict(sd=dit.state_dict(), cfg=cfg, cases=PP_TRUNK,
+                   inputs=(t(x), t(ctx), t(t_mod), [t(a) for a in inj], cos, sin)),
+        denoise=dict(dit=mods["dit"].state_dict(), controlnet=mods["controlnet"].state_dict(),
+                     configs=(t_cfgs[0], t_cfgs[3]), inputs=[t(a) for a in (lat, ts, tctx, y, cl)]),
+        pipe=dict(state_dicts={k: m.state_dict() for k, m in tpipe.models.items()},
+                  configs=tcfg.tiny_pipeline_configs(), args=(prompt, image),
+                  kwargs=dict(kw, noise=noise),
+                  token_ids={p: tuple(a[0] for a in tpipe.tokenizer([p]))
+                             for p in (prompt, tpipe.pipe_cfg.negative_prompt)}))
+
+    def reference():
+        out = {}
+        for case, ((dp, sp, tp, pp), b, with_inj) in PP_TRUNK.items():
+            with jax_use_mesh(jax_make_mesh(dp, sp, tp, pp=pp)):
+                out[case] = np.asarray(jax.jit(lambda p, *a: jdit.pp_run_blocks(
+                    p["blocks"], *a, jcos, jsin, jc, n_micro=2,
+                    injections=inj[:, :b] if with_inj else None))(jp, x[:b], ctx[:b], t_mod[:b]))
+        dp, sp, tp, pp = PP_MESH
+        with jax_use_mesh(jax_make_mesh(dp, sp, tp, pp=pp)):
+            out["denoise"] = np.asarray(jax.jit(lambda: jax_denoise_forward(
+                params["dit"], jcfg.tiny_pipeline_configs()[0], lat, ts, tctx, y=y,
+                controlnet_params=params["controlnet"],
+                controlnet_cfg=jcfg.tiny_pipeline_configs()[3], control_latents=cl,
+                pp_microbatches=2))())
+        jpipe.shard(jax_make_mesh(dp, sp, tp, pp=pp))
+        out["pipe"] = jpipe(prompt, image, seed=0, **kw)
+        return out
+
+    return spec, reference
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """Spawn the world of 4 (``torch_parallel_children.train_cases``) and compute the
-    references meanwhile: JAX's unsharded steps and int8 velocity, and the port's
-    unsharded trainer (the children need only the weights, inputs and draws)."""
+    """Spawn the world of 4 (``torch_parallel_children.train_cases``) and the unsharded
+    trainer (``unsharded_trainer``, a process of its own) and compute the JAX references
+    meanwhile (the children need only the weights, inputs and draws)."""
     d = tmp_path_factory.mktemp("train_world")
     params, mods, cfgs, t_cfgs = _build(lambda j: (jcfg if j else tcfg).tiny_pipeline_configs())
     batch = _batch(cfgs[1])
@@ -371,30 +483,22 @@ def world(tmp_path_factory):
     ring = _ring_spec()
     vae, vae_ref = _vae_spec(sds["vae"])
     s2v, s2v_ref = _s2v_spec()
+    pp, pp_ref = _pp_spec(params, mods, t_cfgs)
     data = _clips(3, 7)
     pipe = GoalForcePipeline.init_random(device="cpu")
     token_ids = {c["prompt"]: tuple(a[0] for a in pipe.tokenizer([c["prompt"]])) for c in data}
-    tokenizer = children.FixedTokenizer(token_ids)
     torch.save({"step": dict(cases=CASES, state_dicts=sds, configs=t_cfgs, tid=tid,
                              noise=torch.from_numpy(noise), lora=lora_from_jax(jl),
                              batch={k: torch.from_numpy(v) for k, v in batch.items()}),
-                "int8": int8, "ring": ring, "vae": vae, "s2v": s2v,
+                "int8": int8, "ring": ring, "vae": vae, "s2v": s2v, "pp": pp,
                 "trainer": dict(state_dicts=sds, configs=t_cfgs, data=data, token_ids=token_ids)},
                d / "train.pt")
     ctx = spawn(children.train_cases, 4, d)
+    ref_ctx = spawn(children.unsharded_trainer, 1, d)
     refs = {"steps": _jax_steps(params, cfgs, batch, lora), "int8": int8_ref(),
             "int8_spec": int8, "lora": jl, "ring": _ring_refs(ring), "vae": vae_ref(),
-            "s2v": s2v_ref()}
-    cfg = TrainerConfig(output_dir=str(d / "unsharded"), save_steps=1, log_every=1,
-                        num_epochs=1, num_frames=5, height=32, width=32, keep_last_states=2)
-    frozen = {k: copy.deepcopy(mods[k]) for k in ("dit", "t5", "vae")}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)          # as the children run: the CPU GEMMs' sums then agree
-    try:
-        train(cfg, *t_cfgs, frozen, mods["controlnet"], data, tokenizer, device="cpu",
-              max_steps=2)
-    finally:
-        torch.set_num_threads(threads)
+            "s2v": s2v_ref(), "pp": pp_ref()}
+    join(ref_ctx, timeout=240)
     join(ctx, timeout=240)
     return d, refs
 
@@ -462,9 +566,10 @@ def test_ring_falls_back_where_jax_does(world, case):
 def test_split_encode_matches_jax(world, case):
     """The VAE's split encode_video at (sp, tp) = (2, 2) and (4, 1) on the tiny VAE (its
     mid-block attention's projection drawn), at 32x32, 40 rows over "sp" = 4 (5 blocks
-    of 8: 2, 1, 1, 1) and 16 rows over "sp" = 4 (two ranks hold none): every rank's
-    whole latents are within 1e-5 of max|JAX| of JAX encode_video on the whole video
-    (float32), and the halos moved."""
+    of 8: 2, 1, 1, 1) and 16 rows over "sp" = 4 (two ranks hold none), and on "pp"
+    meshes with the rows over ("pp", "sp") (32 rows over 2 x 2) and over ("pp",) with the
+    columns over "tp" (40 x 24 over 2 x 2): every rank's whole latents are within 1e-5 of
+    max|JAX| of JAX encode_video on the whole video (float32), and the halos moved."""
     d, refs = world
     ref = refs["vae"][case]
     for rank in range(4):
@@ -500,9 +605,14 @@ def test_sharded_train_step_matches_jax(world, case):
     every updated tensor (2e-5, Adam's first step moving each by ~lr), and the frozen
     models unchanged. The tolerances are test_torch_training.py's and test_torch_lora.py's.
     Every case splits the VAE's rows over "sp" (and at (1, 2, 2) its columns over "tp"),
-    so the encodes exchanged halos."""
+    so the encodes exchanged halos. The pipelined cases (pp = 2, 2 microbatches, the
+    DiT's blocks on their stages; at (dp, sp, tp, pp) = (1, 2, 1, 2), (2, 1, 1, 2) and
+    LoRA + ControlNet at (1, 1, 1, 2), the last over each pair of ranks) hand the
+    activations on with shifts; (1, 2, 1, 2) is held to JAX's pipelined step under a JAX
+    mesh of its shape, the others to JAX's unsharded step (JAX's test_pipeline_parallel.py
+    holds its pipelined trunk and gradients to its unsharded ones)."""
     d, refs = world
-    metrics, mu, new = refs["steps"][CASES[case][1]]
+    metrics, mu, new = refs["steps"][case if case == PP_STEP else CASES[case][1]]
     for rank in range(4):
         got = torch.load(d / f"step-{case}-{rank}.pt")
         assert got["frozen_unchanged"]
@@ -553,7 +663,12 @@ def test_trainer_under_a_mesh_writes_the_unsharded_files_and_resumes(world):
     ControlNet's large tensors are halves on each rank, yet rank 0's step-K and state-K
     files (gathered) equal the unsharded trainer's byte for byte, and a run resumed from
     state-1 (re-sharded) writes the same step-2 and state-2 as the uninterrupted one;
-    metrics.jsonl has the same losses."""
+    metrics.jsonl has the same losses. The unsharded trainer runs in a fresh process, on
+    one thread, as the ranks do. Over two pipeline stages, (dp, sp, tp, pp) = (1, 1, 1, 2)
+    with pp_microbatches 2 (one microbatch at B = 1), the resumed run's files equal the
+    uninterrupted run's byte for byte, and the unsharded trainer's within the train
+    step's bounds: every parameter to 2e-5, every moment to 1e-3 of its largest value,
+    the losses to 1e-4 (the encodes split their rows over "pp")."""
     d, _ = world
     import json
 
@@ -563,12 +678,74 @@ def test_trainer_under_a_mesh_writes_the_unsharded_files_and_resumes(world):
         for name, shape in got["split"].items():
             assert np.prod(shape) * 2 == np.prod(got["whole"][name]), (rank, name, shape)
 
+    from goal_force_tpu_torch.io.safetensors_io import load_safetensors
+
+    read = lambda p: [(r["step"], r["loss"]) for r in map(json.loads, p.read_text().splitlines())]
     for name in ("step-1", "step-2", "state-2"):
         want = (d / "unsharded" / f"{name}.safetensors").read_bytes()
-        assert (d / "trainer-0" / f"{name}.safetensors").read_bytes() == want, name
-        assert (d / "trainer-1" / f"{name}.safetensors").read_bytes() == want, name
-    read = lambda p: [(r["step"], r["loss"]) for r in map(json.loads, p.read_text().splitlines())]
+        for run in (0, 1):
+            assert (d / f"trainer-{run}" / f"{name}.safetensors").read_bytes() == want, name
+        # at pp = 2 the resumed run repeats the uninterrupted one byte for byte; the
+        # encodes split their rows over "pp" (as JAX's), and the split encode's latents
+        # differ from the whole encode's in their last bits (1.7e-7 on these clips), so
+        # the files hold the unsharded trainer's within the train step's bounds
+        pp = [(d / f"trainer-pp-{run}" / f"{name}.safetensors").read_bytes() for run in (0, 1)]
+        assert pp[0] == pp[1], name
+        got, ref = (load_safetensors(str(d / run / f"{name}.safetensors"))
+                    for run in ("trainer-pp-0", "unsharded"))
+        assert got.keys() == ref.keys()
+        for k, r in ref.items():
+            bound = 1e-3 * float(r.abs().max()) if k.startswith("opt.") else 2e-5
+            np.testing.assert_allclose(got[k].numpy(), r.numpy(), rtol=0, atol=bound,
+                                       err_msg=f"{name} {k}")
     assert read(d / "trainer-0" / "metrics.jsonl") == read(d / "unsharded" / "metrics.jsonl")
+    for (step, loss), (ref_step, ref_loss) in zip(read(d / "trainer-pp-0" / "metrics.jsonl"),
+                                                   read(d / "unsharded" / "metrics.jsonl")):
+        assert step == ref_step and loss == pytest.approx(ref_loss, rel=1e-4)
+
+
+@pytest.mark.parametrize("case", list(PP_TRUNK))
+def test_pp_run_blocks_matches_jax(world, case):
+    """pp_run_blocks (2 microbatches of strided rows, GPipe ticks, the hand-offs over "pp"
+    by shift, the drained result summed over "pp") on the DiT placed with its blocks on
+    their stages, at (dp, sp, tp, pp) = (1, 1, 1, 2) with 3 ControlNet injections (the
+    third on stage 1), (1, 1, 1, 4) (stage 3 without any), (1, 2, 1, 2) (tokens over
+    "sp"), (2, 1, 1, 2) (rows over "dp", no injections) and B = 1 (one microbatch): every
+    rank's whole output within 2e-5 of JAX's pp_run_blocks under a JAX mesh of the same
+    shape (the bound of JAX's test_pipeline_parallel.py for the same trunk), every rank
+    holds only its stage's blocks, and the activations moved."""
+    d, refs = world
+    (dp, sp, tp, pp), b, _ = PP_TRUNK[case]
+    per = PP_CFG["num_layers"] // pp
+    for rank in range(4):
+        got, shifts, held = torch.load(d / f"pp-{rank}.pt")[case]
+        stage = rank % (dp * sp * tp * pp) // (dp * sp * tp)
+        assert held == list(range(stage * per, (stage + 1) * per)), (case, rank)
+        assert shifts == min(2, b // dp) + pp - 2        # n_micro + pp - 1 ticks
+        assert got.shape == refs["pp"][case].shape == (b, 24, 96)
+        np.testing.assert_allclose(got.numpy(), refs["pp"][case], rtol=2e-5, atol=2e-5,
+                                   err_msg=f"{case} rank {rank}")
+
+
+@pytest.mark.parametrize("case", ["denoise", "pipe"])
+def test_pp_denoise_and_pipeline_match_jax(world, case):
+    """At (dp, sp, tp, pp) = (1, 2, 1, 2): the tiny denoise_forward with the ControlNet
+    and pp_microbatches 2 against JAX's under a JAX mesh of that shape (2e-4, the sharded
+    denoise_forward's bound), and a 2-step request through shard(), which sets
+    pp_microbatches to 2 (the merged-CFG pair as two microbatches), against JAX's
+    pipeline sharded alike, on JAX's noise (frames within 1e-3, the tiny pipeline's
+    bound); on every rank, and the stages handed activations on."""
+    d, refs = world
+    for rank in range(4):
+        got, shifts, extra = torch.load(d / f"pp-{rank}.pt")[case]
+        assert shifts > 0
+        ref = refs["pp"][case]
+        assert got.shape == ref.shape
+        atol = 2e-4 if case == "denoise" else 1e-3
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0 if case == "pipe" else 2e-4,
+                                   atol=atol, err_msg=f"{case} rank {rank}")
+        if case == "pipe":
+            assert extra == 2
 
 
 def test_backward_on_another_thread_keeps_the_mesh(tmp_path, monkeypatch):
@@ -577,7 +754,9 @@ def test_backward_on_another_thread_keeps_the_mesh(tmp_path, monkeypatch):
     the sharded step's torch.autograd.grad runs on a new thread (whose context is empty
     alike) in a world of one (gloo, FSDP-placed at min_size 1024): the collectives'
     backwards keep their forward's groups and the recompute its forward's context, so
-    the step equals the unsharded one bit for bit."""
+    the step equals the unsharded one bit for bit. Both steps run on one CPU thread, as
+    the spawned ranks do: on several, the two paths' products (the gathered weights
+    live in other buffers than the modules' own) took other last bits in 1 of 10 runs."""
     import threading
 
     import torch.distributed as dist
@@ -606,7 +785,6 @@ def test_backward_on_another_thread_keeps_the_mesh(tmp_path, monkeypatch):
             _, metrics = step(state, frozen, batch, torch.Generator().manual_seed(3))
         return metrics, cn.state_dict()
 
-    ref_metrics, ref = run(None)
     grad = torch.autograd.grad
 
     def on_another_thread(*args, **kwargs):
@@ -616,27 +794,90 @@ def test_backward_on_another_thread_keeps_the_mesh(tmp_path, monkeypatch):
         worker.join()
         return out["g"]
 
-    monkeypatch.setattr(torch.autograd, "grad", on_another_thread)
-    assert not dist.is_initialized()
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     try:
-        metrics, got = run(make_mesh(1, 1, 1, device="cpu"))
+        ref_metrics, ref = run(None)
+        monkeypatch.setattr(torch.autograd, "grad", on_another_thread)
+        assert not dist.is_initialized()
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv", rank=0,
+                                world_size=1)
+        try:
+            metrics, got = run(make_mesh(1, 1, 1, device="cpu"))
+        finally:
+            dist.destroy_process_group()
     finally:
-        dist.destroy_process_group()
+        torch.set_num_threads(threads)
     assert metrics == ref_metrics
     assert all(torch.equal(got[k], ref[k]) for k in ref)
 
 
 def test_what_is_not_ported_raises_naming_its_roadmap_item():
-    """Pipeline parallelism raises naming M13b-pp (the train step's pp_microbatches,
-    fsdp_specs over a "pp" axis)."""
+    """The refusals that pipeline parallelism keeps, each with JAX's error and message:
+    pp_run_blocks where "pp" does not divide the layers (4 over pp = 3), and
+    pp_microbatches with the strided ControlNet or with VACE, whose trunks run in
+    segments. The port's own: a mesh with "pp" > 1 without pp_microbatches (its blocks
+    live on their stages: no unpipelined trunk), and a trainable tensor split over "pp"."""
+    from goal_force_tpu.models import adapters as jadm
+    from goal_force_tpu_torch.models import adapters as tadm
+    from goal_force_tpu_torch.models import controlnet as tcnm
+    from goal_force_tpu_torch.models import wan_dit as tdit
+    from goal_force_tpu_torch.parallel.mesh import use_mesh
+    from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
     from goal_force_tpu_torch.training import train_step as ts
 
-    cfgs = tcfg.tiny_pipeline_configs()
-    with pytest.raises(NotImplementedError, match="M13b-pp"):
-        ts.make_train_step(*cfgs, ts.make_optimizer(), pp_microbatches=2)
-    module = GoalForcePipeline.init_random(device="cpu").models["controlnet"]
-    for mesh, kw in (((1, 1, 1), dict(pp_stage_fsdp=True)), ((1, 1, 1), dict(axes=("pp",)))):
-        with pytest.raises(NotImplementedError, match="M13b-pp"):
-            fsdp_specs(module, types.SimpleNamespace(mesh_dim_names=("dp", "sp", "tp"),
-                                                     shape=mesh), **kw)
+    def message(exc_type, fn):
+        with pytest.raises(exc_type) as info:
+            fn()
+        return str(info.value)
+
+    def pp_mesh(pp):
+        return types.SimpleNamespace(mesh_dim_names=("pp", "dp", "sp", "tp"), shape=(pp, 1, 1, 1),
+                                     get_local_rank=lambda axis: 0)
+
+    cfg, jc = tcfg.tiny_dit(num_layers=4), jcfg.tiny_dit(num_layers=4)
+    dit = tdit.init_wan_dit(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
+    x = torch.zeros(2, 6, cfg.dim)
+    with jax_use_mesh(jax_make_mesh(pp=3)):
+        want = message(ValueError, lambda: jdit.pp_run_blocks(
+            None, jnp.zeros((2, 6, jc.dim)), None, None, None, None, jc, n_micro=2))
+    with use_mesh(pp_mesh(3)):
+        got = message(ValueError, lambda: tdit.pp_run_blocks(
+            dit.blocks, x, x, x, None, None, cfg, n_micro=2))
+    assert got == want == "num_layers 4 not divisible by pp 3"
+
+    # strided ControlNet and VACE: JAX raises while tracing (jit, nothing compiles)
+    dit_cfg, _, _, cn_cfg = tcfg.tiny_pipeline_configs()
+    jdit_cfg, _, _, jcn_cfg = jcfg.tiny_pipeline_configs()
+    strided, jstrided = (dataclasses.replace(c, stride=2) for c in (cn_cfg, jcn_cfg))
+    gen = torch.Generator().manual_seed(1)
+    tdm = tdit.init_wan_dit(dit_cfg, gen, torch.float32, device="cpu")
+    cn = tcnm.init_from_dit(tdm, dit_cfg, strided, gen, torch.float32, device="cpu")
+    vace = tadm.init_vace(dit_cfg, gen, (0,), 12, torch.float32, device="cpu")
+    jparams = jtc.dit_params_from_torch(numpy_sd(tdm), jdit_cfg)
+    jcn = jtc.controlnet_params_from_torch(numpy_sd(cn), jstrided)
+    jvace = jadm.vace_from_torch(numpy_sd(vace), jdit_cfg, (0,))
+    rng = np.random.default_rng(2)
+    arr = lambda *sh: rng.normal(size=sh).astype(np.float32)
+    lat, y, ctx, vc = arr(1, 1, 4, 4, 4), arr(1, 1, 4, 4, 8), arr(1, 3, dit_cfg.text_dim), arr(1, 1, 4, 4, 12)
+    t = np.array([500.0], np.float32)
+    cases = {"strided": (dict(controlnet=cn, controlnet_cfg=strided, control_latents=lat),
+                         dict(controlnet_params=jcn, controlnet_cfg=jstrided, control_latents=lat)),
+             "vace": (dict(vace=vace, vace_context=vc, vace_layers=(0,)),
+                      dict(vace_params=jvace, vace_context=vc, vace_layers=(0,)))}
+    for name, (tkw, jkw) in cases.items():
+        want = message(NotImplementedError, lambda: jax.jit(lambda: jax_denoise_forward(
+            jparams, jdit_cfg, lat, t, ctx, y=y, pp_microbatches=2, **jkw))())
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in tkw.items()}
+        got = message(NotImplementedError, lambda: denoise_forward(
+            tdm, dit_cfg, *(torch.from_numpy(a) for a in (lat, t, ctx)), y=torch.from_numpy(y),
+            pp_microbatches=2, **tkw))
+        assert got == want, name
+        assert "pp_microbatches cannot be combined" in got
+
+    with use_mesh(pp_mesh(2)):
+        with pytest.raises(ValueError, match="pass pp_microbatches"):
+            denoise_forward(tdm, dit_cfg, *(torch.from_numpy(a) for a in (lat, t, ctx)),
+                            y=torch.from_numpy(y))
+        with pytest.raises(NotImplementedError, match="split over the pipeline"):
+            ts._refuse_pp_splits({"w": (0, 4, 0, ("pp", "dp", "sp"))})

@@ -323,9 +323,21 @@ def test_grad_accumulation_matches_optax_multisteps():
 
 
 def test_unported_training_options_raise(tiny):
-    t_cfgs = tiny[3]
-    with pytest.raises(NotImplementedError):
-        tts.make_train_step(*t_cfgs, tts.make_optimizer(), pp_microbatches=2)
+    """pp_microbatches is ported (a step without a "pp" mesh runs run_blocks, as JAX's):
+    what stays refused is pipelining a strided ControlNet, with JAX's error, raised by
+    the step's denoiser before its trunk; and the CUDA default without a card."""
+    import dataclasses
+
+    _, mods, _, t_cfgs = tiny
+    dit_cfg, t5_cfg, vae_cfg, cn_cfg = t_cfgs
+    opt = tts.make_optimizer()
+    step = tts.make_train_step(dit_cfg, t5_cfg, vae_cfg, dataclasses.replace(cn_cfg, stride=2),
+                               opt, num_frames=5, pp_microbatches=2)
+    batch = _batch(t5_cfg)
+    tb = tts.host_batch(*(batch[k] for k in ("video", "control", "ids", "mask")), device="cpu")
+    with pytest.raises(NotImplementedError, match="pp_microbatches cannot be combined"):
+        step(_port_state(mods, opt), {k: mods[k] for k in ("dit", "t5", "vae")}, tb, tid=10,
+             noise=torch.zeros(1, 2, 4, 4, vae_cfg.z_dim))
     if not torch.cuda.is_available():     # the default device is CUDA: refused without one
         with pytest.raises(RuntimeError, match="CUDA"):
             tts.host_batch(np.zeros(1), np.zeros(1), np.zeros(1), np.zeros(1))

@@ -7,6 +7,7 @@ through a ``file://`` rendezvous, runs its cases and writes its outputs as ``.np
 files named by case and rank.
 """
 
+import math
 import os
 import sys
 
@@ -145,6 +146,32 @@ def pipeline_cases(rank, world, d):
 
 def _save(d, name, obj):
     torch.save(obj, os.path.join(d, name))
+
+
+def _mesh(rank, dims):
+    """The mesh of dims (dp, sp, tp) or (dp, sp, tp, pp): ``make_mesh`` where it takes
+    every rank of the world, else one over each consecutive block of ranks of its size,
+    so that every rank runs the case. A sub-mesh is built from groups its own ranks make
+    (``use_local_synchronization``, names hashed from the ranks): DeviceMesh's own
+    groups over a part of the world take names from a counter that the other blocks'
+    groups share, and their ranks then connect across the blocks."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from goal_force_tpu_torch.parallel.mesh import MESH_AXES, MESH_AXES_PP, make_mesh
+
+    n = math.prod(dims)
+    if n == dist.get_world_size():
+        return make_mesh(*dims, device="cpu")
+    dp, sp, tp, pp = (*dims, 1)[:4]
+    shape, names = ((dp, sp, tp), MESH_AXES) if pp == 1 else ((pp, dp, sp, tp), MESH_AXES_PP)
+    base = rank // n * n
+    grid = torch.arange(base, base + n).reshape(shape)
+    groups = []
+    for d in range(grid.dim()):
+        row = next(r for r in grid.movedim(d, -1).reshape(-1, grid.shape[d]).tolist()
+                   if rank in r)
+        groups.append(dist.new_group(ranks=row, use_local_synchronization=True))
+    return DeviceMesh.from_group(groups, "cpu", mesh=grid, mesh_dim_names=names)
 
 
 def _collective_cases(rank, d):
@@ -288,17 +315,18 @@ def _load_modules(sds, cfgs):
 
 
 def _step_cases(rank, d, spec):
-    """One sharded train step per case (mesh, with LoRA or not) on the parent's draws:
-    the metrics, the whole first moments and updated tensors, and whether the frozen
-    models kept every shard -> step-{case}-{rank}.pt."""
+    """One sharded train step per case (mesh dims (dp, sp, tp) or (dp, sp, tp, pp), with
+    LoRA or not; a "pp" axis pipelines the trunk in 2 microbatches) on the parent's
+    draws: the metrics, the whole first moments and updated tensors, and whether the
+    frozen models kept every shard -> step-{case}-{rank}.pt."""
     from goal_force_tpu_torch.parallel import collectives as col
     from goal_force_tpu_torch.parallel import fsdp
-    from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from goal_force_tpu_torch.parallel.mesh import use_mesh
     from goal_force_tpu_torch.training import train_step as ts
 
     for case, (dims, with_lora) in spec["cases"].items():
         mods = _load_modules(spec["state_dicts"], spec["configs"])
-        mesh = make_mesh(*dims, device="cpu")
+        mesh = _mesh(rank, dims)
         with use_mesh(mesh):
             for m in mods.values():
                 fsdp.place_fsdp(m, mesh, fsdp.fsdp_specs(m, mesh, min_size=1024))
@@ -311,7 +339,8 @@ def _step_cases(rank, d, spec):
                 params = {"lora": {t: {k: v.clone().requires_grad_(True) for k, v in ab.items()}
                                    for t, ab in spec["lora"].items()}, "controlnet": cn}
             opt = ts.make_optimizer()
-            step = ts.make_train_step(*spec["configs"], opt, num_frames=5, train_lora=with_lora)
+            step = ts.make_train_step(*spec["configs"], opt, num_frames=5, train_lora=with_lora,
+                                      pp_microbatches=2 if len(dims) == 4 else None)
             state = ts.TrainState(params, opt.init(ts.trainable_params(params)), 0)
             col.counts.clear()
             state, metrics = step(state, frozen, dict(spec["batch"]), tid=spec["tid"],
@@ -357,41 +386,62 @@ def _int8_case(rank, d, spec):
     _save(d, f"int8-{rank}.pt", dict(packs=packs, out=out, tp=mesh.get_local_rank("tp")))
 
 
+def _trainer_cfg(spec, out_dir, **kw):
+    from goal_force_tpu_torch.training.trainer import TrainerConfig
+
+    return TrainerConfig(output_dir=out_dir, save_steps=1, log_every=1, num_epochs=1,
+                         num_frames=5, height=32, width=32, keep_last_states=2, **kw)
+
+
 def _trainer_case(rank, d, spec):
-    """train(mesh=) over two ranks at (2, 1, 1), every model FSDP-placed at min_size
-    1024 first: ranks 0-1 train 2 steps without a break, ranks 2-3 one step, then resume
-    from the full state for the second. The shapes of the split tensors of the state
-    trained last, and their whole shapes -> trainer-{rank}.pt."""
-    from torch.distributed.device_mesh import DeviceMesh
-
+    """train(mesh=) over two ranks at (dp, sp, tp) = (2, 1, 1), every model FSDP-placed
+    at min_size 1024 first: ranks 0-1 train 2 steps without a break, ranks 2-3 one step,
+    then resume from the full state for the second. The shapes of the split tensors of
+    the state trained last, and their whole shapes -> trainer-{rank}.pt. Then the same
+    over two pipeline stages, (dp, sp, tp, pp) = (1, 1, 1, 2) with 2 microbatches (the
+    DiT's blocks each on its stage): files in trainer-pp-{0,1}."""
     from goal_force_tpu_torch.parallel import fsdp
-    from goal_force_tpu_torch.parallel.mesh import MESH_AXES
     from goal_force_tpu_torch.training.train_step import param_splits
-    from goal_force_tpu_torch.training.trainer import TrainerConfig, train
+    from goal_force_tpu_torch.training.trainer import train
 
-    meshes = [DeviceMesh("cpu", torch.arange(base, base + 2).reshape(2, 1, 1),
-                         mesh_dim_names=MESH_AXES) for base in (0, 2)]
     mine = 0 if rank < 2 else 1
-    mesh = meshes[mine]
-    out_dir = os.path.join(d, f"trainer-{mine}")
+    for dims, tag, kw in (((2, 1, 1), "", {}), ((1, 1, 1, 2), "-pp", dict(pp_microbatches=2))):
+        mesh = _mesh(rank, dims)
+        mods = _load_modules(spec["state_dicts"], spec["configs"])
+        whole = {n: tuple(p.shape) for n, p in mods["controlnet"].named_parameters()}
+        for m in mods.values():       # train() leaves placed parameters as they are
+            fsdp.place_fsdp(m, mesh, fsdp.fsdp_specs(m, mesh, min_size=1024))
+        frozen = {k: mods[k] for k in ("dit", "t5", "vae")}
+        cfg = _trainer_cfg(spec, os.path.join(d, f"trainer{tag}-{mine}"), **kw)
+        run = lambda **kw: train(cfg, *spec["configs"][:3], spec["configs"][3], frozen,
+                                 mods["controlnet"], spec["data"],
+                                 FixedTokenizer(spec["token_ids"]), device="cpu", mesh=mesh,
+                                 **kw)
+        if mine == 0:
+            state = run(max_steps=2)
+        else:
+            run(max_steps=1)
+            state = run(resume=True, max_steps=1)
+        if not tag:
+            split = {n: tuple(p.shape) for n, p in state.params.named_parameters()
+                     if (param_splits(state.params)[n] or (None,))[0] is not None}
+            _save(d, f"trainer-{rank}.pt", dict(split=split, whole=whole))
+
+
+def unsharded_trainer(rank, world, d):
+    """The unsharded trainer of ``train.pt``'s trainer spec (2 steps, one thread) ->
+    d/unsharded: the files the sharded trainers must equal byte for byte. A process of
+    its own, beside the world, so that it and the parent's JAX references overlap."""
+    from goal_force_tpu_torch.training.trainer import train
+
+    torch.set_num_threads(1)
+    spec = torch.load(os.path.join(d, "train.pt"), weights_only=False)["trainer"]
     mods = _load_modules(spec["state_dicts"], spec["configs"])
-    whole = {n: tuple(p.shape) for n, p in mods["controlnet"].named_parameters()}
-    for m in mods.values():       # train() leaves placed parameters as they are
-        fsdp.place_fsdp(m, mesh, fsdp.fsdp_specs(m, mesh, min_size=1024))
     frozen = {k: mods[k] for k in ("dit", "t5", "vae")}
-    cfg = TrainerConfig(output_dir=out_dir, save_steps=1, log_every=1, num_epochs=1,
-                        num_frames=5, height=32, width=32, keep_last_states=2)
-    run = lambda **kw: train(cfg, *spec["configs"][:3], spec["configs"][3], frozen,
-                             mods["controlnet"], spec["data"], FixedTokenizer(spec["token_ids"]),
-                             device="cpu", mesh=mesh, **kw)
-    if mine == 0:
-        state = run(max_steps=2)
-    else:
-        run(max_steps=1)
-        state = run(resume=True, max_steps=1)
-    split = {n: tuple(p.shape) for n, p in state.params.named_parameters()
-             if (param_splits(state.params)[n] or (None,))[0] is not None}
-    _save(d, f"trainer-{rank}.pt", dict(split=split, whole=whole))
+    train(_trainer_cfg(spec, os.path.join(d, "unsharded")), *spec["configs"], frozen,
+          mods["controlnet"], spec["data"], FixedTokenizer(spec["token_ids"]), device="cpu",
+          max_steps=2)
+    assert "jax" not in sys.modules
 
 
 def _ring_cases(rank, d, spec):
@@ -463,7 +513,7 @@ def _vae_cases(rank, d, spec):
     from goal_force_tpu_torch.models import vae as vaem
     from goal_force_tpu_torch.models import wan_dit
     from goal_force_tpu_torch.parallel import collectives as col
-    from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from goal_force_tpu_torch.parallel.mesh import use_mesh
     from goal_force_tpu_torch.parallel.spatial import split_encode_video
 
     vae = wan_dit.empty_module(vaem.WanVAE, spec["cfg"], device="cpu")
@@ -471,7 +521,7 @@ def _vae_cases(rank, d, spec):
     out = {}
     for name, (dims, video) in spec["cases"].items():
         col.counts.clear()
-        with torch.no_grad(), use_mesh(make_mesh(*dims, device="cpu")):
+        with torch.no_grad(), use_mesh(_mesh(rank, dims)):
             z = split_encode_video(vae, spec["cfg"], video)
         out[name] = (z, col.counts["shift"])
     _save(d, f"vae-{rank}.pt", out)
@@ -499,6 +549,65 @@ def _s2v_cases(rank, d, spec):
     _save(d, f"s2v-{rank}.pt", out)
 
 
+def _pp_cases(rank, d, spec):
+    """Pipeline parallel at mesh dims (dp, sp, tp, pp): ``pp_run_blocks`` for each case of
+    the trunk spec (this rank's rows over "dp" and tokens over "sp", the DiT placed with
+    its blocks on their stages), gathered whole; ``denoise_forward`` with the ControlNet
+    and pp_microbatches 2 at (2, 1, 2, 1); and a pipeline request through ``shard`` over
+    the same mesh (pp_microbatches set to 2 by shard). Outputs, shifts and what each rank
+    holds -> pp-{rank}.pt."""
+    from goal_force_tpu_torch.models import controlnet as cnm
+    from goal_force_tpu_torch.models import wan_dit
+    from goal_force_tpu_torch.parallel import collectives as col
+    from goal_force_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from goal_force_tpu_torch.parallel.sharding import place
+    from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
+    from goal_force_tpu_torch.pipelines.model_fn import denoise_forward
+
+    out = {}
+    trunk = spec["trunk"]
+    x, ctx, t_mod, inj, cos, sin = trunk["inputs"]
+    for case, (dims, b, with_inj) in trunk["cases"].items():
+        mesh = _mesh(rank, dims)
+        dit = wan_dit.empty_module(wan_dit.WanDiT, trunk["cfg"], device="cpu")
+        dit.load_state_dict(trunk["sd"])
+        place(dit, mesh)
+        held = [i for i, blk in enumerate(dit.blocks) if blk.ffn[0].weight.numel()]
+        col.counts.clear()
+        with torch.no_grad(), use_mesh(mesh), col.sequence_split(x.shape[1]):
+            rows = lambda t: col.split_batch(t[:b])
+            got = wan_dit.pp_run_blocks(
+                dit.blocks, col.split_seq(rows(x)), rows(ctx), rows(t_mod),
+                col.split_seq(cos, 0), col.split_seq(sin, 0), trunk["cfg"], n_micro=2,
+                injections=[col.split_seq(rows(t)) for t in inj] if with_inj else None)
+            got = col.gather_batch(col.gather_seq(got, x.shape[1]))
+        out[case] = (got, col.counts["shift"], held)
+    mesh = make_mesh(1, 2, 1, pp=2, device="cpu")
+    den = spec["denoise"]
+    dit_cfg, cn_cfg = den["configs"]
+    dit = wan_dit.empty_module(wan_dit.WanDiT, dit_cfg, device="cpu")
+    dit.load_state_dict(den["dit"])
+    cn = wan_dit.empty_module(cnm.GoalForceControlNet, dit_cfg, cn_cfg, device="cpu")
+    cn.load_state_dict(den["controlnet"])
+    place(dit, mesh)
+    place(cn, mesh)
+    lat, ts, ctx, y, cl = den["inputs"]
+    col.counts.clear()
+    with torch.no_grad(), use_mesh(mesh):
+        v = denoise_forward(dit, dit_cfg, lat, ts, ctx, y=y, controlnet=cn,
+                            controlnet_cfg=cn_cfg, control_latents=cl, pp_microbatches=2)
+    out["denoise"] = (v, col.counts["shift"], None)
+    pipe_spec = spec["pipe"]
+    pipe = GoalForcePipeline.from_state_dicts(pipe_spec["state_dicts"], *pipe_spec["configs"],
+                                              dtype=torch.float32, device="cpu")
+    pipe.tokenizer = FixedTokenizer(pipe_spec["token_ids"])
+    pipe.shard(mesh)
+    col.counts.clear()
+    frames = pipe(*pipe_spec["args"], **pipe_spec["kwargs"])
+    out["pipe"] = (torch.from_numpy(frames), col.counts["shift"], pipe.pp_microbatches)
+    _save(d, f"pp-{rank}.pt", out)
+
+
 def train_cases(rank, world, d):
     """The training checks of ``train.pt`` in a world of 4."""
     _join(rank, world, d)
@@ -509,5 +618,6 @@ def train_cases(rank, world, d):
     _s2v_cases(rank, d, spec["s2v"])
     _step_cases(rank, d, spec["step"])
     _int8_case(rank, d, spec["int8"])
+    _pp_cases(rank, d, spec["pp"])
     _trainer_case(rank, d, spec["trainer"])
     _done(d, rank)
