@@ -28,7 +28,8 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              with its tile edges at Skv 1, 2, 5 and 127 with and without kv_len) and K1
              at the image branch's B = 2, 32,760 x 257; times kernel, plain version, K6's
              quantize step, the runtime bound's reductions and host sync, and SDPA (as a
-             yardstick only) at the path shapes.
+             yardstick only) at the path shapes; a plain version is timed on the run
+             whose output the check compares.
 3b. ring   - ring attention's per-rank functions (parallel/ring_attention.py) at full
              width for 4 virtual ranks on the one card (bf16, B = 1, 32,760 tokens as 4
              blocks of 8,190, 40x128 heads), fed each rank's queries and the K/V blocks in
@@ -59,6 +60,10 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              injections after both) over the tiny T5 and VAE in float32: a plain and a
              motion request (9 frames, 256 x 256, 2 steps, CFG) through the kernels
              against plain attention (frames within 1e-2), 12 K1 per step exactly.
+6c. small_hunyuan - the HunyuanVideo DiT forward at head_dim 128 (dim 256, 2 heads, 1
+             double + 1 single block, 384 joint tokens, per-row kv_len 133 and 258) with
+             attn_impl "flash" against "plain", float32 (1e-4 of the output's scale) and
+             bf16 (3e-2 of it), 2 K1 launches each.
 7. main    - GoalForcePipeline at full A14B width (depth cut to 4 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
@@ -94,15 +99,15 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              row's five artifacts are written; the files are deleted.
 11. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
              so the runtime logit bound routes self-attention to K2.
-12. variants - main's pipeline with full-width adapters (a motion controller and a camera
+12. variants - first generate_batch of main's two requests on main's pipeline (81 frames,
+             4 steps, 12 K1 per step at B = 4), which must equal main's frames within
+             1e-2; then full-width adapters (a motion controller and a camera
              SimpleAdapter written in the reference formats and read back through
              from_pretrained's loaders, a Fun-Reference ref_conv in both experts), 2-step
              requests: at 33 frames the plain request, end_image, v2v, motion_bucket_id,
              camera "Left" and a strided ControlNet (stride 2), 12 K1 per step each; at 81
              frames the plain request without ControlNet and Fun-Reference (8 K1 per
-             step, 34,320 tokens), two single requests and generate_batch of the same 2
-             clips (12 K1 per step at B = 4), which must equal the singles within 1e-2.
-             Each request's frames must differ from its plain request's; logs launches
+             step, 34,320 tokens). Each request's frames must differ from its plain request's; logs launches
              per step, stage seconds and peak memory, then v2v's untiled 81-frame encode
              (its peak, or the allocation it was refused).
 13. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
@@ -135,6 +140,16 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              frame's clip_feature (12 K1) and without (8 K1); the outputs differ.
 15d. vae38 - the Wan2.2 VAE (z 48, 16x) at full width, random weights: encode and
              decode one 81x480x832 video in float32, untiled; times and peaks.
+15e. hunyuan - HunyuanVideo text-to-video at full width and depth, random bf16 weights:
+             the 12.8 B DiT (20 double + 40 single blocks, 24x128 heads), the 32-layer
+             Llama tower, CLIP-L with the vendored BPE tokenizer, the VAE decoder; one
+             720x1280x129 request (119,056 joint tokens, 2 steps, embedded guidance 6.0,
+             tiled decode with JAX's default tiles): 120 K1 launches, finite
+             (1, 129, 720, 1280, 3) frames; text, step, decode seconds and the peak. Then
+             K1 at B = 2, 67,576 tokens, 24 heads, per-row kv_len 67,397 / 67,520, and at
+             the path's B = 1, 119,056 tokens with the kv_len the request's joint
+             attentions were given, each against its plain version (two bf16 ulps); times
+             both with their bound and SDPA given the same key mask.
 16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
@@ -236,6 +251,17 @@ def event_ms(fn, iters=3, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_call(fn):
+    """fn()'s result and the milliseconds of that one call (CUDA events around it): the
+    plain versions are timed on the run whose output the check compares."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def attention_bound_ms(q_shape, kv_shape, itemsize=2, peak=PEAK_BF16_FLOPS):
@@ -425,11 +451,10 @@ IMAGE_KV = (2, 257, 40, 128)
 AUDIO_EDGES = (1, 2, 5, 127)     # keys per audio row: under one 128-key tile, and one short
 
 
-def _timed_record(kern, plain, q, k, v, err):
+def _timed_record(kern, plain_ms, q, k, v, err):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bound, by = attention_bound_ms(q.shape, k.shape)
-    return dict(max_abs_err=err, ms=event_ms(lambda: kern(q, k, v)),
-                plain_ms=event_ms(lambda: plain(q, k, v), iters=1, warmup=0),
+    return dict(max_abs_err=err, ms=event_ms(lambda: kern(q, k, v)), plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by,
                 library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
                                                  v.transpose(1, 2))),
@@ -486,14 +511,14 @@ def _s2v_kernels(timed=True):
         for kname, kern, plain in (("K1", k1, k1_plain), ("K2", k2, k2_plain)):
             got, n = picked(lambda: (auto if kname == "K1" else kern)(q, k, v))
             check(n == only(**{kname: 1}), f"{kname} {tag}: launched {n}")
-            ref = plain(q, k, v)
+            ref, plain_ms = timed_call(lambda: plain(q, k, v))
             atol = {"s2v_self": 1e-3, "s2v_cross": 1e-2}.get(tag, bf16_limit(ref))
             err = compare(f"{kname} {tag} {tuple(q.shape)}x{tuple(k.shape)} bf16", got, ref,
                           atol=atol, rtol=0.0)
             del got, ref
             torch.cuda.empty_cache()
             if timed:
-                out[kname][tag] = _timed_record(kern, plain, q, k, v, err)
+                out[kname][tag] = _timed_record(kern, plain_ms, q, k, v, err)
                 log("kernels", case=f"{kname} {tag} timing", **out[kname][tag])
         if timed:
             # the runtime bound alone (its reductions and the one host sync per call), and
@@ -510,12 +535,13 @@ def _s2v_kernels(timed=True):
     k, v = (_rand(IMAGE_KV, gen, torch.bfloat16) for _ in range(2))
     kern = lambda a, b, c: fa.flash_attention_nomax(a, b, c, scale)
     plain = lambda a, b, c: fa.flash_attention_nomax_plain(a, b, c, scale)
-    got, ref = kern(q, k, v), plain(q, k, v)
+    got = kern(q, k, v)
+    ref, plain_ms = timed_call(lambda: plain(q, k, v))
     err = compare(f"K1 image_cross {tuple(q.shape)}x{tuple(k.shape)} bf16", got, ref,
                   atol=1e-2, rtol=0.0)
     del got, ref
     if timed:
-        out["K1"]["image_cross"] = _timed_record(kern, plain, q, k, v, err)
+        out["K1"]["image_cross"] = _timed_record(kern, plain_ms, q, k, v, err)
         log("kernels", case="K1 image_cross timing", **out["K1"]["image_cross"])
     del q, k, v
     torch.cuda.empty_cache()
@@ -603,14 +629,13 @@ def _forward_kernels(timed=True):
         rec = {}
         for sname, kk, vv in (("self", k, v), ("cross", ck, cv)):
             got = kern(q, kk, vv)
-            ref = plain(q, kk, vv)
+            ref, plain_ms = timed_call(lambda: plain(q, kk, vv))
             err = compare(f"{kname} {sname} {tuple(q.shape)}x{tuple(kk.shape)} bf16", got, ref,
                           **bf16_tol_shape[sname])
             del got, ref
             torch.cuda.empty_cache()
             if not timed:
                 continue
-            plain_ms = event_ms(lambda: plain(q, kk, vv), iters=1, warmup=0)   # warm: 2nd call
             ms = event_ms(lambda: kern(q, kk, vv))
             lib_ms = event_ms(lambda: sdpa(q.transpose(1, 2), kk.transpose(1, 2),
                                            vv.transpose(1, 2)))
@@ -630,7 +655,7 @@ def _forward_kernels(timed=True):
     plain = lambda a, b, c: fa.flash_attention_nomax_plain(a, b, c, scale)
     for sname, kk, vv in (("self", k, v), ("cross", ck, cv)):
         got = kern(q, kk, vv)
-        ref = plain(q, kk, vv)
+        ref, plain_ms = timed_call(lambda: plain(q, kk, vv))
         err = compare(f"K1 window {sname} {tuple(q.shape)}x{tuple(kk.shape)} bf16", got, ref,
                       **bf16_tol_shape[sname])
         del got, ref
@@ -638,8 +663,7 @@ def _forward_kernels(timed=True):
         if not timed:
             continue
         bound, by = attention_bound_ms(q.shape, kk.shape)
-        rec = dict(max_abs_err=err, ms=event_ms(lambda: kern(q, kk, vv)),
-                   plain_ms=event_ms(lambda: plain(q, kk, vv), iters=1, warmup=0),
+        rec = dict(max_abs_err=err, ms=event_ms(lambda: kern(q, kk, vv)), plain_ms=plain_ms,
                    bound_ms=bound, bound_by=by,
                    library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), kk.transpose(1, 2),
                                                     vv.transpose(1, 2))),
@@ -657,7 +681,7 @@ def _forward_kernels(timed=True):
         ck, cv = _rand(kvshape, gen, torch.bfloat16), _rand(kvshape, gen, torch.bfloat16)
         for sname, kk, vv in (("self", k, v), ("cross", ck, cv)):
             got = kern(q, kk, vv)
-            ref = plain(q, kk, vv)
+            ref, plain_ms = timed_call(lambda: plain(q, kk, vv))
             err = compare(f"K1 {tag} {sname} {tuple(q.shape)}x{tuple(kk.shape)} bf16", got, ref,
                           **bf16_tol_shape[sname])
             del got, ref
@@ -665,8 +689,7 @@ def _forward_kernels(timed=True):
             if not timed:
                 continue
             bound, by = attention_bound_ms(q.shape, kk.shape)
-            rec = dict(max_abs_err=err, ms=event_ms(lambda: kern(q, kk, vv)),
-                       plain_ms=event_ms(lambda: plain(q, kk, vv), iters=1, warmup=0),
+            rec = dict(max_abs_err=err, ms=event_ms(lambda: kern(q, kk, vv)), plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by,
                        library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), kk.transpose(1, 2),
                                                         vv.transpose(1, 2))),
@@ -973,7 +996,9 @@ def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
 
             (o, lse), n = picked(lambda: fa.flash_attention_fwd_lse(q, k, v, scale))
             check(n == only(K3=1), f"K3 {case} launched {n}")
-            o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, scale)
+            plain_ms = {}
+            (o_ref, lse_ref), plain_ms["K3"] = timed_call(
+                lambda: fa.flash_attention_fwd_lse_plain(q, k, v, scale))
             err = {"K3": compare(f"K3 o {case}", o, o_ref, **tol(o_ref))}
             compare(f"K3 lse {case}", lse, lse_ref, **lse_tol)
             del o, lse
@@ -982,13 +1007,15 @@ def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
             (dk, dv), n = picked(lambda: fa.flash_attention_bwd_dkv(q, k, v, o_ref, do,
                                                                     lse_ref, scale))
             check(n == only(K4=1), f"K4 {case} launched {n}")
-            dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, o_ref, do, lse_ref, scale)
+            (dk_ref, dv_ref), plain_ms["K4"] = timed_call(
+                lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, o_ref, do, lse_ref, scale))
             err["K4"] = max(compare(f"K4 dk {case}", dk, dk_ref, **tol(dk_ref, True)),
                             compare(f"K4 dv {case}", dv, dv_ref, **tol(dv_ref, True)))
             del dk, dv, dk_ref, dv_ref
             dq, n = picked(lambda: fa.flash_attention_bwd_dq(q, k, v, o_ref, do, lse_ref, scale))
             check(n == only(K5=1), f"K5 {case} launched {n}")
-            dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, o_ref, do, lse_ref, scale)
+            dq_ref, plain_ms["K5"] = timed_call(
+                lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o_ref, do, lse_ref, scale))
             err["K5"] = compare(f"K5 dq {case}", dq, dq_ref, **tol(dq_ref, True))
             del dq, dq_ref
             torch.cuda.empty_cache()
@@ -1001,13 +1028,10 @@ def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
             args = (q, k, v, o_ref, do, lse_ref, scale)
             runs = {
                 "K3": (lambda: fa.flash_attention_fwd_lse(q, k, v, scale),
-                       lambda: fa.flash_attention_fwd_lse_plain(q, k, v, scale),
                        kernel_bound_ms(4 * mm, 2 * qb + 2 * kvb + lseb)),
                 "K4": (lambda: fa.flash_attention_bwd_dkv(*args),
-                       lambda: fa.flash_attention_bwd_dkv_plain(*args),
                        kernel_bound_ms(8 * mm, 3 * qb + 4 * kvb + lseb)),
                 "K5": (lambda: fa.flash_attention_bwd_dq(*args),
-                       lambda: fa.flash_attention_bwd_dq_plain(*args),
                        kernel_bound_ms(6 * mm, 4 * qb + 2 * kvb + lseb))}
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa_fwd = event_ms(lambda: sdpa(qt, kt, vt))
@@ -1015,9 +1039,9 @@ def _training_kernels(dtypes=(torch.float32, torch.bfloat16), timed=True):
             dot = do.transpose(1, 2)
             sdpa_fb = event_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), dot))
             del qg, kg, vg
-            for kname, (kern, plain, (bound, by)) in runs.items():
+            for kname, (kern, (bound, by)) in runs.items():
                 rec = dict(max_abs_err=err[kname], ms=event_ms(kern),
-                           plain_ms=event_ms(plain, iters=1, warmup=0), bound_ms=bound,
+                           plain_ms=plain_ms[kname], bound_ms=bound,
                            bound_by=by, library_ms=sdpa_fwd if kname == "K3" else None,
                            shape=f"{q_shape}x{kv_shape}")
                 if kname != "K3":   # SDPA's backward computes dq, dk and dv in one call
@@ -1262,9 +1286,10 @@ def _uninstrument(pipe):
 
 PROMPTS = ("a red ball rolls across a wooden table and hits a blue cup",
            "a marble is flicked towards a stack of dominoes")
+MAIN_SEEDS = (11, 22)     # main's two requests: PROMPTS[0] and PROMPTS[1]
 
 
-def _serve(pipe, phase, per_request, seeds=(11, 22), steps=STEPS, stages=None):
+def _serve(pipe, phase, per_request, seeds=MAIN_SEEDS, steps=STEPS, stages=None):
     """Answer one request per seed with the stages timed; checks each request's frames
     and that it launched exactly `per_request` (a launch-count dict). The counts are set
     to 0 just before the first request; returns the frames and the counts of the run.
@@ -1673,18 +1698,20 @@ def _save_and_load_adapters(root, dit_cfg, adapters):
     return loaded, nbytes, secs
 
 
-def phase_variants(pipe):
-    """The Wan variants on main's bf16 pipeline, 2 steps each. Adapters drawn at full
+def phase_variants(pipe, main_frames):
+    """The Wan variants on main's bf16 pipeline. First, before any adapter is attached,
+    generate_batch of main's two requests (81 frames, 4 steps, 12 K1 per step at B = 4,
+    32,760 tokens), which must give main's frames within WINDOW_ATOL. Then 2 steps per
+    request. Adapters drawn at full
     width (a motion controller whose last layer is not zero, a camera SimpleAdapter, a
     Fun-Reference ref_conv in both experts), the first two written in the reference
     formats and read back through from_pretrained's loaders. At 33 frames (K1 at the
     window's 14,040 tokens): the plain request, end_image, v2v (its untiled encode),
     motion_bucket_id, camera "Left" and a strided ControlNet (stride 2: blocks 0 and 2,
     raw states after them), each 12 K1 per step. At 81 frames: the plain request without
-    ControlNet and Fun-Reference (8 K1 per step, 34,320 tokens), then generate_batch of 2
-    clips (12 K1 per step at B = 4), which must equal its two single requests within
-    WINDOW_ATOL. Last, v2v's untiled encode at 81 frames, as JAX encodes it, measured
-    and reported whether or not it fits."""
+    ControlNet and Fun-Reference (8 K1 per step, 34,320 tokens). Last, v2v's untiled
+    encode at 81 frames, as JAX encodes it, measured and reported whether or not it
+    fits."""
     import gc
     import tempfile
 
@@ -1696,6 +1723,25 @@ def phase_variants(pipe):
 
     pc = pipe.pipe_cfg
     dit_cfg = pipe.dit_cfg
+    shape81 = (pc.num_frames, pc.height, pc.width, 3)
+    fa.reset_launch_counts()
+    run = lambda name, per_step, shape, fn, base=None: _variant_request(
+        pipe, "variants", name, fn, per_step, shape, base=base)
+    # main's two requests as one batch: its singles are main's answers
+    main_images, main_videos = zip(*(_request_inputs(s, pc.num_frames, pc.height, pc.width, pc)
+                                     for s in MAIN_SEEDS))
+    batch = _variant_request(
+        pipe, "variants", "batch_2x81", lambda: pipe.generate_batch(
+            list(PROMPTS), np.stack(main_images), control_signal_videos=list(main_videos),
+            seeds=list(MAIN_SEEDS), num_inference_steps=STEPS),
+        12, (2,) + shape81, steps=STEPS)
+    batch_diff = [float(np.abs(batch[i] - main_frames[i]).max()) for i in range(2)]
+    log("variants", stage="batch_vs_singles", max_abs_diff=batch_diff, atol=WINDOW_ATOL,
+        ok=max(batch_diff) <= WINDOW_ATOL)
+    check(max(batch_diff) <= WINDOW_ATOL,
+          f"generate_batch differs from main's single requests by {batch_diff}")
+    del batch, main_images, main_videos
+
     gen = torch.Generator("cuda").manual_seed(31)
     mc = adm.init_motion_controller(gen, dit_cfg.freq_dim, dit_cfg.dim, torch.bfloat16,
                                     device="cuda")
@@ -1720,9 +1766,6 @@ def phase_variants(pipe):
     image, video = _request_inputs(41, n, pc.height, pc.width, pc)
     end_image, other = _request_inputs(42, n, pc.height, pc.width, pc)
     kw = dict(seed=41, num_frames=n, num_inference_steps=VARIANT_STEPS)
-    fa.reset_launch_counts()
-    run = lambda name, per_step, shape, fn, base=None: _variant_request(
-        pipe, "variants", name, fn, per_step, shape, base=base)
     plain = run("plain_33", 12, shape33,
                 lambda: pipe(PROMPTS[0], image, control_signal_video=video, **kw))
     run("end_image_33", 12, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
@@ -1751,34 +1794,19 @@ def phase_variants(pipe):
     gc.collect()
     torch.cuda.empty_cache()
 
-    shape81 = (pc.num_frames, pc.height, pc.width, 3)
-    images_, videos = zip(*(_request_inputs(s, pc.num_frames, pc.height, pc.width, pc)
-                            for s in (43, 44)))
+    image81, video81 = _request_inputs(43, pc.num_frames, pc.height, pc.width, pc)
     ref_image = _request_inputs(45, 1, pc.height, pc.width, pc)[0]
     kw81 = dict(num_inference_steps=VARIANT_STEPS)
     plain81 = run("plain_no_controlnet_81", 8, shape81,
-                  lambda: pipe(PROMPTS[0], images_[0], seed=43, controlnet=False, **kw81))
-    run("reference_81", 8, shape81, lambda: pipe(PROMPTS[0], images_[0], seed=43,
+                  lambda: pipe(PROMPTS[0], image81, seed=43, controlnet=False, **kw81))
+    run("reference_81", 8, shape81, lambda: pipe(PROMPTS[0], image81, seed=43,
                                                   controlnet=False, reference_image=ref_image,
                                                   **kw81), plain81)
-    singles = [run(f"single{i}_81", 12, shape81,
-                   lambda i=i: pipe(PROMPTS[i], images_[i], control_signal_video=videos[i],
-                                    seed=43 + i, **kw81))
-               for i in range(2)]
-    batch = run("batch_2x81", 12, (2,) + shape81,
-                lambda: pipe.generate_batch(list(PROMPTS), np.stack(images_),
-                                            control_signal_videos=list(videos),
-                                            seeds=[43, 44], **kw81))
-    batch_diff = [float(np.abs(batch[i] - singles[i]).max()) for i in range(2)]
-    log("variants", stage="batch_vs_singles", max_abs_diff=batch_diff, atol=WINDOW_ATOL,
-        ok=max(batch_diff) <= WINDOW_ATOL)
-    check(max(batch_diff) <= WINDOW_ATOL,
-          f"generate_batch differs from its singles by {batch_diff}")
     run_counts = dict(fa.launch_counts)
-    del batch, singles, plain81
+    del plain81
     gc.collect()
     torch.cuda.empty_cache()
-    _v2v_encode_81(pipe, videos[0])
+    _v2v_encode_81(pipe, video81)
     for name in ("motion_controller", "camera_adapter"):
         del pipe.models[name]
     for name in ("dit", "dit2"):
@@ -3461,6 +3489,204 @@ def phase_vae38():
     torch.cuda.empty_cache()
 
 
+# HunyuanVideo at JAX's defaults: 720x1280, 129 frames -> 33x90x160 latents, 33x45x80 =
+# 118,800 image tokens + 256 text tokens in every joint attention, 24 heads of 128;
+# 20 double + 40 single blocks, each one K1 launch per forward (B = 1 without CFG).
+HY_HEIGHT, HY_WIDTH, HY_FRAMES, HY_STEPS = 720, 1280, 129, 2
+HY_K1_PER_STEP = 20 + 40
+HY_SELF = (1, 33 * 45 * 80 + 256, 24, 128)
+# 544x960x129 under CFG: 33x34x60 = 67,320 image + 256 text tokens, B = 2, two prompts
+# of 77 and 200 valid text tokens (kv_len not a multiple of the 128-key tile).
+HY_B2 = (2, 33 * 34 * 60 + 256, 24, 128)
+HY_B2_KV = (33 * 34 * 60 + 77, 33 * 34 * 60 + 200)
+HY_PROMPT = "a red ball rolls across a wooden table, hits a blue cup and the cup tips over"
+
+
+def _small_hunyuan_config():
+    from goal_force_tpu_torch.models.hunyuan_video_dit import HunyuanVideoDiTConfig
+
+    return HunyuanVideoDiTConfig(dim=256, num_heads=2, num_double_blocks=1,
+                                 num_single_blocks=1, text_dim=64, pooled_dim=64)
+
+
+def phase_small_hunyuan():
+    """The HunyuanVideo DiT forward at head_dim 128 (dim 256, 2 heads, 1 double + 1 single
+    block), B = 2 rows with 5 and 130 valid text tokens of 256 and 128 image tokens (384
+    joint tokens, kv_len 133 and 258): attn_impl "flash" (K1, 2 launches) against "plain"
+    on the same inputs, in float32 (within 1e-4 of the output's scale) and bf16 (within
+    2 bf16 ulps of the largest output per block, over the 2 blocks: 3e-2 of it)."""
+    from goal_force_tpu_torch.models import hunyuan_video_dit as hd
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    cfg = _small_hunyuan_config()
+    gen = torch.Generator("cuda").manual_seed(71)
+    rec = {}
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        tag = str(dtype).split(".")[-1]
+        dit = hd.init_hunyuan_video_dit(cfg, gen, dtype, device="cuda")
+        mask = torch.zeros((2, cfg.txt_len), dtype=torch.int32, device="cuda")
+        mask[0, :5], mask[1, :130] = 1, 1
+        args = (_rand((2, 2, 16, 16, 16), gen, dtype), torch.tensor([900.0, 250.0], device="cuda"),
+                _rand((2, cfg.txt_len, cfg.text_dim), gen, dtype), mask,
+                _rand((2, cfg.pooled_dim), gen, dtype),
+                torch.tensor([6.0, 6.0], device="cuda", dtype=dtype))
+        fa.reset_launch_counts()
+        got = hd.hunyuan_video_dit_forward(dit, cfg, *args, attn_impl="flash")
+        torch.cuda.synchronize()
+        n = dict(fa.launch_counts)
+        ref = hd.hunyuan_video_dit_forward(dit, cfg, *args, attn_impl="plain")
+        scale = float(ref.float().abs().max())
+        name = f"small_hunyuan DiT forward {tag} flash vs plain"
+        if dtype == torch.float32:
+            err = compare(name, got, ref, atol=rel * scale, rtol=0.0, phase="small_hunyuan")
+        else:   # bf16 roundings of two whole blocks: the bound only, the bias is logged
+            d = (got.float() - ref.float())
+            err = float(d.abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= rel * scale
+            log("small_hunyuan", case=name, max_abs_err=err, atol=rel * scale,
+                rel_bias=float((d * ref.float().sign()).mean() / ref.float().abs().mean()),
+                ok=ok)
+            check(ok, f"{name}: differ by {err}")
+        check(n == only(K1=2), f"small_hunyuan {tag}: launched {n}")
+        rec[tag] = dict(max_abs_err=err, out_max=scale, launches=n["K1"])
+        del dit, got, ref
+    log("small_hunyuan", tokens=2 * 8 * 8 + 256, kv_len=[133, 258], **rec)
+    torch.cuda.empty_cache()
+    return {"K1": sum(r["launches"] for r in rec.values())}
+
+
+def _hunyuan_k1(shape, kv_len, gen):
+    """K1 with its clamp (dispatch "nomax", as the joint attention calls it) on random bf16
+    q, k, v of `shape` with per-row kv_len: against its plain version (timed on that run),
+    then timed with SDPA given the same key mask. The bound counts the keys each row
+    attends (its kv_len)."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    scale = 128**-0.5
+    b, s, n, h = shape
+    q, k, v = (_rand(shape, gen, torch.bfloat16) for _ in range(3))
+    lens = torch.tensor(kv_len, device="cuda")
+    kern = lambda a, bb, c: fa.flash_attention_nomax(a, bb, c, scale, kv_len=lens)
+    plain = lambda a, bb, c: fa.flash_attention_nomax_plain(a, bb, c, scale, kv_len=lens)
+    got, launched = picked(lambda: kern(q, k, v))
+    check(launched == only(K1=1), f"K1 hunyuan {shape}: launched {launched}")
+    name = f"K1 hunyuan {shape} kv_len {list(kv_len)} bf16"
+    ref, plain_ms = timed_call(lambda: plain(q, k, v))
+    err = compare(name, got, ref, atol=bf16_limit(ref), rtol=0.0, phase="hunyuan")
+    del got, ref
+    torch.cuda.empty_cache()
+    flops = 4 * n * h * s * sum(kv_len)
+    nbytes = 2 * (2 * b * s * n * h + 2 * b * s * n * h)
+    bound, by = kernel_bound_ms(flops, nbytes)
+    keep = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = dict(max_abs_err=err, ms=event_ms(lambda: kern(q, k, v)), plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by,
+               full_kv_bound_ms=4 * b * n * s * s * h / PEAK_BF16_FLOPS * 1e3,
+               library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                                v.transpose(1, 2), attn_mask=keep)),
+               shape=f"{shape}x{shape}", kv_len=list(kv_len))
+    log("hunyuan", case=f"{name} timing", **rec)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_hunyuan():
+    """HunyuanVideo text-to-video at full width and depth on one card, random bf16
+    weights from a seed: the 12.8 B DiT (20 double + 40 single blocks), the 32-layer Llama
+    tower (the last 2 skipped), CLIP-L with the vendored BPE tokenizer, the VAE decoder.
+    One request at 720x1280x129 (2 Euler steps, embedded guidance 6.0, no CFG, tiled decode
+    with JAX's default tiles): 120 K1 launches and no K2; finite frames of shape
+    (1, 129, 720, 1280, 3). Logs text, step and decode seconds and the peak. Then K1 at
+    B = 2, 67,576 tokens (544x960 under CFG) with two per-row kv_len that are not tile
+    multiples, and at the path's B = 1, 119,056 tokens with the kv_len that the request's
+    joint attentions were given, each against its plain version and timed with its bound
+    and SDPA."""
+    from goal_force_tpu_torch.models import clip as clipm
+    from goal_force_tpu_torch.models import hunyuan_video_dit as hd
+    from goal_force_tpu_torch.models import hunyuan_video_vae as hv
+    from goal_force_tpu_torch.models import text_encoders as te
+    from goal_force_tpu_torch.models.sd_text_encoder import SD_TEXT_CONFIG
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import hunyuan_video as hp
+    from goal_force_tpu_torch.prompters import hunyuan_video_clip_tokenizer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(81)
+    cfg, llama_cfg, vae_cfg = hd.HunyuanVideoDiTConfig(), te.LlamaConfig(), hv.HunyuanVAEConfig()
+    (dit, llama, clip, dec), init_s = sync_time(lambda: (
+        hd.init_hunyuan_video_dit(cfg, gen, torch.bfloat16, device="cuda"),
+        te.init_llama(llama_cfg, gen, torch.bfloat16, device="cuda"),
+        clipm.init_clip_text(SD_TEXT_CONFIG, gen, torch.bfloat16, device="cuda"),
+        hv.init_hunyuan_vae(hv.HunyuanVAEDecoder, vae_cfg, gen, torch.bfloat16, device="cuda")))
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("hunyuan", stage="init", seconds=init_s, dit_params=count(dit), llama_params=count(llama),
+        clip_params=count(clip), vae_decoder_params=count(dec),
+        gib=torch.cuda.memory_allocated() / 2**30)
+    encode = hp.make_llama_prompt_encoder(llama, llama_cfg, clip, SD_TEXT_CONFIG, cfg.txt_len,
+                                          tokenize_clip=hunyuan_video_clip_tokenizer())
+    _, decode = hp.vae_codecs(dec, vae_cfg)
+    stages = {"step_s": []}
+
+    def timed_encode(prompt):
+        out, stages["text_s"] = sync_time(lambda: encode(prompt))
+        return out
+
+    def timed_decode(z, **tk):
+        out, stages["decode_s"] = sync_time(lambda: decode(z, **tk))
+        return out
+
+    pipe = hp.HunyuanVideoPipeline(dit=dit, dit_cfg=cfg, encode_prompt=timed_encode,
+                                   decode_video=timed_decode, dtype=torch.bfloat16)
+    step = pipe._step
+
+    def timed_step(*a, **kw):
+        out, secs = sync_time(lambda: step(*a, **kw))
+        stages["step_s"].append(secs)
+        return out
+
+    pipe._step = timed_step
+    # the kv_len each joint attention of the request is given (a device tensor, read after)
+    attention, kv_seen = hd.attention, []
+
+    def recording_attention(*a, **kw):
+        kv_seen.append(kw["kv_len"])
+        return attention(*a, **kw)
+
+    hd.attention = recording_attention
+    fa.reset_launch_counts()
+    try:
+        frames, secs = sync_time(lambda: pipe(HY_PROMPT, height=HY_HEIGHT, width=HY_WIDTH,
+                                              num_frames=HY_FRAMES,
+                                              num_inference_steps=HY_STEPS,
+                                              embedded_guidance=6.0, seed=7, tiled=True))
+    finally:
+        hd.attention = attention
+    launches = dict(fa.launch_counts)
+    path_kv = sorted({tuple(t.tolist()) for t in kv_seen})
+    shape = (1, HY_FRAMES, HY_HEIGHT, HY_WIDTH, 3)
+    finite = bool(np.isfinite(frames).all())
+    log("hunyuan", stage="request", seconds=secs, **stages, launches=launches,
+        k1_per_step=HY_K1_PER_STEP, steps=HY_STEPS, schedule_steps=HY_STEPS,
+        tokens=HY_SELF[1], kv_len=path_kv, frames_shape=list(frames.shape), finite=finite,
+        frames_mean=float(frames.mean()), frames_std=float(frames.std()),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(launches == only(K1=HY_K1_PER_STEP * HY_STEPS), f"hunyuan request launched {launches}")
+    check(tuple(frames.shape) == shape and finite, f"hunyuan frames {frames.shape}, finite {finite}")
+    img_tokens = HY_SELF[1] - cfg.txt_len
+    check(len(kv_seen) == HY_K1_PER_STEP * HY_STEPS and len(path_kv) == 1
+          and img_tokens < path_kv[0][0] <= HY_SELF[1],
+          f"hunyuan request: {len(kv_seen)} joint attentions with kv_len {path_kv}")
+    del pipe, dit, llama, clip, dec, frames, kv_seen
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(82)
+    rec = {"path": _hunyuan_k1(HY_SELF, path_kv[0], gen),
+           "b2": _hunyuan_k1(HY_B2, HY_B2_KV, gen)}
+    return launches, rec
+
+
 def main() -> int:
     try:
         return _main()
@@ -3484,6 +3710,7 @@ def _main() -> int:
     started("small_train", phase_small_train)
     started("small_int8", phase_small_int8)
     small_s2v_launches = started("small_s2v", phase_small_s2v)
+    small_hy_launches = started("small_hunyuan", phase_small_hunyuan)
     pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
     sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
     started("tools", phase_tools)
@@ -3491,7 +3718,7 @@ def _main() -> int:
     window_launches = started("window", phase_window, pipe, bf16_frames[0])
     cli_launches = started("cli", phase_cli, pipe)
     unb_launches = started("unbounded", phase_unbounded, pipe)
-    variants_launches = started("variants", phase_variants, pipe)
+    variants_launches = started("variants", phase_variants, pipe, bf16_frames)
     int8_launches, sharded_int8_launches = started("main_int8", phase_main_int8, pipe,
                                                    bf16_frames)
     del pipe, bf16_frames
@@ -3500,6 +3727,7 @@ def _main() -> int:
     s2v_launches, sharded_s2v_launches = started("s2v", phase_s2v)
     image_launches = started("image_branch", phase_image_branch)
     started("vae38", phase_vae38)
+    hy_launches, hy_rec = started("hunyuan", phase_hunyuan)
     train_launches, train_run = started("train", phase_train)
     sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
@@ -3530,7 +3758,10 @@ def _main() -> int:
               "sharded_s2v_launches": sharded_s2v_launches["K1"],
               "image_branch_launches": image_launches["K1"],
               **{k: measured["K1"][k] for k in ("audio", "s2v_self", "s2v_cross",
-                                                "image_cross")}}),
+                                                "image_cross")},
+              "small_hunyuan_launches": small_hy_launches["K1"],
+              "hunyuan_launches": hy_launches["K1"], "hunyuan_path": hy_rec["path"],
+              "hunyuan_b2": hy_rec["b2"]}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],

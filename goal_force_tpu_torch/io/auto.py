@@ -1,0 +1,194 @@
+"""Auto-loading: weight file -> detected kind -> inferred config -> module.
+
+Port of the frame of ``goal_force_tpu/io/auto.py``: ``load_weights`` (safetensors file,
+glob or list, a torch pickle, or a state dict) and ``load_model``, which detects the kind
+(``io/detect.py``), recovers the config from the shapes present (only what weights cannot
+reveal, head counts and RoPE axis splits, takes keyword defaults sized for the released
+checkpoints) and builds the port's module, loaded strictly: a missing or unexpected key,
+or a shape that does not fit, raises. The kinds:
+
+  - ``hunyuan_video_dit`` (``infer_hunyuan_video_config``), ``hunyuan_video_vae`` (the
+    encoder half, the decoder half, or both as {"encoder", "decoder"}), ``llama``
+    (``infer_llama_config``; keys with or without ``model.``) and ``clip_text`` (its SD
+    branch: ``infer_clip_config``);
+  - the Wan kinds, through the port's own loaders (``io/detect.py::convert_detected``).
+
+Every other detected kind raises ``NotImplementedError`` naming its ROADMAP item.
+``load_model`` returns {"kind", "config", "model"}.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Union
+
+import torch
+
+from goal_force_tpu_torch.io.detect import _shape, convert_detected, detect_model_kind
+
+WAN_KINDS = ("wan_dit", "umt5_xxl", "wan_vae", "wan_vae38", "wan_image_encoder",
+             "motion_controller", "goal_force_controlnet", "lora", "wan_s2v", "vace")
+
+# The ROADMAP item that ports each detected kind not ported yet.
+ROADMAP_ITEMS = {
+    "llava": "queue 1 head: LLaVA, HunyuanVideo-I2V's MLLM prompt tower (M14b)",
+    **{k: "M14b (CogVideoX, StepVideo)" for k in (
+        "cog_dit", "cog_vae", "stepvideo_dit", "stepvideo_vae", "step1_llm")},
+    **{k: "M14c (Flux, SD3, Qwen-Image, Nexus-Gen, HunyuanDiT, OmniGen)" for k in (
+        "flux_dit", "flux_controlnet", "step1x_connector", "sd3_dit", "sd3_vae_encoder",
+        "sd3_vae_decoder", "qwen_image_dit", "qwen_image_controlnet", "qwen_image_vae",
+        "qwen_vl_text", "qwen_vl_vision", "hunyuan_dit", "bert", "omnigen")},
+    "t5_encoder": "M14a (T5 v1.1's shared position bias)",
+    **{k: "M14d (SD, SDXL, Kolors, SVD, AnimateDiff)" for k in (
+        "sd_civitai", "sd_unet", "sdxl_civitai", "sdxl_unet", "svd_unet", "svd_vae",
+        "sd_motion", "sd_controlnet", "sdxl_controlnet", "ipadapter", "chatglm",
+        "sd_vae_encoder", "sd_vae_decoder", "sd_vae_diffusers")},
+    **{k: "M14e (the extensions)" for k in (
+        "hf_clip", "open_clip", "image_reward", "esrgan", "rife")},
+    **{k: "M14f (prompt refiners)" for k in ("bloom", "marian")},
+}
+
+
+def load_weights(path: Union[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """A state dict from safetensors (file, glob or list), a ``.pth``/``.pt``/``.bin``/
+    ``.ckpt`` pickle, or a mapping (its values as tensors)."""
+    if isinstance(path, Mapping):
+        return {k: torch.as_tensor(v) for k, v in path.items()}
+    from goal_force_tpu_torch.io.safetensors_io import load_safetensors, load_torch_pth
+
+    if str(path).endswith((".pth", ".pt", ".bin", ".ckpt")):
+        return load_torch_pth(path)
+    return load_safetensors(path)
+
+
+def _max_index(sd, prefix: str) -> int:
+    idx = [int(k[len(prefix):].split(".")[0]) for k in sd
+           if k.startswith(prefix) and k[len(prefix):].split(".")[0].isdigit()]
+    return max(idx) + 1 if idx else 0
+
+
+def _default_axes(head_dim: int):
+    """RoPE axis split: (16, 56, 56) at head_dim 128 (the released models); any other
+    head size falls back to the (d/4, 3d/8, 3d/8) proportion rounded to even."""
+    if head_dim == 128:
+        return (16, 56, 56)
+    a = max(2, (head_dim // 4) & ~1)
+    rest = head_dim - a
+    return (a, rest // 2, rest - rest // 2)
+
+
+def infer_hunyuan_video_config(sd, num_heads: Optional[int] = None, rope_dims=None):
+    from goal_force_tpu_torch.models.hunyuan_video_dit import HunyuanVideoDiTConfig
+
+    w = _shape(sd, "img_in.proj.weight")
+    dim = w[0]
+    heads = num_heads or max(1, dim // 128)
+    return HunyuanVideoDiTConfig(
+        dim=dim, in_channels=w[1], patch=w[2:],
+        num_heads=heads,
+        num_double_blocks=_max_index(sd, "double_blocks."),
+        num_single_blocks=_max_index(sd, "single_blocks."),
+        text_dim=_shape(sd, "txt_in.input_embedder.weight")[1],
+        pooled_dim=_shape(sd, "vector_in.0.weight")[1],
+        guidance_embed="guidance_in.timestep_embedder.0.weight" in sd,
+        freq_dim=_shape(sd, "txt_in.t_embedder.timestep_embedder.0.weight")[1],
+        rope_dims=tuple(rope_dims) if rope_dims else _default_axes(dim // heads),
+    )
+
+
+def infer_llama_config(sd, num_heads: Optional[int] = None, prefix: str = ""):
+    from goal_force_tpu_torch.models.text_encoders import LlamaConfig
+
+    vocab, hidden = _shape(sd, prefix + "embed_tokens.weight")
+    heads = num_heads or max(1, hidden // 128)
+    head_dim = hidden // heads
+    return LlamaConfig(
+        hidden_size=hidden, vocab=vocab, num_heads=heads,
+        num_layers=_max_index(sd, prefix + "layers."),
+        num_kv_heads=_shape(sd, prefix + "layers.0.self_attn.k_proj.weight")[0] // head_dim,
+        intermediate_size=_shape(sd, prefix + "layers.0.mlp.gate_proj.weight")[0],
+    )
+
+
+def infer_clip_config(sd, num_heads: Optional[int] = None):
+    """CLIPConfig of a CLIP text tower without a projection, in the reference naming."""
+    from goal_force_tpu_torch.models.clip import CLIPConfig
+
+    vocab, dim = _shape(sd, "token_embedding.weight")
+    return CLIPConfig(
+        vocab_size=vocab, text_dim=dim,
+        text_heads=num_heads or max(1, dim // 64),
+        text_layers=_max_index(sd, "encoders."),
+        max_positions=_shape(sd, "position_embeds")[1],
+        hidden_act="quick_gelu",
+    )
+
+
+def _strict(cls, cfg, sd, kind: str, dtype, device):
+    from goal_force_tpu_torch.models.wan_dit import empty_module
+    from goal_force_tpu_torch.pipelines.goal_force import load_state_dict_strict
+
+    mod = empty_module(cls, cfg, dtype=dtype, device=device)
+    load_state_dict_strict(mod, sd, kind)
+    return mod.eval().requires_grad_(False)
+
+
+def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
+               device="cuda", **infer_kw) -> Dict:
+    """Detect, infer and load one weight file (or state dict) into the port's module on
+    `device`, in `dtype` (default: the file's floating dtype). Returns {"kind", "config",
+    "model"}. `infer_kw` goes to the family's config inference (e.g. num_heads /
+    rope_dims for tiny checkpoints, vae_cfg for the HunyuanVideo VAE)."""
+    from goal_force_tpu_torch.pipelines.goal_force import resolve_device
+
+    device = resolve_device(device)
+    sd = load_weights(path_or_sd)
+    kind = kind or detect_model_kind(sd)
+    if dtype is None:
+        dtype = next((v.dtype for v in sd.values() if v.is_floating_point()), torch.float32)
+
+    def out(cfg, model):
+        return {"kind": kind, "config": cfg, "model": model}
+
+    if kind == "hunyuan_video_dit":
+        from goal_force_tpu_torch.models.hunyuan_video_dit import HunyuanVideoDiT
+
+        cfg = config or infer_hunyuan_video_config(sd, **infer_kw)
+        return out(cfg, _strict(HunyuanVideoDiT, cfg, sd, kind, dtype, device))
+    if kind == "hunyuan_video_vae":
+        from goal_force_tpu_torch.models import hunyuan_video_vae as hv
+
+        cfg = config or infer_kw.get("vae_cfg") or hv.HunyuanVAEConfig()
+        enc, dec = hv.vae_halves(sd)
+        halves = {}
+        for name, cls, pre in (("encoder", hv.HunyuanVAEEncoder, ("encoder.", "quant_conv.")),
+                               ("decoder", hv.HunyuanVAEDecoder,
+                                ("decoder.", "post_quant_conv."))):
+            if {"encoder": enc, "decoder": dec}[name]:
+                part = {k: v for k, v in sd.items() if k.startswith(pre)}
+                halves[name] = _strict(cls, cfg, part, f"{kind} {name}", dtype, device)
+        rest = sorted(k for k in sd if not k.startswith(("encoder.", "quant_conv.", "decoder.",
+                                                         "post_quant_conv.")))
+        if rest:
+            raise KeyError(f"{kind}: {len(rest)} unexpected keys {rest[:8]}")
+        return out(cfg, halves if len(halves) == 2 else next(iter(halves.values())))
+    if kind == "llama":
+        from goal_force_tpu_torch.models.text_encoders import LlamaModel
+
+        prefix = "model." if "model.embed_tokens.weight" in sd else ""
+        cfg = config or infer_llama_config(sd, prefix=prefix, **infer_kw)
+        sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
+        return out(cfg, _strict(LlamaModel, cfg, sd, kind, dtype, device))
+    if kind == "clip_text":
+        from goal_force_tpu_torch.models.clip import CLIPTextModel
+
+        if "text_projection.weight" in sd or "final_layer_norm.weight" not in sd:
+            raise NotImplementedError(
+                f"{kind}: the SDXL CLIP towers are not ported yet (ROADMAP "
+                f"{ROADMAP_ITEMS['sdxl_unet']})")
+        cfg = config or infer_clip_config(sd, **infer_kw)
+        return out(cfg, _strict(CLIPTextModel, cfg, sd, kind, dtype, device))
+    if kind in WAN_KINDS:
+        return convert_detected(sd, kind=kind, dtype=dtype, device=device,
+                                **({"config": config} if config else {}))
+    raise NotImplementedError(
+        f"detected {kind!r}: not ported yet (ROADMAP {ROADMAP_ITEMS.get(kind, 'M14')})")

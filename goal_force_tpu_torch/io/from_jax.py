@@ -28,7 +28,13 @@ the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) 
   - int8 / fp8 packs ``{"w_i8"|"w_f8", "w_scale", "b"}`` (``quantize_linear_tree[_fp8]``)
     -> ``weight`` codes (out, in), ``weight_scale`` (out,) and ``bias``, the state dict
     of ``ops/quant.py``'s ``Int8Linear`` / ``Fp8Linear``; the codes are carried, not
-    re-quantized.
+    re-quantized;
+  - the HunyuanVideo path's trees, as JAX's converters build them from reference files:
+    ``hunyuan_video_dit`` (stacked double/single/refiner blocks, the (C*1*2*2, D) patch
+    matmul -> Conv3d), ``llama`` (HF LlamaModel keys, the final norm as ones),
+    ``clip_text`` (the SD text encoder's ``encoders.{i}``), ``hunyuan_vae_encoder`` and
+    ``hunyuan_vae_decoder`` (``*.conv`` under each causal conv, the 1x1x1
+    ``quant_conv``/``post_quant_conv``).
 
 ``lora_from_jax(tree)`` carries a JAX LoRA adapter tree (``goal_force_tpu/lora.py``,
 ``{target: {"a": (L, in, r), "b": (L, r, out)}}``) into the port's ``lora.py``, whose
@@ -342,6 +348,165 @@ def s2v_state_dict(p: Mapping, patch_size=(1, 2, 2)) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------------
+# The HunyuanVideo path: the DiT, the Llama and CLIP-L text towers, the VAE halves
+# ---------------------------------------------------------------------------
+
+def _ln(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _mlp01(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _lin(sd, prefix + ".0", p["fc0"])
+    _lin(sd, prefix + ".2", p["fc2"])
+
+
+def hunyuan_video_dit_state_dict(p: Mapping, patch=(1, 2, 2)) -> StateDict:
+    """JAX ``hunyuan_video_dit_params_from_torch``'s tree -> the reference DiT keys."""
+    sd: StateDict = {}
+    sd["img_in.proj.weight"], sd["img_in.proj.bias"] = _patch(p["img_in"]["w"],
+                                                              p["img_in"]["b"], patch)
+    t = p["txt_in"]
+    _lin(sd, "txt_in.input_embedder", t["input_emb"])
+    _mlp01(sd, "txt_in.t_embedder.timestep_embedder", t["t_emb"])
+    _mlp01(sd, "txt_in.c_embedder", t["c_emb"])
+    for i in range(int(np.asarray(t["blocks"]["norm1"]["scale"]).shape[0])):
+        b, pre = _layer(t["blocks"], i), f"txt_in.blocks.{i}"
+        _ln(sd, pre + ".norm1", b["norm1"])
+        _lin(sd, pre + ".self_attn_qkv", b["qkv"])
+        _lin(sd, pre + ".self_attn_proj", b["proj"])
+        _ln(sd, pre + ".norm2", b["norm2"])
+        _mlp01(sd, pre + ".mlp", b["mlp"])
+        _lin(sd, pre + ".adaLN_modulation.1", b["ada"])
+    _mlp01(sd, "time_in.timestep_embedder", p["time_in"])
+    _mlp01(sd, "vector_in", p["vector_in"])
+    if "guidance_in" in p:
+        _mlp01(sd, "guidance_in.timestep_embedder", p["guidance_in"])
+
+    def qkv_block(pre, c):
+        _lin(sd, pre + ".mod.linear", c["mod"])
+        _lin(sd, pre + ".to_qkv", c["qkv"])
+        sd[pre + ".norm_q.weight"] = _t(c["norm_q"]["w"])
+        sd[pre + ".norm_k.weight"] = _t(c["norm_k"]["w"])
+        _lin(sd, pre + ".to_out", c["out"])
+
+    for i in range(int(np.asarray(p["double_blocks"]["a"]["qkv"]["w"]).shape[0])):
+        b = _layer(p["double_blocks"], i)
+        for side in ("a", "b"):
+            pre = f"double_blocks.{i}.component_{side}"
+            qkv_block(pre, b[side])
+            _mlp01(sd, pre + ".ff", b[side]["ff"])
+    for i in range(int(np.asarray(p["single_blocks"]["qkv"]["w"]).shape[0])):
+        b, pre = _layer(p["single_blocks"], i), f"single_blocks.{i}"
+        qkv_block(pre, b)
+        _lin(sd, pre + ".ff.0", b["ff_fc0"])
+        _lin(sd, pre + ".ff.2", b["ff_fc2"], bias=False)
+    _lin(sd, "final_layer.linear", p["final"]["linear"])
+    _lin(sd, "final_layer.adaLN_modulation.1", p["final"]["ada"])
+    return sd
+
+
+def llama_state_dict(p: Mapping) -> StateDict:
+    """JAX ``llama_params_from_torch``'s tree -> HF LlamaModel keys. The tree holds no
+    final norm (the skip-layer hidden states never use it): ``norm.weight`` comes back
+    as ones."""
+    emb = np.asarray(p["word_emb"])
+    sd: StateDict = {"embed_tokens.weight": _t(emb),
+                     "norm.weight": torch.ones(emb.shape[1], dtype=_t(emb).dtype)}
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+             "down": "mlp.down_proj"}
+    for i in range(int(np.asarray(p["blocks"]["q"]["w"]).shape[0])):
+        b, pre = _layer(p["blocks"], i), f"layers.{i}"
+        sd[pre + ".input_layernorm.weight"] = _t(b["norm1"]["w"])
+        sd[pre + ".post_attention_layernorm.weight"] = _t(b["norm2"]["w"])
+        for k, name in names.items():
+            _lin(sd, f"{pre}.{name}", b[k], bias=False)
+    return sd
+
+
+def clip_text_state_dict(p: Mapping) -> StateDict:
+    """JAX ``sd_text_params_from_torch``'s tree ({"text": ...}, and "text_proj" where the
+    tower projects) -> the reference SD text encoder keys."""
+    t = p["text"]
+    sd: StateDict = {"token_embedding.weight": _t(t["tok_emb"]),
+                     "position_embeds": _t(np.asarray(t["pos_emb"])[None])}
+    for i in range(int(np.asarray(t["blocks"]["fc1_w"]).shape[0])):
+        b, pre = _layer(t["blocks"], i), f"encoders.{i}"
+        _ln(sd, pre + ".layer_norm1", b["ln1"])
+        _ln(sd, pre + ".layer_norm2", b["ln2"])
+        for proj, name in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out")):
+            _lin(sd, f"{pre}.attn.{name}", {"w": b["attn"][proj + "_w"],
+                                             "b": b["attn"][proj + "_b"]})
+        for fc in ("fc1", "fc2"):
+            _lin(sd, f"{pre}.{fc}", {"w": b[fc + "_w"], "b": b[fc + "_b"]})
+    _ln(sd, "final_layer_norm", t["ln_final"])
+    if "text_proj" in p:
+        sd["text_projection.weight"] = _t(np.asarray(p["text_proj"]).T)
+    return sd
+
+
+def _hv_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _conv3d(sd, prefix + ".conv", p)
+
+
+def _hv_res(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _ln(sd, prefix + ".norm1", p["norm1"])
+    _hv_conv(sd, prefix + ".conv1", p["conv1"])
+    _ln(sd, prefix + ".norm2", p["norm2"])
+    _hv_conv(sd, prefix + ".conv2", p["conv2"])
+    if "shortcut" in p:
+        _hv_conv(sd, prefix + ".conv_shortcut", p["shortcut"])
+
+
+def _hv_mid(sd: StateDict, prefix: str, p: Mapping) -> None:
+    for i, r in enumerate(p["resnets"]):
+        _hv_res(sd, f"{prefix}.resnets.{i}", r)
+    for i, a in enumerate(p["attentions"]):
+        pre = f"{prefix}.attentions.{i}"
+        _ln(sd, pre + ".group_norm", a["norm"])
+        for proj, name in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out.0")):
+            _lin(sd, f"{pre}.{name}", {"w": a[proj + "_w"], "b": a[proj + "_b"]})
+
+
+def _hv_1x1(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T[:, :, None, None, None])
+    sd[prefix + ".bias"] = _t(p["b"])
+
+
+def hunyuan_vae_encoder_state_dict(p: Mapping) -> StateDict:
+    """JAX ``hunyuan_vae_encoder_params_from_torch``'s tree -> the reference keys."""
+    sd: StateDict = {}
+    _hv_conv(sd, "encoder.conv_in", p["conv_in"])
+    for i, blk in enumerate(p["down_blocks"]):
+        for j, r in enumerate(blk["resnets"]):
+            _hv_res(sd, f"encoder.down_blocks.{i}.resnets.{j}", r)
+        if "down" in blk:
+            _hv_conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv", blk["down"])
+    _hv_mid(sd, "encoder.mid_block", p["mid"])
+    _ln(sd, "encoder.conv_norm_out", p["conv_norm_out"])
+    _hv_conv(sd, "encoder.conv_out", p["conv_out"])
+    _hv_1x1(sd, "quant_conv", p["quant_conv"])
+    return sd
+
+
+def hunyuan_vae_decoder_state_dict(p: Mapping) -> StateDict:
+    """JAX ``hunyuan_vae_decoder_params_from_torch``'s tree -> the reference keys."""
+    sd: StateDict = {}
+    _hv_1x1(sd, "post_quant_conv", p["post_quant_conv"])
+    _hv_conv(sd, "decoder.conv_in", p["conv_in"])
+    _hv_mid(sd, "decoder.mid_block", p["mid"])
+    for i, blk in enumerate(p["up_blocks"]):
+        for j, r in enumerate(blk["resnets"]):
+            _hv_res(sd, f"decoder.up_blocks.{i}.resnets.{j}", r)
+        if "up" in blk:
+            _hv_conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv", blk["up"]["conv"])
+    _ln(sd, "decoder.conv_norm_out", p["conv_norm_out"])
+    _hv_conv(sd, "decoder.conv_out", p["conv_out"])
+    return sd
+
+
 def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]:
     """State dicts for every entry of the JAX pipeline's params tree."""
     out: Dict[str, StateDict] = {}
@@ -366,6 +531,16 @@ def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]
             out[name] = motion_controller_state_dict(p)
         elif name == "camera_adapter":
             out[name] = camera_adapter_state_dict(p)
+        elif name == "hunyuan_video_dit":
+            out[name] = hunyuan_video_dit_state_dict(p, patch_size)
+        elif name == "llama":
+            out[name] = llama_state_dict(p)
+        elif name == "clip_text":
+            out[name] = clip_text_state_dict(p)
+        elif name == "hunyuan_vae_encoder":
+            out[name] = hunyuan_vae_encoder_state_dict(p)
+        elif name == "hunyuan_vae_decoder":
+            out[name] = hunyuan_vae_decoder_state_dict(p)
         else:
             raise NotImplementedError(f"no converter for params[{name!r}]")
     return out

@@ -5,7 +5,9 @@ cleaning, ``HFTokenizer`` (``transformers.AutoTokenizer``, pad to ``seq_len`` wi
 truncation), ``HashTokenizer`` (whitespace tokens hashed into the vocab, EOS=1, PAD=0;
 the same ids as the JAX copy within one process) and ``load_tokenizer``, which reads a
 local tokenizer directory (HF files, or a SentencePiece model through ``models/spm.py``)
-and falls back, with a warning, to the hash tokenizer when given no path.
+and falls back, with a warning, to the hash tokenizer when given no path. ``hash_ids``
+is the model zoo's sha256-seeded fallback (JAX ``pipelines/flux.py::_hash_ids``), equal
+to JAX's in every process.
 """
 
 from __future__ import annotations
@@ -113,3 +115,17 @@ def load_tokenizer(path: Optional[str], vocab: int = 256384, seq_len: int = 512,
             "into ids and the text embeddings are garbage. Pass a local umt5 tokenizer "
             "directory for real inference.", stacklevel=2)
     return HashTokenizer(vocab, seq_len)
+
+
+def hash_ids(text: str, vocab: int, length: int) -> np.ndarray:
+    """(length,) int64 ids of the JAX package's ``pipelines/flux.py::_hash_ids``, bit
+    for bit: one id in [2, vocab) per whitespace word (at least one), drawn by numpy from
+    a generator seeded with the first 8 bytes of the text's sha256, zeros after."""
+    import hashlib
+
+    h = hashlib.sha256(text.encode()).digest()
+    rng = np.random.default_rng(np.frombuffer(h[:8], np.uint64)[0])
+    n = min(length, max(1, len(text.split())))
+    ids = np.zeros((length,), np.int64)
+    ids[:n] = rng.integers(2, vocab, (n,))
+    return ids

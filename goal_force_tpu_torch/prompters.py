@@ -1,11 +1,14 @@
-"""Text tokenizers from a tokenizer directory: the parts of the umt5 path.
+"""Text tokenizers from a tokenizer directory.
 
-Port of the umt5 side of ``goal_force_tpu/prompters.py``: ``TextTokenizer`` (encode,
-then pad or truncate to a fixed length), ``load_text_tokenizer`` with its
-``tokenizer.json`` (the ``tokenizers`` runtime), ``spiece.model`` and
-``tokenizer.model`` (``models/spm.py``) branches, and ``wan_umt5_tokenizer``. The CLIP
-BPE (``vocab.json`` + ``merges.txt``) and BERT (``vocab.txt``) branches and the
-per-family helpers of the model zoo are not ported and raise ``NotImplementedError``.
+Port of ``goal_force_tpu/prompters.py`` for the umt5 and HunyuanVideo paths:
+``TextTokenizer`` (encode, then pad or truncate to a fixed length),
+``load_text_tokenizer`` with its CLIP BPE (``vocab.json`` + ``merges.txt``, through
+``models/clip_bpe.py``), ``tokenizer.json`` (the ``tokenizers`` runtime), ``spiece.model``
+and ``tokenizer.model`` (``models/spm.py``) branches, ``wan_umt5_tokenizer`` and
+``hunyuan_video_clip_tokenizer``. The vendored tokenizer files are read from the JAX
+package's ``tokenizer_assets`` directory by path (``asset_path``); nothing of that
+package is imported. The BERT (``vocab.txt``) branch, HunyuanDiT's, and the other
+families' helpers are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,14 @@ import warnings
 from typing import Callable, List, Optional
 
 import numpy as np
+
+ASSET_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "goal_force_tpu", "tokenizer_assets")
+
+
+def asset_path(*parts: str) -> str:
+    """A vendored tokenizer file or directory, by its path under ``ASSET_ROOT``."""
+    return os.path.join(ASSET_ROOT, *parts)
 
 
 class TextTokenizer:
@@ -61,7 +72,7 @@ def load_text_tokenizer(path: str, length: int = 77,
         return _spm_tokenizer(path, length, add_eos)
     files = set(os.listdir(path)) if os.path.isdir(path) else set()
     if "vocab.json" in files and "merges.txt" in files:
-        raise NotImplementedError(f"{path}: CLIP BPE tokenizers are not ported yet")
+        return _clip_tokenizer(path, length)
     if "tokenizer.json" in files:
         return _fast_tokenizer(os.path.join(path, "tokenizer.json"), length)
     if "spiece.model" in files:
@@ -69,8 +80,36 @@ def load_text_tokenizer(path: str, length: int = 77,
     if "tokenizer.model" in files:
         return _spm_tokenizer(os.path.join(path, "tokenizer.model"), length, add_eos)
     if "vocab.txt" in files:
-        raise NotImplementedError(f"{path}: BERT WordPiece tokenizers are not ported yet")
+        raise NotImplementedError(f"{path}: BERT WordPiece tokenizers (HunyuanDiT's) are "
+                                  "not ported yet (ROADMAP M14c)")
     raise ValueError(f"no recognizable tokenizer files in {path!r}: {sorted(files)}")
+
+
+def _clip_tokenizer(path: str, length: int) -> TextTokenizer:
+    """CLIP BPE over vocab.json/merges.txt (``models/clip_bpe.py``); the pad token comes
+    from the directory's ``tokenizer_config.json`` (SD pads with eot 49407, SDXL's second
+    tokenizer with '!' = 0), and truncation keeps eot in the last slot."""
+    import json
+
+    from goal_force_tpu_torch.models.clip_bpe import CLIPBPETokenizer
+
+    tok = CLIPBPETokenizer.from_hf(os.path.join(path, "vocab.json"),
+                                   os.path.join(path, "merges.txt"))
+    pad_id = tok.eot_id
+    cfg_file = os.path.join(path, "tokenizer_config.json")
+    if os.path.exists(cfg_file):
+        with open(cfg_file) as f:
+            cfg = json.load(f)
+        pad_tok = cfg.get("pad_token")
+        if isinstance(pad_tok, dict):
+            pad_tok = pad_tok.get("content")
+        if isinstance(pad_tok, str) and pad_tok in tok.encoder:
+            pad_id = tok.encoder[pad_tok]
+
+    def encode(text: str) -> List[int]:
+        return [tok.sot_id] + tok.encode(text) + [tok.eot_id]
+
+    return TextTokenizer(encode, length, pad_id, force_last=tok.eot_id)
 
 
 def _fast_tokenizer(json_path: str, length: int) -> TextTokenizer:
@@ -96,3 +135,9 @@ def _spm_tokenizer(model_path: str, length: int, add_eos: bool) -> TextTokenizer
 def wan_umt5_tokenizer(path: str, length: int = 512) -> TextTokenizer:
     """umt5-xxl from a local tokenizer dir (HF files or spiece.model)."""
     return load_text_tokenizer(path, length, add_eos=True)
+
+
+def hunyuan_video_clip_tokenizer(length: int = 77) -> TextTokenizer:
+    """CLIP-L side of HunyuanVideo (``hunyuan_video/tokenizer_1``; the Llama side ships
+    with its text-encoder checkpoint: pass that directory to load_text_tokenizer)."""
+    return load_text_tokenizer(asset_path("hunyuan_video", "tokenizer_1"), length)

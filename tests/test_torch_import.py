@@ -112,6 +112,17 @@ def test_multi_gpu_and_tool_modules_are_in_the_blocked_import():
         assert m in MODULES
 
 
+def test_hunyuan_video_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.models.clip_bpe", "goal_force_tpu_torch.models.clip",
+              "goal_force_tpu_torch.models.sd_text_encoder",
+              "goal_force_tpu_torch.models.text_encoders",
+              "goal_force_tpu_torch.models.hunyuan_video_dit",
+              "goal_force_tpu_torch.models.hunyuan_video_vae",
+              "goal_force_tpu_torch.pipelines.hunyuan_video", "goal_force_tpu_torch.io.detect",
+              "goal_force_tpu_torch.io.auto"):
+        assert m in MODULES
+
+
 def test_spawned_children_import_no_jax():
     """The multi-process tests' children (tests/torch_parallel_children.py) import the
     port alone; they also check sys.modules at their end."""

@@ -1,7 +1,8 @@
 """The port's tokenizer readers against the JAX package's, on the vendored tokenizer
 files: the pure-Python SentencePiece reader (unigram T5 vocabularies and ChatGLM3's
-byte-fallback BPE), load_text_tokenizer's dispatch, and load_tokenizer on directories
-(SentencePiece, HF fast-tokenizer, none). Ids and masks must be equal."""
+byte-fallback BPE), load_text_tokenizer's dispatch (CLIP BPE included), and
+load_tokenizer on directories (SentencePiece, HF fast-tokenizer, none). Ids and masks
+must be equal."""
 
 import os
 import shutil
@@ -111,8 +112,20 @@ def test_load_text_tokenizer_dispatch_equals_jax(rel):
 
 @pytest.mark.parametrize("rel", ["flux/tokenizer_1", "hunyuan_dit/tokenizer"])
 def test_unported_tokenizer_kinds_raise(rel):
-    with pytest.raises(NotImplementedError):
-        tprompters.load_text_tokenizer(_asset(rel), LENGTH)
+    """HunyuanDiT's BERT WordPiece directory is not ported and raises. Flux's CLIP BPE
+    directory (vocab.json + merges.txt) raised too until the CLIP BPE branch was ported
+    (models/clip_bpe.py): it now gives JAX's ids, pad id and truncation."""
+    if rel == "hunyuan_dit/tokenizer":
+        with pytest.raises(NotImplementedError):
+            tprompters.load_text_tokenizer(_asset(rel), LENGTH)
+        return
+    tok = tprompters.load_text_tokenizer(_asset(rel), LENGTH)
+    ref = jprompters.load_text_tokenizer(_asset(rel), LENGTH)
+    assert (tok.pad_id, tok.force_last) == (ref.pad_id, ref.force_last)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the long prompt is truncated in both
+        for prompt in PROMPTS:
+            np.testing.assert_array_equal(tok(prompt), ref(prompt))
 
 
 def _spiece_dir(tmp_path, rel):
