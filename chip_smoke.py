@@ -40,10 +40,10 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 3c. pp     - pipeline parallel (models/wan_dit.py: GPipeStage and gpipe, the schedule of
              pp_run_blocks) at full A14B width for 4 virtual stages on the one card, in
              tick order, each stage's output handed to the next directly (no shift runs:
-             no multi-GPU time is measured): bf16, 8 blocks (2 per stage), the merged-CFG
+             no multi-GPU time is measured): bf16, 4 blocks (1 per stage), the merged-CFG
              batch of 2 (32,760 tokens, 512 text keys) as 2 microbatches, 3 ControlNet
-             injections (the third on stage 1). Serving: each microbatch's output
-             bit-equal to run_blocks on its row alone, 32 K1 (bubble ticks skip their
+             injections (on stages 0-2). Serving: each microbatch's output
+             bit-equal to run_blocks on its row alone, 16 K1 (bubble ticks skip their
              blocks). Training: one forward + backward under remat through the schedule
              (every tick computes, bubbles too): the gradients of the input and the
              injections within two bf16 ulps of run_blocks' backward per microbatch, and
@@ -64,7 +64,7 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              double + 1 single block, 384 joint tokens, per-row kv_len 133 and 258) with
              attn_impl "flash" against "plain", float32 (1e-4 of the output's scale) and
              bf16 (3e-2 of it), 2 K1 launches each.
-7. main    - GoalForcePipeline at full A14B width (depth cut to 4 DiT + 2 ControlNet
+7. main    - GoalForcePipeline at full A14B width (depth cut to 3 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
              are reset just before and read just after.
@@ -73,7 +73,7 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              3-axis mesh, checked) and
              pipe.shard(mesh), so every collective (Ulysses all-to-alls, tensor-parallel
              all-reduces, token and batch gathers) runs as a copy over a group of one;
-             frames within 1e-3 of main's, 12 K1 per step, the collectives per step as
+             frames within 1e-3 of main's, 10 K1 per step, the collectives per step as
              counted by collectives_per_step; logs step seconds beside main's and PSNR /
              SSIM of the two frame sets (utils/metrics.py); then the request again with
              attn_impl="ring" ("sp" = 1: "auto", main's frames and launches). No
@@ -100,13 +100,13 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 11. unbounded - one merged-CFG step with qk_bounded=False and enlarged q-norm weights,
              so the runtime logit bound routes self-attention to K2.
 12. variants - first generate_batch of main's two requests on main's pipeline (81 frames,
-             4 steps, 12 K1 per step at B = 4), which must equal main's frames within
+             4 steps, 10 K1 per step at B = 4), which must equal main's frames within
              1e-2; then full-width adapters (a motion controller and a camera
              SimpleAdapter written in the reference formats and read back through
              from_pretrained's loaders, a Fun-Reference ref_conv in both experts), 2-step
              requests: at 33 frames the plain request, end_image, v2v, motion_bucket_id,
-             camera "Left" and a strided ControlNet (stride 2), 12 K1 per step each; at 81
-             frames the plain request without ControlNet and Fun-Reference (8 K1 per
+             camera "Left" and a strided ControlNet (stride 2), 10 K1 per step each; at 81
+             frames the plain request without ControlNet and Fun-Reference (6 K1 per
              step, 34,320 tokens). Each request's frames must differ from its plain request's; logs launches
              per step, stage seconds and peak memory, then v2v's untiled 81-frame encode
              (its peak, or the allocation it was refused).
@@ -121,15 +121,15 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 15. fun_control - a full-width Fun-Control pipeline (in_dim 52, 4 DiT layers): two
              33-frame requests with two control videos (8 K1 per step), frames differ.
 15b. s2v  - S2VPipeline at Wan2.2-S2V-14B widths (dim 5120, 40x128 heads, ffn 13824,
-             audio_dim 1024 over 25 wav2vec2 layers, 4 audio tokens), 4 of 40 layers with
-             audio injections after layers 0 and 2, 2 of 24 umt5 layers, the full Wan2.1
+             audio_dim 1024 over 25 wav2vec2 layers, 4 audio tokens), 2 of 40 layers with
+             audio injections after layers 0 and 1, 2 of 24 umt5 layers, the full Wan2.1
              VAE, random weights, 2 steps at CFG 5.0: audio features from a random
              wav2vec2-large-shaped model on the card (save_pretrained, read back,
              extract, the first bucket), then (a) 81x480x832 (32,760 self tokens, the
              audio injection at B = 20, 1,560 x 5 keys), (b) a pose video at 33 frames,
              (c) a 73-frame motion video at 448x832 and 17 frames (its untiled float32
-             decode of 23 latent frames is the largest that fit), each 20 K1 per step;
-             (d) one step with every self-attention's norm_q x8 (8 K2 + 12 K1), and the
+             decode of 23 latent frames is the largest that fit), each 12 K1 per step;
+             (d) one step with every self-attention's norm_q x8 (4 K2 + 8 K1), and the
              same step with and without the runtime bound's host sync, timed.
 15b'. sharded_s2v - request (b) again with the pipeline's mesh set to the NCCL world of
              one (every attention takes its heads and batch rows and gathers them back):
@@ -184,6 +184,7 @@ launches, error and times; the last line is the result JSON.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -202,7 +203,10 @@ CROSS_KV = (2, 512, 40, 128)    # main-path cross-attention text keys
 TRAIN_SELF = (1, 32760, 40, 128)     # training (B = 1) self-attention q/k/v
 TRAIN_CROSS_KV = (1, 512, 40, 128)   # training cross-attention text keys
 STEPS = 4
-K1_PER_REQUEST = 2 * (4 + 2) * STEPS
+# main's depth (3 DiT layers, cut from 4 for the smoke's time) and ControlNet
+MAIN_LAYERS, MAIN_CN_LAYERS = 3, 2
+K1_PER_STEP = 2 * (MAIN_LAYERS + MAIN_CN_LAYERS)    # self + cross per DiT and CN block
+K1_PER_REQUEST = K1_PER_STEP * STEPS
 WINDOW, WINDOW_STRIDE = 9, 6            # latent frames: windows at 0, 6 and 12 of 21
 WINDOW_SELF = (2, WINDOW * 30 * 52, 40, 128)    # one window's self-attention q/k/v
 REF_SELF = (2, 22 * 30 * 52, 40, 128)    # Fun-Reference / VACE reference: one more frame
@@ -799,8 +803,10 @@ def phase_ring(measured):
     return launches, rec
 
 
-PP_STAGES, PP_BLOCKS, PP_INJECTIONS = 4, 8, 3   # 2 blocks per stage; block 2's injection
-                                                # lands on stage 1
+# 1 block per stage (cut from 8 blocks, 2 per stage, for the smoke's time);
+# the 3 injections after blocks 0-2 land on stages 0-2
+PP_STAGES, PP_BLOCKS, PP_INJECTIONS = 4, 4, 3
+PP_PER_STAGE = PP_BLOCKS // PP_STAGES
 
 
 def _pp_stages(blocks, x, ctx, t_mod, cos, sin, cfg, injections, remat=False):
@@ -808,7 +814,7 @@ def _pp_stages(blocks, x, ctx, t_mod, cos, sin, cfg, injections, remat=False):
     layers' injections."""
     from goal_force_tpu_torch.models import wan_dit
 
-    per = PP_BLOCKS // PP_STAGES
+    per = PP_PER_STAGE
     return [wan_dit.GPipeStage(blocks, x, ctx, t_mod, cos, sin, cfg, s, PP_STAGES, 2,
                                injections[s * per:(s + 1) * per], remat=remat)
             for s in range(PP_STAGES)]
@@ -828,16 +834,16 @@ def phase_pp():
     """Pipeline parallel (models/wan_dit.py: GPipeStage and gpipe, the schedule of
     pp_run_blocks) at full A14B width for PP_STAGES virtual stages on the one card, run in
     tick order with each stage's output handed to the next directly: no shift runs, and
-    no multi-GPU time is measured. bf16, PP_BLOCKS blocks (2 per stage), the merged-CFG
-    batch of 2 (32,760 tokens, 512 text keys) as 2 microbatches, 3 ControlNet injections
-    (after blocks 0-2: the third on stage 1). Serving: each microbatch's output bit-equal
-    to run_blocks over the 8 blocks on its row alone, 32 K1 (2 per block per microbatch:
-    the bubble ticks skip their blocks). Training: one forward + backward of sum(out * w)
+    no multi-GPU time is measured. bf16, PP_BLOCKS blocks (PP_PER_STAGE per stage), the
+    merged-CFG batch of 2 (32,760 tokens, 512 text keys) as 2 microbatches, 3 ControlNet
+    injections (after blocks 0-2). Serving: each microbatch's output bit-equal to
+    run_blocks over the blocks on its row alone, 2 K1 per block per microbatch (the
+    bubble ticks skip their blocks). Training: one forward + backward of sum(out * w)
     under remat through the schedule, where every tick computes (the bubbles too: the
     gates keep every buffer in the graph): the gradients of the input and of the
     injections within two bf16 ulps of their largest (K4/K5's limit) of run_blocks'
-    backward per microbatch, and K3/K4/K5 launched 40 / 16 times as often (20 stage-ticks
-    of 2 blocks against 2 x 8 blocks). Logs the seconds of each against run_blocks, each
+    backward per microbatch, and K3/K4/K5 launched 2.5 times as often (20 stage-ticks of
+    PP_PER_STAGE blocks against 2 microbatches x PP_BLOCKS blocks). Logs the seconds of each against run_blocks, each
     stage's weights and the largest memory a tick of it adds, and the bubble share."""
     import gc
 
@@ -859,7 +865,9 @@ def phase_pp():
     t_mod = _rand((2, 6, cfg.dim), gen, bf16, 0.1)
     inj = [_rand((2, 32760, cfg.dim), gen, bf16, 0.1) for _ in range(PP_INJECTIONS)]
     args = (ctx, t_mod, cos, sin, cfg)
-    rec = {"stage_weights_gib": [sum(p.numel() * p.element_size() for b in range(s * 2, s * 2 + 2)
+    per = PP_PER_STAGE
+    rec = {"stage_weights_gib": [sum(p.numel() * p.element_size()
+                                     for b in range(s * per, (s + 1) * per)
                                      for p in blocks[b].parameters()) / 2**30
                                  for s in range(PP_STAGES)]}
     launches = only()
@@ -928,8 +936,10 @@ def phase_pp():
     (grads, cnt), rec["train_s"] = sync_time(lambda: picked(pp_step))
     rec["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     ticks = 2 + PP_STAGES - 1
-    want = {k: v * ticks * PP_STAGES * 2 // (2 * PP_BLOCKS) for k, v in per_call.items()}
-    check(all(v * ticks * PP_STAGES * 2 % (2 * PP_BLOCKS) == 0 for v in per_call.values())
+    # ticks x stages stage-ticks of PP_PER_STAGE blocks = ticks x PP_BLOCKS block calls,
+    # against run_blocks' 2 x PP_BLOCKS
+    want = {k: v * ticks // 2 for k, v in per_call.items()}
+    check(all(v * ticks % 2 == 0 for v in per_call.values())
           and cnt == want and cnt["K3"] > 0 and cnt["K4"] > 0 and cnt["K5"] > 0,
           f"pp training launched {cnt}, expected {want} (run_blocks: {per_call})")
     for k in ("K3", "K4", "K5"):
@@ -1336,9 +1346,9 @@ def phase_main():
     from goal_force_tpu_torch import configs as C
     from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
 
-    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4)
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=MAIN_LAYERS)
     t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
-    cn_cfg = C.ControlNetConfig(num_layers=2, in_channels=C.WAN21_VAE.z_dim)
+    cn_cfg = C.ControlNetConfig(num_layers=MAIN_CN_LAYERS, in_channels=C.WAN21_VAE.z_dim)
     pipe, secs = sync_time(lambda: GoalForcePipeline.init_random(
         seed=0, dit_cfg=dit_cfg, t5_cfg=t5_cfg, vae_cfg=C.WAN21_VAE, cn_cfg=cn_cfg,
         dtype=torch.bfloat16, device="cuda"))
@@ -1700,7 +1710,7 @@ def _save_and_load_adapters(root, dit_cfg, adapters):
 
 def phase_variants(pipe, main_frames):
     """The Wan variants on main's bf16 pipeline. First, before any adapter is attached,
-    generate_batch of main's two requests (81 frames, 4 steps, 12 K1 per step at B = 4,
+    generate_batch of main's two requests (81 frames, 4 steps, 10 K1 per step at B = 4,
     32,760 tokens), which must give main's frames within WINDOW_ATOL. Then 2 steps per
     request. Adapters drawn at full
     width (a motion controller whose last layer is not zero, a camera SimpleAdapter, a
@@ -1708,8 +1718,8 @@ def phase_variants(pipe, main_frames):
     formats and read back through from_pretrained's loaders. At 33 frames (K1 at the
     window's 14,040 tokens): the plain request, end_image, v2v (its untiled encode),
     motion_bucket_id, camera "Left" and a strided ControlNet (stride 2: blocks 0 and 2,
-    raw states after them), each 12 K1 per step. At 81 frames: the plain request without
-    ControlNet and Fun-Reference (8 K1 per step, 34,320 tokens). Last, v2v's untiled
+    raw states after them), each 10 K1 per step. At 81 frames: the plain request without
+    ControlNet and Fun-Reference (6 K1 per step, 34,320 tokens). Last, v2v's untiled
     encode at 81 frames, as JAX encodes it, measured and reported whether or not it
     fits."""
     import gc
@@ -1734,7 +1744,7 @@ def phase_variants(pipe, main_frames):
         pipe, "variants", "batch_2x81", lambda: pipe.generate_batch(
             list(PROMPTS), np.stack(main_images), control_signal_videos=list(main_videos),
             seeds=list(MAIN_SEEDS), num_inference_steps=STEPS),
-        12, (2,) + shape81, steps=STEPS)
+        K1_PER_STEP, (2,) + shape81, steps=STEPS)
     batch_diff = [float(np.abs(batch[i] - main_frames[i]).max()) for i in range(2)]
     log("variants", stage="batch_vs_singles", max_abs_diff=batch_diff, atol=WINDOW_ATOL,
         ok=max(batch_diff) <= WINDOW_ATOL)
@@ -1766,17 +1776,17 @@ def phase_variants(pipe, main_frames):
     image, video = _request_inputs(41, n, pc.height, pc.width, pc)
     end_image, other = _request_inputs(42, n, pc.height, pc.width, pc)
     kw = dict(seed=41, num_frames=n, num_inference_steps=VARIANT_STEPS)
-    plain = run("plain_33", 12, shape33,
+    plain = run("plain_33", K1_PER_STEP, shape33,
                 lambda: pipe(PROMPTS[0], image, control_signal_video=video, **kw))
-    run("end_image_33", 12, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+    run("end_image_33", K1_PER_STEP, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
                                                   end_image=end_image, **kw), plain)
     v2v_input = np.clip(0.5 * other + 0.25, 0.0, 1.0)
-    run("v2v_33", 12, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+    run("v2v_33", K1_PER_STEP, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
                                             input_video=v2v_input, denoising_strength=0.8,
                                             **kw), plain)
-    run("motion_33", 12, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+    run("motion_33", K1_PER_STEP, shape33, lambda: pipe(PROMPTS[0], image, control_signal_video=video,
                                                motion_bucket_id=90, **kw), plain)
-    run("camera_left_33", 12, shape33, lambda: pipe(PROMPTS[0], image,
+    run("camera_left_33", K1_PER_STEP, shape33, lambda: pipe(PROMPTS[0], image,
                                                     control_signal_video=video,
                                                     camera_control_direction="Left", **kw),
         plain)
@@ -1787,7 +1797,7 @@ def phase_variants(pipe, main_frames):
         pipe.models[cn_name] = cnm.init_from_dit(pipe.models[dit_name], dit_cfg, pipe.cn_cfg,
                                                  gen, torch.bfloat16, device="cuda")
     try:
-        run("strided_controlnet_33", 12, shape33,
+        run("strided_controlnet_33", K1_PER_STEP, shape33,
             lambda: pipe(PROMPTS[0], image, control_signal_video=video, **kw), plain)
     finally:
         pipe.cn_cfg, pipe.models["controlnet"], pipe.models["controlnet2"] = saved
@@ -1797,9 +1807,9 @@ def phase_variants(pipe, main_frames):
     image81, video81 = _request_inputs(43, pc.num_frames, pc.height, pc.width, pc)
     ref_image = _request_inputs(45, 1, pc.height, pc.width, pc)[0]
     kw81 = dict(num_inference_steps=VARIANT_STEPS)
-    plain81 = run("plain_no_controlnet_81", 8, shape81,
+    plain81 = run("plain_no_controlnet_81", 2 * MAIN_LAYERS, shape81,
                   lambda: pipe(PROMPTS[0], image81, seed=43, controlnet=False, **kw81))
-    run("reference_81", 8, shape81, lambda: pipe(PROMPTS[0], image81, seed=43,
+    run("reference_81", 2 * MAIN_LAYERS, shape81, lambda: pipe(PROMPTS[0], image81, seed=43,
                                                   controlnet=False, reference_image=ref_image,
                                                   **kw81), plain81)
     run_counts = dict(fa.launch_counts)
@@ -2079,7 +2089,7 @@ def phase_cli(pipe):
 QPATHS = ("self_attn", "cross_attn", "ffn")     # the block linears JAX quantizes
 FP8_LINEAR_RTOL = 2e-3    # the card's fp8 sums of 5120 products: 1.2e-4 measured
 QUANTIZED = ("dit", "dit2", "controlnet", "controlnet2")
-K6_PER_STEP = 2 * (4 + 2)                       # self + cross per DiT and ControlNet block
+K6_PER_STEP = K1_PER_STEP                       # self + cross per DiT and ControlNet block
 
 
 def _quantize(models, kind="int8"):
@@ -2578,7 +2588,8 @@ def phase_unbounded(pipe):
         pipe.dit_cfg = saved_cfg
     check(tuple(out.shape) == tuple(lat.shape) and bool(torch.isfinite(out.float()).all()),
           "unbounded step: bad output")
-    check(launches == only(K1=6, K2=6), f"unbounded step launched {launches}")
+    blocks = MAIN_LAYERS + MAIN_CN_LAYERS          # self-attention K2, cross K1 per block
+    check(launches == only(K1=blocks, K2=blocks), f"unbounded step launched {launches}")
     log("unbounded", seconds=secs, launches=launches)
     return launches
 
@@ -3088,7 +3099,9 @@ def phase_train_cli():
 # ---------------------------------------------------------------------------
 
 S2V_STEPS = 2
-S2V_K1_PER_STEP = 2 * (4 + 4 + 2)    # CFG's two forwards x (4 self, 4 text cross, 2 audio)
+# 2 of 40 layers (cut from 4 for the smoke's time), audio after both
+S2V_LAYERS = 2
+S2V_K1_PER_STEP = 2 * (2 * S2V_LAYERS + 2)   # CFG's two forwards x (self, text cross, 2 audio)
 S2V_MOTION_FRAMES = 17                # (c): 19 motion + 4 latent frames decode untiled
 S2V_POSE_FRAMES = 33                  # (b): the pose request at 9 latent frames
 
@@ -3249,8 +3262,8 @@ def _wav2vec_embeds(root, frames):
 
 def phase_s2v():
     """S2VPipeline at Wan2.2-S2V-14B widths (dim 5120, 40 x 128 heads, ffn 13824, audio_dim
-    1024 over 25 wav2vec2 layers, 4 audio tokens) with 4 of 40 layers and injections after
-    layers (0, 2), umt5-xxl at 2 of 24 layers, the full Wan2.1 VAE, random weights, 2 of 50
+    1024 over 25 wav2vec2 layers, 4 audio tokens) with 2 of 40 layers and injections after
+    layers (0, 1), umt5-xxl at 2 of 24 layers, the full Wan2.1 VAE, random weights, 2 of 50
     steps at CFG 5.0: (a) audio_embeds from wav2vec2 on the card at 81x480x832 (32,760
     self tokens, audio B = 20 at 1,560 x 5), (b) with a pose video at 33 frames, (c) a
     motion request (73-frame motion video) at 448x832 and 17 frames, (d) one step with
@@ -3264,7 +3277,8 @@ def phase_s2v():
     from goal_force_tpu_torch.ops import flash_attention as fa
     from goal_force_tpu_torch.pipelines.s2v import S2VPipeline
 
-    cfg = dataclasses.replace(s2vm.WAN22_S2V_14B, num_layers=4, audio_inject_layers=(0, 2))
+    cfg = dataclasses.replace(s2vm.WAN22_S2V_14B, num_layers=S2V_LAYERS,
+                              audio_inject_layers=(0, 1))
     t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
     pipe, secs = sync_time(lambda: S2VPipeline.init_random(
         seed=21, cfg=cfg, t5_cfg=t5_cfg, vae_cfg=C.WAN21_VAE, dtype=torch.bfloat16,
@@ -3370,7 +3384,8 @@ def _s2v_unbounded_step(pipe, audio, image):
             blk.self_attn.norm_q.weight.div_(8)
     check(tuple(out.shape) == tuple(lat.shape) and bool(torch.isfinite(out.float()).all()),
           "s2v unbounded step: bad output")
-    check(launches == only(K1=12, K2=8), f"s2v unbounded step launched {launches}")
+    check(launches == only(K1=2 * (S2V_LAYERS + 2), K2=2 * S2V_LAYERS),
+          f"s2v unbounded step launched {launches}")
     log("s2v", stage="d_unbounded_step", seconds=secs, launches=launches)
     real_bound = fa.logit_bound
     times = {"with_bound": [], "bound_replaced": []}
@@ -3555,7 +3570,7 @@ def phase_small_hunyuan():
     return {"K1": sum(r["launches"] for r in rec.values())}
 
 
-def _hunyuan_k1(shape, kv_len, gen):
+def _hunyuan_k1(shape, kv_len, gen, phase="hunyuan"):
     """K1 with its clamp (dispatch "nomax", as the joint attention calls it) on random bf16
     q, k, v of `shape` with per-row kv_len: against its plain version (timed on that run),
     then timed with SDPA given the same key mask. The bound counts the keys each row
@@ -3572,7 +3587,7 @@ def _hunyuan_k1(shape, kv_len, gen):
     check(launched == only(K1=1), f"K1 hunyuan {shape}: launched {launched}")
     name = f"K1 hunyuan {shape} kv_len {list(kv_len)} bf16"
     ref, plain_ms = timed_call(lambda: plain(q, k, v))
-    err = compare(name, got, ref, atol=bf16_limit(ref), rtol=0.0, phase="hunyuan")
+    err = compare(name, got, ref, atol=bf16_limit(ref), rtol=0.0, phase=phase)
     del got, ref
     torch.cuda.empty_cache()
     flops = 4 * n * h * s * sum(kv_len)
@@ -3586,7 +3601,7 @@ def _hunyuan_k1(shape, kv_len, gen):
                library_ms=event_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
                                                 v.transpose(1, 2), attn_mask=keep)),
                shape=f"{shape}x{shape}", kv_len=list(kv_len))
-    log("hunyuan", case=f"{name} timing", **rec)
+    log(phase, case=f"{name} timing", **rec)
     del q, k, v
     torch.cuda.empty_cache()
     return rec
@@ -3679,11 +3694,367 @@ def phase_hunyuan():
     check(len(kv_seen) == HY_K1_PER_STEP * HY_STEPS and len(path_kv) == 1
           and img_tokens < path_kv[0][0] <= HY_SELF[1],
           f"hunyuan request: {len(kv_seen)} joint attentions with kv_len {path_kv}")
-    del pipe, dit, llama, clip, dec, frames, kv_seen
+    del pipe, frames, kv_seen
     torch.cuda.empty_cache()
     gen = torch.Generator("cuda").manual_seed(82)
     rec = {"path": _hunyuan_k1(HY_SELF, path_kv[0], gen),
            "b2": _hunyuan_k1(HY_B2, HY_B2_KV, gen)}
+    # the full-width modules stay resident for hunyuan_i2v
+    return launches, rec, {"dit": dit, "llama": llama, "clip": clip, "dec": dec}
+
+
+# HunyuanVideo-I2V: a 33-frame cut of the T2V request's 129 (9 latent frames)
+HY_I2V_FRAMES = 33
+HY_I2V_IMAGE_TOKENS = 9 * 45 * 80
+HY_I2V_NEGATIVE = "blurry, low quality, static"
+# Llama-3's ids of the template's special tokens, LLaVA's <image> and the double return
+# that the MLLM crop anchors on; every other word hashes into the vocabulary
+LLAMA_SPECIAL_IDS = {"<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+                     "<|eot_id|>": 128009, "<image>": 128257, "\n\n": 271, "\n": 198}
+
+
+def llama_hash_tokenizer(length):
+    """A TextTokenizer for the Llama prompts (no Llama tokenizer ships with the repo):
+    the template's special tokens, <image> and the double and single returns at their
+    Llama-3 / LLaVA ids, every other word or punctuation mark at a crc32 hash in
+    [1000, 128000). Pads with 128004."""
+    import re
+    import zlib
+
+    from goal_force_tpu_torch.prompters import TextTokenizer
+
+    special = re.compile("(" + "|".join(re.escape(t) for t in sorted(
+        LLAMA_SPECIAL_IDS, key=len, reverse=True)) + ")")
+
+    def encode(text):
+        ids = []
+        for piece in special.split(text):
+            if piece in LLAMA_SPECIAL_IDS:
+                ids.append(LLAMA_SPECIAL_IDS[piece])
+            else:
+                ids += [1000 + zlib.crc32(w.encode()) % 127000
+                        for w in re.findall(r"\w+|[^\w\s]", piece)]
+        return ids
+
+    return TextTokenizer(encode, length, pad_id=128004)
+
+
+def phase_hunyuan_i2v(models):
+    """HunyuanVideo-I2V on hunyuan's resident full-width modules (the DiT, the 32-layer
+    Llama as LLaVA's language model, CLIP-L, the VAE decoder) plus a full-width vision
+    tower (CLIP-L/14-336: 24 layers, 1024 wide, 16 heads), the projector and the VAE
+    encoder, random bf16 from a seed. One request: a 720x1280 image, 33 frames, 2 steps,
+    CFG 6.0 with a negative prompt (B = 2: the image row's 144 image features + its text
+    against the negative row's text, padded to one length), token replace and
+    i2v_stability, tiled decode. Checks 120 K1 and no K2, the two rows' kv_len differing
+    in every joint attention, finite (1, 33, 720, 1280, 3) frames; logs the LLaVA encode,
+    step and decode seconds and the peak. Then K1 at the request's own shape with its two
+    kv_len against its plain version, timed with its bound and SDPA."""
+    from goal_force_tpu_torch.models import hunyuan_video_dit as hd
+    from goal_force_tpu_torch.models import hunyuan_video_vae as hv
+    from goal_force_tpu_torch.models import llava as llm
+    from goal_force_tpu_torch.models.sd_text_encoder import SD_TEXT_CONFIG
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import hunyuan_video as hp
+    from goal_force_tpu_torch.prompters import hunyuan_video_clip_tokenizer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(83)
+    cfg, vae_cfg, llava_cfg = hd.HunyuanVideoDiTConfig(), hv.HunyuanVAEConfig(), llm.LlavaConfig()
+    (llava, enc), init_s = sync_time(lambda: (
+        llm.init_llava(llava_cfg, gen, torch.bfloat16, device="cuda",
+                       language_model=models["llama"]),
+        hv.init_hunyuan_vae(hv.HunyuanVAEEncoder, vae_cfg, gen, torch.bfloat16, device="cuda")))
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("hunyuan_i2v", stage="init", seconds=init_s, vision_params=count(llava.vision_tower),
+        projector_params=count(llava.multi_modal_projector), vae_encoder_params=count(enc),
+        gib=torch.cuda.memory_allocated() / 2**30)
+    encode = hp.make_llava_prompt_encoder(llava, llava_cfg, models["clip"], SD_TEXT_CONFIG,
+                                          cfg.txt_len, tokenize_llama=llama_hash_tokenizer(
+                                              cfg.txt_len),
+                                          tokenize_clip=hunyuan_video_clip_tokenizer())
+    encode_video, decode = hp.vae_codecs({"encoder": enc, "decoder": models["dec"]}, vae_cfg)
+    stages = {"text_s": [], "text_tokens": [], "step_s": []}
+
+    def timed_encode(prompt, images=None):
+        out, secs = sync_time(lambda: encode(prompt, images))
+        stages["text_s"].append(secs)
+        stages["text_tokens"].append(out[0].shape[1])
+        return out
+
+    def timed_image(v, **tk):
+        out, stages["image_encode_s"] = sync_time(lambda: encode_video(v, **tk))
+        return out
+
+    def timed_decode(z, **tk):
+        out, stages["decode_s"] = sync_time(lambda: decode(z, **tk))
+        return out
+
+    pipe = hp.HunyuanVideoPipeline(dit=models["dit"], dit_cfg=cfg, encode_prompt=timed_encode,
+                                   decode_video=timed_decode, encode_video=timed_image,
+                                   dtype=torch.bfloat16)
+    step = pipe._step
+
+    def timed_step(*a, **kw):
+        out, secs = sync_time(lambda: step(*a, **kw))
+        stages["step_s"].append(secs)
+        return out
+
+    pipe._step = timed_step
+    attention, kv_seen = hd.attention, []
+
+    def recording_attention(*a, **kw):
+        kv_seen.append(kw["kv_len"])
+        return attention(*a, **kw)
+
+    image = np.random.default_rng(84).uniform(0, 1, (HY_HEIGHT, HY_WIDTH, 3)).astype(np.float32)
+    hd.attention = recording_attention
+    fa.reset_launch_counts()
+    try:
+        frames, secs = sync_time(lambda: pipe(
+            HY_PROMPT, negative_prompt=HY_I2V_NEGATIVE, cfg_scale=6.0, input_images=image,
+            height=HY_HEIGHT, width=HY_WIDTH, num_frames=HY_I2V_FRAMES,
+            num_inference_steps=HY_STEPS, embedded_guidance=6.0, seed=8, tiled=True))
+    finally:
+        hd.attention = attention
+    launches = dict(fa.launch_counts)
+    rows_kv = sorted({tuple(t.tolist()) for t in kv_seen})
+    shape = (1, HY_I2V_FRAMES, HY_HEIGHT, HY_WIDTH, 3)
+    finite = bool(np.isfinite(frames).all())
+    tokens = HY_I2V_IMAGE_TOKENS + max(stages["text_tokens"])
+    log("hunyuan_i2v", stage="request", seconds=secs, **stages, launches=launches,
+        k1_per_step=HY_K1_PER_STEP, steps=HY_STEPS, tokens=tokens, kv_len=rows_kv,
+        frames_shape=list(frames.shape), finite=finite, frames_mean=float(frames.mean()),
+        frames_std=float(frames.std()), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(launches == only(K1=HY_K1_PER_STEP * HY_STEPS),
+          f"hunyuan_i2v request launched {launches}")
+    check(tuple(frames.shape) == shape and finite,
+          f"hunyuan_i2v frames {frames.shape}, finite {finite}")
+    check(len(kv_seen) == HY_K1_PER_STEP * HY_STEPS and len(rows_kv) == 1
+          and len(rows_kv[0]) == 2 and rows_kv[0][0] != rows_kv[0][1]
+          and all(HY_I2V_IMAGE_TOKENS < n <= tokens for n in rows_kv[0]),
+          f"hunyuan_i2v: {len(kv_seen)} joint attentions with kv_len {rows_kv}")
+    check(stages["text_tokens"][0] == 144 + cfg.txt_len - 4
+          and stages["text_tokens"][1] == cfg.txt_len,
+          f"hunyuan_i2v prompt lengths {stages['text_tokens']}")
+    del pipe, frames, kv_seen, llava, enc
+    models.clear()
+    gc.collect()     # the timed pipelines' bound methods form cycles with them
+    torch.cuda.empty_cache()
+    rec = _hunyuan_k1((2, tokens, 24, 128), rows_kv[0], torch.Generator("cuda").manual_seed(85),
+                      phase="hunyuan_i2v")
+    return launches, rec
+
+
+def _small_llava_config():
+    from goal_force_tpu_torch.models import clip as clipm
+    from goal_force_tpu_torch.models import llava as llm
+    from goal_force_tpu_torch.models import text_encoders as te
+
+    return llm.LlavaConfig(
+        text=te.LlamaConfig(hidden_size=256, num_layers=2, num_heads=2, num_kv_heads=1,
+                            intermediate_size=512, vocab=1000),
+        vision=clipm.CLIPConfig(image_size=336, patch_size=14, vision_dim=128,
+                                vision_heads=2, vision_layers=3))
+
+
+def phase_small_cog():
+    """The LLaVA tower and CogVideoX on the card against the port on the CPU, float32
+    with TF32 off, on the same weights and inputs: llava_encode at a small config (576
+    image tokens, 2 rows; within 1e-4 of the output's scale); a CogVideoX request on the
+    tiny DiT and T5 with a 16-channel tiny VAE decoder (CFG 6.0, 2 DDIM steps, 9 frames
+    at 32x48; within 1e-4 of the frames' scale); the chunked plain attention with a bias
+    and per-row kv_len (8 blocks) against the CPU's unchunked one. No kernel launches."""
+    import copy
+
+    from goal_force_tpu_torch.models import cog_vae as cv
+    from goal_force_tpu_torch.models import llava as llm
+    from goal_force_tpu_torch.ops import attention as attn
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import cog_video as cp
+
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {}
+    try:
+        fa.reset_launch_counts()
+        cfg = _small_llava_config()
+        cpu = llm.init_llava(cfg, torch.Generator().manual_seed(91), torch.float32, device="cpu")
+        rng = np.random.default_rng(92)
+        ids = rng.integers(2, cfg.text.vocab, size=(2, 20))
+        ids[0, 4], ids[1, 9] = cfg.image_token_id, cfg.image_token_id
+        mask = np.ones((2, 20), np.int32)
+        mask[1, 15:] = 0
+        pixels = torch.from_numpy(np.stack([llm.clip_preprocess_image(
+            rng.uniform(0, 1, (200 + 40 * i, 300, 3)).astype(np.float32)) for i in range(2)]))
+        want = llm.llava_encode(cpu, cfg, ids, pixels, torch.from_numpy(mask))
+        got = llm.llava_encode(copy.deepcopy(cpu).to("cuda"), cfg, ids, pixels.cuda(),
+                               torch.from_numpy(mask).cuda())
+        scale = float(want.abs().max())
+        rec["llava"] = compare("small_cog llava_encode cuda vs cpu", got.cpu(), want,
+                               atol=1e-4 * scale, rtol=0.0, phase="small_cog")
+
+        vae_cfg = dataclasses.replace(cv.tiny_cog_vae_config(), latent_dim=16)
+        pipe = cp.CogVideoPipeline.init_random(seed=93, device="cpu")
+        dec = cv.init_cog_vae(cv.CogVAEDecoder, vae_cfg, torch.Generator().manual_seed(94),
+                              device="cpu")
+        pipe.decode_video = cp.cog_vae_codec(dec, vae_cfg, "decoder")
+        noise = torch.randn((1, 3, 4, 6, 16), generator=torch.Generator().manual_seed(95))
+        kw = dict(prompt="a ball rolls left", negative_prompt="blurry", cfg_scale=6.0,
+                  num_frames=9, height=32, width=48, num_inference_steps=2, noise=noise)
+        want = pipe(**kw)
+        gpu = cp.CogVideoPipeline(dit=copy.deepcopy(pipe.dit).to("cuda"),
+                                  t5=copy.deepcopy(pipe.t5).to("cuda"), dit_cfg=pipe.dit_cfg,
+                                  t5_cfg=pipe.t5_cfg, dtype=torch.float32)
+        gpu.decode_video = cp.cog_vae_codec(copy.deepcopy(dec).to("cuda"), vae_cfg, "decoder")
+        got = gpu(**kw)
+        scale = float(np.abs(want).max())
+        rec["cog"] = compare("small_cog CogVideoX request cuda vs cpu", torch.from_numpy(got),
+                             torch.from_numpy(want), atol=1e-4 * scale, rtol=0.0,
+                             phase="small_cog")
+
+        g = torch.Generator().manual_seed(96)
+        q, k, v = (torch.randn(s, generator=g) for s in ((2, 37, 3, 64), (2, 29, 3, 64),
+                                                          (2, 29, 3, 64)))
+        bias = torch.randn((2, 3, 37, 29), generator=g)
+        kv_len = torch.tensor([29, 17])
+        want = attn.plain_attention(q, k, v, 0.125, bias, kv_len)
+        budget = attn.PLAIN_LOGITS_BYTES
+        attn.PLAIN_LOGITS_BYTES = 4 * 2 * 3 * 29 * 5     # 5 rows per block: 8 blocks
+        try:
+            got = attn.plain_attention(*(t.cuda() for t in (q, k, v)), 0.125, bias.cuda(),
+                                       kv_len.cuda())
+        finally:
+            attn.PLAIN_LOGITS_BYTES = budget
+        rec["chunked"] = compare("small_cog chunked plain_attention cuda vs unchunked cpu",
+                                 got.cpu(), want, atol=1e-5, rtol=0.0, phase="small_cog")
+        torch.cuda.synchronize()
+        check(dict(fa.launch_counts) == only(), f"small_cog launched {dict(fa.launch_counts)}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    log("small_cog", **rec)
+    torch.cuda.empty_cache()
+
+
+# CogVideoX-5B at its widths, cut in depth; JAX's defaults: 49 frames at 480x720 (13 x
+# 30 x 45 = 17,550 video + 226 text tokens), CFG 7.0 as one batch of 2, untiled decode
+COG_FRAMES, COG_HEIGHT, COG_WIDTH, COG_STEPS = 49, 480, 720, 2
+COG_BLOCKS, COG_T5_LAYERS = 4, 2
+COG_ATTN = (2, 13 * 30 * 45 + 226, 48, 64)
+COG_UNCHUNKED = (2, 4096, 48, 64)        # 6 GiB of float32 logits: held whole on the card
+COG_PROMPT = ("A golden retriever chases a red ball across a sunny lawn, "
+              "the ball bounces off a wooden fence and rolls back.")
+
+
+def phase_cog():
+    """CogVideoX-5B at its widths (dim 3072, 48x64 heads, text_dim 4096, the VAE at
+    (128, 256, 256, 512)), cut to 4 of 42 DiT blocks and T5 v1.1 XXL at 2 of 24 layers,
+    random bf16 weights from a seed, the vendored spiece tokenizer: one request at JAX's
+    defaults (49 frames at 480x720, CFG 7.0 as B = 2, untiled decode), 2 DDIM steps
+    (v-prediction, zero-terminal SNR). No kernel launches (head_dim 64 runs the plain
+    attention); finite (1, 49, 480, 720, 3) frames; logs the T5, step and decode seconds
+    and the peak. Then the chunked plain attention at Cog's shape (2, 17,776, 48, 64)
+    bf16 against SDPA on the same tensors (two bf16 ulps), both timed, with the chunk's
+    peak; and the chunked against the unchunked one at (2, 4,096, 48, 64)."""
+    from goal_force_tpu_torch import configs as C
+    from goal_force_tpu_torch.models import cog_dit as cd
+    from goal_force_tpu_torch.models import cog_vae as cv
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.ops import attention as attn
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import cog_video as cp
+    from goal_force_tpu_torch.prompters import cog_tokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(97)
+    cfg = dataclasses.replace(cd.CogDiTConfig(), num_blocks=COG_BLOCKS)
+    t5_cfg = dataclasses.replace(C.T5_V1_1_XXL, num_layers=COG_T5_LAYERS, text_len=226)
+    vae_cfg = cv.CogVAEConfig()
+    (dit, t5, dec), init_s = sync_time(lambda: (
+        cd.init_cog_dit(cfg, gen, torch.bfloat16, device="cuda"),
+        t5m.init_t5(t5_cfg, gen, torch.bfloat16, device="cuda"),
+        cv.init_cog_vae(cv.CogVAEDecoder, vae_cfg, gen, torch.bfloat16, device="cuda")))
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("cog", stage="init", seconds=init_s, dit_params=count(dit), t5_params=count(t5),
+        vae_decoder_params=count(dec), gib=torch.cuda.memory_allocated() / 2**30)
+    decode = cp.cog_vae_codec(dec, vae_cfg, "decoder")
+    stages = {"step_s": []}
+
+    def timed_decode(z, **tk):
+        out, stages["decode_s"] = sync_time(lambda: decode(z, **tk))
+        return out
+
+    pipe = cp.CogVideoPipeline(dit=dit, t5=t5, dit_cfg=cfg, t5_cfg=t5_cfg,
+                               tokenize=cog_tokenizer(), decode_video=timed_decode,
+                               dtype=torch.bfloat16)
+    encode_text, velocity = pipe._encode_text, pipe._velocity
+
+    def timed_text(prompts):
+        out, stages["t5_s"] = sync_time(lambda: encode_text(prompts))
+        return out
+
+    def timed_velocity(*a):
+        out, secs = sync_time(lambda: velocity(*a))
+        stages["step_s"].append(secs)
+        return out
+
+    pipe._encode_text, pipe._velocity = timed_text, timed_velocity
+    fa.reset_launch_counts()
+    frames, secs = sync_time(lambda: pipe(COG_PROMPT, num_frames=COG_FRAMES, height=COG_HEIGHT,
+                                          width=COG_WIDTH, num_inference_steps=COG_STEPS,
+                                          cfg_scale=7.0, seed=9))
+    launches = dict(fa.launch_counts)
+    shape = (1, COG_FRAMES, COG_HEIGHT, COG_WIDTH, 3)
+    finite = bool(np.isfinite(frames).all())
+    log("cog", stage="request", seconds=secs, **stages, launches=launches, steps=COG_STEPS,
+        tokens=COG_ATTN[1], frames_shape=list(frames.shape), finite=finite,
+        frames_mean=float(frames.mean()), frames_std=float(frames.std()),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(launches == only(), f"cog request launched {launches}")
+    check(tuple(frames.shape) == shape and finite, f"cog frames {frames.shape}, finite {finite}")
+    del pipe, dit, t5, dec, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(98)
+    scale = 64 ** -0.5
+    q, k, v = (_rand(COG_ATTN, gen, torch.bfloat16) for _ in range(3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, plain_ms = timed_call(lambda: attn.plain_attention(q, k, v, scale))
+    chunk_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    ref = sdpa()
+    err = compare(f"cog chunked plain_attention {COG_ATTN} bf16 vs SDPA", got, ref,
+                  atol=bf16_limit(ref), rtol=0.0, phase="cog")
+    b, s, n, h = COG_ATTN
+    bound, by = kernel_bound_ms(4 * b * n * s * s * h, 2 * 4 * b * s * n * h)
+    rec = dict(shape=list(COG_ATTN), max_abs_err=err, plain_ms=plain_ms,
+               plain_warm_ms=event_ms(lambda: attn.plain_attention(q, k, v, scale)),
+               sdpa_ms=event_ms(sdpa), bound_ms=bound, bound_by=by,
+               rows_per_block=max(1, attn.PLAIN_LOGITS_BYTES // (4 * b * n * s)),
+               chunk_peak_gib=chunk_peak)
+    log("cog", case="chunked plain_attention timing", **rec)
+    del q, k, v, got, ref
+    torch.cuda.empty_cache()
+    q, k, v = (_rand(COG_UNCHUNKED, gen, torch.bfloat16) for _ in range(3))
+    got = attn.plain_attention(q, k, v, scale)
+    budget = attn.PLAIN_LOGITS_BYTES
+    attn.PLAIN_LOGITS_BYTES = 1 << 62
+    try:
+        ref = attn.plain_attention(q, k, v, scale)
+    finally:
+        attn.PLAIN_LOGITS_BYTES = budget
+    rec["unchunked_max_abs_err"] = compare(
+        f"cog chunked vs unchunked plain_attention {COG_UNCHUNKED} bf16", got, ref,
+        atol=bf16_limit(ref), rtol=0.0, phase="cog")
+    del q, k, v, got, ref
+    torch.cuda.empty_cache()
     return launches, rec
 
 
@@ -3711,6 +4082,7 @@ def _main() -> int:
     started("small_int8", phase_small_int8)
     small_s2v_launches = started("small_s2v", phase_small_s2v)
     small_hy_launches = started("small_hunyuan", phase_small_hunyuan)
+    started("small_cog", phase_small_cog)
     pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
     sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
     started("tools", phase_tools)
@@ -3727,7 +4099,10 @@ def _main() -> int:
     s2v_launches, sharded_s2v_launches = started("s2v", phase_s2v)
     image_launches = started("image_branch", phase_image_branch)
     started("vae38", phase_vae38)
-    hy_launches, hy_rec = started("hunyuan", phase_hunyuan)
+    hy_launches, hy_rec, hy_models = started("hunyuan", phase_hunyuan)
+    i2v_launches, i2v_rec = started("hunyuan_i2v", phase_hunyuan_i2v, hy_models)
+    del hy_models
+    cog_launches, cog_rec = started("cog", phase_cog)
     train_launches, train_run = started("train", phase_train)
     sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
@@ -3761,7 +4136,9 @@ def _main() -> int:
                                                 "image_cross")},
               "small_hunyuan_launches": small_hy_launches["K1"],
               "hunyuan_launches": hy_launches["K1"], "hunyuan_path": hy_rec["path"],
-              "hunyuan_b2": hy_rec["b2"]}),
+              "hunyuan_b2": hy_rec["b2"],
+              "hunyuan_i2v_launches": i2v_launches["K1"], "hunyuan_i2v_path": i2v_rec,
+              "cog_launches": cog_launches["K1"]}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],

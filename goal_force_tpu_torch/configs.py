@@ -137,6 +137,9 @@ class PipelineConfig:
 WAN22_A14B = WanDiTConfig()
 WAN21_1_3B = WanDiTConfig(dim=1536, in_dim=16, ffn_dim=8960, num_heads=12, num_layers=30)
 UMT5_XXL = T5Config()
+# google/t5-v1_1-xxl (CogVideoX, Flux, SD3): umt5-xxl's geometry with a 32,128-piece
+# vocabulary and one relative position bias shared by every layer
+T5_V1_1_XXL = T5Config(vocab=32128, shared_pos=True)
 WAN21_VAE = VAEConfig()
 
 

@@ -9,12 +9,19 @@ or a shape that does not fit, raises. The kinds:
 
   - ``hunyuan_video_dit`` (``infer_hunyuan_video_config``), ``hunyuan_video_vae`` (the
     encoder half, the decoder half, or both as {"encoder", "decoder"}), ``llama``
-    (``infer_llama_config``; keys with or without ``model.``) and ``clip_text`` (its SD
-    branch: ``infer_clip_config``);
+    (``infer_llama_config``; keys with or without ``model.``), ``llava``
+    (``infer_llava_config``; either key layout, the ``lm_head`` dropped) and ``clip_text``
+    (its SD branch: ``infer_clip_config``);
+  - ``cog_dit`` (``infer_cog_config``), ``cog_vae`` (one half in the reference layout:
+    its decoder or its encoder; the config from ``config=`` or ``vae_cfg=``, else the
+    released one) and ``t5_encoder`` (T5 v1.1: ``infer_t5_v11_config``);
   - the Wan kinds, through the port's own loaders (``io/detect.py::convert_detected``).
 
 Every other detected kind raises ``NotImplementedError`` naming its ROADMAP item.
-``load_model`` returns {"kind", "config", "model"}.
+``load_model`` returns {"kind", "config", "model"}. A Cog VAE half in the reference layout
+is detected here (a 5-D ``conv_in`` and ``blocks.0.conv1``): JAX's detection, which the port
+keeps whole, names it a 2D VAE half, and JAX's pipeline reads it through its converters
+without detection.
 """
 
 from __future__ import annotations
@@ -30,14 +37,11 @@ WAN_KINDS = ("wan_dit", "umt5_xxl", "wan_vae", "wan_vae38", "wan_image_encoder",
 
 # The ROADMAP item that ports each detected kind not ported yet.
 ROADMAP_ITEMS = {
-    "llava": "queue 1 head: LLaVA, HunyuanVideo-I2V's MLLM prompt tower (M14b)",
-    **{k: "M14b (CogVideoX, StepVideo)" for k in (
-        "cog_dit", "cog_vae", "stepvideo_dit", "stepvideo_vae", "step1_llm")},
+    **{k: "M14b (StepVideo)" for k in ("stepvideo_dit", "stepvideo_vae", "step1_llm")},
     **{k: "M14c (Flux, SD3, Qwen-Image, Nexus-Gen, HunyuanDiT, OmniGen)" for k in (
         "flux_dit", "flux_controlnet", "step1x_connector", "sd3_dit", "sd3_vae_encoder",
         "sd3_vae_decoder", "qwen_image_dit", "qwen_image_controlnet", "qwen_image_vae",
         "qwen_vl_text", "qwen_vl_vision", "hunyuan_dit", "bert", "omnigen")},
-    "t5_encoder": "M14a (T5 v1.1's shared position bias)",
     **{k: "M14d (SD, SDXL, Kolors, SVD, AnimateDiff)" for k in (
         "sd_civitai", "sd_unet", "sdxl_civitai", "sdxl_unet", "svd_unet", "svd_vae",
         "sd_motion", "sd_controlnet", "sdxl_controlnet", "ipadapter", "chatglm",
@@ -109,6 +113,65 @@ def infer_llama_config(sd, num_heads: Optional[int] = None, prefix: str = ""):
     )
 
 
+def infer_llava_config(sd, num_heads: Optional[int] = None,
+                       image_token_id: Optional[int] = None):
+    """LlavaConfig from the shapes: the vision tower's geometry from its embeddings, the
+    Llama core through ``infer_llama_config``."""
+    from goal_force_tpu_torch.models.clip import CLIPConfig
+    from goal_force_tpu_torch.models.llava import LlavaConfig, llava_layout
+
+    lm, vt, _ = llava_layout(sd)
+    vision_dim, _, patch_size, _ = _shape(sd, vt + "vision_model.embeddings.patch_embedding.weight")
+    n_pos = _shape(sd, vt + "vision_model.embeddings.position_embedding.weight")[0]
+    vision = CLIPConfig(
+        image_size=int(round((n_pos - 1) ** 0.5)) * patch_size, patch_size=patch_size,
+        vision_dim=vision_dim, vision_heads=max(1, vision_dim // 64),
+        vision_layers=_max_index(sd, vt + "vision_model.encoder.layers."),
+        hidden_act="quick_gelu")
+    extra = {} if image_token_id is None else {"image_token_id": image_token_id}
+    return LlavaConfig(text=infer_llama_config(sd, num_heads=num_heads, prefix=lm),
+                       vision=vision, **extra)
+
+
+def infer_cog_config(sd, rope_dim: Optional[int] = None):
+    """CogDiTConfig from the shapes. The head count comes from the per-head q norm (JAX
+    keeps the default 48, which fits only the released width); rope_dim defaults to JAX's
+    guess from the width."""
+    from goal_force_tpu_torch.models.cog_dit import CogDiTConfig
+
+    dim = _shape(sd, "patchify.proj.weight")[0]
+    return CogDiTConfig(
+        dim=dim, num_heads=dim // _shape(sd, "blocks.0.norm_q.weight")[0],
+        cond_dim=_shape(sd, "time_embedder.timestep_embedder.0.weight")[0],
+        num_blocks=_max_index(sd, "blocks."),
+        text_dim=_shape(sd, "context_embedder.weight")[1],
+        freq_dim=_shape(sd, "time_embedder.timestep_embedder.0.weight")[1],
+        rope_dim=rope_dim if rope_dim else (64 if dim % 48 == 0 else 16),
+    )
+
+
+def infer_t5_v11_config(sd, num_heads: Optional[int] = None):
+    from goal_force_tpu_torch.configs import T5Config
+
+    vocab, dim = _shape(sd, "token_embedding.weight")
+    dim_attn = _shape(sd, "blocks.0.attn.q.weight")[0]
+    gate = "blocks.0.ffn.gate.0.weight"
+    return T5Config(
+        vocab=vocab, dim=dim, dim_attn=dim_attn,
+        dim_ffn=_shape(sd, gate)[0] if gate in sd else _shape(sd, "blocks.0.ffn.fc1.weight")[0],
+        num_heads=num_heads or max(1, dim_attn // 64),
+        num_layers=_max_index(sd, "blocks."),
+        num_buckets=_shape(sd, "pos_embedding.embedding.weight")[0],
+        shared_pos=True,
+    )
+
+
+def _is_cog_vae(sd) -> bool:
+    """A Cog VAE half in the reference layout: 3D ``conv_in`` and ``blocks.0.conv1``."""
+    return all(k in sd and len(_shape(sd, k)) == 5
+               for k in ("conv_in.weight", "blocks.0.conv1.weight"))
+
+
 def infer_clip_config(sd, num_heads: Optional[int] = None):
     """CLIPConfig of a CLIP text tower without a projection, in the reference naming."""
     from goal_force_tpu_torch.models.clip import CLIPConfig
@@ -142,7 +205,7 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
 
     device = resolve_device(device)
     sd = load_weights(path_or_sd)
-    kind = kind or detect_model_kind(sd)
+    kind = kind or ("cog_vae" if _is_cog_vae(sd) else detect_model_kind(sd))
     if dtype is None:
         dtype = next((v.dtype for v in sd.values() if v.is_floating_point()), torch.float32)
 
@@ -178,6 +241,27 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
         cfg = config or infer_llama_config(sd, prefix=prefix, **infer_kw)
         sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
         return out(cfg, _strict(LlamaModel, cfg, sd, kind, dtype, device))
+    if kind == "llava":
+        from goal_force_tpu_torch.models.llava import LlavaModel, llava_state_dict
+
+        cfg = config or infer_llava_config(sd, **infer_kw)
+        return out(cfg, _strict(LlavaModel, cfg, llava_state_dict(sd), kind, dtype, device))
+    if kind == "cog_dit":
+        from goal_force_tpu_torch.models.cog_dit import CogDiT
+
+        cfg = config or infer_cog_config(sd, **infer_kw)
+        return out(cfg, _strict(CogDiT, cfg, sd, kind, dtype, device))
+    if kind == "cog_vae":
+        from goal_force_tpu_torch.models import cog_vae as cv
+
+        cfg = config or infer_kw.get("vae_cfg") or cv.CogVAEConfig()
+        cls = cv.CogVAEDecoder if cv.cog_vae_side(sd) == "decoder" else cv.CogVAEEncoder
+        return out(cfg, _strict(cls, cfg, sd, kind, dtype, device))
+    if kind == "t5_encoder":
+        from goal_force_tpu_torch.models.t5 import T5Encoder
+
+        cfg = config or infer_t5_v11_config(sd, **infer_kw)
+        return out(cfg, _strict(T5Encoder, cfg, sd, kind, dtype, device))
     if kind == "clip_text":
         from goal_force_tpu_torch.models.clip import CLIPTextModel
 

@@ -34,7 +34,11 @@ the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) 
     matmul -> Conv3d), ``llama`` (HF LlamaModel keys, the final norm as ones),
     ``clip_text`` (the SD text encoder's ``encoders.{i}``), ``hunyuan_vae_encoder`` and
     ``hunyuan_vae_decoder`` (``*.conv`` under each causal conv, the 1x1x1
-    ``quant_conv``/``post_quant_conv``).
+    ``quant_conv``/``post_quant_conv``);
+  - ``llava`` (the HF CLIP vision names under ``vision_tower.vision_model.``, the
+    projector, ``language_model.model.*`` with the final norm), ``cog_dit``,
+    ``cog_vae_encoder`` / ``cog_vae_decoder`` (a resample's (kh, kw, C, C) conv ->
+    ``blocks.{i}.conv``) and ``t5_v1_1`` (the one shared ``pos_embedding``).
 
 ``lora_from_jax(tree)`` carries a JAX LoRA adapter tree (``goal_force_tpu/lora.py``,
 ``{target: {"a": (L, in, r), "b": (L, r, out)}}``) into the port's ``lora.py``, whose
@@ -181,10 +185,14 @@ def controlnet_state_dict(p: Mapping, patch_size=(1, 2, 2)) -> StateDict:
     return sd
 
 
-def t5_state_dict(p: Mapping) -> StateDict:
+def t5_state_dict(p: Mapping, shared_pos: bool = False) -> StateDict:
+    """umt5's tree, or with `shared_pos` T5 v1.1's, whose one relative-position table is
+    layer 0's (the other layers' tables are unused)."""
     sd: StateDict = {"token_embedding.weight": _t(p["token_embedding"]),
                      "norm.weight": _t(p["norm"]["w"])}
     blocks = p["blocks"]
+    if shared_pos:
+        sd["pos_embedding.embedding.weight"] = _t(np.asarray(blocks["pos_embedding"])[0])
     for i in range(int(np.asarray(blocks["norm1"]["w"]).shape[0])):
         b, pre = _layer(blocks, i), f"blocks.{i}"
         sd[f"{pre}.norm1.weight"] = _t(b["norm1"]["w"])
@@ -194,7 +202,8 @@ def t5_state_dict(p: Mapping) -> StateDict:
         _lin(sd, f"{pre}.ffn.gate.0", b["ffn"]["gate"], bias=False)
         _lin(sd, f"{pre}.ffn.fc1", b["ffn"]["fc1"], bias=False)
         _lin(sd, f"{pre}.ffn.fc2", b["ffn"]["fc2"], bias=False)
-        sd[f"{pre}.pos_embedding.embedding.weight"] = _t(b["pos_embedding"])
+        if not shared_pos:
+            sd[f"{pre}.pos_embedding.embedding.weight"] = _t(b["pos_embedding"])
     return sd
 
 
@@ -447,6 +456,95 @@ def clip_text_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
+def _hf_clip_vision(sd: StateDict, prefix: str, v: Mapping) -> None:
+    """JAX's CLIP vision tree -> HF ``CLIPVisionTransformer`` keys under `prefix`."""
+    sd[prefix + "embeddings.patch_embedding.weight"] = _t(
+        np.asarray(v["patch_w"]).transpose(3, 2, 0, 1))
+    sd[prefix + "embeddings.class_embedding"] = _t(v["cls_emb"])
+    sd[prefix + "embeddings.position_embedding.weight"] = _t(v["pos_emb"])
+    _ln(sd, prefix + "pre_layrnorm", v["ln_pre"])
+    _ln(sd, prefix + "post_layernorm", v["ln_post"])
+    for i in range(int(np.asarray(v["blocks"]["fc1_w"]).shape[0])):
+        b, pre = _layer(v["blocks"], i), f"{prefix}encoder.layers.{i}"
+        _ln(sd, pre + ".layer_norm1", b["ln1"])
+        _ln(sd, pre + ".layer_norm2", b["ln2"])
+        for proj, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            _lin(sd, f"{pre}.self_attn.{name}", {"w": b["attn"][proj + "_w"],
+                                                  "b": b["attn"][proj + "_b"]})
+        for fc in ("fc1", "fc2"):
+            _lin(sd, f"{pre}.mlp.{fc}", {"w": b[fc + "_w"], "b": b[fc + "_b"]})
+
+
+def llava_state_dict(p: Mapping) -> StateDict:
+    """JAX ``llava_params_from_torch``'s tree -> the on-disk LLaVA keys
+    (``vision_tower.*``, ``multi_modal_projector.*``, ``language_model.model.*``)."""
+    sd: StateDict = {}
+    _hf_clip_vision(sd, "vision_tower.vision_model.", p["vision"])
+    for i in (1, 2):
+        _lin(sd, f"multi_modal_projector.linear_{i}", {"w": p["proj"][f"w{i}"],
+                                                       "b": p["proj"][f"b{i}"]})
+    lm = llama_state_dict(p["llama"])
+    lm["norm.weight"] = _t(p["final_norm"]["w"])
+    sd.update({"language_model.model." + k: v for k, v in lm.items()})
+    return sd
+
+
+def cog_dit_state_dict(p: Mapping, patch: int = 2) -> StateDict:
+    """JAX ``cog_dit_params_from_torch``'s tree -> the reference CogVideoX DiT keys (the
+    (C*P*P, D) patch matmul -> Conv3d (D, C, 1, P, P))."""
+    w = np.asarray(p["patchify"]["w"])
+    sd: StateDict = {"patchify.proj.weight": _t(w.T.reshape(w.shape[1], -1, 1, patch, patch)),
+                     "patchify.proj.bias": _t(p["patchify"]["b"])}
+    _mlp01(sd, "time_embedder.timestep_embedder", p["time_emb"])
+    _lin(sd, "context_embedder", p["context_embedder"])
+    for i in range(int(np.asarray(p["blocks"]["norm_q"]["scale"]).shape[0])):
+        b, pre = _layer(p["blocks"], i), f"blocks.{i}"
+        for name in ("norm1", "norm2"):
+            _lin(sd, f"{pre}.{name}.linear", b[name]["linear"])
+            _ln(sd, f"{pre}.{name}.norm", b[name]["norm"])
+        for proj, name in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out")):
+            _lin(sd, f"{pre}.attn1.{name}", {"w": b["attn"][proj + "_w"],
+                                             "b": b["attn"][proj + "_b"]})
+        _ln(sd, pre + ".norm_q", b["norm_q"])
+        _ln(sd, pre + ".norm_k", b["norm_k"])
+        _mlp01(sd, pre + ".ff", b["ff"])
+    _ln(sd, "norm_final", p["norm_final"])
+    _lin(sd, "norm_out.linear", p["norm_out"]["linear"])
+    _ln(sd, "norm_out.norm", p["norm_out"]["norm"])
+    _lin(sd, "proj_out", p["proj_out"])
+    return sd
+
+
+def cog_vae_state_dict(p: Mapping) -> StateDict:
+    """JAX ``cog_vae_{decoder,encoder}_params_from_torch``'s tree (or its initialiser's)
+    -> the reference keys of that half."""
+    sd: StateDict = {}
+
+    def norm(prefix, q):
+        if "norm_layer" in q:
+            _ln(sd, prefix + ".norm_layer", q["norm_layer"])
+            _conv3d(sd, prefix + ".conv_y", q["conv_y"])
+            _conv3d(sd, prefix + ".conv_b", q["conv_b"])
+        else:
+            _ln(sd, prefix, q)
+
+    _conv3d(sd, "conv_in", p["conv_in"])
+    for i, b in enumerate(p["blocks"]):
+        pre = f"blocks.{i}"
+        if "conv1" not in b:
+            _conv2d(sd, pre + ".conv", b)
+            continue
+        norm(pre + ".norm1", b["norm1"])
+        norm(pre + ".norm2", b["norm2"])
+        _conv3d(sd, pre + ".conv1", b["conv1"])
+        _conv3d(sd, pre + ".conv2", b["conv2"])
+        if "shortcut" in b:
+            _conv3d(sd, pre + ".conv_shortcut", b["shortcut"])
+    norm("norm_out", p["norm_out"])
+    _conv3d(sd, "conv_out", p["conv_out"])
+    return sd
+
+
 def _hv_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
     _conv3d(sd, prefix + ".conv", p)
 
@@ -541,6 +639,14 @@ def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]
             out[name] = hunyuan_vae_encoder_state_dict(p)
         elif name == "hunyuan_vae_decoder":
             out[name] = hunyuan_vae_decoder_state_dict(p)
+        elif name == "llava":
+            out[name] = llava_state_dict(p)
+        elif name == "cog_dit":
+            out[name] = cog_dit_state_dict(p)
+        elif name in ("cog_vae_encoder", "cog_vae_decoder"):
+            out[name] = cog_vae_state_dict(p)
+        elif name == "t5_v1_1":
+            out[name] = t5_state_dict(p, shared_pos=True)
         else:
             raise NotImplementedError(f"no converter for params[{name!r}]")
     return out

@@ -169,15 +169,33 @@ class HunyuanVAEDecoder(nn.Module):
 # Primitives (channels-first inside)
 # ---------------------------------------------------------------------------
 
+GROUP_NORM_F32_BYTES = 1 << 30    # the float32 copy of the groups normalized at once
+
+
 def _group_norm(p: LayerNormAffine, x: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
-    """GroupNorm over (C/groups, T, H, W) in float32, the affine in float32."""
-    b, c = x.shape[:2]
-    xf = x.float().reshape(b, groups, -1)
+    """GroupNorm over (C/groups, T, H, W) in float32, the affine in float32. A tensor
+    whose float32 copy passes ``GROUP_NORM_F32_BYTES`` goes a few groups at a time into
+    its output, so its float32 temporaries stay near that size (CogVideoX's untiled
+    decode holds 4.3e9-element activations)."""
+    shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    w, b = p.weight.reshape(shape), p.bias.reshape(shape)
+    step = max(1, groups * GROUP_NORM_F32_BYTES // (4 * x.numel()))
+    if step >= groups:
+        return _norm_groups(x, w, b, groups, eps)
+    out = torch.empty_like(x)
+    cg = x.shape[1] // groups
+    for g0 in range(0, groups, step):
+        ch = slice(g0 * cg, min(groups, g0 + step) * cg)
+        out[:, ch] = _norm_groups(x[:, ch], w[:, ch], b[:, ch], min(step, groups - g0), eps)
+    return out
+
+
+def _norm_groups(x, w, b, groups: int, eps: float):
+    xf = x.float().reshape(x.shape[0], groups, -1)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     xf = ((xf - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
-    shape = (1, c) + (1,) * (x.dim() - 2)
-    return (xf * p.weight.reshape(shape) + p.bias.reshape(shape)).to(x.dtype)
+    return (xf * w + b).to(x.dtype)
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,13 @@
-"""umt5-xxl text encoder in PyTorch.
+"""umt5-xxl and T5 v1.1 text encoders in PyTorch.
 
 Port of ``goal_force_tpu/models/t5.py``: RMS-style T5 layer norm in float32, unscaled
-attention with an additive per-layer relative-position bias and float32 softmax (a plain
-einsum: it is 512 tokens, not a kernel), and the gated tanh-GELU feed-forward.
+attention with an additive relative-position bias and float32 softmax (a plain einsum:
+it is a few hundred tokens, not a kernel), and the gated tanh-GELU feed-forward. umt5
+has a relative-position embedding per layer; T5 v1.1 (``shared_pos``: CogVideoX, Flux,
+SD3) has one, computed once and added in every layer.
 Parameter names follow the reference text-encoder checkpoint (``token_embedding``,
-``blocks.{i}.attn.q``, ``blocks.{i}.ffn.gate.0``, ``blocks.{i}.pos_embedding.embedding``).
+``blocks.{i}.attn.q``, ``blocks.{i}.ffn.gate.0``, ``blocks.{i}.pos_embedding.embedding``,
+or with ``shared_pos`` the one top-level ``pos_embedding.embedding``).
 """
 
 from __future__ import annotations
@@ -86,16 +89,17 @@ class T5Block(nn.Module):
         self.attn = T5Attention(cfg.dim, cfg.dim_attn)
         self.norm2 = _Norm(cfg.dim)
         self.ffn = T5FeedForward(cfg.dim, cfg.dim_ffn)
-        self.pos_embedding = _RelEmbedding(cfg.num_buckets, cfg.num_heads)
+        if not cfg.shared_pos:
+            self.pos_embedding = _RelEmbedding(cfg.num_buckets, cfg.num_heads)
 
 
 class T5Encoder(nn.Module):
     def __init__(self, cfg: T5Config):
         super().__init__()
-        if cfg.shared_pos:
-            raise NotImplementedError("shared relative position bias (T5 v1.1) is not ported")
         self.cfg = cfg
         self.token_embedding = nn.Embedding(cfg.vocab, cfg.dim)
+        if cfg.shared_pos:
+            self.pos_embedding = _RelEmbedding(cfg.num_buckets, cfg.num_heads)
         self.blocks = nn.ModuleList(T5Block(cfg) for _ in range(cfg.num_layers))
         self.norm = _Norm(cfg.dim)
 
@@ -112,9 +116,15 @@ def t5_attention(p: T5Attention, x, bias, num_heads: int):
     return out @ p.o.weight.t()
 
 
-def t5_block(p: T5Block, x, mask_bias, buckets, num_heads: int):
-    pos_bias = p.pos_embedding.embedding.weight[buckets]           # (L, L, H)
-    pos_bias = pos_bias.permute(2, 0, 1)[None]                     # (1, H, L, L)
+def _pos_bias(emb: _RelEmbedding, buckets):
+    return emb.embedding.weight[buckets].permute(2, 0, 1)[None]   # (1, H, L, L)
+
+
+def t5_block(p: T5Block, x, mask_bias, buckets, num_heads: int, pos_bias=None):
+    """One encoder block; `pos_bias` (1, H, L, L) replaces the block's own relative bias
+    (``shared_pos``)."""
+    if pos_bias is None:
+        pos_bias = _pos_bias(p.pos_embedding, buckets)
     h = t5_layer_norm(x, p.norm1.weight)
     x = x + t5_attention(p.attn, h, pos_bias + mask_bias, num_heads)
     h = t5_layer_norm(x, p.norm2.weight)
@@ -133,8 +143,10 @@ def t5_encode(model: T5Encoder, cfg: T5Config, ids: torch.Tensor, mask: torch.Te
                                ).long().to(ids.device)
     neg = torch.finfo(torch.float32).min
     mask_bias = torch.where(mask[:, None, None, :] == 0, neg, 0.0).float()
+    shared = _pos_bias(model.pos_embedding, buckets) if cfg.shared_pos else None
     for blk in model.blocks:
-        x = t5_block(fsdp.gathered(blk, tp=False), x, mask_bias, buckets, cfg.num_heads)
+        x = t5_block(fsdp.gathered(blk, tp=False), x, mask_bias, buckets, cfg.num_heads,
+                     shared)
     return t5_layer_norm(x, model.norm.weight)
 
 
@@ -147,6 +159,7 @@ def init_t5(cfg: T5Config, gen: torch.Generator, dtype=torch.bfloat16, *,
     def normal_(w, std):
         w.normal_(generator=gen).mul_(std)
 
+    pos_std = (2 * cfg.num_buckets * cfg.num_heads) ** -0.5
     for blk in model.blocks:
         blk.norm1.weight.fill_(1.0)
         blk.norm2.weight.fill_(1.0)
@@ -157,8 +170,10 @@ def init_t5(cfg: T5Config, gen: torch.Generator, dtype=torch.bfloat16, *,
         normal_(blk.ffn.gate[0].weight, cfg.dim**-0.5)
         normal_(blk.ffn.fc1.weight, cfg.dim**-0.5)
         normal_(blk.ffn.fc2.weight, cfg.dim_ffn**-0.5)
-        normal_(blk.pos_embedding.embedding.weight,
-                (2 * cfg.num_buckets * cfg.num_heads) ** -0.5)
+        if not cfg.shared_pos:
+            normal_(blk.pos_embedding.embedding.weight, pos_std)
+    if cfg.shared_pos:
+        normal_(model.pos_embedding.embedding.weight, pos_std)
     normal_(model.token_embedding.weight, 1.0)
     model.norm.weight.fill_(1.0)
     return model.eval().requires_grad_(False)

@@ -35,15 +35,37 @@ from goal_force_tpu_torch.ops import flash_attention as fa
 IMPLS = ("auto", "plain", "flash", "flash_int8", "ring")
 
 
+PLAIN_LOGITS_BYTES = 2 << 30   # the float32 logits of one block of query rows
+
+
 def plain_attention(q, k, v, scale: float, bias=None, kv_len=None) -> torch.Tensor:
-    """(B, S, N, H) einsum attention with float32 softmax."""
-    logits = torch.einsum("bsnh,btnh->bnst", q.float(), k.float()) * scale
+    """(B, S, N, H) einsum attention with float32 softmax.
+
+    The float32 logits of all rows may not fit the card (CogVideoX's merged CFG batch:
+    2 x 48 heads x 17,776² x 4 B = 113 GiB), so the query rows go in blocks whose logits
+    take at most ``PLAIN_LOGITS_BYTES``. Each row's softmax stays whole, so the function
+    is the same; below the budget it is one block. A bias whose query axis has the
+    queries' length is cut with the rows."""
+    b, sq, n, _ = q.shape
+    rows = max(1, PLAIN_LOGITS_BYTES // (4 * b * n * k.shape[1]))
+    valid = None if kv_len is None else fa._kv_valid(kv_len, b, k.shape[1], q.device)
+    kf = k.float()
+    if rows >= sq:
+        return _plain_rows(q, kf, v, scale, bias, valid)
+    cut = bias is not None and bias.dim() >= 2 and bias.shape[-2] == sq
+    return torch.cat([_plain_rows(q[:, s0:s0 + rows], kf, v, scale,
+                                  bias[..., s0:s0 + rows, :] if cut else bias, valid)
+                      for s0 in range(0, sq, rows)], dim=1)
+
+
+def _plain_rows(q, kf, v, scale, bias, valid):
+    logits = torch.einsum("bsnh,btnh->bnst", q.float(), kf) * scale
     if bias is not None:
         logits = logits + bias.float()
-    if kv_len is not None:
-        valid = fa._kv_valid(kv_len, q.shape[0], k.shape[1], q.device)
+    if valid is not None:
         logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    del logits
     return torch.einsum("bnst,btnh->bsnh", probs, v)
 
 

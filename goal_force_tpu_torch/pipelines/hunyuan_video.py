@@ -1,11 +1,10 @@
-"""HunyuanVideo text-to-video pipeline in PyTorch.
+"""HunyuanVideo text-to-video and HunyuanVideo-I2V pipeline in PyTorch.
 
-Port of ``goal_force_tpu/pipelines/hunyuan_video.py`` but for the LLaVA (I2V MLLM)
-prompt encoder: the flow-match Euler schedule with shift 7, sigma_min 0 and
+Port of ``goal_force_tpu/pipelines/hunyuan_video.py``: the flow-match Euler schedule with shift 7, sigma_min 0 and
 extra_one_step, embedded guidance (the DiT's ``guidance_in``), optional true CFG with the
 negative prompt as a second row of one merged batch (masks padded to one length),
-v2v (``input_video`` + ``denoising_strength``), I2V stability and token replace with a
-text-only encoder, ``step_processor``, TeaCache on the positive stream, tiled and
+v2v (``input_video`` + ``denoising_strength``), I2V stability and token replace,
+``step_processor``, TeaCache on the positive stream, tiled and
 untiled decode, and ``noise=`` (the RNG streams of the two packages differ, so tests pass
 JAX's draw in).
 
@@ -16,7 +15,12 @@ pooled embedding (``models/sd_text_encoder.py::sd3_text1_encode`` over the vendo
 BPE tokenizer). Without a Llama tokenizer directory the prompt goes through the
 sha256-seeded hash ids (``models/tokenizer.py::hash_ids``), as JAX does. With no encoder
 at all, ``_embed`` draws a prompt embedding from the prompt's hash ids (JAX's fallback).
-A LLaVA checkpoint raises ``NotImplementedError`` (ROADMAP queue 1 head).
+A LLaVA checkpoint (HunyuanVideo-I2V's MLLM, ``models/llava.py``) gives
+``make_llava_prompt_encoder``: with the request's image, the I2V template runs through
+the vision tower and the decoder and ``crop_mllm_hidden_states`` keeps every fourth image
+feature and the user's text; without one, the text template runs on the tower's Llama.
+Under CFG the I2V row carries more tokens than the negative one, and ``__call__`` pads
+both rows to one length (masked positions are inert).
 
 Entry points run on the card unless ``device="cpu"`` is passed; ``__call__`` returns
 float32 numpy frames (B, T, H, W, 3) from the decoder (or latents without one).
@@ -103,7 +107,7 @@ class HunyuanVideoPipeline:
     def from_pretrained(
         cls,
         dit_path,
-        llama_path=None,                   # Llama text tower (HF LlamaModel names)
+        llama_path=None,                   # Llama text tower (HF names) or LLaVA
         clip_path=None,                    # CLIP-L (diffsynth SD text encoder names)
         vae_decoder_path=None,
         vae_cfg=None,                      # HunyuanVAEConfig
@@ -119,7 +123,9 @@ class HunyuanVideoPipeline:
         """Load the reference-format files strictly (``io/auto.py::load_model``), every
         model in `dtype` on `device`. The Llama tokenizer is not vendored: pass the text
         encoder's tokenizer directory as `llama_tokenizer_dir`, or the prompt goes
-        through the hash ids."""
+        through the hash ids (an image-conditioned prompt needs the tokenizer). A LLaVA
+        file at `llama_path` (HunyuanVideo-I2V's text_encoder_2) routes a request's
+        image into the prompt."""
         from goal_force_tpu_torch.io.auto import load_model
 
         device = resolve_device(device)
@@ -130,8 +136,8 @@ class HunyuanVideoPipeline:
 
         encode_prompt = None
         if llama_path is not None:
-            r = load(llama_path, num_heads=llama_num_heads)   # a LLaVA file raises here
-            if r["kind"] != "llama":
+            r = load(llama_path, num_heads=llama_num_heads)
+            if r["kind"] not in ("llama", "llava"):
                 raise ValueError(f"{llama_path} detected as {r['kind']!r}")
             clip = clip_cfg = None
             if clip_path is not None:
@@ -147,9 +153,10 @@ class HunyuanVideoPipeline:
                 from goal_force_tpu_torch.prompters import hunyuan_video_clip_tokenizer
 
                 tok_clip = hunyuan_video_clip_tokenizer()
-            encode_prompt = make_llama_prompt_encoder(
-                r["model"], r["config"], clip, clip_cfg, txt_len,
-                tokenize_llama=tok_llama, tokenize_clip=tok_clip)
+            make = make_llava_prompt_encoder if r["kind"] == "llava" else \
+                make_llama_prompt_encoder
+            encode_prompt = make(r["model"], r["config"], clip, clip_cfg, txt_len,
+                                 tokenize_llama=tok_llama, tokenize_clip=tok_clip)
 
         decode_video = encode_video = None
         if vae_decoder_path is not None:
@@ -416,6 +423,94 @@ HUNYUAN_PROMPT_TEMPLATES = {
                   "image_emb_start": 5, "image_emb_end": 581,
                   "image_emb_len": 576, "double_return_token_id": 271},
 }
+
+
+def crop_mllm_hidden_states(hidden, input_ids, attention_mask, tpl,
+                            image_embed_interleave: int = 4):
+    """Reassemble the MLLM output into [image tokens ; prompt tokens].
+
+    `hidden` is the LLaVA decoder output, where the one ``<image>`` placeholder has
+    already expanded into `image_emb_len` positions; `input_ids` and `attention_mask` are
+    the unexpanded (B, S) arrays. Keeps (a) the projected image features at
+    [image_emb_start, image_emb_end), every `image_embed_interleave`-th, and (b) the user
+    text after the template's scaffold, without the 4-token assistant header that
+    follows the LAST double-return token (id 271) of each row. A prompt truncated to the
+    length loses the assistant's double return but keeps the scaffold's, which all lie
+    at or before crop_start: a row whose last one lies there anchors the assistant crop
+    at the end of the sequence. Returns (emb (B, L, D), mask (B, L) int32)."""
+    ids = np.asarray(input_ids)
+    mask = np.asarray(attention_mask)
+    b, s = ids.shape
+    crop = tpl["crop_start"]
+    img_len = tpl["image_emb_len"]
+    text_start = crop - 1 + img_len
+    img_h = hidden[:, tpl["image_emb_start"]:tpl["image_emb_end"]:image_embed_interleave]
+    rows_h, rows_m = [], []
+    for i in range(b):
+        hits = np.nonzero(ids[i] == tpl["double_return_token_id"])[0]
+        last = int(hits[-1]) if len(hits) else s
+        if last <= crop:
+            last = s
+        a_start, a_end = last - 1 + img_len - 4, last - 1 + img_len
+        rows_h.append(torch.cat([hidden[i, text_start:a_start], hidden[i, a_end:]]))
+        rows_m.append(np.concatenate([mask[i, crop:last - 4], mask[i, last:]]))
+    text_m = np.stack(rows_m).astype(np.int32)
+    m = np.concatenate([np.ones((b, img_h.shape[1]), np.int32), text_m], axis=1)
+    return (torch.cat([img_h, torch.stack(rows_h)], dim=1),
+            torch.as_tensor(m, device=hidden.device))
+
+
+def make_llava_prompt_encoder(llava, llava_cfg, clip, clip_cfg, txt_len: int,
+                              tokenize_llama=None, tokenize_clip=None,
+                              hidden_state_skip_layer: int = 2, data_type: str = "video",
+                              image_embed_interleave: int = 4,
+                              template: Optional[dict] = None,
+                              text_template: Optional[dict] = None):
+    """encode(prompt, images=None) -> (emb, mask, pooled) over HunyuanVideo-I2V's LLaVA
+    tower (``models/llava.py``), on its device. With `images` (one (H, W, 3) image in
+    [0, 1], a PIL image, or a list of them, one per row) the I2V template, whose system
+    turn holds ``<image>``, runs through ``llava_encode`` and ``crop_mllm_hidden_states``
+    cuts the scaffold out; without, the text template runs on the tower's own Llama
+    (``make_llama_prompt_encoder``), as JAX does: the reference's text-only branch binds
+    the mask to the pixels and fails."""
+    from goal_force_tpu_torch.models.llava import clip_preprocess_image, llava_encode
+
+    text_enc = make_llama_prompt_encoder(
+        llava.language_model.model, llava_cfg.text, clip, clip_cfg, txt_len,
+        tokenize_llama=tokenize_llama, tokenize_clip=tokenize_clip,
+        hidden_state_skip_layer=hidden_state_skip_layer, data_type=data_type,
+        template=text_template)
+    pooled_fn = make_clip_pooled_encoder(clip, clip_cfg, tokenize_clip)
+    tpl = template or HUNYUAN_PROMPT_TEMPLATES[data_type + "-i2v"]
+    dev = llava.multi_modal_projector.linear_1.weight.device
+
+    def encode(prompt: str, images=None):
+        if images is None:
+            return text_enc(prompt)
+        if tokenize_llama is None:
+            raise ValueError("image-conditioned prompts need a real llama tokenizer "
+                             "(pass llama_tokenizer_dir)")
+        text = tpl["template"].format(prompt)
+        length = txt_len + tpl["crop_start"]
+        raw = tokenize_llama.with_length(length)
+        ids = np.asarray(raw(text))[None]
+        n_real = min(len(raw.encode(text)), length)
+        mask = np.zeros((1, length), np.int32)
+        mask[:, :n_real] = 1
+        if not isinstance(images, (list, tuple)):
+            images = [images]
+        pixels = torch.from_numpy(np.stack(
+            [clip_preprocess_image(im, llava_cfg.vision.image_size) for im in images]))
+        hidden = llava_encode(llava, llava_cfg, ids, pixels.to(dev),
+                              torch.as_tensor(mask, device=dev),
+                              hidden_state_skip_layer=hidden_state_skip_layer)
+        emb, m = crop_mllm_hidden_states(hidden, ids, mask, tpl, image_embed_interleave)
+        pooled = pooled_fn(prompt)
+        if pooled is None:
+            pooled = torch.zeros((1, emb.shape[-1]), dtype=emb.dtype, device=dev)
+        return emb, m, pooled
+
+    return encode
 
 
 def make_llama_prompt_encoder(llama, llama_cfg, clip, clip_cfg, txt_len: int,

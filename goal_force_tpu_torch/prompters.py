@@ -4,8 +4,8 @@ Port of ``goal_force_tpu/prompters.py`` for the umt5 and HunyuanVideo paths:
 ``TextTokenizer`` (encode, then pad or truncate to a fixed length),
 ``load_text_tokenizer`` with its CLIP BPE (``vocab.json`` + ``merges.txt``, through
 ``models/clip_bpe.py``), ``tokenizer.json`` (the ``tokenizers`` runtime), ``spiece.model``
-and ``tokenizer.model`` (``models/spm.py``) branches, ``wan_umt5_tokenizer`` and
-``hunyuan_video_clip_tokenizer``. The vendored tokenizer files are read from the JAX
+and ``tokenizer.model`` (``models/spm.py``) branches, ``wan_umt5_tokenizer``,
+``hunyuan_video_clip_tokenizer`` and ``cog_tokenizer``. The vendored tokenizer files are read from the JAX
 package's ``tokenizer_assets`` directory by path (``asset_path``); nothing of that
 package is imported. The BERT (``vocab.txt``) branch, HunyuanDiT's, and the other
 families' helpers are not ported and raise ``NotImplementedError``.
@@ -141,3 +141,8 @@ def hunyuan_video_clip_tokenizer(length: int = 77) -> TextTokenizer:
     """CLIP-L side of HunyuanVideo (``hunyuan_video/tokenizer_1``; the Llama side ships
     with its text-encoder checkpoint: pass that directory to load_text_tokenizer)."""
     return load_text_tokenizer(asset_path("hunyuan_video", "tokenizer_1"), length)
+
+
+def cog_tokenizer(length: int = 226) -> TextTokenizer:
+    """CogVideoX's T5 ``spiece.model`` (``cog/tokenizer``), EOS appended, 226 tokens."""
+    return load_text_tokenizer(asset_path("cog", "tokenizer"), length, add_eos=True)

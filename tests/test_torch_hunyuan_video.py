@@ -288,19 +288,24 @@ def test_load_model_matches_jax_config_and_is_strict(files):
 
 
 def test_unported_kinds_and_llava_raise(files):
-    """A LLaVA checkpoint (HunyuanVideo-I2V's MLLM) and the other zoo kinds raise
+    """A LLaVA checkpoint (HunyuanVideo-I2V's MLLM) loads since the LLaVA slice, so one
+    that lacks its vision tower raises KeyError, through load_model and from_pretrained
+    (tests/test_torch_llava.py loads whole ones); the zoo kinds not ported raise
     NotImplementedError naming their ROADMAP item; the kinds JAX leaves to their own
     loaders raise its ValueError."""
     paths, sds = files
     llava = {"multi_modal_projector.linear_1.weight": torch.zeros(4, 4),
              **{"language_model.model." + k: v for k, v in sds["llama"].items()}}
     assert tdetect.detect_model_kind(llava) == "llava"
-    with pytest.raises(NotImplementedError, match="LLaVA"):
+    with pytest.raises(KeyError, match="vision_tower"):
         tauto.load_model(llava, device="cpu")
-    with pytest.raises(NotImplementedError, match="LLaVA"):
+    with pytest.raises(KeyError, match="vision_tower"):
         tpipe.HunyuanVideoPipeline.from_pretrained(paths["dit"], llama_path=llava,
                                                    device="cpu", num_heads=24,
                                                    rope_dims=(2, 2, 2))
+    step = {"pos_embed.proj.weight": torch.zeros(2), "scale_shift_table": torch.zeros(2)}
+    with pytest.raises(NotImplementedError, match="M14b"):
+        tauto.load_model(step, device="cpu")
     flux = {"single_blocks.0.to_qkv_mlp.weight": torch.zeros(2), "x_embedder.weight": torch.zeros(2)}
     with pytest.raises(NotImplementedError, match="M14c"):
         tauto.load_model(flux, device="cpu")
