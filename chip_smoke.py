@@ -64,6 +64,11 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              double + 1 single block, 384 joint tokens, per-row kv_len 133 and 258) with
              attn_impl "flash" against "plain", float32 (1e-4 of the output's scale) and
              bf16 (3e-2 of it), 2 K1 launches each.
+6d. small_cog - the LLaVA tower and a CogVideoX request on the card against the CPU.
+6e. small_stepvideo - the StepVideo DiT forward at head_dim 128 (2 heads, 1 block, 256
+             image tokens, 28 text keys), "auto" (K1 through the runtime bound, 2
+             launches) against "plain", float32 and bf16; BERT, Step-1 and the tiny VAE's
+             chunked decode on the card against the CPU (float32) and in bf16 (towers).
 7. main    - GoalForcePipeline at full A14B width (depth cut to 3 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
@@ -113,10 +118,10 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 13. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
              attn_impl="flash_int8": the same two requests, 48 K6 launches each and no
              other, and the frames' mean distance from main's bf16 frames.
-14. t2v_vace - a full-width t2v pipeline (in_dim 16, 4 DiT layers, no ControlNet) with
+14. t2v_vace - a full-width t2v pipeline (in_dim 16, 3 DiT layers, no ControlNet) with
              VACE hint blocks after layers 0 and 2 (written and read back through
-             from_pretrained's loader): a t2v request (8 K1 per step) and a VACE request
-             with video, mask and reference image (34,320 tokens, 12 K1 per step), 2
+             from_pretrained's loader): a t2v request (6 K1 per step) and a VACE request
+             with video, mask and reference image (34,320 tokens, 10 K1 per step), 2
              steps at 81x480x832.
 15. fun_control - a full-width Fun-Control pipeline (in_dim 52, 4 DiT layers): two
              33-frame requests with two control videos (8 K1 per step), frames differ.
@@ -150,8 +155,17 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              the path's B = 1, 119,056 tokens with the kv_len the request's joint
              attentions were given, each against its plain version (two bf16 ulps); times
              both with their bound and SDPA given the same key mask.
+15f. hunyuan_i2v, cog - HunyuanVideo-I2V's LLaVA prompt path; CogVideoX-5B at cut depth.
+15g. stepvideo - StepVideo-T2V at its released widths (the DiT at 4 of 48 blocks,
+             Step-1 at 2 of 48 layers, BERT and the VAE decoder whole), random weights:
+             one 544x992 request of 34 frames (12,648 tokens, 2 decode chunks), 2 steps of
+             CFG 9.0 as two forwards each: 32 K1 through the runtime bound (32 syncs),
+             finite (34, 544, 992, 3) frames; one forward with the q norms x8 (8 K2)
+             against the plain path; K1 at the full path's (1, 75,888, 48, 128) self and
+             x397 cross, against its plain version on 4 heads, timed beside its bound,
+             the bound's sync and SDPA.
 16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
-             (4 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
+             (3 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
              the frozen models, the checkpoint and the launches per step, and logs the
              stage split and peak memory.
@@ -191,6 +205,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -314,8 +329,10 @@ def phase_build():
               f"{stem}.cu: ptxas serialized a Hopper kernel's wgmma: {ptxas}")
     log("build", seconds=round(secs, 3), nvcc=_build.nvcc_path())
     found = set()
-    for stem in ("flash_attention", "flash_attention_int8", "flash_attention_bwd"):
-        counts = _sass_counts(_build.library_path(stem))
+    stems = ("flash_attention", "flash_attention_int8", "flash_attention_bwd")
+    with ThreadPoolExecutor(len(stems)) as pool:      # one cuobjdump per library, together
+        sass = list(pool.map(lambda stem: _sass_counts(_build.library_path(stem)), stems))
+    for stem, counts in zip(stems, sass):
         found |= set(counts)
         log("build", source=f"{stem}.cu", sass_opcodes=counts)
         for name, ops in counts.items():   # every Hopper body: wgmma only, no mma.sync
@@ -1848,12 +1865,16 @@ def _v2v_encode_81(pipe, video):
     torch.cuda.empty_cache()
 
 
+T2V_VACE_LAYERS = 3
+
+
 def phase_t2v_vace():
-    """A full-width text-to-video pipeline (A14B widths, in_dim 16, 4 DiT layers per expert,
-    no ControlNet) with VACE hint blocks after DiT layers 0 and 2, drawn at full width and
-    read back through from_pretrained's loader: one t2v request (8 K1 per step), then one
-    VACE request with video, mask and reference image (22 latent frames, 34,320 tokens,
-    12 K1 per step), both 81x480x832 and 2 steps."""
+    """A full-width text-to-video pipeline (A14B widths, in_dim 16, 3 DiT layers per expert
+    (cut from 4 for the smoke's time), no ControlNet) with VACE hint blocks after
+    DiT layers 0 and 2, drawn at full width and read back through from_pretrained's
+    loader: one t2v request (6 K1 per step), then one VACE request with video, mask and
+    reference image (22 latent frames, 34,320 tokens, 10 K1 per step), both 81x480x832
+    and 2 steps."""
     import gc
     import tempfile
 
@@ -1861,7 +1882,8 @@ def phase_t2v_vace():
     from goal_force_tpu_torch.ops import flash_attention as fa
     from goal_force_tpu_torch.pipelines.goal_force import GoalForcePipeline
 
-    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4, in_dim=C.WAN21_VAE.z_dim)
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=T2V_VACE_LAYERS,
+                                  in_dim=C.WAN21_VAE.z_dim)
     t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
     layers = (0, 2)
     pipe, secs = sync_time(lambda: GoalForcePipeline.init_random(
@@ -1882,11 +1904,14 @@ def phase_t2v_vace():
     mask = np.zeros((pc.num_frames, pc.height, pc.width), np.float32)
     mask[:, 120:360, 208:624] = 1.0                          # regenerate the centre
     fa.reset_launch_counts()
-    t2v = _variant_request(pipe, "t2v_vace", "t2v_81", lambda: pipe(PROMPTS[0], **kw), 8, shape)
+    per_step = 2 * T2V_VACE_LAYERS                          # self + cross per DiT block
+    t2v = _variant_request(pipe, "t2v_vace", "t2v_81", lambda: pipe(PROMPTS[0], **kw), per_step,
+                           shape)
     vace_req = lambda: pipe(PROMPTS[0], vace_video=video, vace_video_mask=mask,
                             vace_reference_image=image, **kw)
-    vace = _variant_request(pipe, "t2v_vace", "vace_81_with_reference", vace_req, 12, shape,
-                            base=t2v)
+    per_step += 2 * len(layers)                             # and per VACE hint block
+    vace = _variant_request(pipe, "t2v_vace", "vace_81_with_reference", vace_req, per_step,
+                            shape, base=t2v)
     run_counts = dict(fa.launch_counts)
     # the VACE request again through shard() over the world of one: the hint blocks on
     # the rank's tokens, the same frames and the same K1 launches
@@ -1897,7 +1922,7 @@ def phase_t2v_vace():
         pipe.mesh = None
     log("t2v_vace", stage="sharded", seconds=secs)
     _sharded_equal("t2v_vace", "vace_81_with_reference", got, vace, n,
-                   only(K1=12 * VARIANT_STEPS))
+                   only(K1=per_step * VARIANT_STEPS))
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2555,6 +2580,10 @@ def phase_full_bf16():
     del pipe, models, outputs, steps
     gc.collect()
     torch.cuda.empty_cache()
+    # the staged pair's pinned chunks stay in the host allocator's cache: released here,
+    # while the context lives, they take a fraction of the time the interpreter's exit
+    # takes to release them
+    torch._C._host_emptyCache()
     return run_counts
 
 
@@ -2685,7 +2714,7 @@ class _SyntheticClips:
 
 
 def phase_train():
-    """ControlNet training at full WAN22_A14B width (4 DiT + 2 ControlNet layers, umt5 at
+    """ControlNet training at full WAN22_A14B width (3 DiT + 2 ControlNet layers, umt5 at
     2 layers, the full Wan2.1 VAE), bf16, B = 1, 81x480x832: two steps, a checkpoint at
     step 2, a full-state resume and a third step. The zero convs start at N(0, 0.02)
     (seeded) instead of 0, so the ControlNet blocks get a gradient at step 1."""
@@ -2705,9 +2734,9 @@ def phase_train():
 
     gc.collect()
     torch.cuda.empty_cache()
-    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4)
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=TRAIN_LAYERS)
     t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
-    cn_cfg = C.ControlNetConfig(num_layers=2, in_channels=C.WAN21_VAE.z_dim)
+    cn_cfg = C.ControlNetConfig(num_layers=TRAIN_CN_LAYERS, in_channels=C.WAN21_VAE.z_dim)
     pc = C.PipelineConfig()
     gen = torch.Generator("cuda").manual_seed(0)
     frozen = {"dit": wan_dit.init_wan_dit(dit_cfg, gen, torch.bfloat16, device="cuda"),
@@ -2745,9 +2774,8 @@ def phase_train():
                       [v for h in history for k, v in h.items() if k.endswith("_peak_gb")])
         for h in history:
             log("train", stage=f"step{h['step']}", **h)
-        # 3 steps x (K1 2: DiT block 0; K3 20: 10 grad-requiring calls run twice under
-        # remat; K5 10; K4 7: DiT blocks 1-3 cross-attention need no dk/dv).
-        expected = only(K1=6, K3=60, K4=21, K5=30)
+        expected = {k: 3 * n for k, n in train_launches_per_step(
+            dit_cfg.num_layers, cn_cfg.num_layers).items()}
         log("train", stage="done", seconds_steps_1_2=secs2, seconds_resume_step_3=secs3,
             launches=launches, expected_launches=expected, max_memory_allocated_gb=peak_gb,
             files=sorted(os.listdir(out_dir)))
@@ -2785,6 +2813,23 @@ def phase_train():
     return launches, dict(cfg=cfg, configs=(dit_cfg, t5_cfg, C.WAN21_VAE, cn_cfg), frozen=frozen,
                           cn0=cn0, data=data, tokenizer=tok, history=history[:2],
                           at_step2=at_step2, peak_gb=peak_gb)
+
+
+# the training phases' depth (DiT layers cut from 4 for the smoke's time)
+TRAIN_LAYERS, TRAIN_CN_LAYERS = 3, 2
+
+
+def train_launches_per_step(dit_blocks, cn_blocks, lora=False):
+    """K1/K3/K4/K5 launches of one training step. The ControlNet injects after DiT blocks
+    0..cn_blocks-1, so without LoRA DiT block 0 runs without grad (K1 for its self- and
+    cross-attention) and the blocks after it need a gradient; with LoRA every DiT block
+    trains. Each attention that needs a gradient runs K3 twice (the forward and the
+    remat recompute) and K5 once, and K4 where its k and v need one: every
+    self-attention, and the ControlNet's cross-attention (the DiT's cross k and v come
+    from the frozen text path)."""
+    dit_grad = dit_blocks if lora else dit_blocks - 1
+    calls = 2 * (dit_grad + cn_blocks)
+    return only(K1=0 if lora else 2, K3=2 * calls, K4=dit_grad + 2 * cn_blocks, K5=calls)
 
 
 def train_collectives_per_step(dit_blocks, cn_blocks, t5_blocks, rows, ffn_chunk):
@@ -2827,7 +2872,7 @@ def phase_sharded_train(run):
     fsdp_specs (over one rank each shard is the whole tensor), the same initial
     ControlNet, clips and generators. The loss, gradient norm and step-2 ControlNet must
     equal train's bit for bit (every collective is a copy); each step launches what a
-    train step launches (K1 2, K3 20, K4 7, K5 10) and calls the collectives of
+    train step launches (train_launches_per_step) and calls the collectives of
     train_collectives_per_step. The three VAE encodes run split (parallel/spatial.py):
     over one rank no axis splits, so no halo moves, but the split's plumbing and its
     latent gathers run. Logs the step seconds, the encodes' seconds and peaks beside
@@ -2881,7 +2926,7 @@ def phase_sharded_train(run):
     pc = C.PipelineConfig()
     want_calls = train_collectives_per_step(dit_cfg.num_layers, cn_cfg.num_layers,
                                             t5_cfg.num_layers, pc.tokens, FFN_CHUNK_TOKENS)
-    step_launches = only(K1=2, K3=20, K4=7, K5=10)
+    step_launches = train_launches_per_step(dit_cfg.num_layers, cn_cfg.num_layers)
     ref = run["history"]
     same_metrics = [(h["loss"], h["grad_norm"]) == (r["loss"], r["grad_norm"])
                     for h, r in zip(history, ref)]
@@ -2960,7 +3005,7 @@ def _write_training_set(root, pc):
 
 
 def phase_train_cli():
-    """The training CLI's functions at train's config (full WAN22_A14B width, 4 DiT + 2
+    """The training CLI's functions at train's config (full WAN22_A14B width, 3 DiT + 2
     ControlNet layers, umt5 at 2 layers, bf16, 81x480x832) on reference-format files:
     the frozen weights (the expert as 2 safetensors shards read through a glob, umt5 and
     the VAE as .pth, the VAE under "model.") and Balls, Dominos and Plants CSVs with mp4
@@ -2986,7 +3031,7 @@ def phase_train_cli():
 
     gc.collect()
     torch.cuda.empty_cache()
-    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=4)
+    dit_cfg = dataclasses.replace(C.WAN22_A14B, num_layers=TRAIN_LAYERS)
     t5_cfg = dataclasses.replace(C.UMT5_XXL, num_layers=2)
     pc = C.PipelineConfig()
     tmp = tempfile.mkdtemp(prefix="gf_train_cli_")
@@ -3014,7 +3059,8 @@ def phase_train_cli():
         argv = ["--high_noise_model", os.path.join(tmp, "high", "diffusion_pytorch_model-*.safetensors"),
                 "--t5_path", os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth"),
                 "--vae_path", os.path.join(tmp, "Wan2.1_VAE.pth"),
-                "--controlnet_num_layers", "2", "--train_lora", "--lora_rank", "32",
+                "--controlnet_num_layers", str(TRAIN_CN_LAYERS),
+                "--train_lora", "--lora_rank", "32",
                 "--save_steps", "2", "--max_steps", "3", "--output_path", os.path.join(tmp, "run")]
         for name, (base, csv) in sets.items():
             argv += [f"--{name}_base_path", base, f"--{name}_metadata_path", csv]
@@ -3062,11 +3108,9 @@ def phase_train_cli():
         peak_gb = max(v for h in history for k, v in h.items() if k.endswith("_peak_gb"))
         for h in history:
             log("train_cli", stage=f"step{h['step']}", **h)
-        # per step (every attention needs a gradient through the adapters): DiT 4 blocks x
-        # (self, cross) and ControlNet 2 blocks x (self, cross) = 12 calls, K3 twice each
-        # (remat), K5 once each, K4 where k and v need a gradient: the 4 DiT self calls
-        # and all 4 ControlNet calls (the DiT's cross k, v come from the frozen text path).
-        expected = only(K3=4 * 24, K4=4 * 8, K5=4 * 12)
+        # 4 steps (3, then the resumed 3rd), every DiT block training through its adapters
+        expected = {k: 4 * n for k, n in train_launches_per_step(
+            dit_cfg.num_layers, TRAIN_CN_LAYERS, lora=True).items()}
         unchanged_base = _fingerprint([dit]) == base_print
         log("train_cli", stage="done", seconds_steps_1_3=secs, seconds_resume_step_3=secs_resume,
             launches=launches, expected_launches=expected, max_memory_allocated_gb=peak_gb,
@@ -3387,21 +3431,7 @@ def _s2v_unbounded_step(pipe, audio, image):
     check(launches == only(K1=2 * (S2V_LAYERS + 2), K2=2 * S2V_LAYERS),
           f"s2v unbounded step launched {launches}")
     log("s2v", stage="d_unbounded_step", seconds=secs, launches=launches)
-    real_bound = fa.logit_bound
-    times = {"with_bound": [], "bound_replaced": []}
-    for key in ("with_bound", "bound_replaced", "bound_replaced", "with_bound"):
-        if key == "bound_replaced":
-            fa.logit_bound = lambda *a: torch.zeros(())     # a host tensor: no sync
-        try:
-            before = dict(fa.launch_counts)
-            times[key].append(sync_time(step)[1])
-            n = {k: fa.launch_counts[k] - before[k] for k in before}
-        finally:
-            fa.logit_bound = real_bound
-        check(n == only(K1=S2V_K1_PER_STEP), f"s2v {key} step launched {n}")
-    log("s2v", stage="bound_sync_cost", step_seconds=times,
-        per_step_cost_s=min(times["with_bound"]) - min(times["bound_replaced"]),
-        bound_calls_per_step=S2V_K1_PER_STEP)
+    bound_sync_cost("s2v", "step", step, only(K1=S2V_K1_PER_STEP))
     return launches["K2"]
 
 
@@ -3940,7 +3970,7 @@ def phase_small_cog():
 # CogVideoX-5B at its widths, cut in depth; JAX's defaults: 49 frames at 480x720 (13 x
 # 30 x 45 = 17,550 video + 226 text tokens), CFG 7.0 as one batch of 2, untiled decode
 COG_FRAMES, COG_HEIGHT, COG_WIDTH, COG_STEPS = 49, 480, 720, 2
-COG_BLOCKS, COG_T5_LAYERS = 4, 2
+COG_BLOCKS, COG_T5_LAYERS = 2, 2      # blocks cut from 4 for the smoke's time
 COG_ATTN = (2, 13 * 30 * 45 + 226, 48, 64)
 COG_UNCHUNKED = (2, 4096, 48, 64)        # 6 GiB of float32 logits: held whole on the card
 COG_PROMPT = ("A golden retriever chases a red ball across a sunny lawn, "
@@ -3949,7 +3979,7 @@ COG_PROMPT = ("A golden retriever chases a red ball across a sunny lawn, "
 
 def phase_cog():
     """CogVideoX-5B at its widths (dim 3072, 48x64 heads, text_dim 4096, the VAE at
-    (128, 256, 256, 512)), cut to 4 of 42 DiT blocks and T5 v1.1 XXL at 2 of 24 layers,
+    (128, 256, 256, 512)), cut to 2 of 42 DiT blocks and T5 v1.1 XXL at 2 of 24 layers,
     random bf16 weights from a seed, the vendored spiece tokenizer: one request at JAX's
     defaults (49 frames at 480x720, CFG 7.0 as B = 2, untiled decode), 2 DDIM steps
     (v-prediction, zero-terminal SNR). No kernel launches (head_dim 64 runs the plain
@@ -4058,6 +4088,341 @@ def phase_cog():
     return launches, rec
 
 
+# The small StepVideo DiT: head_dim 128 so that "auto" reaches K1 (2 heads, 1 block), 2
+# latent frames of 8x16 (256 image tokens) against 8 CLIP + 20 caption tokens (28 keys)
+def _small_stepvideo_configs():
+    from goal_force_tpu_torch.models import stepvideo_dit as sd
+    from goal_force_tpu_torch.models import stepvideo_vae as sv
+    from goal_force_tpu_torch.models import text_encoders as te
+
+    return (sd.StepVideoConfig(num_heads=2, head_dim=128, num_layers=1, in_channels=16,
+                               caption_dim=64, clip_dim=32),
+            te.BertConfig(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=48,
+                          max_positions=80),
+            te.Step1Config(hidden_size=64, num_layers=2, num_heads=4, num_groups=2,
+                           ffn_hidden_size=96, vocab=1000, multiple_of=32),
+            sv.tiny_stepvideo_vae_config())
+
+
+class BoundRecorder:
+    """Wraps ops/flash_attention.py::logit_bound while active: counts the runtime bound's
+    calls (one host sync each in flash_attention's "auto") and, with values=True, keeps
+    each bound (one more sync each). With replace=True each call returns a host zero
+    instead: the same kernels under the bound, with no reductions and no host sync."""
+
+    def __init__(self, values=False, replace=False):
+        self.values, self.replace, self.calls, self.bounds = values, replace, 0, []
+
+    def __enter__(self):
+        from goal_force_tpu_torch.ops import flash_attention as fa
+
+        self.real = fa.logit_bound
+
+        def recording(*a):
+            out = torch.zeros(()) if self.replace else self.real(*a)
+            self.calls += 1
+            if self.values:
+                self.bounds.append(float(out))
+            return out
+
+        fa.logit_bound = recording
+        return self
+
+    def __exit__(self, *exc):
+        from goal_force_tpu_torch.ops import flash_attention as fa
+
+        fa.logit_bound = self.real
+
+
+def bound_sync_cost(phase, unit, fn, launches):
+    """The runtime bound's cost over one `unit` (fn): fn timed with the bound and with it
+    replaced, in turns (with, replaced, replaced, with), each call's launches held to
+    `launches`; logs the times, the difference of their minima and the bound's calls."""
+    times = {"with_bound": [], "bound_replaced": []}
+    for key in ("with_bound", "bound_replaced", "bound_replaced", "with_bound"):
+        with BoundRecorder(replace=key == "bound_replaced") as bounds:
+            n = picked(lambda: times[key].append(sync_time(fn)[1]))[1]
+        check(n == launches, f"{phase} {unit} ({key}) launched {n}")
+    log(phase, stage="bound_sync_cost", **{
+        f"{unit}_seconds": times,
+        f"per_{unit}_cost_s": min(times["with_bound"]) - min(times["bound_replaced"]),
+        f"bound_calls_per_{unit}": bounds.calls})
+
+
+def phase_small_stepvideo():
+    """StepVideo's modules at small sizes on the card: the DiT forward at head_dim 128 (2
+    heads, 1 block, 256 image tokens, 28 text keys), "auto" (K1 through the runtime bound,
+    2 launches: self and cross) against "plain" on the same inputs, float32 (within 1e-4
+    of the output's scale) and bf16 (within 3e-2 of it: two blocks' worth of bf16
+    roundings, as small_hunyuan); BERT (2 layers, a padded row) and Step-1 (2 layers, 2
+    groups of 2 heads, 320 tokens) on the card against the CPU in float32 (1e-4 of the
+    scale) and in bf16 against the card's float32 (3e-2 of the scale); the tiny VAE's
+    chunked decode (2 chunks, the seam mix) on the card against the CPU, float32 with TF32
+    off (1e-4 of the scale). Logs the K1 launches and the bounds the dispatch read."""
+    import copy
+
+    from goal_force_tpu_torch.models import stepvideo_dit as sd
+    from goal_force_tpu_torch.models import stepvideo_vae as sv
+    from goal_force_tpu_torch.models import text_encoders as te
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    cfg, bert_cfg, step1_cfg, vae_cfg = _small_stepvideo_configs()
+    gen = torch.Generator("cuda").manual_seed(101)
+    rec, launches = {}, {}
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        tag = str(dtype).split(".")[-1]
+        dit = sd.init_stepvideo_dit(cfg, gen, dtype, device="cuda")
+        args = (_rand((1, 2, 8, 16, 16), gen, dtype), torch.tensor([0.6], device="cuda"),
+                _rand((1, 20, cfg.caption_dim), gen, dtype), _rand((1, 8, cfg.clip_dim), gen, dtype))
+        fa.reset_launch_counts()
+        with BoundRecorder(values=True) as bounds:
+            got = sd.stepvideo_dit_forward(dit, cfg, *args, attn_impl="auto")
+            torch.cuda.synchronize()
+        launches[tag] = dict(fa.launch_counts)
+        ref = sd.stepvideo_dit_forward(dit, cfg, *args, attn_impl="plain")
+        scale = float(ref.float().abs().max())
+        d = got.float() - ref.float()
+        err = float(d.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= rel * scale
+        log("small_stepvideo", case=f"DiT forward {tag} auto vs plain", max_abs_err=err,
+            atol=rel * scale, out_max=scale, launches=launches[tag], bounds=bounds.bounds,
+            rel_bias=float((d * ref.float().sign()).mean() / ref.float().abs().mean()), ok=ok)
+        check(ok, f"small_stepvideo DiT {tag}: auto vs plain differ by {err}")
+        check(launches[tag] == only(K1=2) and bounds.calls == 2
+              and max(bounds.bounds) < fa.NOMAX_BOUND,
+              f"small_stepvideo DiT {tag}: launched {launches[tag]}, bounds {bounds.bounds}")
+        rec[f"dit_{tag}"] = err
+        del dit, got, ref
+
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu_gen = torch.Generator().manual_seed(102)
+        bert = te.init_bert(bert_cfg, cpu_gen, device="cpu")
+        step1 = te.init_step1(step1_cfg, cpu_gen, torch.float32, device="cpu")
+        rng = np.random.default_rng(103)
+        ids = torch.from_numpy(rng.integers(1, bert_cfg.vocab, size=(2, 77)))
+        mask = torch.ones((2, 77), dtype=torch.int32)
+        mask[1, 30:] = 0
+        sids = torch.from_numpy(rng.integers(0, step1_cfg.vocab, size=(1, 320)))
+        towers = {"bert": (bert, lambda m, dev: te.bert_encode(m, bert_cfg, ids.to(dev),
+                                                               mask.to(dev))),
+                  "step1": (step1, lambda m, dev: te.step1_encode(m, step1_cfg, sids.to(dev)))}
+        for name, (model, run) in towers.items():
+            want = run(model, "cpu")
+            gpu = copy.deepcopy(model).to("cuda")
+            got = run(gpu, "cuda")
+            scale = float(want.abs().max())
+            rec[f"{name}_float32"] = compare(f"small_stepvideo {name} float32 cuda vs cpu",
+                                             got.cpu(), want, atol=1e-4 * scale, rtol=0.0,
+                                             phase="small_stepvideo")
+            low = run(gpu.to(torch.bfloat16), "cuda").float()
+            err = float((low - got).abs().max())
+            ok = bool(torch.isfinite(low).all()) and err <= 3e-2 * float(got.abs().max())
+            log("small_stepvideo", case=f"{name} bf16 vs float32 on the card", max_abs_err=err,
+                atol=3e-2 * float(got.abs().max()), ok=ok)
+            check(ok, f"small_stepvideo {name} bf16: differs from float32 by {err}")
+            rec[f"{name}_bf16"] = err
+        vae = sv.init_stepvideo_vae(vae_cfg, cpu_gen, device="cpu", encoder=False)
+        z = torch.randn((1, 6, 2, 3, vae_cfg.z_dim), generator=cpu_gen)
+        want = sv.stepvideo_vae_decode(vae, z, vae_cfg)
+        got = sv.stepvideo_vae_decode(copy.deepcopy(vae).to("cuda"), z.cuda(), vae_cfg)
+        scale = float(want.abs().max())
+        rec["vae_decode"] = compare("small_stepvideo VAE chunked decode cuda vs cpu", got.cpu(),
+                                    want, atol=1e-4 * scale, rtol=0.0, phase="small_stepvideo")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    log("small_stepvideo", tokens=256, text_keys=28, launches=launches, **rec)
+    torch.cuda.empty_cache()
+    return {k: launches["float32"][k] + launches["bfloat16"][k] for k in launches["float32"]}
+
+
+# StepVideo-T2V at its released widths, cut in depth: the DiT at 4 of 48 blocks (48x128
+# heads, dim 6144), Step-1 at 2 of 48 layers; BERT and the VAE decoder whole. One request
+# at JAX's 544x992 and 34 of its 204 frames (2 chunks: 6 latent frames of 34x62 = 12,648
+# tokens), 2 of 30 steps, CFG 9.0 as two forwards a step: 2 x 2 x 4 x 2 = 32 K1.
+SV_BLOCKS, SV_STEP1_LAYERS = 4, 2
+SV_HEIGHT, SV_WIDTH, SV_FRAMES, SV_STEPS = 544, 992, 34, 2
+SV_TOKENS = (SV_FRAMES // 17 * 3) * (SV_HEIGHT // 16) * (SV_WIDTH // 16)
+SV_K1_PER_STEP = 2 * SV_BLOCKS * 2
+SV_TEXT_KEYS = 77 + 320
+# the full path's attention: 204 frames -> 36 latent frames of 34x62 = 75,888 tokens
+SV_SELF = (1, 36 * 34 * 62, 48, 128)
+SV_CROSS_KV = (1, SV_TEXT_KEYS, 48, 128)
+SV_PLAIN_HEADS = 4       # the plain version at full length on 4 of the 48 heads
+SV_PROMPT = "a red ball rolls across a wooden table, hits a blue cup and the cup tips over"
+SV_NEGATIVE = "blurry, low quality, static"
+
+
+def _stepvideo_k1(kv_shape, gen):
+    """K1 without its clamp (what "auto" picks below the bound) at StepVideo's full-path
+    query shape against `kv_shape` keys, random bf16: "auto" must pick K1; the kernel on
+    the first SV_PLAIN_HEADS heads against its plain version there (timed on that run);
+    the kernel, the runtime bound's reductions and host sync, and SDPA on the same bf16
+    tensors (a yardstick) timed with CUDA events, 1 warm-up and 3 launches."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    scale = 128 ** -0.5
+    b, s, n, h = SV_SELF
+    skv = kv_shape[1]
+    q = _rand(SV_SELF, gen, torch.bfloat16)
+    k, v = (_rand(kv_shape, gen, torch.bfloat16) for _ in range(2))
+    got, launched = picked(lambda: fa.flash_attention(q, k, v, scale, dispatch="auto"))
+    check(launched == only(K1=1), f"K1 stepvideo {kv_shape}: auto launched {launched}")
+    hs = slice(0, SV_PLAIN_HEADS)
+    sub = lambda t: t[:, :, hs].contiguous()
+    ref, plain_ms = timed_call(lambda: fa.flash_attention_nomax_plain(
+        sub(q), sub(k), sub(v), scale, clamp=None))
+    name = f"K1 stepvideo {SV_SELF}x{tuple(kv_shape)} heads 0-{SV_PLAIN_HEADS - 1} bf16"
+    err = compare(name, got[:, :, hs], ref, atol=bf16_limit(ref), rtol=0.0, phase="stepvideo")
+    del got, ref
+    torch.cuda.empty_cache()
+    bound, by = kernel_bound_ms(4 * b * n * s * skv * h, 2 * (2 * b * s * n * h + 2 * b * skv * n * h))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec = dict(shape=f"{SV_SELF}x{tuple(kv_shape)}", max_abs_err=err,
+               plain_heads=SV_PLAIN_HEADS, plain_ms=plain_ms,
+               ms=event_ms(lambda: fa.flash_attention_nomax(q, k, v, scale, clamp=None)),
+               bound_ms=bound, bound_by=by,
+               bound_sync_ms=event_ms(lambda: float(fa.logit_bound(q, k, v, scale))),
+               library_ms=event_ms(lambda: sdpa(qt, kt, vt)))
+    log("stepvideo", case=f"{name} timing", **rec)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_stepvideo():
+    """StepVideo-T2V at its released widths, random weights from a seed: the DiT (dim
+    6144, 48x128 heads, in 64, caption 6144, clip 1024) at 4 of 48 blocks, Step-1 (6144
+    wide, 48 heads in 8 groups, ffn 16384, vocab 65,536) at 2 of 48 layers on hash ids at
+    320 tokens, BERT whole (24 layers, 1024, vocab 47,020) on the vendored WordPiece ids at
+    77, all bf16, and the VAE decoder whole (dec_ch 128, mult (1, 2, 4, 4), z 64) in
+    float32 as JAX decodes. One request at 544x992 and 34 frames (2 chunks: 12,648 tokens;
+    the decode's seam mix runs), 2 steps, CFG 9.0 as two forwards a step, untiled decode:
+    32 K1, 0 K2 and 32 runtime-bound syncs; finite (34, 544, 992, 3) frames; logs the BERT
+    and Step-1 seconds, each step's, the decode's and the peak. Then the bound's cost: one
+    CFG branch's forward with the bound and with a host constant in its place, in turns
+    (8 K1 each). Then one forward with both
+    attentions' q-norm weights x8 (the bound passes 100: 8 K2, 0 K1) against the plain
+    path on the card (within 5e-2 of the output's scale: four full-width bf16 blocks). Last,
+    K1 at the full path's shape: (1, 75,888, 48, 128) self and against 397 text keys
+    (_stepvideo_k1)."""
+    from goal_force_tpu_torch.models import stepvideo_dit as sd
+    from goal_force_tpu_torch.models import stepvideo_vae as sv
+    from goal_force_tpu_torch.models import text_encoders as te
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import step_video as sp
+    from goal_force_tpu_torch.prompters import hunyuan_dit_tokenizers
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(111)
+    cfg = dataclasses.replace(sd.StepVideoConfig(), num_layers=SV_BLOCKS)
+    step1_cfg = dataclasses.replace(te.Step1Config(), num_layers=SV_STEP1_LAYERS)
+    bert_cfg, vae_cfg = te.BertConfig(), sv.StepVideoVAEConfig()
+    (dit, step1, bert, vae), init_s = sync_time(lambda: (
+        sd.init_stepvideo_dit(cfg, gen, torch.bfloat16, device="cuda"),
+        te.init_step1(step1_cfg, gen, torch.bfloat16, device="cuda"),
+        te.init_bert(bert_cfg, gen, torch.bfloat16, device="cuda"),
+        sv.init_stepvideo_vae(vae_cfg, gen, torch.float32, device="cuda", encoder=False)))
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("stepvideo", stage="init", seconds=init_s, dit_params=count(dit),
+        step1_params=count(step1), bert_params=count(bert), vae_decoder_params=count(vae),
+        gib=torch.cuda.memory_allocated() / 2**30)
+    stages = {"step_s": [], "bert_s": [], "step1_s": []}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            out, secs = sync_time(lambda: fn(*a, **kw))
+            stages[key].append(secs)
+            return out
+        return run
+
+    real = te.bert_encode, te.step1_encode
+    te.bert_encode, te.step1_encode = timed(real[0], "bert_s"), timed(real[1], "step1_s")
+    try:
+        encode = sp.make_stepvideo_prompt_encoder(bert, bert_cfg, step1, step1_cfg,
+                                                  tokenize_bert=hunyuan_dit_tokenizers()[0])
+    finally:
+        te.bert_encode, te.step1_encode = real
+    pipe = sp.StepVideoPipeline(dit=dit, vae=vae, dit_cfg=cfg, vae_cfg=vae_cfg,
+                                encode_prompt=encode, dtype=torch.bfloat16)
+    pipe._velocity = timed(pipe._velocity, "step_s")
+    decode = pipe._decode
+
+    def timed_decode(*a):
+        out, stages["decode_s"] = sync_time(lambda: decode(*a))
+        return out
+
+    pipe._decode = timed_decode
+    fa.reset_launch_counts()
+    with BoundRecorder() as bounds:
+        frames, secs = sync_time(lambda: pipe(SV_PROMPT, SV_NEGATIVE, cfg_scale=9.0,
+                                              height=SV_HEIGHT, width=SV_WIDTH,
+                                              num_frames=SV_FRAMES,
+                                              num_inference_steps=SV_STEPS, seed=13))
+    launches = dict(fa.launch_counts)
+    shape = (SV_FRAMES, SV_HEIGHT, SV_WIDTH, 3)
+    finite = bool(np.isfinite(frames).all())
+    log("stepvideo", stage="request", seconds=secs, **stages, launches=launches,
+        bound_syncs=bounds.calls, k1_per_step=SV_K1_PER_STEP, steps=SV_STEPS,
+        tokens=SV_TOKENS, text_keys=SV_TEXT_KEYS, frames_shape=list(frames.shape),
+        finite=finite, frames_mean=float(frames.mean()), frames_std=float(frames.std()),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(launches == only(K1=SV_K1_PER_STEP * SV_STEPS) and bounds.calls == SV_K1_PER_STEP
+          * SV_STEPS, f"stepvideo request launched {launches}, {bounds.calls} bound syncs")
+    check(tuple(frames.shape) == shape and finite,
+          f"stepvideo frames {frames.shape}, finite {finite}")
+    del pipe, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the runtime bound's cost at the request's shapes: one CFG branch's forward with the
+    # bound, and with it replaced by a host constant (the same kernels, no reductions and
+    # no host sync), in turns
+    lat = _rand((1, SV_TOKENS // (34 * 62), 34, 62, cfg.in_channels), gen, torch.bfloat16)
+    t = torch.tensor([0.5], dtype=torch.bfloat16, device="cuda")
+    llm, clip = encode(SV_PROMPT)[::-1]
+    bound_sync_cost("stepvideo", "forward",
+                    lambda: sd.stepvideo_dit_forward(dit, cfg, lat, t, llm, clip),
+                    only(K1=2 * SV_BLOCKS))
+
+    # one forward past the bound: both attentions' q-norm weights x8
+    norms = [a.q_norm.weight for blk in dit.transformer_blocks for a in (blk.attn1, blk.attn2)]
+    for w in norms:
+        w.mul_(8)
+    try:
+        fa.reset_launch_counts()
+        with BoundRecorder(values=True) as bounds:
+            got, secs = sync_time(lambda: sd.stepvideo_dit_forward(dit, cfg, lat, t, llm, clip))
+        unb = dict(fa.launch_counts)
+        ref, plain_s = sync_time(lambda: sd.stepvideo_dit_forward(dit, cfg, lat, t, llm, clip,
+                                                                  attn_impl="plain"))
+    finally:
+        for w in norms:
+            w.div_(8)
+    scale = float(ref.float().abs().max())
+    d = got.float() - ref.float()
+    err = float(d.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= 5e-2 * scale
+    log("stepvideo", stage="unbounded_forward", seconds=secs, plain_seconds=plain_s,
+        launches=unb, bounds=bounds.bounds, max_abs_err=err, atol=5e-2 * scale, out_max=scale,
+        mean_abs_err=float(d.abs().mean()),
+        rel_bias=float((d * ref.float().sign()).mean() / ref.float().abs().mean()), ok=ok)
+    check(unb == only(K2=2 * SV_BLOCKS) and min(bounds.bounds) >= fa.NOMAX_BOUND,
+          f"stepvideo unbounded forward launched {unb}, bounds {bounds.bounds}")
+    check(ok, f"stepvideo unbounded forward: kernels vs plain differ by {err}")
+    del dit, step1, bert, vae, encode, got, ref, lat, llm, clip, d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(112)
+    path = {"self": _stepvideo_k1(SV_SELF, gen), "cross": _stepvideo_k1(SV_CROSS_KV, gen)}
+    return launches, unb, path
+
+
 def main() -> int:
     try:
         return _main()
@@ -4083,6 +4448,7 @@ def _main() -> int:
     small_s2v_launches = started("small_s2v", phase_small_s2v)
     small_hy_launches = started("small_hunyuan", phase_small_hunyuan)
     started("small_cog", phase_small_cog)
+    small_sv_launches = started("small_stepvideo", phase_small_stepvideo)
     pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
     sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
     started("tools", phase_tools)
@@ -4103,6 +4469,7 @@ def _main() -> int:
     i2v_launches, i2v_rec = started("hunyuan_i2v", phase_hunyuan_i2v, hy_models)
     del hy_models
     cog_launches, cog_rec = started("cog", phase_cog)
+    sv_launches, sv_unbounded, sv_path = started("stepvideo", phase_stepvideo)
     train_launches, train_run = started("train", phase_train)
     sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
@@ -4138,12 +4505,16 @@ def _main() -> int:
               "hunyuan_launches": hy_launches["K1"], "hunyuan_path": hy_rec["path"],
               "hunyuan_b2": hy_rec["b2"],
               "hunyuan_i2v_launches": i2v_launches["K1"], "hunyuan_i2v_path": i2v_rec,
-              "cog_launches": cog_launches["K1"]}),
+              "cog_launches": cog_launches["K1"],
+              "small_stepvideo_launches": small_sv_launches["K1"],
+              "stepvideo_launches": sv_launches["K1"], "stepvideo_path": sv_path}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],
               "sharded_s2v_launches": sharded_s2v_launches["K2"],
-              **{k: measured["K2"][k] for k in ("audio", "s2v_self", "s2v_cross")}}),
+              **{k: measured["K2"][k] for k in ("audio", "s2v_self", "s2v_cross")},
+              "small_stepvideo_launches": small_sv_launches["K2"],
+              "stepvideo_launches": sv_unbounded["K2"]}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K3"],

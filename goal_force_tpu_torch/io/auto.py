@@ -15,6 +15,11 @@ or a shape that does not fit, raises. The kinds:
   - ``cog_dit`` (``infer_cog_config``), ``cog_vae`` (one half in the reference layout:
     its decoder or its encoder; the config from ``config=`` or ``vae_cfg=``, else the
     released one) and ``t5_encoder`` (T5 v1.1: ``infer_t5_v11_config``);
+  - ``stepvideo_dit`` (``infer_stepvideo_config``), ``stepvideo_vae`` (the encoder, the
+    decoder or both, in one module; the config from ``config=`` or ``vae_cfg=``, else the
+    released one), ``step1_llm`` (Step-1: JAX's config, ``ffn_hidden_size`` read from the
+    fused ``w1`` with ``multiple_of=1``) and ``bert`` (``infer_bert_config``; the HF
+    position-id buffer and pooler, which the tower never reads, are dropped);
   - the Wan kinds, through the port's own loaders (``io/detect.py::convert_detected``).
 
 Every other detected kind raises ``NotImplementedError`` naming its ROADMAP item.
@@ -37,11 +42,10 @@ WAN_KINDS = ("wan_dit", "umt5_xxl", "wan_vae", "wan_vae38", "wan_image_encoder",
 
 # The ROADMAP item that ports each detected kind not ported yet.
 ROADMAP_ITEMS = {
-    **{k: "M14b (StepVideo)" for k in ("stepvideo_dit", "stepvideo_vae", "step1_llm")},
     **{k: "M14c (Flux, SD3, Qwen-Image, Nexus-Gen, HunyuanDiT, OmniGen)" for k in (
         "flux_dit", "flux_controlnet", "step1x_connector", "sd3_dit", "sd3_vae_encoder",
         "sd3_vae_decoder", "qwen_image_dit", "qwen_image_controlnet", "qwen_image_vae",
-        "qwen_vl_text", "qwen_vl_vision", "hunyuan_dit", "bert", "omnigen")},
+        "qwen_vl_text", "qwen_vl_vision", "hunyuan_dit", "omnigen")},
     **{k: "M14d (SD, SDXL, Kolors, SVD, AnimateDiff)" for k in (
         "sd_civitai", "sd_unet", "sdxl_civitai", "sdxl_unet", "svd_unet", "svd_vae",
         "sd_motion", "sd_controlnet", "sdxl_controlnet", "ipadapter", "chatglm",
@@ -166,6 +170,55 @@ def infer_t5_v11_config(sd, num_heads: Optional[int] = None):
     )
 
 
+def infer_stepvideo_config(sd):
+    """StepVideoConfig from the shapes: heads from the per-head q norm, the rope split
+    (hd/2, hd/4, hd/4)."""
+    from goal_force_tpu_torch.models.stepvideo_dit import StepVideoConfig
+
+    w = _shape(sd, "pos_embed.proj.weight")
+    head_dim = _shape(sd, "transformer_blocks.0.attn1.q_norm.weight")[0]
+    return StepVideoConfig(
+        num_heads=w[0] // head_dim, head_dim=head_dim,
+        num_layers=_max_index(sd, "transformer_blocks."),
+        in_channels=w[1],
+        caption_dim=_shape(sd, "caption_projection.linear_1.weight")[1],
+        clip_dim=_shape(sd, "clip_projection.weight")[1],
+        rope_split=(head_dim // 2, head_dim // 4, head_dim // 4),
+    )
+
+
+def infer_bert_config(sd, num_heads: Optional[int] = None, prefix: str = ""):
+    from goal_force_tpu_torch.models.text_encoders import BertConfig
+
+    vocab, hidden = _shape(sd, prefix + "embeddings.word_embeddings.weight")
+    return BertConfig(
+        hidden_size=hidden, vocab=vocab,
+        num_heads=num_heads or max(1, hidden // 64),
+        num_layers=_max_index(sd, prefix + "encoder.layer."),
+        intermediate_size=_shape(sd, prefix + "encoder.layer.0.intermediate.dense.weight")[0],
+        max_positions=_shape(sd, prefix + "embeddings.position_embeddings.weight")[0],
+        type_vocab=_shape(sd, prefix + "embeddings.token_type_embeddings.weight")[0],
+    )
+
+
+def infer_step1_config(sd, num_heads: Optional[int] = None):
+    """JAX's Step1Config of the shapes: heads hidden / 128 unless given, groups from the
+    fused wqkv, ``ffn_hidden_size`` the fused w1's rows (twice the FFN's width) with
+    ``multiple_of=1``, as JAX reads it (its forward never uses the field)."""
+    from goal_force_tpu_torch.models.text_encoders import Step1Config
+
+    vocab, hidden = _shape(sd, "tok_embeddings.word_embeddings.weight")
+    heads = num_heads or max(1, hidden // 128)
+    qkv_out = _shape(sd, "transformer.layers.0.attention.wqkv.weight")[0]
+    return Step1Config(
+        hidden_size=hidden, vocab=vocab, num_heads=heads,
+        num_groups=(qkv_out - hidden) // (2 * (hidden // heads)),
+        num_layers=_max_index(sd, "transformer.layers."),
+        ffn_hidden_size=_shape(sd, "transformer.layers.0.feed_forward.w1.weight")[0],
+        multiple_of=1,
+    )
+
+
 def _is_cog_vae(sd) -> bool:
     """A Cog VAE half in the reference layout: 3D ``conv_in`` and ``blocks.0.conv1``."""
     return all(k in sd and len(_shape(sd, k)) == 5
@@ -262,6 +315,38 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
 
         cfg = config or infer_t5_v11_config(sd, **infer_kw)
         return out(cfg, _strict(T5Encoder, cfg, sd, kind, dtype, device))
+    if kind == "stepvideo_dit":
+        from goal_force_tpu_torch.models.stepvideo_dit import StepVideoDiT
+
+        cfg = config or infer_stepvideo_config(sd)
+        return out(cfg, _strict(StepVideoDiT, cfg, sd, kind, dtype, device))
+    if kind == "stepvideo_vae":
+        import functools
+
+        from goal_force_tpu_torch.models import stepvideo_vae as sv
+        from goal_force_tpu_torch.models.hunyuan_video_vae import vae_halves
+
+        cfg = config or infer_kw.get("vae_cfg") or sv.StepVideoVAEConfig()
+        enc, dec = vae_halves(sd)
+        cls = functools.partial(sv.StepVideoVAE, encoder=enc, decoder=dec)
+        return out(cfg, _strict(cls, cfg, sd, kind, dtype, device))
+    if kind == "step1_llm":
+        import dataclasses
+
+        from goal_force_tpu_torch.models.text_encoders import Step1Model
+
+        cfg = config or infer_step1_config(sd, **infer_kw)
+        # the module's FFN width is the file's (half the fused w1's rows), whatever the
+        # config's ffn_hidden_size says
+        ff = _shape(sd, "transformer.layers.0.feed_forward.w2.weight")[1]
+        build = dataclasses.replace(cfg, ffn_hidden_size=ff, multiple_of=1)
+        return out(cfg, _strict(Step1Model, build, sd, kind, dtype, device))
+    if kind == "bert":
+        from goal_force_tpu_torch.models.text_encoders import BERT_UNUSED, BertModel
+
+        cfg = config or infer_bert_config(sd, **infer_kw)
+        sd = {k: v for k, v in sd.items() if not k.startswith(BERT_UNUSED)}
+        return out(cfg, _strict(BertModel, cfg, sd, kind, dtype, device))
     if kind == "clip_text":
         from goal_force_tpu_torch.models.clip import CLIPTextModel
 

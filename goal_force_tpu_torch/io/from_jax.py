@@ -605,6 +605,154 @@ def hunyuan_vae_decoder_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------------
+# The StepVideo path: the DiT, the VAE, BERT and Step-1
+# ---------------------------------------------------------------------------
+
+def _linb(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _lin(sd, prefix, p, bias="b" in p)
+
+
+def _unfuse(w, parts: int, head_dim: int) -> torch.Tensor:
+    """JAX's (in, parts * n * hd) fused weight, columns (part, head, hd) -> the reference's
+    (n * parts * hd, in), rows (head, part, hd)."""
+    w = np.asarray(w)
+    n = w.shape[1] // (parts * head_dim)
+    w = w.reshape(w.shape[0], parts, n, head_dim).transpose(0, 2, 1, 3)
+    return _t(np.ascontiguousarray(w.reshape(w.shape[0], -1).T))
+
+
+def stepvideo_dit_state_dict(p: Mapping) -> StateDict:
+    """JAX ``stepvideo_dit_params_from_torch``'s (or ``init_stepvideo_dit``'s) tree ->
+    the reference StepVideo DiT keys."""
+    w = np.asarray(p["patch_in"]["w"])
+    sd: StateDict = {"pos_embed.proj.weight": _t(w.T[:, :, None, None]),
+                     "pos_embed.proj.bias": _t(p["patch_in"]["b"])}
+    _linb(sd, "adaln_single.emb.timestep_embedder.linear_1", p["time_emb"]["fc0"])
+    _linb(sd, "adaln_single.emb.timestep_embedder.linear_2", p["time_emb"]["fc2"])
+    _linb(sd, "adaln_single.linear", p["adaln_linear"])
+    _linb(sd, "caption_projection.linear_1", p["caption_proj"]["fc0"])
+    _linb(sd, "caption_projection.linear_2", p["caption_proj"]["fc2"])
+    if "clip_proj" in p:
+        _linb(sd, "clip_projection", p["clip_proj"])
+    blocks = p["blocks"]
+    for i in range(int(np.asarray(blocks["scale_shift_table"]).shape[0])):
+        b, pre = _layer(blocks, i), f"transformer_blocks.{i}"
+        hd = int(b["attn1"]["q_norm"]["w"].shape[0])
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = _t(b[norm]["w"])
+            sd[f"{pre}.{norm}.bias"] = _t(b[norm]["b"])
+        sd[pre + ".attn1.wqkv.weight"] = _unfuse(b["attn1"]["qkv"]["w"], 3, hd)
+        sd[pre + ".attn2.wkv.weight"] = _unfuse(b["attn2"]["kv"]["w"], 2, hd)
+        _linb(sd, pre + ".attn1.wo", b["attn1"]["o"])
+        _linb(sd, pre + ".attn2.wq", b["attn2"]["q"])
+        _linb(sd, pre + ".attn2.wo", b["attn2"]["o"])
+        for a in ("attn1", "attn2"):
+            for norm in ("q_norm", "k_norm"):
+                sd[f"{pre}.{a}.{norm}.weight"] = _t(b[a][norm]["w"])
+        _linb(sd, pre + ".ff.net.0.proj", b["ff"]["fc0"])
+        _linb(sd, pre + ".ff.net.2", b["ff"]["fc2"])
+        sd[pre + ".scale_shift_table"] = _t(b["scale_shift_table"])
+    sd["scale_shift_table"] = _t(p["scale_shift_table"])
+    _linb(sd, "proj_out", p["proj_out"])
+    return sd
+
+
+def _sv_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _conv3d(sd, prefix + ".conv", p)
+
+
+def _sv_res(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _ln(sd, prefix + ".norm1", p["norm1"])
+    _sv_conv(sd, prefix + ".conv1", p["conv1"])
+    _ln(sd, prefix + ".norm2", p["norm2"])
+    _sv_conv(sd, prefix + ".conv2", p["conv2"])
+    if "shortcut" in p:
+        _sv_conv(sd, prefix + ".nin_shortcut", p["shortcut"])
+
+
+def _sv_mid(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _sv_res(sd, prefix + ".block_1", p["mid_block1"])
+    _sv_res(sd, prefix + ".block_2", p["mid_block2"])
+    a, pre = p["mid_attn"], prefix + ".attn_1"
+    _ln(sd, pre + ".norm", a["norm"])
+    for proj, name in (("q", "q"), ("k", "k"), ("v", "v"), ("proj", "proj_out")):
+        _sv_conv(sd, f"{pre}.{name}", a[proj])
+
+
+def stepvideo_vae_state_dict(p: Mapping) -> StateDict:
+    """JAX ``stepvideo_vae_params_from_torch``'s tree ({"encoder", "decoder"}, or one of
+    them) -> the reference ``encoder.*`` / ``decoder.*`` keys."""
+    sd: StateDict = {}
+    if "encoder" in p:
+        e = p["encoder"]
+        _sv_conv(sd, "encoder.conv_in", e["conv_in"])
+        for i, lvl in enumerate(e["down"]):
+            for j, r in enumerate(lvl["blocks"]):
+                _sv_res(sd, f"encoder.down.{i}.block.{j}", r)
+            if "downsample" in lvl:
+                w = lvl["downsample"]
+                if np.asarray(w["w"]).ndim == 5:
+                    _sv_conv(sd, f"encoder.down.{i}.downsample.conv", w)
+                else:
+                    _conv2d(sd, f"encoder.down.{i}.downsample.conv", w)
+        _sv_mid(sd, "encoder.mid", e)
+        _ln(sd, "encoder.norm_out", e["norm_out"])
+        _sv_conv(sd, "encoder.conv_patchify.conv", e["conv_patchify"])
+        _sv_conv(sd, "encoder.conv_out", e["conv_out"])
+    if "decoder" in p:
+        d = p["decoder"]
+        _sv_conv(sd, "decoder.conv_in", d["conv_in"])
+        _sv_conv(sd, "decoder.conv_unpatchify.conv", d["conv_unpatchify"])
+        _sv_mid(sd, "decoder.mid", d)
+        for i, lvl in enumerate(d["up"]):
+            for j, r in enumerate(lvl["blocks"]):
+                _sv_res(sd, f"decoder.up.{i}.block.{j}", r)
+            up = lvl.get("upsample")
+            if up is not None and "conv3d" in up:
+                pre, u = f"decoder.up.{i}.upsample.conv3d", up["conv3d"]
+                _sv_conv(sd, pre + ".conv1", u["conv1"])
+                _sv_conv(sd, pre + ".conv2", u["conv2"])
+                _ln(sd, pre + ".norm1", u["norm1"])
+                _ln(sd, pre + ".norm2", u["norm2"])
+            elif up is not None:
+                _conv2d(sd, f"decoder.up.{i}.upsample.conv", up)
+        _ln(sd, "decoder.norm_out", d["norm_out"])
+        _sv_conv(sd, "decoder.conv_out", d["conv_out"])
+    return sd
+
+
+def bert_state_dict(p: Mapping) -> StateDict:
+    """JAX ``bert_params_from_torch``'s tree -> HF BertModel keys."""
+    sd: StateDict = {"embeddings.word_embeddings.weight": _t(p["word_emb"]),
+                     "embeddings.position_embeddings.weight": _t(p["pos_emb"]),
+                     "embeddings.token_type_embeddings.weight": _t(p["type_emb"])}
+    _ln(sd, "embeddings.LayerNorm", p["emb_ln"])
+    names = {"q": "attention.self.query", "k": "attention.self.key",
+             "v": "attention.self.value", "o": "attention.output.dense",
+             "fc1": "intermediate.dense", "fc2": "output.dense"}
+    for i in range(int(np.asarray(p["blocks"]["q"]["w"]).shape[0])):
+        b, pre = _layer(p["blocks"], i), f"encoder.layer.{i}"
+        for k, name in names.items():
+            _lin(sd, f"{pre}.{name}", b[k])
+        _ln(sd, pre + ".attention.output.LayerNorm", b["attn_ln"])
+        _ln(sd, pre + ".output.LayerNorm", b["out_ln"])
+    return sd
+
+
+def step1_state_dict(p: Mapping) -> StateDict:
+    """JAX ``step1_params_from_torch``'s tree -> the Step-1 reference keys."""
+    sd: StateDict = {"tok_embeddings.word_embeddings.weight": _t(p["word_emb"])}
+    for i in range(int(np.asarray(p["blocks"]["wqkv"]["w"]).shape[0])):
+        b, pre = _layer(p["blocks"], i), f"transformer.layers.{i}"
+        sd[pre + ".attention_norm.weight"] = _t(b["attn_norm"]["w"])
+        sd[pre + ".ffn_norm.weight"] = _t(b["ffn_norm"]["w"])
+        for k, name in (("wqkv", "attention.wqkv"), ("wo", "attention.wo"),
+                        ("w1", "feed_forward.w1"), ("w2", "feed_forward.w2")):
+            _lin(sd, f"{pre}.{name}", b[k], bias=False)
+    return sd
+
+
 def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]:
     """State dicts for every entry of the JAX pipeline's params tree."""
     out: Dict[str, StateDict] = {}
@@ -647,6 +795,14 @@ def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]
             out[name] = cog_vae_state_dict(p)
         elif name == "t5_v1_1":
             out[name] = t5_state_dict(p, shared_pos=True)
+        elif name == "stepvideo_dit":
+            out[name] = stepvideo_dit_state_dict(p)
+        elif name == "stepvideo_vae":
+            out[name] = stepvideo_vae_state_dict(p)
+        elif name == "bert":
+            out[name] = bert_state_dict(p)
+        elif name == "step1":
+            out[name] = step1_state_dict(p)
         else:
             raise NotImplementedError(f"no converter for params[{name!r}]")
     return out

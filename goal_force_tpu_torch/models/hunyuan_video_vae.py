@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from goal_force_tpu_torch.models.vae import masked_mid_attention
 from goal_force_tpu_torch.models.wan_dit import LayerNormAffine, empty_module
 
 
@@ -225,9 +226,6 @@ def _resnet(p: ResnetBlock, x, cfg: HunyuanVAEConfig):
     return x + h
 
 
-MID_ATTENTION_ROWS = 8192     # query rows per step of the mid attention
-
-
 def _mid_attention(p: MidAttention, x, cfg: HunyuanVAEConfig):
     """Single-head attention over all tokens; token i sees the tokens of its own frame
     and the frames before it (logits elsewhere at float32's finfo.min)."""
@@ -237,17 +235,9 @@ def _mid_attention(p: MidAttention, x, cfg: HunyuanVAEConfig):
     q = _dense(tokens, p.to_q.weight, p.to_q.bias)
     k = _dense(tokens, p.to_k.weight, p.to_k.bias)
     v = _dense(tokens, p.to_v.weight, p.to_v.bias)
-    scale = 1.0 / math.sqrt(c)
     frame = torch.arange(t * h * w, device=x.device) // (h * w)
-    out = torch.empty_like(q)
-    for s0 in range(0, q.shape[1], MID_ATTENTION_ROWS):
-        qs = q[:, s0:s0 + MID_ATTENTION_ROWS]
-        logits = torch.einsum("bqc,bkc->bqk", qs, k) * scale
-        ok = frame[None, :] <= frame[s0:s0 + qs.shape[1], None]
-        logits = torch.where(ok[None], logits.float(), torch.finfo(torch.float32).min)
-        probs = torch.softmax(logits, -1).to(v.dtype)
-        out[:, s0:s0 + qs.shape[1]] = torch.einsum("bqk,bkc->bqc", probs, v)
-        del logits, probs
+    out = masked_mid_attention(q, k, v, 1.0 / math.sqrt(c),
+                               lambda s0, s1: frame[None, :] <= frame[s0:s1, None])
     out = _dense(out, p.to_out[0].weight, p.to_out[0].bias)
     return x + out.transpose(1, 2).reshape(b, c, t, h, w)
 

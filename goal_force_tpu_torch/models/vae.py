@@ -206,6 +206,30 @@ def attention_block(p: AttentionBlock, x, split=None):
     return x + out.reshape(b, t, c, hh, ww).permute(0, 2, 1, 3, 4)
 
 
+MID_ATTENTION_ROWS = 8192     # query rows per block of a masked mid attention
+
+
+def masked_mid_attention(q, k, v, scale: float, visible) -> torch.Tensor:
+    """Single-head attention of (B, S, C) tensors with a causal mask, over blocks of
+    ``MID_ATTENTION_ROWS`` query rows (the HunyuanVideo and StepVideo VAEs' mid blocks
+    hold up to ~42k tokens, whose whole float32 logits would take GBs). ``visible(s0, s1)``
+    gives the (s1 - s0, n) bool mask of the keys 0..n-1 that rows s0..s1-1 see; the keys
+    from n on are masked for all of them and are not read. A masked logit is float32's
+    finfo.min and each row's softmax stays whole, so the function is that of one block."""
+    out = torch.empty_like(q)
+    for s0 in range(0, q.shape[1], MID_ATTENTION_ROWS):
+        s1 = min(q.shape[1], s0 + MID_ATTENTION_ROWS)
+        ok = visible(s0, s1)
+        n = ok.shape[1]
+        logits = torch.einsum("bqc,bkc->bqk", q[:, s0:s1], k[:, :n]) * scale
+        logits = torch.where(ok[None], logits.float(), torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, -1).to(v.dtype)
+        del logits
+        out[:, s0:s1] = torch.einsum("bqk,bkc->bqc", probs, v[:, :n])
+        del probs
+    return out
+
+
 def _conv2d_frames(conv: nn.Conv2d, x, stride: int = 1, padding=(1, 1)):
     """A 2D conv applied to every frame of (B, C, T, H, W)."""
     w = conv.weight.to(x.dtype)[:, :, None]

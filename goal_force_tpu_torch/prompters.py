@@ -1,14 +1,16 @@
-"""Text tokenizers from a tokenizer directory.
+"""Text tokenizers from a tokenizer directory, and each family's vendored tokenizers.
 
-Port of ``goal_force_tpu/prompters.py`` for the umt5 and HunyuanVideo paths:
-``TextTokenizer`` (encode, then pad or truncate to a fixed length),
-``load_text_tokenizer`` with its CLIP BPE (``vocab.json`` + ``merges.txt``, through
-``models/clip_bpe.py``), ``tokenizer.json`` (the ``tokenizers`` runtime), ``spiece.model``
-and ``tokenizer.model`` (``models/spm.py``) branches, ``wan_umt5_tokenizer``,
-``hunyuan_video_clip_tokenizer`` and ``cog_tokenizer``. The vendored tokenizer files are read from the JAX
-package's ``tokenizer_assets`` directory by path (``asset_path``); nothing of that
-package is imported. The BERT (``vocab.txt``) branch, HunyuanDiT's, and the other
-families' helpers are not ported and raise ``NotImplementedError``.
+Port of ``goal_force_tpu/prompters.py``: ``TextTokenizer`` (encode, then pad or truncate
+to a fixed length), ``tokenize_long_prompt`` (one encoding cut into rows of the context
+length), ``load_text_tokenizer`` with its CLIP BPE (``vocab.json`` + ``merges.txt``,
+through ``models/clip_bpe.py``), ``tokenizer.json`` (the ``tokenizers`` runtime),
+``spiece.model`` and ``tokenizer.model`` (``models/spm.py``) and BERT WordPiece
+(``vocab.txt``, through ``tokenizers.BertWordPieceTokenizer``, the engine of JAX's
+``BertTokenizerFast``: ``[CLS] ... [SEP]``, pad id 0, truncation with no forced last id)
+branches, and the family helpers over the vendored files (SD, SDXL, SD3, Flux, CogVideoX,
+HunyuanDiT, HunyuanVideo, Kolors, Wan's umt5). The vendored tokenizer files are read from
+the JAX package's ``tokenizer_assets`` directory by path (``asset_path``); nothing of that
+package is imported. Optional packages (``tokenizers``) are imported where they are used.
 """
 
 from __future__ import annotations
@@ -64,6 +66,23 @@ class TextTokenizer:
                              self.force_last)
 
 
+def tokenize_long_prompt(tok: TextTokenizer, text: str,
+                         num_sentences: Optional[int] = None) -> np.ndarray:
+    """(num_sentences, tok.length) int32: the whole prompt encoded once (its special
+    tokens around the whole sequence), right-padded with the pad id to a multiple of the
+    context length and cut into rows. `num_sentences` forces the row count (extra rows
+    all padding); a prompt that needs more rows raises ValueError."""
+    ids = tok.encode(text)
+    length = tok.length
+    ns = max(1, -(-len(ids) // length))
+    if num_sentences is not None:
+        if ns > num_sentences:
+            raise ValueError(f"prompt needs {ns} sentences > requested {num_sentences}")
+        ns = num_sentences
+    ids = ids + [tok.pad_id] * (ns * length - len(ids))
+    return np.asarray(ids, np.int32).reshape(ns, length)
+
+
 def load_text_tokenizer(path: str, length: int = 77,
                         add_eos: bool = False) -> TextTokenizer:
     """A TextTokenizer from a tokenizer directory (or a ``.model`` file), dispatched on
@@ -80,8 +99,7 @@ def load_text_tokenizer(path: str, length: int = 77,
     if "tokenizer.model" in files:
         return _spm_tokenizer(os.path.join(path, "tokenizer.model"), length, add_eos)
     if "vocab.txt" in files:
-        raise NotImplementedError(f"{path}: BERT WordPiece tokenizers (HunyuanDiT's) are "
-                                  "not ported yet (ROADMAP M14c)")
+        return _bert_tokenizer(path, length)
     raise ValueError(f"no recognizable tokenizer files in {path!r}: {sorted(files)}")
 
 
@@ -132,6 +150,77 @@ def _spm_tokenizer(model_path: str, length: int, add_eos: bool) -> TextTokenizer
     return tt
 
 
+def _bert_tokenizer(path: str, length: int) -> TextTokenizer:
+    """BERT WordPiece over ``vocab.txt`` with the directory's ``tokenizer_config.json``
+    flags (lower case, accents, Chinese characters), as ``BertTokenizerFast`` reads them."""
+    import json
+
+    from tokenizers import BertWordPieceTokenizer
+
+    cfg = {}
+    cfg_file = os.path.join(path, "tokenizer_config.json")
+    if os.path.exists(cfg_file):
+        with open(cfg_file) as f:
+            cfg = json.load(f)
+    tok = BertWordPieceTokenizer(os.path.join(path, "vocab.txt"),
+                                 lowercase=cfg.get("do_lower_case", True),
+                                 strip_accents=cfg.get("strip_accents"),
+                                 handle_chinese_chars=cfg.get("tokenize_chinese_chars", True),
+                                 clean_text=True)
+    return TextTokenizer(lambda t: tok.encode(t).ids, length, tok.token_to_id("[PAD]") or 0)
+
+
+def sd_clip_tokenizer(length: int = 77) -> TextTokenizer:
+    """SD-1.5's CLIP-L (``stable_diffusion/tokenizer``)."""
+    return load_text_tokenizer(asset_path("stable_diffusion", "tokenizer"), length)
+
+
+def sdxl_tokenizers(length: int = 77):
+    """(CLIP-L, CLIP-G padded with '!' = 0) of SDXL."""
+    tok1 = load_text_tokenizer(asset_path("stable_diffusion", "tokenizer"), length)
+    tok2 = load_text_tokenizer(asset_path("stable_diffusion_xl", "tokenizer_2"), length)
+    return tok1, tok2
+
+
+def sd3_tokenizers(t5_length: int = 128):
+    """(CLIP-L 77, CLIP-G 77, T5 at t5_length) of SD3."""
+    tok1 = load_text_tokenizer(asset_path("stable_diffusion_3", "tokenizer_1"), 77)
+    tok2 = load_text_tokenizer(asset_path("stable_diffusion_3", "tokenizer_2"), 77)
+    tok3 = load_text_tokenizer(asset_path("stable_diffusion_3", "tokenizer_3"), t5_length)
+    return tok1, tok2, tok3
+
+
+def flux_tokenizers(t5_length: int = 512):
+    """(CLIP-L 77, T5 at t5_length) of Flux."""
+    tok1 = load_text_tokenizer(asset_path("flux", "tokenizer_1"), 77)
+    tok2 = load_text_tokenizer(asset_path("flux", "tokenizer_2"), t5_length)
+    return tok1, tok2
+
+
+def hunyuan_dit_tokenizers(t5_length: int = 256):
+    """(BERT at 77 tokens, None) of HunyuanDiT: the vendored ``tokenizer_t5`` directory
+    holds configs only (its spiece ships with the weights), so the mT5 entry is None."""
+    bert = load_text_tokenizer(asset_path("hunyuan_dit", "tokenizer"), 77)
+    return bert, None
+
+
+def kolors_tokenizer(length: int = 256) -> TextTokenizer:
+    """ChatGLM3 (``kolors/tokenizer/tokenizer.model``): the ``[gMASK] sop`` prefix (the
+    ids after the SentencePiece vocabulary's), left padding with the unk id."""
+    tt = _spm_tokenizer(asset_path("kolors", "tokenizer", "tokenizer.model"), length,
+                        add_eos=False)
+    spm = tt.spm
+    n = len(spm)
+    gmask_id, sop_id = n + 1, n + 3
+
+    def encode(text: str) -> List[int]:
+        return [gmask_id, sop_id] + spm.encode(text)
+
+    out = TextTokenizer(encode, length, pad_id=spm.m.unk_id, pad_side="left")
+    out.spm = spm
+    return out
+
+
 def wan_umt5_tokenizer(path: str, length: int = 512) -> TextTokenizer:
     """umt5-xxl from a local tokenizer dir (HF files or spiece.model)."""
     return load_text_tokenizer(path, length, add_eos=True)
@@ -146,3 +235,12 @@ def hunyuan_video_clip_tokenizer(length: int = 77) -> TextTokenizer:
 def cog_tokenizer(length: int = 226) -> TextTokenizer:
     """CogVideoX's T5 ``spiece.model`` (``cog/tokenizer``), EOS appended, 226 tokens."""
     return load_text_tokenizer(asset_path("cog", "tokenizer"), length, add_eos=True)
+
+
+__all__ = [
+    "ASSET_ROOT", "asset_path", "TextTokenizer", "load_text_tokenizer",
+    "tokenize_long_prompt",
+    "sd_clip_tokenizer", "sdxl_tokenizers", "sd3_tokenizers",
+    "flux_tokenizers", "cog_tokenizer", "hunyuan_dit_tokenizers",
+    "hunyuan_video_clip_tokenizer", "kolors_tokenizer", "wan_umt5_tokenizer",
+]

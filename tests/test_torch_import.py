@@ -123,6 +123,14 @@ def test_hunyuan_video_modules_are_in_the_blocked_import():
         assert m in MODULES
 
 
+def test_stepvideo_modules_are_in_the_blocked_import():
+    for m in ("goal_force_tpu_torch.models.stepvideo_dit",
+              "goal_force_tpu_torch.models.stepvideo_vae",
+              "goal_force_tpu_torch.pipelines.step_video",
+              "goal_force_tpu_torch.prompters"):
+        assert m in MODULES
+
+
 def test_spawned_children_import_no_jax():
     """The multi-process tests' children (tests/torch_parallel_children.py) import the
     port alone; they also check sys.modules at their end."""

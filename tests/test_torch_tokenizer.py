@@ -112,13 +112,10 @@ def test_load_text_tokenizer_dispatch_equals_jax(rel):
 
 @pytest.mark.parametrize("rel", ["flux/tokenizer_1", "hunyuan_dit/tokenizer"])
 def test_unported_tokenizer_kinds_raise(rel):
-    """HunyuanDiT's BERT WordPiece directory is not ported and raises. Flux's CLIP BPE
-    directory (vocab.json + merges.txt) raised too until the CLIP BPE branch was ported
-    (models/clip_bpe.py): it now gives JAX's ids, pad id and truncation."""
-    if rel == "hunyuan_dit/tokenizer":
-        with pytest.raises(NotImplementedError):
-            tprompters.load_text_tokenizer(_asset(rel), LENGTH)
-        return
+    """Both kinds raised NotImplementedError before their branches were ported: Flux's CLIP
+    BPE directory (vocab.json + merges.txt, models/clip_bpe.py) and HunyuanDiT's BERT
+    WordPiece directory (vocab.txt, tokenizers.BertWordPieceTokenizer). Each now gives
+    JAX's ids, pad id and truncation (BERT's without a forced last id)."""
     tok = tprompters.load_text_tokenizer(_asset(rel), LENGTH)
     ref = jprompters.load_text_tokenizer(_asset(rel), LENGTH)
     assert (tok.pad_id, tok.force_last) == (ref.pad_id, ref.force_last)
@@ -126,6 +123,72 @@ def test_unported_tokenizer_kinds_raise(rel):
         warnings.simplefilter("ignore")       # the long prompt is truncated in both
         for prompt in PROMPTS:
             np.testing.assert_array_equal(tok(prompt), ref(prompt))
+
+
+# BERT (HunyuanDiT's CLIP tower, StepVideo's first text stream) at 77 tokens
+BERT_PROMPTS = [
+    "a red ball rolls across a wooden table and hits a blue cup",
+    "一只红色的小球滚过木桌，撞倒了蓝色的杯子",
+    "Déjà vu: naïve café, Ångström, Straße, ÉCOLE",
+    "Hello, world! (test) [MASK] don't -- 3.14; \"quoted\" & <b>tags</b>?",
+    "",
+    " ".join(["a marble is flicked towards a stack of dominoes"] * 12),   # > 77 tokens
+]
+
+
+@pytest.fixture(scope="module")
+def bert_pair():
+    return tprompters.hunyuan_dit_tokenizers(), jprompters.hunyuan_dit_tokenizers()
+
+
+@pytest.mark.parametrize("prompt", BERT_PROMPTS, ids=["english", "chinese", "accents",
+                                                      "punctuation", "empty", "long"])
+def test_bert_ids_equal_jax(bert_pair, prompt):
+    """[CLS] ... [SEP], pad id 0, 77 ids; the long prompt is cut at 77 with no [SEP]
+    forced into the last slot, in both."""
+    (tok, t5), (ref, rt5) = bert_pair
+    assert t5 is None and rt5 is None
+    assert (tok.length, tok.pad_id, tok.force_last) == (ref.length, ref.pad_id, None)
+    assert tok.encode(prompt) == ref.encode(prompt)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got, want = tok(prompt), ref(prompt)
+    assert got.dtype == np.int32 and got.shape == (77,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("num_sentences", [None, 3])
+def test_tokenize_long_prompt_equals_jax(bert_pair, num_sentences):
+    """One encoding of the whole prompt, padded to a multiple of 77 and cut into rows (2
+    rows needed; 3 forced: one all-pad row); fewer rows than needed raise in both."""
+    (tok, _), (ref, _) = bert_pair
+    got = tprompters.tokenize_long_prompt(tok, BERT_PROMPTS[-1], num_sentences)
+    want = jprompters.tokenize_long_prompt(ref, BERT_PROMPTS[-1], num_sentences)
+    assert got.dtype == np.int32 and got.shape == (num_sentences or 2, 77)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="sentences"):
+        tprompters.tokenize_long_prompt(tok, BERT_PROMPTS[-1], 1)
+
+
+@pytest.mark.parametrize("helper", ["sd_clip_tokenizer", "sdxl_tokenizers", "sd3_tokenizers",
+                                    "flux_tokenizers", "kolors_tokenizer"])
+def test_family_tokenizers_equal_jax(helper):
+    """Each family helper over the vendored files: every tokenizer it returns gives JAX's
+    ids (padding side, pad id and prefix included) on two prompts."""
+    pytest.importorskip("tokenizers")
+    got, want = getattr(tprompters, helper)(), getattr(jprompters, helper)()
+    got, want = (got if isinstance(got, tuple) else (got,)), (
+        want if isinstance(want, tuple) else (want,))
+    assert len(got) == len(want)
+    for tok, ref in zip(got, want):
+        assert (tok.length, tok.pad_id, tok.pad_side) == (ref.length, ref.pad_id, ref.pad_side)
+        for prompt in PROMPTS[:2]:
+            np.testing.assert_array_equal(tok(prompt), ref(prompt))
+
+
+def test_all_names_equal_jax():
+    assert sorted(tprompters.__all__) == sorted(jprompters.__all__)
+    assert all(hasattr(tprompters, name) for name in tprompters.__all__)
 
 
 def _spiece_dir(tmp_path, rel):
