@@ -69,6 +69,11 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              image tokens, 28 text keys), "auto" (K1 through the runtime bound, 2
              launches) against "plain", float32 and bf16; BERT, Step-1 and the tiny VAE's
              chunked decode on the card against the CPU (float32) and in bf16 (towers).
+6f. small_flux - a Flux DiT at head_dim 128 (2 heads, 1 joint + 1 single block, 256
+             image tokens behind 20 text tokens) and a Union ControlNet at that width
+             (1 + 1 blocks, a mode token), "auto" (K1 through the runtime bound, 2
+             launches each) against "plain", float32 and bf16; the tiny 16-channel VAE's
+             decode on the card against the CPU (float32) and over bf16 weights.
 7. main    - GoalForcePipeline at full A14B width (depth cut to 3 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
@@ -78,11 +83,12 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              3-axis mesh, checked) and
              pipe.shard(mesh), so every collective (Ulysses all-to-alls, tensor-parallel
              all-reduces, token and batch gathers) runs as a copy over a group of one;
-             frames within 1e-3 of main's, 10 K1 per step, the collectives per step as
-             counted by collectives_per_step; logs step seconds beside main's and PSNR /
-             SSIM of the two frame sets (utils/metrics.py); then the request again with
-             attn_impl="ring" ("sp" = 1: "auto", main's frames and launches). No
-             multi-GPU time is measured.
+             the request runs with attn_impl="ring" ("sp" = 1: the sharded "auto"
+             path): frames within 1e-3 of main's, 10 K1 per step, the collectives per
+             step as counted by collectives_per_step; logs step seconds beside main's
+             and PSNR / SSIM of the two frame sets (utils/metrics.py, on a thread beside
+             the next phases; logged before the kernels line). No multi-GPU time is
+             measured.
 7c. tools  - the base-model demo (--tiny_random --device cuda, 9 frames at 64x96)
              writes an mp4; extract_first_frame, extract_canny_edges and compare_videos
              run on it.
@@ -116,8 +122,10 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              per step, stage seconds and peak memory, then v2v's untiled 81-frame encode
              (its peak, or the allocation it was refused).
 13. main_int8 - main's pipeline quantized in place (W8A8 block linears) with
-             attn_impl="flash_int8": the same two requests, 48 K6 launches each and no
-             other, and the frames' mean distance from main's bf16 frames.
+             attn_impl="flash_int8": the same two requests, 40 K6 launches each and no
+             other, and the frames' mean distance from main's bf16 frames; then the first
+             request through shard() over the world of one, within 1e-3 of its unsharded
+             frames with the same launches.
 14. t2v_vace - a full-width t2v pipeline (in_dim 16, 3 DiT layers, no ControlNet) with
              VACE hint blocks after layers 0 and 2 (written and read back through
              from_pretrained's loader): a t2v request (6 K1 per step) and a VACE request
@@ -164,8 +172,21 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              against the plain path; K1 at the full path's (1, 75,888, 48, 128) self and
              x397 cross, against its plain version on 4 heads, timed beside its bound,
              the bound's sync and SDPA.
+15h. flux  - FLUX.1-dev at its released configuration and full depth (dim 3072, 24x128
+             heads, 19 joint + 38 single blocks, bf16, 23.8 GB), CLIP-L whole, T5 v1.1
+             XXL at 2 of 24 layers on the vendored tokenizers (512 tokens), the 16-channel
+             VAE at full width (float32 compute over bf16 weights) and a Union ControlNet
+             (5 + 10 blocks, 10 modes), random weights: at 1024x1024 (a) text-to-image,
+             2 steps, guidance 3.5; (b) CFG 2.0 with a negative prompt, 1 step, as one
+             merged batch of 2; (c) image-to-image from (a)'s image at strength 0.5, 2
+             steps; (d) one ControlNet step with a mode; (e) one Kontext step (8,704
+             tokens): 57 K1 per DiT forward and 15 per ControlNet forward, one bound sync
+             each, 0 K2, finite (1024, 1024, 3) images. Then one forward with the q norms
+             x8 (57 K2) against the plain path, the bound's cost per forward, and K1 at the
+             path's (1, 4,608), (2, 4,608) and (1, 8,704) x 24 x 128 against its plain
+             version on every head, timed beside its bound, the bound's sync and SDPA.
 16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
-             (3 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
+             (2 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
              the frozen models, the checkpoint and the launches per step, and logs the
              stage split and peak memory.
@@ -218,7 +239,8 @@ CROSS_KV = (2, 512, 40, 128)    # main-path cross-attention text keys
 TRAIN_SELF = (1, 32760, 40, 128)     # training (B = 1) self-attention q/k/v
 TRAIN_CROSS_KV = (1, 512, 40, 128)   # training cross-attention text keys
 STEPS = 4
-# main's depth (3 DiT layers, cut from 4 for the smoke's time) and ControlNet
+# main's depth (3 DiT layers, cut from 4 for the smoke's time; the strided ControlNet of
+# `variants` reads DiT blocks 0 and 2) and ControlNet
 MAIN_LAYERS, MAIN_CN_LAYERS = 3, 2
 K1_PER_STEP = 2 * (MAIN_LAYERS + MAIN_CN_LAYERS)    # self + cross per DiT and CN block
 K1_PER_REQUEST = K1_PER_STEP * STEPS
@@ -258,6 +280,46 @@ def sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+_BACKGROUND = []
+
+
+def in_background(fn, *args, done=None):
+    """fn(*args) on a thread, beside the card's work: host-only work (numpy metrics,
+    deleting temporary files) that nothing after it reads. ``finish_background`` joins
+    the threads in turn, re-raises what one raised, and calls done(result) on the main
+    thread (so its log line stays whole)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:      # re-raised on the main thread
+            box["err"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    _BACKGROUND.append((thread, box, done))
+
+
+def finish_background():
+    while _BACKGROUND:
+        thread, box, done = _BACKGROUND.pop(0)
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        if done is not None:
+            done(box["out"])
+
+
+def remove_later(path):
+    """Deletes a temporary directory on a thread (``in_background``)."""
+    import shutil
+
+    in_background(shutil.rmtree, path, True)
 
 
 def event_ms(fn, iters=3, warmup=1):
@@ -306,9 +368,14 @@ def phase_device():
     return card
 
 
+def _import_wav2vec2():
+    from transformers import Wav2Vec2Config, Wav2Vec2ForCTC  # noqa: F401
+
+
 def phase_build():
     from goal_force_tpu_torch.ops import _build
 
+    in_background(_import_wav2vec2)      # s2v's transformers import, while nvcc runs
     _, secs = sync_time(_build.load_all)      # one nvcc per source, started together
     check(set(_build.stems()) == {"flash_attention", "flash_attention_bwd",
                                   "flash_attention_int8"},
@@ -1444,14 +1511,15 @@ def phase_sharded(pipe, main_frames, main_stages):
     group of one rank (a file rendezvous), make_mesh(1, 1, 1) and pipe.shard(mesh), so
     every collective (the Ulysses all-to-alls, the tensor-parallel all-reduces, the
     token and batch gathers, the token ids' broadcasts) runs as a copy over a group of
-    one, and K1 runs on the rank's heads after the exchange. The frames must equal
-    main's within SHARDED_ATOL; K1 launches 12 per step as in main; each collective's
-    count per step is collectives_per_step's. Then the same request with
+    one, and K1 runs on the rank's heads after the exchange. The request runs with
     attn_impl="ring": over one rank "sp" is 1, so the ring falls back to "auto" as JAX's
-    does, with main's frames, launches and the same collectives. Logs the step seconds beside main's and
-    compare_videos (PSNR, SSIM) of the two frame sets. The pipeline then serves
-    unsharded again (over one rank the placed parameters are the whole tensors). The
-    process group stays for the later sharded phases."""
+    does, and the request runs the sharded "auto" path (which ``t2v_vace``, ``s2v`` and
+    ``image_branch`` also take under the mesh). The frames must equal main's within
+    SHARDED_ATOL; K1 launches 12 per step as in main; each collective's count per step
+    is collectives_per_step's. Logs the step seconds beside main's, and compare_videos
+    (PSNR, SSIM) of the two frame sets, computed on a thread beside the later phases. The
+    pipeline then serves unsharded again (over one rank the placed parameters are the
+    whole tensors). The process group stays for the later sharded phases."""
     import torch.distributed as dist
 
     from goal_force_tpu_torch.models.wan_dit import FFN_CHUNK_TOKENS
@@ -1462,6 +1530,8 @@ def phase_sharded(pipe, main_frames, main_stages):
     pc = pipe.pipe_cfg
     image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
     mesh = _world_mesh()
+    # "sp" is 1 over one rank, so attn_impl="ring" is "auto" there, as in JAX
+    impl, pipe.attn_impl = pipe.attn_impl, "ring"
     try:
         _, secs = sync_time(lambda: pipe.shard(mesh))
         log("sharded", stage="shard", seconds=secs, backend=dist.get_backend(),
@@ -1469,45 +1539,28 @@ def phase_sharded(pipe, main_frames, main_stages):
         steps, unwrap = _step_log(pipe)
         fa.reset_launch_counts()
         col.counts.clear()
-        request = lambda: pipe(PROMPTS[0], image, control_signal_video=video, seed=11,
-                               num_inference_steps=STEPS)
         try:
-            frames, secs = sync_time(request)
+            frames, secs = sync_time(lambda: pipe(PROMPTS[0], image, control_signal_video=video,
+                                                  seed=11, num_inference_steps=STEPS))
         finally:
             unwrap()
         launches, collectives = dict(fa.launch_counts), dict(col.counts)
-        # "sp" is 1 over one rank, so attn_impl="ring" is "auto" there, as in JAX
-        impl, pipe.attn_impl = pipe.attn_impl, "ring"
-        fa.reset_launch_counts()
-        col.counts.clear()
-        try:
-            ring_frames, ring_secs = sync_time(request)
-        finally:
-            pipe.attn_impl = impl
-        ring_launches, ring_collectives = dict(fa.launch_counts), dict(col.counts)
     finally:
-        pipe.mesh = None
+        pipe.attn_impl, pipe.mesh = impl, None
     _check_frames("sharded", frames, pc)
-    diff = float(np.abs(frames - main_frames).max())
-    report = compare_videos(frames, main_frames)
     blocks = pipe.dit_cfg.num_layers + pipe.cn_cfg.num_layers
     per_step = collectives_per_step(blocks, 2 * pc.tokens, FFN_CHUNK_TOKENS)
     want = {k: v * STEPS for k, v in per_step.items()}
     want["broadcast"] = 2
     main_steps = [t for k, t in sorted(main_stages[0].items()) if k.startswith("step")]
-    log("sharded", seconds=secs, step_seconds=[t for _, t in steps],
-        main_step_seconds=main_steps, launches=launches, collectives=collectives,
-        collectives_per_step=per_step, max_abs_diff_vs_main=diff,
-        psnr_mean=report["psnr_mean"], psnr_min=report["psnr_min"],
-        ssim_mean=report["ssim_mean"])
-    check(diff <= SHARDED_ATOL, f"sharded: frames differ from main's by {diff}")
-    check(launches == only(K1=K1_PER_REQUEST), f"sharded launched {launches}")
+    log("sharded", stage="attn_impl=ring", seconds=secs, step_seconds=[t for _, t in steps],
+        main_step_seconds=main_steps, collectives=collectives, collectives_per_step=per_step)
+    _sharded_equal("sharded", "attn_impl=ring (sp = 1: auto)", frames, main_frames,
+                   launches, only(K1=K1_PER_REQUEST))
     check(collectives == want, f"sharded: collectives {collectives}, expected {want}")
-    log("sharded", stage="attn_impl=ring", seconds=ring_secs, collectives=ring_collectives)
-    _sharded_equal("sharded", "attn_impl=ring (sp = 1: auto)", ring_frames, main_frames,
-                   ring_launches, only(K1=K1_PER_REQUEST))
-    check(ring_collectives == want, f"sharded ring: collectives {ring_collectives}, "
-          f"expected {want}")
+    in_background(compare_videos, frames, main_frames, done=lambda report: log(
+        "sharded", stage="compare_videos", psnr_mean=report["psnr_mean"],
+        psnr_min=report["psnr_min"], ssim_mean=report["ssim_mean"]))
     return launches
 
 
@@ -2006,17 +2059,22 @@ def phase_cli(pipe):
         t0 = time.perf_counter()
         high = pipe.models["dit"].state_dict()
         keys = sorted(high)
-        for i in range(2):
-            sio.save_safetensors({k: high[k] for k in keys[i::2]}, os.path.join(
-                tmp, "high", f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
-        sio.save_safetensors(pipe.models["dit2"].state_dict(),
-                             os.path.join(tmp, "low", "diffusion_pytorch_model.safetensors"))
-        torch.save({k: v.cpu() for k, v in pipe.models["t5"].state_dict().items()},
-                   os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth"))
-        torch.save({"model." + k: v.cpu() for k, v in pipe.models["vae"].state_dict().items()},
-                   os.path.join(tmp, "Wan2.1_VAE.pth"))
         ckpt = os.path.join(tmp, "ckpt", "step-3.safetensors")
-        sio.save_safetensors(sio.export_goalforce_controlnet(cn), ckpt)
+        writes = [lambda i=i: sio.save_safetensors({k: high[k] for k in keys[i::2]}, os.path.join(
+            tmp, "high", f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
+            for i in range(2)]
+        writes += [
+            lambda: sio.save_safetensors(pipe.models["dit2"].state_dict(), os.path.join(
+                tmp, "low", "diffusion_pytorch_model.safetensors")),
+            lambda: torch.save({k: v.cpu() for k, v in pipe.models["t5"].state_dict().items()},
+                               os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth")),
+            lambda: torch.save({"model." + k: v.cpu()
+                                for k, v in pipe.models["vae"].state_dict().items()},
+                               os.path.join(tmp, "Wan2.1_VAE.pth")),
+            lambda: sio.save_safetensors(sio.export_goalforce_controlnet(cn), ckpt)]
+        with ThreadPoolExecutor(len(writes)) as pool:      # the files written together
+            for f in [pool.submit(w) for w in writes]:
+                f.result()
         write_s = time.perf_counter() - t0
         weight_bytes = _dir_bytes(tmp)
         tok_dir = os.path.join(tmp, "umt5_tokenizer")
@@ -2107,7 +2165,7 @@ def phase_cli(pipe):
                 zc.weight.copy_(w)
                 zc.bias.copy_(b)
         pipe.tokenizer, pipe.pipe_cfg = tokenizer, pc
-        shutil.rmtree(tmp, ignore_errors=True)
+        remove_later(tmp)
     return launches
 
 
@@ -2337,10 +2395,10 @@ def phase_small_int8():
 
 def phase_main_int8(pipe, bf16_frames):
     """main's pipeline quantized in place (W8A8 block linears of the four DiT/ControlNet
-    models) with attn_impl="flash_int8": the same two requests, 48 K6 and nothing else
-    each, and the mean |frames - bf16 frames| of the same request. Then one 2-step
-    request unsharded and through shard(). Returns both requests' launches and the
-    sharded request's."""
+    models) with attn_impl="flash_int8": the same two requests, 40 K6 and nothing else
+    each, and the mean |frames - bf16 frames| of the same request. Then the first
+    request through shard(), held to its unsharded frames. Returns both requests'
+    launches and the sharded request's."""
     import gc
 
     (_, secs) = sync_time(lambda: _quantize(pipe.models))
@@ -2366,22 +2424,20 @@ def phase_main_int8(pipe, bf16_frames):
         mean_abs_diff_vs_bf16=vs_bf16, max_abs_diff_vs_bf16=max_vs_bf16,
         bf16_mean_abs_diff_between_requests=between, limit=0.1 * between, ok=ok)
     check(ok, f"main_int8: frames differ from bf16's by {vs_bf16} on average")
-    # one 2-step request unsharded, then the same through shard() over the world of one:
-    # the packs split (over one rank: whole), 12 K6 per step and nothing else, the same
-    # frames
+    # the first request again through shard() over the world of one: the packs split
+    # (over one rank: whole), K6 alone as unsharded, the same frames
     pc = pipe.pipe_cfg
-    image, video = _request_inputs(11, pc.num_frames, pc.height, pc.width, pc)
-    req = lambda: pipe(PROMPTS[0], image, control_signal_video=video, seed=11,
-                       num_inference_steps=2)
+    image, video = _request_inputs(MAIN_SEEDS[0], pc.num_frames, pc.height, pc.width, pc)
+    req = lambda: pipe(PROMPTS[0], image, control_signal_video=video, seed=MAIN_SEEDS[0],
+                       num_inference_steps=STEPS)
     pipe.attn_impl = "flash_int8"
     try:
-        want, _ = picked(req)
         pipe.shard(_world_mesh())
         (got, n), secs = sync_time(lambda: picked(req))
     finally:
         pipe.attn_impl, pipe.mesh = "auto", None
     log("main_int8", stage="sharded", seconds=secs)
-    _sharded_equal("main_int8", "request", got, want, n, only(K6=K6_PER_STEP * 2))
+    _sharded_equal("main_int8", "request", got, frames[0], n, only(K6=K6_PER_STEP * STEPS))
     return launches, n
 
 
@@ -2714,7 +2770,7 @@ class _SyntheticClips:
 
 
 def phase_train():
-    """ControlNet training at full WAN22_A14B width (3 DiT + 2 ControlNet layers, umt5 at
+    """ControlNet training at full WAN22_A14B width (2 DiT + 2 ControlNet layers, umt5 at
     2 layers, the full Wan2.1 VAE), bf16, B = 1, 81x480x832: two steps, a checkpoint at
     step 2, a full-state resume and a third step. The zero convs start at N(0, 0.02)
     (seeded) instead of 0, so the ControlNet blocks get a gradient at step 1."""
@@ -2807,7 +2863,7 @@ def phase_train():
             with_gradient=len(init), movable=len(movable), changed=len(moved),
             unchanged=sorted(set(init) - moved), step2_checkpoint_reloads=True, ok=True)
     finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+        remove_later(out_dir)
     del state3
     gc.collect()
     return launches, dict(cfg=cfg, configs=(dit_cfg, t5_cfg, C.WAN21_VAE, cn_cfg), frozen=frozen,
@@ -2815,8 +2871,8 @@ def phase_train():
                           at_step2=at_step2, peak_gb=peak_gb)
 
 
-# the training phases' depth (DiT layers cut from 4 for the smoke's time)
-TRAIN_LAYERS, TRAIN_CN_LAYERS = 3, 2
+# the training phases' depth (DiT layers cut from 4 to 3, then to 2, for the smoke's time)
+TRAIN_LAYERS, TRAIN_CN_LAYERS = 2, 2
 
 
 def train_launches_per_step(dit_blocks, cn_blocks, lora=False):
@@ -2878,7 +2934,6 @@ def phase_sharded_train(run):
     latent gathers run. Logs the step seconds, the encodes' seconds and peaks beside
     train's, and the split's collectives apart from the others."""
     import gc
-    import shutil
     import tempfile
 
     from goal_force_tpu_torch.models.wan_dit import FFN_CHUNK_TOKENS
@@ -2919,7 +2974,7 @@ def phase_sharded_train(run):
         after = {n: p.to("cpu", copy=True) for n, p in state.params.state_dict().items()}
     finally:
         trainer.make_train_step = make
-        shutil.rmtree(out_dir, ignore_errors=True)
+        remove_later(out_dir)
     from goal_force_tpu_torch import configs as C
 
     dit_cfg, t5_cfg, _, cn_cfg = run["configs"]
@@ -3005,7 +3060,7 @@ def _write_training_set(root, pc):
 
 
 def phase_train_cli():
-    """The training CLI's functions at train's config (full WAN22_A14B width, 3 DiT + 2
+    """The training CLI's functions at train's config (full WAN22_A14B width, 2 DiT + 2
     ControlNet layers, umt5 at 2 layers, bf16, 81x480x832) on reference-format files:
     the frozen weights (the expert as 2 safetensors shards read through a glob, umt5 and
     the VAE as .pth, the VAE under "model.") and Balls, Dominos and Plants CSVs with mp4
@@ -3016,7 +3071,6 @@ def phase_train_cli():
     merged bf16 weights the adapters change."""
     import argparse
     import gc
-    import shutil
     import tempfile
 
     from goal_force_tpu_torch import configs as C
@@ -3037,20 +3091,23 @@ def phase_train_cli():
     tmp = tempfile.mkdtemp(prefix="gf_train_cli_")
     try:
         t0 = time.perf_counter()
-        gen = torch.Generator("cuda").manual_seed(5)
+        gen = torch.Generator("cuda").manual_seed(5)      # drawn in this order
         sd = wan_dit.init_wan_dit(dit_cfg, gen, torch.bfloat16, device="cuda").state_dict()
+        t5_sd = t5m.init_t5(t5_cfg, gen, torch.bfloat16, device="cuda").state_dict()
+        vae_sd = vaem.init_vae(C.WAN21_VAE, gen, torch.bfloat16, device="cuda").state_dict()
         keys = sorted(sd)
-        for i in range(2):
-            sio.save_safetensors({k: sd[k] for k in keys[i::2]}, os.path.join(
-                tmp, "high", f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
-        del sd
-        torch.save({k: v.cpu() for k, v in t5m.init_t5(t5_cfg, gen, torch.bfloat16,
-                                                      device="cuda").state_dict().items()},
-                   os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth"))
-        torch.save({"model." + k: v.cpu() for k, v in vaem.init_vae(
-            C.WAN21_VAE, gen, torch.bfloat16, device="cuda").state_dict().items()},
-            os.path.join(tmp, "Wan2.1_VAE.pth"))
-        sets = _write_training_set(os.path.join(tmp, "data"), pc)
+        writes = [lambda i=i: sio.save_safetensors({k: sd[k] for k in keys[i::2]}, os.path.join(
+            tmp, "high", f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
+            for i in range(2)]
+        writes += [
+            lambda: torch.save({k: v.cpu() for k, v in t5_sd.items()},
+                               os.path.join(tmp, "models_t5_umt5-xxl-enc-bf16.pth")),
+            lambda: torch.save({"model." + k: v.cpu() for k, v in vae_sd.items()},
+                               os.path.join(tmp, "Wan2.1_VAE.pth")),
+            lambda: _write_training_set(os.path.join(tmp, "data"), pc)]
+        with ThreadPoolExecutor(len(writes)) as pool:      # the files written together
+            sets = [f.result() for f in [pool.submit(w) for w in writes]][-1]
+        del sd, t5_sd, vae_sd
         gc.collect()
         torch.cuda.empty_cache()
         log("train_cli", stage="files", seconds=time.perf_counter() - t0, bytes=_dir_bytes(tmp),
@@ -3132,7 +3189,7 @@ def phase_train_cli():
               f"train_cli: the resumed step 3 differs in {sorted(set(step3) - set(same))[:5]}")
         del models, resumed, dit, lora
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        remove_later(tmp)
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3288,7 +3345,8 @@ def _wav2vec_embeds(root, frames):
                          intermediate_size=4096, vocab_size=32)
     path = os.path.join(root, "wav2vec2-large")
     t0 = time.perf_counter()
-    Wav2Vec2ForCTC(cfg).save_pretrained(path)
+    with torch.device("cuda"):          # the random init on the card, not the host
+        Wav2Vec2ForCTC(cfg).save_pretrained(path)
     save_s = time.perf_counter() - t0
     feats, load_s = sync_time(lambda: Wav2Vec2Features(path, device="cuda"))
     wav = (np.random.default_rng(17).normal(size=(16000 * frames // 16,)) * 0.1).astype(np.float32)
@@ -4423,11 +4481,319 @@ def phase_stepvideo():
     return launches, unb, path
 
 
+def _small_flux_configs():
+    from goal_force_tpu_torch.configs import FluxDiTConfig
+    from goal_force_tpu_torch.models import flux_controlnet as fcn
+
+    dit = FluxDiTConfig(dim=256, num_heads=2, num_joint_blocks=1, num_single_blocks=1,
+                        text_dim=64, pooled_dim=32, freq_dim=64)
+    return dit, fcn.FluxControlNetConfig(dit, 1, 1, num_mode=3)
+
+
+def _auto_vs_plain(phase, name, fn, rel, want_launches):
+    """fn(attn_impl) with "auto" (the kernels behind the runtime bound, the bounds read)
+    against "plain" on the same inputs: finite and within rel of the output's scale; the
+    launches must be want_launches with one bound sync each, every bound under K1's."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launch_counts()
+    with BoundRecorder(values=True) as bounds:
+        got = fn("auto")
+        torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    ref = fn("plain")
+    got, ref = (torch.cat([t.float().flatten() for t in x]) if isinstance(x, tuple)
+                else x.float() for x in (got, ref))
+    scale = float(ref.abs().max())
+    d = got - ref
+    err = float(d.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= rel * scale
+    log(phase, case=f"{name} auto vs plain", max_abs_err=err, atol=rel * scale, out_max=scale,
+        launches=launches, bounds=bounds.bounds,
+        rel_bias=float((d * ref.sign()).mean() / ref.abs().mean()), ok=ok)
+    check(ok, f"{phase} {name}: auto vs plain differ by {err}")
+    check(launches == want_launches and bounds.calls == sum(want_launches.values())
+          and max(bounds.bounds) < fa.NOMAX_BOUND,
+          f"{phase} {name}: launched {launches}, bounds {bounds.bounds}")
+    return err, launches
+
+
+def phase_small_flux():
+    """Flux's modules at small sizes on the card: the DiT forward at head_dim 128 (2
+    heads, 1 joint + 1 single block, a 32x32 latent: 256 image tokens behind 20 text
+    tokens) and a Union ControlNet at that width (1 + 1 blocks, mode 2: 277 joint tokens),
+    each "auto" (K1 through the runtime bound, 2 launches) against "plain" on the same
+    inputs, float32 (within 1e-4 of the output's scale) and bf16 (within 3e-2 of it, as
+    small_stepvideo); the tiny 16-channel VAE's decode (tiny plans, 32x32 out) on the card
+    against the CPU, float32 with TF32 off (1e-4 of the scale), and over bf16 weights
+    against float32 ones on the card (3e-2). Logs the K1 launches and the bounds read."""
+    import copy
+
+    from goal_force_tpu_torch.models import flux_controlnet as fcn
+    from goal_force_tpu_torch.models import flux_dit as fd
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.pipelines import flux as fp
+
+    cfg, cn_cfg = _small_flux_configs()
+    gen = torch.Generator("cuda").manual_seed(121)
+    rec, launches = {}, {}
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        tag = str(dtype).split(".")[-1]
+        dit = fd.init_flux_dit(cfg, gen, dtype, device="cuda")
+        cn = fcn.init_flux_controlnet(cn_cfg, gen, dtype, device="cuda")
+        for zl in (*cn.controlnet_blocks, *cn.controlnet_single_blocks):
+            zl.weight.normal_(generator=gen).mul_(0.02)     # residuals that are not zero
+        lat = _rand((1, 32, 32, 16), gen, dtype)
+        txt, pooled = _rand((1, 20, cfg.text_dim), gen, dtype), _rand((1, 32), gen, dtype)
+        t = torch.tensor([700.0], device="cuda")
+        g = torch.tensor([3.5], device="cuda")
+        rec[f"dit_{tag}"], launches[f"dit_{tag}"] = _auto_vs_plain(
+            "small_flux", f"DiT forward {tag}",
+            lambda impl: fd.flux_dit_forward(dit, cfg, lat, t, txt, pooled, g, attn_impl=impl),
+            rel, only(K1=2))
+        cond = _rand((1, 32, 32, 16), gen, dtype)
+        rec[f"controlnet_{tag}"], launches[f"controlnet_{tag}"] = _auto_vs_plain(
+            "small_flux", f"ControlNet forward {tag}",
+            lambda impl: fcn.flux_controlnet_forward(cn, cn_cfg, lat, cond, t, txt, pooled, g,
+                                                     mode_id=2, attn_impl=impl),
+            rel, only(K1=2))
+        del dit, cn
+
+    enc_plan, dec_plan, groups = fp.tiny_sd3_vae_plans()
+    cpu_gen = torch.Generator().manual_seed(122)
+    dec = sv.init_sd_vae(sv.SDVAEDecoder, dec_plan, cpu_gen, device="cpu")
+    z = torch.randn((1, 16, 16, 16), generator=cpu_gen)
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = sv.sd3_vae_decode(dec, z, sv.FLUX_SCALING, groups)
+        gpu = copy.deepcopy(dec).to("cuda")
+        got = sv.sd3_vae_decode(gpu, z.cuda(), sv.FLUX_SCALING, groups)
+        scale = float(want.abs().max())
+        rec["vae_decode_float32"] = compare("small_flux VAE decode float32 cuda vs cpu",
+                                            got.cpu(), want, atol=1e-4 * scale, rtol=0.0,
+                                            phase="small_flux")
+        low = sv.sd3_vae_decode(gpu.to(torch.bfloat16), z.cuda(), sv.FLUX_SCALING, groups)
+        err = float((low - got).abs().max())
+        ok = low.dtype == torch.float32 and bool(torch.isfinite(low).all()) \
+            and err <= 3e-2 * float(got.abs().max())
+        log("small_flux", case="VAE decode over bf16 weights vs float32 on the card",
+            max_abs_err=err, atol=3e-2 * float(got.abs().max()), dtype=str(low.dtype), ok=ok)
+        check(ok, f"small_flux VAE decode over bf16 weights: differs by {err}")
+        rec["vae_decode_bf16_weights"] = err
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    log("small_flux", image_tokens=256, text_tokens=20, launches=launches, **rec)
+    torch.cuda.empty_cache()
+    return {k: sum(v[k] for v in launches.values()) for k in launches["dit_float32"]}
+
+
+# FLUX.1-dev at its released configuration and full depth: 19 joint + 38 single blocks,
+# so 57 K1 per DiT forward at 1024x1024 (512 text + 4,096 image tokens), 15 per forward of
+# the Union ControlNet (5 + 10 blocks, a mode token: 4,609 tokens).
+FLUX_HW = 1024
+FLUX_K1 = 19 + 38
+FLUX_CN_K1 = 5 + 10
+FLUX_CN_MODES = 10
+FLUX_T5_LAYERS = 2
+FLUX_TOKENS = 512 + (FLUX_HW // 16) ** 2
+FLUX_PATH = {"b1": (1, FLUX_TOKENS, 24, 128), "b2": (2, FLUX_TOKENS, 24, 128),
+             "kontext": (1, FLUX_TOKENS + (FLUX_HW // 16) ** 2, 24, 128)}
+FLUX_PROMPT = "a red ball rolls across a wooden table and hits a blue cup, studio light"
+FLUX_NEGATIVE = "blurry, low quality"
+
+
+def _flux_k1(name, shape, gen):
+    """K1 without its clamp (what "auto" picks below the bound) at one of Flux's path
+    shapes (q = k = v), random bf16 at the qk-normed scale: "auto" must pick K1; the
+    kernel against its plain version on every head (timed on that run); the kernel, the
+    runtime bound's reductions and host sync, and SDPA on the same bf16 tensors (a
+    yardstick) timed with CUDA events, 1 warm-up and 3 launches."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    scale = 128 ** -0.5
+    b, s, n, h = shape
+    q, k, v = (_rand(shape, gen, torch.bfloat16) for _ in range(3))
+    got, launched = picked(lambda: fa.flash_attention(q, k, v, scale, dispatch="auto"))
+    check(launched == only(K1=1), f"K1 flux {name}: auto launched {launched}")
+    ref, plain_ms = timed_call(lambda: fa.flash_attention_nomax_plain(q, k, v, scale,
+                                                                      clamp=None))
+    err = compare(f"K1 flux {name} {shape}^2 bf16", got, ref, atol=bf16_limit(ref), rtol=0.0,
+                  phase="flux")
+    del got, ref
+    bound, by = kernel_bound_ms(4 * b * n * s * s * h, 2 * 4 * b * s * n * h)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec = dict(shape=f"{shape}^2", max_abs_err=err, plain_ms=plain_ms,
+               ms=event_ms(lambda: fa.flash_attention_nomax(q, k, v, scale, clamp=None)),
+               bound_ms=bound, bound_by=by,
+               bound_sync_ms=event_ms(lambda: float(fa.logit_bound(q, k, v, scale))),
+               library_ms=event_ms(lambda: sdpa(qt, kt, vt)))
+    rec["fraction_of_bound"] = rec["bound_ms"] / rec["ms"]
+    log("flux", case=f"K1 flux {name} timing", **rec)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_flux():
+    """FLUX.1-dev at its released configuration and full depth, random weights from a
+    seed (see the module docstring, 15h): five 1024x1024 requests through FluxPipeline,
+    each with its launches (57 K1 per DiT forward, 15 per ControlNet forward, 0 K2) and
+    bound syncs (one per launch) counted, finite (1024, 1024, 3) images, and the text,
+    step, ControlNet, encode and decode seconds and the peak logged; one forward with
+    every q-norm weight x8 (the bound passes 100: 57 K2, 0 K1) against the plain path on
+    the card (within 5e-2 of the output's scale: 57 full-width bf16 blocks); the bound's
+    cost per forward (bound_sync_cost); K1 at the path's three shapes (_flux_k1)."""
+    from goal_force_tpu_torch.configs import FLUX_DEV, T5_V1_1_XXL
+    from goal_force_tpu_torch.models import clip as clipm
+    from goal_force_tpu_torch.models import flux_controlnet as fcn
+    from goal_force_tpu_torch.models import flux_dit as fd
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models.sd_text_encoder import SD_TEXT_CONFIG
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import flux as fp
+    from goal_force_tpu_torch.prompters import flux_tokenizers
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(131)
+    t5_cfg = dataclasses.replace(T5_V1_1_XXL, num_layers=FLUX_T5_LAYERS, text_len=512)
+    cn_cfg = fcn.FluxControlNetConfig(FLUX_DEV, 5, 10, num_mode=FLUX_CN_MODES)
+    bf16 = torch.bfloat16
+
+    def build():
+        cn = fcn.init_flux_controlnet(cn_cfg, gen, bf16, device="cuda")
+        for zl in (*cn.controlnet_blocks, *cn.controlnet_single_blocks):
+            zl.weight.normal_(generator=gen).mul_(1e-3)    # residuals that are not zero
+        return (fd.init_flux_dit(FLUX_DEV, gen, bf16, device="cuda"),
+                clipm.init_clip_text(SD_TEXT_CONFIG, gen, bf16, device="cuda"),
+                t5m.init_t5(t5_cfg, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEEncoder, sv.SD_VAE_ENCODER_PLAN, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEDecoder, sv.SD_VAE_DECODER_PLAN, gen, bf16, device="cuda"),
+                cn)
+
+    (dit, clip, t5, enc, dec, cn), init_s = sync_time(build)
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("flux", stage="init", seconds=init_s, dit_params=count(dit), clip_params=count(clip),
+        t5_params=count(t5), vae_params=count(enc) + count(dec), controlnet_params=count(cn),
+        gib=torch.cuda.memory_allocated() / 2**30)
+    tok_clip, tok_t5 = flux_tokenizers(t5_length=512)
+    pipe = fp.FluxPipeline(dit=dit, clip=clip, t5=t5, vae_encoder=enc, vae_decoder=dec,
+                           dit_cfg=FLUX_DEV, t5_cfg=t5_cfg, tokenize_clip=tok_clip,
+                           tokenize_t5=tok_t5, dtype=bf16)
+    stages = {}
+
+    def timed(obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def run(*a, **kw):
+            out, secs = sync_time(lambda: fn(*a, **kw))
+            stages.setdefault(key, []).append(secs)
+            return out
+        setattr(obj, attr, run)
+        return fn
+
+    for attr, key in (("_encode_text", "text_s"), ("_velocity", "step_s"),
+                      ("_encode", "encode_s"), ("_decode", "decode_s")):
+        timed(pipe, attr, key)
+    real_cn = timed(fcn, "flux_controlnet_forward", "controlnet_s")
+    common = dict(height=FLUX_HW, width=FLUX_HW, seed=17)
+    requests = (
+        ("a_t2i", dict(num_inference_steps=2, embedded_guidance=3.5), 2 * FLUX_K1),
+        ("b_cfg", dict(negative_prompt=FLUX_NEGATIVE, cfg_scale=2.0, num_inference_steps=1),
+         FLUX_K1),
+        ("c_i2i", dict(num_inference_steps=2, denoising_strength=0.5), 2 * FLUX_K1),
+        ("d_controlnet", dict(num_inference_steps=1, controlnet={"model": cn, "cfg": cn_cfg},
+                              controlnet_mode=3), FLUX_K1 + FLUX_CN_K1),
+        ("e_kontext", dict(num_inference_steps=1), FLUX_K1))
+    launches, image = {}, None
+    try:
+        for name, kw, k1 in requests:
+            stages.clear()
+            if name == "c_i2i":
+                kw["input_image"] = image
+            elif name == "d_controlnet":
+                kw["controlnet_image"] = image
+            elif name == "e_kontext":
+                kw["kontext_image"] = image
+            fa.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with BoundRecorder() as bounds:
+                out, secs = sync_time(lambda: pipe(FLUX_PROMPT, **kw, **common))
+            launched = dict(fa.launch_counts)
+            finite = bool(np.isfinite(out).all())
+            log("flux", stage="request", request=name, seconds=secs, **stages,
+                launches=launched, bound_syncs=bounds.calls, want_k1=k1,
+                image_shape=list(out.shape), finite=finite, image_mean=float(out.mean()),
+                image_std=float(out.std()), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            check(launched == only(K1=k1) and bounds.calls == k1,
+                  f"flux {name} launched {launched}, {bounds.calls} bound syncs")
+            check(out.shape == (FLUX_HW, FLUX_HW, 3) and finite,
+                  f"flux {name} image {out.shape}, finite {finite}")
+            for key, n in launched.items():
+                launches[key] = launches.get(key, 0) + n
+            if image is None:
+                image = out
+    finally:
+        fcn.flux_controlnet_forward = real_cn
+    emb, pooled = pipe._encode_text([FLUX_PROMPT])
+    del pipe, cn, image
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the runtime bound's cost at (a)'s shapes: one forward with the bound and with it
+    # replaced by a host constant (the same kernels, no reductions and no host sync)
+    lat = _rand((1, FLUX_HW // 8, FLUX_HW // 8, 16), gen, bf16)
+    t = torch.tensor([500.0], dtype=bf16, device="cuda")
+    g = torch.tensor([3.5], dtype=bf16, device="cuda")
+    forward = lambda impl="auto": fd.flux_dit_forward(dit, FLUX_DEV, lat, t, emb, pooled, g,
+                                                      attn_impl=impl)
+    bound_sync_cost("flux", "forward", forward, only(K1=FLUX_K1))
+
+    # one forward past the bound: every q-norm weight x8
+    norms = [n.weight for blk in dit.blocks for n in (blk.attn.norm_q_a, blk.attn.norm_q_b)]
+    norms += [blk.norm_q_a.weight for blk in dit.single_blocks]
+    for w in norms:
+        w.mul_(8)
+    try:
+        fa.reset_launch_counts()
+        with BoundRecorder(values=True) as bounds:
+            got, secs = sync_time(forward)
+        unb = dict(fa.launch_counts)
+        ref, plain_s = sync_time(lambda: forward("plain"))
+    finally:
+        for w in norms:
+            w.div_(8)
+    scale = float(ref.float().abs().max())
+    d = got.float() - ref.float()
+    err = float(d.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= 5e-2 * scale
+    log("flux", stage="unbounded_forward", seconds=secs, plain_seconds=plain_s,
+        launches=unb, bounds_min=min(bounds.bounds), bounds_max=max(bounds.bounds),
+        max_abs_err=err, atol=5e-2 * scale, out_max=scale, mean_abs_err=float(d.abs().mean()),
+        rel_bias=float((d * ref.float().sign()).mean() / ref.float().abs().mean()), ok=ok)
+    check(unb == only(K2=FLUX_K1) and min(bounds.bounds) >= fa.NOMAX_BOUND,
+          f"flux unbounded forward launched {unb}, bounds {bounds.bounds}")
+    check(ok, f"flux unbounded forward: kernels vs plain differ by {err}")
+    del dit, clip, t5, enc, dec, got, ref, lat, emb, pooled, d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(132)
+    path = {name: _flux_k1(name, shape, gen) for name, shape in FLUX_PATH.items()}
+    return launches, unb, path
+
+
 def main() -> int:
     try:
         return _main()
     finally:
         _end_world()
+        for thread, _, _ in _BACKGROUND:      # after a failure: the temporary files go too
+            thread.join()
 
 
 def started(phase, fn, *args):
@@ -4449,6 +4815,7 @@ def _main() -> int:
     small_hy_launches = started("small_hunyuan", phase_small_hunyuan)
     started("small_cog", phase_small_cog)
     small_sv_launches = started("small_stepvideo", phase_small_stepvideo)
+    small_flux_launches = started("small_flux", phase_small_flux)
     pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
     sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
     started("tools", phase_tools)
@@ -4470,12 +4837,14 @@ def _main() -> int:
     del hy_models
     cog_launches, cog_rec = started("cog", phase_cog)
     sv_launches, sv_unbounded, sv_path = started("stepvideo", phase_stepvideo)
+    flux_launches, flux_unbounded, flux_path = started("flux", phase_flux)
     train_launches, train_run = started("train", phase_train)
     sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
     train_cli_launches = started("train_cli", phase_train_cli)
     full_launches = started("full_int8", phase_full_int8)
     full_bf16_launches = started("full_bf16", phase_full_bf16)
+    finish_background()
     fwd = "goal_force_tpu_torch/csrc/flash_attention.cu"
     train_src = "goal_force_tpu_torch/csrc/flash_attention_bwd.cu"
     int8_src = "goal_force_tpu_torch/csrc/flash_attention_int8.cu"
@@ -4507,14 +4876,18 @@ def _main() -> int:
               "hunyuan_i2v_launches": i2v_launches["K1"], "hunyuan_i2v_path": i2v_rec,
               "cog_launches": cog_launches["K1"],
               "small_stepvideo_launches": small_sv_launches["K1"],
-              "stepvideo_launches": sv_launches["K1"], "stepvideo_path": sv_path}),
+              "stepvideo_launches": sv_launches["K1"], "stepvideo_path": sv_path,
+              "small_flux_launches": small_flux_launches["K1"],
+              "flux_launches": flux_launches["K1"], "flux_path": flux_path}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],
               "sharded_s2v_launches": sharded_s2v_launches["K2"],
               **{k: measured["K2"][k] for k in ("audio", "s2v_self", "s2v_cross")},
               "small_stepvideo_launches": small_sv_launches["K2"],
-              "stepvideo_launches": sv_unbounded["K2"]}),
+              "stepvideo_launches": sv_unbounded["K2"],
+              "small_flux_launches": small_flux_launches["K2"],
+              "flux_launches": flux_launches["K2"] + flux_unbounded["K2"]}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K3"],

@@ -2,7 +2,8 @@
 
 A copy of the goal-force subset of ``goal_force_tpu/configs.py`` (the port never
 imports the JAX package): the Wan DiT, umt5 encoder, Wan2.1 VAE, ControlNet and
-pipeline dataclasses, their presets and the tiny test configs. The values must stay
+pipeline dataclasses, the Flux.1 MMDiT's config, their presets and the tiny test
+configs. The values must stay
 equal to the JAX copy; ``tests/test_torch_import.py`` checks that they do.
 """
 
@@ -91,6 +92,32 @@ VAE_LATENT_STD = (
 
 
 @dataclasses.dataclass(frozen=True)
+class FluxDiTConfig:
+    """Flux.1 MMDiT: double-stream (joint) blocks, then single-stream blocks. The
+    defaults are FLUX.1-dev's (dim 3072, 24 heads, 19 joint + 38 single blocks, RoPE
+    theta 10000 over axes (16, 56, 56), T5 context 4096, CLIP pooled 768, sinusoid 256,
+    the guidance embedder present)."""
+
+    dim: int = 3072
+    num_heads: int = 24
+    num_joint_blocks: int = 19
+    num_single_blocks: int = 38
+    in_dim: int = 64                  # 2x2-patchified 16-channel latents
+    out_dim: int = 64
+    text_dim: int = 4096              # T5-XXL hidden
+    pooled_dim: int = 768             # CLIP-L pooled
+    freq_dim: int = 256
+    axes_dim: Tuple[int, ...] = (16, 56, 56)
+    rope_theta: float = 10000.0
+    guidance_embed: bool = True       # FLUX.1-dev; schnell has none
+    eps: float = 1e-6
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Goal-force inference defaults."""
 
@@ -141,6 +168,9 @@ UMT5_XXL = T5Config()
 # vocabulary and one relative position bias shared by every layer
 T5_V1_1_XXL = T5Config(vocab=32128, shared_pos=True)
 WAN21_VAE = VAEConfig()
+
+FLUX_DEV = FluxDiTConfig()
+FLUX_SCHNELL = FluxDiTConfig(guidance_embed=False)
 
 
 def tiny_dit(num_layers: int = 2) -> WanDiTConfig:

@@ -20,6 +20,13 @@ or a shape that does not fit, raises. The kinds:
     released one), ``step1_llm`` (Step-1: JAX's config, ``ffn_hidden_size`` read from the
     fused ``w1`` with ``multiple_of=1``) and ``bert`` (``infer_bert_config``; the HF
     position-id buffer and pooler, which the tower never reads, are dropped);
+  - ``flux_dit`` (``infer_flux_config``), ``flux_controlnet`` (JAX's config of the
+    shapes, or its DiT config from ``dit_cfg=``), the plan-format image VAE halves
+    ``sd_vae_encoder`` / ``sd_vae_decoder`` (4 channels, quant convs) and
+    ``sd3_vae_encoder`` / ``sd3_vae_decoder`` (the 16-channel SD3 / Flux head; the
+    config {"plan": ...} from ``plan=``, else the released plan) and
+    ``step1x_connector`` (JAX's config, ``config=`` or the released one; the module
+    built from the file's widths and depth);
   - the Wan kinds, through the port's own loaders (``io/detect.py::convert_detected``).
 
 Every other detected kind raises ``NotImplementedError`` naming its ROADMAP item.
@@ -42,14 +49,13 @@ WAN_KINDS = ("wan_dit", "umt5_xxl", "wan_vae", "wan_vae38", "wan_image_encoder",
 
 # The ROADMAP item that ports each detected kind not ported yet.
 ROADMAP_ITEMS = {
-    **{k: "M14c (Flux, SD3, Qwen-Image, Nexus-Gen, HunyuanDiT, OmniGen)" for k in (
-        "flux_dit", "flux_controlnet", "step1x_connector", "sd3_dit", "sd3_vae_encoder",
-        "sd3_vae_decoder", "qwen_image_dit", "qwen_image_controlnet", "qwen_image_vae",
+    **{k: "M14c (SD3, Qwen-Image, Nexus-Gen, HunyuanDiT, OmniGen)" for k in (
+        "sd3_dit", "qwen_image_dit", "qwen_image_controlnet", "qwen_image_vae",
         "qwen_vl_text", "qwen_vl_vision", "hunyuan_dit", "omnigen")},
     **{k: "M14d (SD, SDXL, Kolors, SVD, AnimateDiff)" for k in (
         "sd_civitai", "sd_unet", "sdxl_civitai", "sdxl_unet", "svd_unet", "svd_vae",
         "sd_motion", "sd_controlnet", "sdxl_controlnet", "ipadapter", "chatglm",
-        "sd_vae_encoder", "sd_vae_decoder", "sd_vae_diffusers")},
+        "sd_vae_diffusers")},
     **{k: "M14e (the extensions)" for k in (
         "hf_clip", "open_clip", "image_reward", "esrgan", "rife")},
     **{k: "M14f (prompt refiners)" for k in ("bloom", "marian")},
@@ -82,6 +88,52 @@ def _default_axes(head_dim: int):
     a = max(2, (head_dim // 4) & ~1)
     rest = head_dim - a
     return (a, rest // 2, rest - rest // 2)
+
+
+def infer_flux_config(sd, num_heads: Optional[int] = None, axes_dim=None):
+    from goal_force_tpu_torch.configs import FluxDiTConfig
+
+    dim, in_dim = _shape(sd, "x_embedder.weight")
+    heads = num_heads or max(1, dim // 128)
+    return FluxDiTConfig(
+        dim=dim, num_heads=heads,
+        num_joint_blocks=_max_index(sd, "blocks."),
+        num_single_blocks=_max_index(sd, "single_blocks."),
+        in_dim=in_dim,
+        out_dim=_shape(sd, "final_proj_out.weight")[0],
+        text_dim=_shape(sd, "context_embedder.weight")[1],
+        pooled_dim=_shape(sd, "pooled_text_embedder.0.weight")[1],
+        freq_dim=_shape(sd, "time_embedder.timestep_embedder.0.weight")[1],
+        axes_dim=tuple(axes_dim) if axes_dim else _default_axes(dim // heads),
+        guidance_embed="guidance_embedder.timestep_embedder.0.weight" in sd,
+    )
+
+
+def infer_flux_controlnet_config(sd, dit_cfg=None, num_heads: Optional[int] = None,
+                                 axes_dim=None):
+    """JAX's FluxControlNetConfig of the shapes: the DiT config from `dit_cfg` or the
+    trunk's widths, the extra control channels beyond the patchified latents."""
+    from goal_force_tpu_torch.configs import FluxDiTConfig
+    from goal_force_tpu_torch.models.flux_controlnet import FluxControlNetConfig
+
+    if dit_cfg is None:
+        dim, in_dim = _shape(sd, "x_embedder.weight")
+        heads = num_heads or max(1, dim // 128)
+        dit_cfg = FluxDiTConfig(
+            dim=dim, num_heads=heads, in_dim=in_dim,
+            text_dim=_shape(sd, "context_embedder.weight")[1],
+            pooled_dim=_shape(sd, "pooled_text_embedder.0.weight")[1],
+            freq_dim=_shape(sd, "time_embedder.timestep_embedder.0.weight")[1],
+            axes_dim=tuple(axes_dim or _default_axes(dim // heads)),
+            guidance_embed="guidance_embedder.timestep_embedder.0.weight" in sd)
+    extra = 0
+    if "controlnet_x_embedder.weight" in sd:
+        extra = max(0, _shape(sd, "controlnet_x_embedder.weight")[1] - dit_cfg.in_dim)
+    mode = "controlnet_mode_embedder.weight"
+    return FluxControlNetConfig(
+        dit=dit_cfg, num_joint_blocks=_max_index(sd, "blocks."),
+        num_single_blocks=_max_index(sd, "single_blocks."),
+        num_mode=_shape(sd, mode)[0] if mode in sd else 0, additional_input_dim=extra)
 
 
 def infer_hunyuan_video_config(sd, num_heads: Optional[int] = None, rope_dims=None):
@@ -356,6 +408,43 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
                 f"{ROADMAP_ITEMS['sdxl_unet']})")
         cfg = config or infer_clip_config(sd, **infer_kw)
         return out(cfg, _strict(CLIPTextModel, cfg, sd, kind, dtype, device))
+    if kind == "flux_dit":
+        from goal_force_tpu_torch.models.flux_dit import FluxDiT
+
+        cfg = config or infer_flux_config(sd, **infer_kw)
+        return out(cfg, _strict(FluxDiT, cfg, sd, kind, dtype, device))
+    if kind == "flux_controlnet":
+        from goal_force_tpu_torch.models.flux_controlnet import FluxControlNet
+
+        cfg = config or infer_flux_controlnet_config(sd, **infer_kw)
+        return out(cfg, _strict(FluxControlNet, cfg, sd, kind, dtype, device))
+    if kind in ("sd_vae_encoder", "sd_vae_decoder", "sd3_vae_encoder", "sd3_vae_decoder"):
+        import functools
+
+        from goal_force_tpu_torch.models import sd_vae as V
+
+        encoder = kind.endswith("encoder")
+        plan = tuple(infer_kw.get("plan") or (V.SD_VAE_ENCODER_PLAN if encoder
+                                              else V.SD_VAE_DECODER_PLAN))
+        sd3 = kind.startswith("sd3")
+        cls = functools.partial(V.SDVAEEncoder if encoder else V.SDVAEDecoder,
+                                latent_channels=16 if sd3 else 4, quant=not sd3)
+        return out({"plan": plan}, _strict(cls, plan, sd, kind, dtype, device))
+    if kind == "step1x_connector":
+        import dataclasses
+
+        from goal_force_tpu_torch.models.step1x_connector import (
+            Step1xConnector,
+            Step1xConnectorConfig,
+        )
+
+        cfg = config or Step1xConnectorConfig()
+        d, d_in = _shape(sd, "S.input_embedder.weight")
+        build = dataclasses.replace(
+            cfg, in_channels=d_in, hidden_size=d,
+            depth=_max_index(sd, "S.individual_token_refiner.blocks."),
+            mlp_ratio=_shape(sd, "S.individual_token_refiner.blocks.0.mlp.fc1.weight")[0] / d)
+        return out(cfg, _strict(Step1xConnector, build, sd, kind, dtype, device))
     if kind in WAN_KINDS:
         return convert_detected(sd, kind=kind, dtype=dtype, device=device,
                                 **({"config": config} if config else {}))

@@ -38,7 +38,12 @@ the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) 
   - ``llava`` (the HF CLIP vision names under ``vision_tower.vision_model.``, the
     projector, ``language_model.model.*`` with the final norm), ``cog_dit``,
     ``cog_vae_encoder`` / ``cog_vae_decoder`` (a resample's (kh, kw, C, C) conv ->
-    ``blocks.{i}.conv``) and ``t5_v1_1`` (the one shared ``pos_embedding``).
+    ``blocks.{i}.conv``) and ``t5_v1_1`` (the one shared ``pos_embedding``);
+  - the Flux path's trees (``FLUX_CONVERTERS``): ``flux_dit`` and ``flux_controlnet``
+    (stacked joint / single blocks -> ``blocks.{i}`` / ``single_blocks.{i}``, the fused
+    projections as they are), the SD / SD3 VAE halves (``sd_vae_encoder``, ...: HWIO
+    convs, the mid attention's linears), ``step1x_connector``, ``infiniteyou``,
+    ``value_encoder``, ``flux_lora_encoder`` and ``flux_ipadapter``.
 
 ``lora_from_jax(tree)`` carries a JAX LoRA adapter tree (``goal_force_tpu/lora.py``,
 ``{target: {"a": (L, in, r), "b": (L, r, out)}}``) into the port's ``lora.py``, whose
@@ -753,6 +758,189 @@ def step1_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------------
+# The Flux path: the DiT, its ControlNet, the SD / SD3 VAE halves, Step1X's connector and
+# the Flux adapters
+# ---------------------------------------------------------------------------
+
+def _w(sd: StateDict, prefix: str, w) -> None:
+    """A bias-free (in, out) weight -> ``{prefix}.weight`` (out, in)."""
+    sd[prefix + ".weight"] = _t(np.asarray(w).T)
+
+
+def _flux_trunk(sd: StateDict, p: Mapping) -> None:
+    _lin(sd, "x_embedder", p["x_embedder"])
+    _lin(sd, "context_embedder", p["context_embedder"])
+    _mlp01(sd, "time_embedder.timestep_embedder", p["time_in"])
+    _mlp01(sd, "pooled_text_embedder", p["vector_in"])
+    if "guidance_in" in p:
+        _mlp01(sd, "guidance_embedder.timestep_embedder", p["guidance_in"])
+    joint = p["joint_blocks"]
+    for i in range(np.asarray(joint["norm1_a"]["w"]).shape[0]):
+        q, pre = _layer(joint, i), f"blocks.{i}"
+        for name in ("norm1_a", "norm1_b"):
+            _lin(sd, f"{pre}.{name}.linear", q[name])
+        a = q["attn"]
+        for jax_name, ref in (("a_qkv", "a_to_qkv"), ("b_qkv", "b_to_qkv"),
+                              ("a_out", "a_to_out"), ("b_out", "b_to_out")):
+            _lin(sd, f"{pre}.attn.{ref}", a[jax_name])
+        for norm in ("norm_q_a", "norm_k_a", "norm_q_b", "norm_k_b"):
+            sd[f"{pre}.attn.{norm}.weight"] = _t(a[norm]["w"])
+        _mlp01(sd, f"{pre}.ff_a", q["ff_a"])
+        _mlp01(sd, f"{pre}.ff_b", q["ff_b"])
+    single = p.get("single_blocks")
+    for i in range(0 if single is None else np.asarray(single["norm"]["w"]).shape[0]):
+        q, pre = _layer(single, i), f"single_blocks.{i}"
+        _lin(sd, f"{pre}.norm.linear", q["norm"])
+        _lin(sd, f"{pre}.to_qkv_mlp", q["qkv_mlp"])
+        sd[f"{pre}.norm_q_a.weight"] = _t(q["norm_q"]["w"])
+        sd[f"{pre}.norm_k_a.weight"] = _t(q["norm_k"]["w"])
+        _lin(sd, f"{pre}.proj_out", q["proj_out"])
+
+
+def flux_dit_state_dict(p: Mapping) -> StateDict:
+    """JAX ``flux_dit_params_from_torch``'s tree (stacked joint / single blocks) -> the
+    reference FluxDiT keys."""
+    sd: StateDict = {}
+    _flux_trunk(sd, p)
+    _lin(sd, "final_norm_out.linear", p["final_norm"])
+    _lin(sd, "final_proj_out", p["final_proj"])
+    return sd
+
+
+def flux_controlnet_state_dict(p: Mapping) -> StateDict:
+    """JAX ``flux_controlnet_params_from_torch``'s tree -> the reference FluxControlNet
+    keys (the trunk, ``controlnet_x_embedder``, the stacked residual linears, the mode
+    embedder)."""
+    sd: StateDict = {}
+    _flux_trunk(sd, p)
+    _lin(sd, "controlnet_x_embedder", p["controlnet_x_embedder"])
+    for name in ("controlnet_blocks", "controlnet_single_blocks"):
+        if name in p:
+            for i in range(np.asarray(p[name]["w"]).shape[0]):
+                _lin(sd, f"{name}.{i}", _layer(p[name], i))
+    if "mode_embedder" in p:
+        sd["controlnet_mode_embedder.weight"] = _t(p["mode_embedder"])
+    return sd
+
+
+def sd_vae_state_dict(p: Mapping) -> StateDict:
+    """JAX ``sd[3]_vae_{encoder,decoder}_params_from_torch``'s tree -> the reference
+    SDVAEEncoder / SDVAEDecoder keys (HWIO convs -> (out, in, kh, kw))."""
+    sd: StateDict = {}
+    for name in ("post_quant_conv", "conv_in", "conv_out", "quant_conv"):
+        if name in p:
+            _conv2d(sd, name, p[name])
+    _ln(sd, "conv_norm_out", p["conv_norm_out"])
+    for i, b in enumerate(p["blocks"]):
+        pre = f"blocks.{i}"
+        if "norm1" in b:
+            for name in ("norm1", "norm2"):
+                _ln(sd, f"{pre}.{name}", b[name])
+            for jax_name, ref in (("conv1", "conv1"), ("conv2", "conv2"),
+                                  ("shortcut", "conv_shortcut")):
+                if jax_name in b:
+                    _conv2d(sd, f"{pre}.{ref}", b[jax_name])
+        elif "attn" in b:
+            _ln(sd, f"{pre}.norm", b["norm"])
+            a = b["attn"]
+            for x, ref in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out")):
+                _lin(sd, f"{pre}.transformer_blocks.0.{ref}", {"w": a[x + "_w"], "b": a[x + "_b"]})
+        else:
+            _conv2d(sd, f"{pre}.conv", b["conv"])
+    return sd
+
+
+def step1x_connector_state_dict(p: Mapping) -> StateDict:
+    """JAX ``step1x_connector_params_from_torch``'s tree -> the reference keys."""
+    sd: StateDict = {}
+    _lin(sd, "S.input_embedder", p["input_embedder"])
+    _mlp01(sd, "S.t_embedder.mlp", p["t_embedder"])
+    _lin(sd, "S.c_embedder.linear_1", p["c_embedder"]["fc0"])
+    _lin(sd, "S.c_embedder.linear_2", p["c_embedder"]["fc2"])
+    for i, b in enumerate(p["blocks"]):
+        pre = f"S.individual_token_refiner.blocks.{i}"
+        _ln(sd, pre + ".norm1", b["norm1"])
+        _ln(sd, pre + ".norm2", b["norm2"])
+        for jax_name, ref in (("qkv", "self_attn_qkv"), ("proj", "self_attn_proj"),
+                              ("mlp_fc0", "mlp.fc1"), ("mlp_fc2", "mlp.fc2"),
+                              ("ada", "adaLN_modulation.1")):
+            _lin(sd, f"{pre}.{ref}", b[jax_name])
+    _lin(sd, "global_proj_out", p["global_proj"])
+    sd["scale_factor"] = _t(p["scale_factor"])
+    return sd
+
+
+def infiniteyou_state_dict(p: Mapping) -> StateDict:
+    """JAX ``infiniteyou_params_from_torch``'s tree -> InfiniteYouImageProjector keys."""
+    sd: StateDict = {"latents": _t(p["latents"])}
+    for name in ("proj_in", "proj_out"):
+        _lin(sd, name, p[name])
+    _ln(sd, "norm_out", p["norm_out"])
+    for i, layer in enumerate(p["layers"]):
+        a, pre = layer["attn"], f"layers.{i}"
+        _ln(sd, pre + ".0.norm1", a["norm1"])
+        _ln(sd, pre + ".0.norm2", a["norm2"])
+        for x, ref in (("q_w", "to_q"), ("kv_w", "to_kv"), ("o_w", "to_out")):
+            _w(sd, f"{pre}.0.{ref}", a[x])
+        _ln(sd, pre + ".1.0", layer["ff_norm"])
+        _w(sd, pre + ".1.1", layer["ff0_w"])
+        _w(sd, pre + ".1.3", layer["ff2_w"])
+    return sd
+
+
+def value_encoder_state_dict(p: Mapping) -> StateDict:
+    """JAX ``value_encoder_params_from_torch``'s tree -> SingleValueEncoder keys."""
+    sd: StateDict = {"positional_embedding": _t(p["pos"])}
+    _mlp01(sd, "prefer_value_embedder", p)
+    return sd
+
+
+def flux_lora_encoder_state_dict(p: Mapping) -> StateDict:
+    """JAX ``flux_lora_encoder_params_from_torch``'s tree -> FluxLoRAEncoder keys."""
+    sd: StateDict = {"special_embeds": _t(p["special"])}
+    for name, blk in p["model"].items():
+        pre = "embedder.model_dict." + name.replace(".", "___")
+        sd[pre + ".x"] = _t(blk["x"])
+        _ln(sd, pre + ".layer_norm", blk["ln"])
+    for typ, proj in p["proj"].items():
+        _lin(sd, "embedder.proj_dict." + typ.replace(".", "___"), proj)
+    for i, e in enumerate(p["encoders"]):
+        pre = f"encoders.{i}"
+        _ln(sd, pre + ".layer_norm1", e["norm1"])
+        _ln(sd, pre + ".layer_norm2", e["norm2"])
+        for x, ref in (("q", "attn.to_q"), ("k", "attn.to_k"), ("v", "attn.to_v"),
+                       ("o", "attn.to_out"), ("fc1", "fc1"), ("fc2", "fc2")):
+            _lin(sd, f"{pre}.{ref}", {"w": e[x + "_w"], "b": e[x + "_b"]})
+    _ln(sd, "final_layer_norm", p["final_norm"])
+    _lin(sd, "final_linear", {"w": p["final_w"], "b": p["final_b"]})
+    return sd
+
+
+def flux_ipadapter_state_dict(p: Mapping) -> StateDict:
+    """The tree ``flux_ip_kwargs`` reads ({"image_proj": {proj0, proj2, norm},
+    "modules": [{k_w, v_w}]}) -> the reference FluxIpAdapter keys."""
+    sd: StateDict = {}
+    ip = p["image_proj"]
+    _lin(sd, "image_proj.proj.0", ip["proj0"])
+    _lin(sd, "image_proj.proj.2", ip["proj2"])
+    _ln(sd, "image_proj.norm", ip["norm"])
+    for i, m in enumerate(p["modules"]):
+        _w(sd, f"ipadapter_modules.{i}.to_k_ip", m["k_w"])
+        _w(sd, f"ipadapter_modules.{i}.to_v_ip", m["v_w"])
+    return sd
+
+
+FLUX_CONVERTERS = {
+    "flux_dit": flux_dit_state_dict, "flux_controlnet": flux_controlnet_state_dict,
+    "sd_vae_encoder": sd_vae_state_dict, "sd_vae_decoder": sd_vae_state_dict,
+    "sd3_vae_encoder": sd_vae_state_dict, "sd3_vae_decoder": sd_vae_state_dict,
+    "step1x_connector": step1x_connector_state_dict, "infiniteyou": infiniteyou_state_dict,
+    "value_encoder": value_encoder_state_dict, "flux_lora_encoder": flux_lora_encoder_state_dict,
+    "flux_ipadapter": flux_ipadapter_state_dict,
+}
+
+
 def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]:
     """State dicts for every entry of the JAX pipeline's params tree."""
     out: Dict[str, StateDict] = {}
@@ -803,6 +991,8 @@ def params_from_jax(tree: Mapping, patch_size=(1, 2, 2)) -> Dict[str, StateDict]
             out[name] = bert_state_dict(p)
         elif name == "step1":
             out[name] = step1_state_dict(p)
+        elif name in FLUX_CONVERTERS:
+            out[name] = FLUX_CONVERTERS[name](p)
         else:
             raise NotImplementedError(f"no converter for params[{name!r}]")
     return out

@@ -57,8 +57,8 @@ def save_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for arr in arrays:
-            f.write(arr.tobytes())      # little-endian hosts (x86-64, aarch64)
+        for arr in arrays:              # little-endian hosts (x86-64, aarch64)
+            f.write(memoryview(arr.reshape(-1).view(np.uint8)))   # no copy of the bytes
 
 
 def _read_safetensors(path: str) -> Dict[str, torch.Tensor]:

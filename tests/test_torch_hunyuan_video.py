@@ -303,13 +303,14 @@ def test_unported_kinds_and_llava_raise(files):
         tpipe.HunyuanVideoPipeline.from_pretrained(paths["dit"], llama_path=llava,
                                                    device="cpu", num_heads=24,
                                                    rope_dims=(2, 2, 2))
-    # StepVideo (M14b) loads since its slice (tests/test_torch_stepvideo.py); SDXL waits
+    # StepVideo (M14b) and Flux (M14c) load since their slices (tests/test_torch_stepvideo.py,
+    # tests/test_torch_flux.py); SDXL and SD3 wait
     sdxl = {"add_time_embedding.0.weight": torch.zeros(2), "conv_in.weight": torch.zeros(2)}
     with pytest.raises(NotImplementedError, match="M14d"):
         tauto.load_model(sdxl, device="cpu")
-    flux = {"single_blocks.0.to_qkv_mlp.weight": torch.zeros(2), "x_embedder.weight": torch.zeros(2)}
+    sd3 = {"pos_embedder.proj.weight": torch.zeros(2), "blocks.0.attn.a_to_qkv.weight": torch.zeros(2)}
     with pytest.raises(NotImplementedError, match="M14c"):
-        tauto.load_model(flux, device="cpu")
+        tauto.load_model(sd3, device="cpu")
     with pytest.raises(ValueError, match="dedicated loader"):
         tauto.load_model({"vace_blocks.0.x": torch.zeros(2)}, device="cpu")
 
