@@ -11,7 +11,9 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              hold HGMMA (wgmma) and no HMMA (mma.sync), spill nothing, and draw no ptxas
              warning that it serialized its wgmma. Then builds the native control renderer
              (goal_force_tpu_torch/native, g++; no fallback) and renders one 81x480x832
-             control video with it and with numpy (equal within 1e-6).
+             control video with it and with numpy (equal within 1e-6). While nvcc
+             runs, the card runs the two phases that launch no kernel, vae38 (15d) and
+             cog (15f); their lines come between the build's first line and its report.
 3. kernels - holds K1/K2 against their plain torch versions on the card (small shapes,
              saturation, per-batch kv_len, both at the Hopper tiles' edges: B = 2, Sq and
              Skv of 127 and 129, and the main-path self and cross shapes), K3/K4/K5 (o and
@@ -74,6 +76,15 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              (1 + 1 blocks, a mode token), "auto" (K1 through the runtime bound, 2
              launches each) against "plain", float32 and bf16; the tiny 16-channel VAE's
              decode on the card against the CPU (float32) and over bf16 weights.
+6g. small_sd3 - SD3's tiny pipeline (an SD3.5-shaped DiT with a dual block and RMS q/k
+             norms, the tiny CLIP-L, bigG, T5 and VAE): one 32x32 request (2 steps,
+             merged CFG) on the card against the CPU over the same float32 weights (1e-4);
+             head_dim 64, so no kernel launch.
+6h. small_qwen_image - a Qwen-Image DiT at head_dim 128 (2 heads, 2 blocks, 256 image
+             tokens, an extra image's 64 and 20 text tokens) with the blockwise ControlNet,
+             "auto" (K1 through the runtime bound, 2 launches) against "plain", float32 and
+             bf16; the tiny Qwen2.5-VL text and vision towers and the tiny VAE's encode and
+             decode on the card against the CPU (float32).
 7. main    - GoalForcePipeline at full A14B width (depth cut to 3 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
@@ -185,6 +196,26 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              x8 (57 K2) against the plain path, the bound's cost per forward, and K1 at the
              path's (1, 4,608), (2, 4,608) and (1, 8,704) x 24 x 128 against its plain
              version on every head, timed beside its bound, the bound's sync and SDPA.
+15i. sd3   - SD3.5-Large at its released widths and full depth (38 blocks of 2432,
+             38x64 heads, RMS q/k norms, pos-embed 192, bf16, 16.2 GB), CLIP-L and bigG
+             whole, T5 v1.1 XXL at 2 of 24 layers on the vendored tokenizers, the
+             16-channel VAE, random weights: at 1024x1024 (a) text-to-image, 2 of 28 steps,
+             CFG 7.0 as one merged batch of 2; (b) image-to-image from (a)'s image at
+             strength 0.5, 1 step; (c) one step of SD3.5-Medium at its released widths and
+             depth (24 blocks of 1536, 13 dual, pos-embed 384): finite (1024, 1024, 3)
+             images and no kernel launch (head_dim 64: the plain attention); then the plain
+             attention at both path shapes (2, 4,301) x 38 or 24 x 64, timed beside SDPA.
+15j. qwen_image - Qwen-Image at its released configuration and full depth (60 blocks of
+             3072, 24x128 heads, bf16, 40.9 GB), Qwen2.5-VL-7B's text (28 layers) and
+             vision (32 layers) towers, the Wan-architecture VAE (float32) and the
+             60-block ControlNet, random weights: at 1328x1328 (a) text-to-image, 2 of 30
+             steps, CFG 4.0 as two forwards a step (6,903 joint tokens); (b) the
+             ControlNet and (c) Qwen-Image-Edit with (a)'s image (the vision tower, 4,096
+             more image tokens), 2 steps each: 60 K1 per forward, one bound sync each, 0
+             K2, finite (1328, 1328, 3) images. Then one forward with the q norms x8 (60
+             K2) against the plain path, the bound's cost per forward, and K1 at the
+             path's t2i and edit shapes against its plain version on every head, timed
+             beside its bound, the bound's sync and SDPA.
 16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (2 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
@@ -345,6 +376,20 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
+def _time_stages(obj, stages, **attrs):
+    """Wraps each named function of obj so that every call's synchronised seconds append
+    to stages[key] (attrs: name -> key); returns the unwrapped functions by name."""
+    real = {}
+    for attr, key in attrs.items():
+        def run(*a, _fn=getattr(obj, attr), _key=key, **kw):
+            out, secs = sync_time(lambda: _fn(*a, **kw))
+            stages.setdefault(_key, []).append(secs)
+            return out
+        real[attr] = getattr(obj, attr)
+        setattr(obj, attr, run)
+    return real
+
+
 def attention_bound_ms(q_shape, kv_shape, itemsize=2, peak=PEAK_BF16_FLOPS):
     """Least time for one call: max(bytes of q,k,v,o / HBM rate, 4*B*N*Sq*Skv*H / peak)."""
     b, sq, n, h = q_shape
@@ -372,11 +417,37 @@ def _import_wav2vec2():
     from transformers import Wav2Vec2Config, Wav2Vec2ForCTC  # noqa: F401
 
 
-def phase_build():
+def start_build():
+    """nvcc on a thread (one process per source, started together), so that the card
+    runs the phases that launch no kernel meanwhile; ``phase_build`` joins it."""
+    import threading
+
     from goal_force_tpu_torch.ops import _build
 
     in_background(_import_wav2vec2)      # s2v's transformers import, while nvcc runs
-    _, secs = sync_time(_build.load_all)      # one nvcc per source, started together
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            _build.load_all()
+        except BaseException as e:      # re-raised by phase_build
+            box["err"] = e
+        box["secs"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, box
+
+
+def phase_build(pending):
+    from goal_force_tpu_torch.ops import _build
+
+    thread, box = pending
+    thread.join()
+    if "err" in box:
+        raise box["err"]
+    secs = box["secs"]
     check(set(_build.stems()) == {"flash_attention", "flash_attention_bwd",
                                   "flash_attention_int8"},
           f"unexpected CUDA sources {_build.stems()}")
@@ -2138,8 +2209,26 @@ def phase_cli(pipe):
         check(launches == only(K1=K1_PER_REQUEST), f"cli launched {launches}")
         out_dir, step = infer.output_dir(args)
         base = infer.row_base(sample, args, out_dir, step)
-        infer.write_row(sample, frames, base, loaded.pipe_cfg)
-        written = {k: os.path.exists(base + k) for k in infer.ARTIFACTS}
+
+        def write_row(row_cfg, root):
+            """The row's artifacts (host encodes) and their sizes; then `root` goes."""
+            try:
+                infer.write_row(sample, frames, base, row_cfg)
+                written = {k: os.path.exists(base + k) for k in infer.ARTIFACTS}
+                return written, {k: os.path.getsize(base + k) for k, v in written.items() if v}
+            finally:
+                shutil.rmtree(root, True)
+
+        def artifacts(result):
+            written, sizes = result
+            log("cli", stage="artifacts", base=os.path.basename(base),
+                written=sorted(k for k, v in written.items() if v),
+                not_written=sorted(k for k, v in written.items() if not v), sizes=sizes)
+            check(all(written.values()), f"cli: artifacts not written: {written}")
+
+        # on a thread while main's pipeline answers the row; joined before the kernels line
+        in_background(write_row, loaded.pipe_cfg, tmp, done=artifacts)
+        tmp = None
         pipe.tokenizer, pipe.pipe_cfg = loaded.tokenizer, loaded.pipe_cfg
         del loaded, lm
         gc.collect()
@@ -2152,20 +2241,16 @@ def phase_cli(pipe):
         log("cli", stage="request", seconds=answer_s, stages=dict(stage_times),
             swap_seconds=swaps, launches=launches, max_abs_err_vs_main=err, atol=CLI_ATOL,
             frames_mean=float(frames.mean()), ok=err <= CLI_ATOL)
-        log("cli", stage="artifacts", base=os.path.basename(base),
-            written=sorted(k for k, v in written.items() if v),
-            not_written=sorted(k for k, v in written.items() if not v),
-            sizes={k: os.path.getsize(base + k) for k, v in written.items() if v})
         check(err <= CLI_ATOL, f"cli: frames differ from main's by {err}")
         check(len(swaps) == 1, f"cli: {len(swaps)} swaps in one request")
-        check(all(written.values()), f"cli: artifacts not written: {written}")
     finally:
         with torch.no_grad():
             for zc, (w, b) in zip(cn.controlnet_zero_convs_after, zero):
                 zc.weight.copy_(w)
                 zc.bias.copy_(b)
         pipe.tokenizer, pipe.pipe_cfg = tokenizer, pc
-        remove_later(tmp)
+        if tmp is not None:
+            remove_later(tmp)
     return launches
 
 
@@ -3801,30 +3886,36 @@ LLAMA_SPECIAL_IDS = {"<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
                      "<|eot_id|>": 128009, "<image>": 128257, "\n\n": 271, "\n": 198}
 
 
+def hash_encoder(special_ids, span):
+    """text -> ids for a tokenizer the repo does not ship: each special token at its id,
+    every other word or punctuation mark at a crc32 hash in [1000, 1000 + span)."""
+    import re
+    import zlib
+
+    special = re.compile("(" + "|".join(re.escape(t) for t in sorted(
+        special_ids, key=len, reverse=True)) + ")")
+
+    def encode(text):
+        ids = []
+        for piece in special.split(text):
+            if piece in special_ids:
+                ids.append(special_ids[piece])
+            else:
+                ids += [1000 + zlib.crc32(w.encode()) % span
+                        for w in re.findall(r"\w+|[^\w\s]", piece)]
+        return ids
+
+    return encode
+
+
 def llama_hash_tokenizer(length):
     """A TextTokenizer for the Llama prompts (no Llama tokenizer ships with the repo):
     the template's special tokens, <image> and the double and single returns at their
     Llama-3 / LLaVA ids, every other word or punctuation mark at a crc32 hash in
     [1000, 128000). Pads with 128004."""
-    import re
-    import zlib
-
     from goal_force_tpu_torch.prompters import TextTokenizer
 
-    special = re.compile("(" + "|".join(re.escape(t) for t in sorted(
-        LLAMA_SPECIAL_IDS, key=len, reverse=True)) + ")")
-
-    def encode(text):
-        ids = []
-        for piece in special.split(text):
-            if piece in LLAMA_SPECIAL_IDS:
-                ids.append(LLAMA_SPECIAL_IDS[piece])
-            else:
-                ids += [1000 + zlib.crc32(w.encode()) % 127000
-                        for w in re.findall(r"\w+|[^\w\s]", piece)]
-        return ids
-
-    return TextTokenizer(encode, length, pad_id=128004)
+    return TextTokenizer(hash_encoder(LLAMA_SPECIAL_IDS, 127000), length, pad_id=128004)
 
 
 def phase_hunyuan_i2v(models):
@@ -4603,23 +4694,23 @@ FLUX_PROMPT = "a red ball rolls across a wooden table and hits a blue cup, studi
 FLUX_NEGATIVE = "blurry, low quality"
 
 
-def _flux_k1(name, shape, gen):
-    """K1 without its clamp (what "auto" picks below the bound) at one of Flux's path
-    shapes (q = k = v), random bf16 at the qk-normed scale: "auto" must pick K1; the
-    kernel against its plain version on every head (timed on that run); the kernel, the
-    runtime bound's reductions and host sync, and SDPA on the same bf16 tensors (a
-    yardstick) timed with CUDA events, 1 warm-up and 3 launches."""
+def _flux_k1(name, shape, gen, phase="flux"):
+    """K1 without its clamp (what "auto" picks below the bound) at one of the path shapes
+    of `phase` (Flux's or Qwen-Image's; q = k = v), random bf16 at the qk-normed scale:
+    "auto" must pick K1; the kernel against its plain version on every head (timed on
+    that run); the kernel, the runtime bound's reductions and host sync, and SDPA on the
+    same bf16 tensors (a yardstick) timed with CUDA events, 1 warm-up and 3 launches."""
     from goal_force_tpu_torch.ops import flash_attention as fa
 
     scale = 128 ** -0.5
     b, s, n, h = shape
     q, k, v = (_rand(shape, gen, torch.bfloat16) for _ in range(3))
     got, launched = picked(lambda: fa.flash_attention(q, k, v, scale, dispatch="auto"))
-    check(launched == only(K1=1), f"K1 flux {name}: auto launched {launched}")
+    check(launched == only(K1=1), f"K1 {phase} {name}: auto launched {launched}")
     ref, plain_ms = timed_call(lambda: fa.flash_attention_nomax_plain(q, k, v, scale,
                                                                       clamp=None))
-    err = compare(f"K1 flux {name} {shape}^2 bf16", got, ref, atol=bf16_limit(ref), rtol=0.0,
-                  phase="flux")
+    err = compare(f"K1 {phase} {name} {shape}^2 bf16", got, ref, atol=bf16_limit(ref),
+                  rtol=0.0, phase=phase)
     del got, ref
     bound, by = kernel_bound_ms(4 * b * n * s * s * h, 2 * 4 * b * s * n * h)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -4630,7 +4721,7 @@ def _flux_k1(name, shape, gen):
                bound_sync_ms=event_ms(lambda: float(fa.logit_bound(q, k, v, scale))),
                library_ms=event_ms(lambda: sdpa(qt, kt, vt)))
     rec["fraction_of_bound"] = rec["bound_ms"] / rec["ms"]
-    log("flux", case=f"K1 flux {name} timing", **rec)
+    log(phase, case=f"K1 {phase} {name} timing", **rec)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rec
@@ -4685,21 +4776,10 @@ def phase_flux():
                            dit_cfg=FLUX_DEV, t5_cfg=t5_cfg, tokenize_clip=tok_clip,
                            tokenize_t5=tok_t5, dtype=bf16)
     stages = {}
-
-    def timed(obj, attr, key):
-        fn = getattr(obj, attr)
-
-        def run(*a, **kw):
-            out, secs = sync_time(lambda: fn(*a, **kw))
-            stages.setdefault(key, []).append(secs)
-            return out
-        setattr(obj, attr, run)
-        return fn
-
-    for attr, key in (("_encode_text", "text_s"), ("_velocity", "step_s"),
-                      ("_encode", "encode_s"), ("_decode", "decode_s")):
-        timed(pipe, attr, key)
-    real_cn = timed(fcn, "flux_controlnet_forward", "controlnet_s")
+    _time_stages(pipe, stages, _encode_text="text_s", _velocity="step_s", _encode="encode_s",
+                 _decode="decode_s")
+    real_cn = _time_stages(fcn, stages, flux_controlnet_forward="controlnet_s")[
+        "flux_controlnet_forward"]
     common = dict(height=FLUX_HW, width=FLUX_HW, seed=17)
     requests = (
         ("a_t2i", dict(num_inference_steps=2, embedded_guidance=3.5), 2 * FLUX_K1),
@@ -4787,6 +4867,428 @@ def phase_flux():
     return launches, unb, path
 
 
+def phase_small_sd3():
+    """SD3's tiny pipeline (an SD3.5-shaped DiT with a dual block and RMS q/k norms, the
+    tiny CLIP-L, bigG, T5 and 16-channel VAE) answers one 32x32 request (2 steps, merged
+    CFG 2.0) on the card and on the CPU over the same float32 weights and noise, TF32 off:
+    the images within 1e-4. Every attention is 64 wide, so the plain path runs: no
+    kernel launches."""
+    import copy
+
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import sd3 as sp
+
+    cpu = sp.SD3Pipeline.init_random(seed=141, device="cpu")
+    gpu = dataclasses.replace(cpu, **{n: copy.deepcopy(getattr(cpu, n)).to("cuda") for n in (
+        "dit", "clip1", "clip2", "t5", "vae_encoder", "vae_decoder")})
+    noise = np.random.default_rng(142).standard_normal((1, 16, 16, 16)).astype(np.float32)
+    req = dict(prompt="a red ball", negative_prompt="blurry", cfg_scale=2.0, height=32,
+               width=32, num_inference_steps=2, noise=noise)
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = cpu(**req)
+        fa.reset_launch_counts()
+        got, secs = sync_time(lambda: gpu(**req))
+        launches = dict(fa.launch_counts)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    err = float(np.abs(got - want).max())
+    ok = got.shape == (32, 32, 3) and bool(np.isfinite(got).all()) and err <= 1e-4
+    log("small_sd3", case="request cuda vs cpu", seconds=secs, max_abs_err=err, atol=1e-4,
+        launches=launches, ok=ok)
+    check(ok, f"small_sd3: the card's image differs from the CPU's by {err}")
+    check(launches == only(), f"small_sd3 launched {launches} (head_dim 64: plain)")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+# SD3.5-Large at its released widths and full depth (38 blocks of 2432 = 38 x 64, RMS
+# q/k norms, pos-embed 192), CLIP-L and bigG whole, T5 v1.1 XXL at 2 of 24 layers (the
+# vendored tokenizers, 128 T5 ids: 205 text tokens), the 16-channel VAE; SD3.5-Medium (24
+# blocks of 1536, 13 dual, pos-embed 384) for one step. 1024x1024: 4,096 image tokens.
+SD3_HW = 1024
+SD3_T5_LAYERS = 2
+SD3_TOKENS = (SD3_HW // 16) ** 2 + 77 + 128
+SD3_PATH = {"large": (2, SD3_TOKENS, 38, 64), "medium": (2, SD3_TOKENS, 24, 64)}
+
+
+def _sd3_plain(name, shape, gen):
+    """The plain attention (float32 logits in row blocks of <= 2 GiB) at one of SD3's
+    path shapes, bf16 q = k = v at the qk-normed scale, timed with CUDA events (1 warm-up,
+    3 calls) beside SDPA on the same tensors (a yardstick) and the call's bound."""
+    from goal_force_tpu_torch.ops.attention import plain_attention
+
+    b, s, n, h = shape
+    q, k, v = (_rand(shape, gen, torch.bfloat16) for _ in range(3))
+    scale = h ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = plain_attention(q, k, v, scale)
+    ref = sdpa(qt, kt, vt).transpose(1, 2)
+    err = float((out.float() - ref.float()).abs().max())
+    bound, by = kernel_bound_ms(4 * b * n * s * s * h, 2 * 4 * b * s * n * h)
+    rec = dict(shape=f"{shape}^2", plain_ms=event_ms(lambda: plain_attention(q, k, v, scale)),
+               library_ms=event_ms(lambda: sdpa(qt, kt, vt)), bound_ms=bound, bound_by=by,
+               max_abs_err_vs_sdpa=err)
+    rec["fraction_of_bound"] = rec["bound_ms"] / rec["plain_ms"]
+    log("sd3", case=f"plain attention {name} timing", **rec)
+    check(err <= 4 * bf16_limit(ref), f"sd3 plain attention {name}: {err} from SDPA")
+    del q, k, v, qt, kt, vt, out, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sd3():
+    """SD3.5-Large at its released widths and full depth, random bf16 weights from a seed:
+    at 1024x1024 (a) text-to-image, 2 of 28 steps, CFG 7.0 as one merged batch of 2; (b)
+    image-to-image from (a)'s image at strength 0.5, 1 step; (c) one step of SD3.5-Medium
+    at its released widths and depth over the same towers and VAE. Each finite (1024,
+    1024, 3) with no kernel launch (head_dim 64: every attention is the plain one); the
+    text, step, encode and decode seconds and the peaks. Then the plain attention at both
+    DiTs' path shapes, timed beside SDPA and its bound."""
+    from goal_force_tpu_torch.configs import T5_V1_1_XXL
+    from goal_force_tpu_torch.models import clip as clipm
+    from goal_force_tpu_torch.models import sd3_dit as sd3
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models.sd_text_encoder import SD_TEXT_CONFIG, SDXL_TEXT2_CONFIG
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import sd3 as sp
+    from goal_force_tpu_torch.prompters import sd3_tokenizers
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(151)
+    bf16 = torch.bfloat16
+    t5_cfg = dataclasses.replace(T5_V1_1_XXL, num_layers=SD3_T5_LAYERS, text_len=128)
+
+    def build():
+        dits = [sd3.init_sd3_dit(cfg, gen, bf16, device="cuda")
+                for cfg in (sd3.SD35_LARGE, sd3.SD35_MEDIUM)]
+        for dit in dits:        # a position table that is not zero, so the crop shows
+            dit.pos_embedder.pos_embed.normal_(generator=gen).mul_(0.02)
+        return (dits[0],
+                clipm.init_clip_text(SD_TEXT_CONFIG, gen, bf16, device="cuda"),
+                sp.init_bigg(SDXL_TEXT2_CONFIG, gen, bf16, device="cuda"),
+                t5m.init_t5(t5_cfg, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEEncoder, sv.SD_VAE_ENCODER_PLAN, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEDecoder, sv.SD_VAE_DECODER_PLAN, gen, bf16, device="cuda"),
+                dits[1])
+
+    (dit, clip1, clip2, t5, enc, dec, medium), init_s = sync_time(build)
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("sd3", stage="init", seconds=init_s, large_params=count(dit), medium_params=count(medium),
+        clip_params=count(clip1) + count(clip2), t5_params=count(t5),
+        vae_params=count(enc) + count(dec), gib=torch.cuda.memory_allocated() / 2**30)
+    tok1, tok2, tok3 = sd3_tokenizers(t5_length=128)
+    pipe = sp.SD3Pipeline(dit=dit, clip1=clip1, clip2=clip2, t5=t5, vae_encoder=enc,
+                          vae_decoder=dec, dit_cfg=sd3.SD35_LARGE, t5_cfg=t5_cfg,
+                          clip1_cfg=SD_TEXT_CONFIG, clip2_cfg=SDXL_TEXT2_CONFIG,
+                          tokenize_clip=tok1, tokenize_clip2=tok2, tokenize_t5=tok3,
+                          dtype=bf16)
+    stages = {}
+    _time_stages(pipe, stages, _encode_text="text_s", _velocity="step_s", _encode="encode_s",
+                 _decode="decode_s")
+    common = dict(negative_prompt=FLUX_NEGATIVE, cfg_scale=7.0, height=SD3_HW, width=SD3_HW,
+                  seed=19)
+    launches, image = {}, None
+    for name, model, cfg, kw in (
+            ("a_t2i", None, None, dict(num_inference_steps=2)),
+            ("b_i2i", None, None, dict(num_inference_steps=1, denoising_strength=0.5)),
+            ("c_medium", medium, sd3.SD35_MEDIUM, dict(num_inference_steps=1))):
+        stages.clear()
+        if name == "b_i2i":
+            kw["input_image"] = image
+        if model is not None:
+            pipe.dit, pipe.dit_cfg = model, cfg
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = sync_time(lambda: pipe(FLUX_PROMPT, **kw, **common))
+        launched = dict(fa.launch_counts)
+        finite = bool(np.isfinite(out).all())
+        log("sd3", stage="request", request=name, seconds=secs, **stages, launches=launched,
+            image_shape=list(out.shape), finite=finite, image_mean=float(out.mean()),
+            image_std=float(out.std()), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        check(launched == only(), f"sd3 {name} launched {launched} (head_dim 64: plain)")
+        check(out.shape == (SD3_HW, SD3_HW, 3) and finite,
+              f"sd3 {name} image {out.shape}, finite {finite}")
+        for key, n in launched.items():
+            launches[key] = launches.get(key, 0) + n
+        if image is None:
+            image = out
+    del pipe, dit, clip1, clip2, t5, enc, dec, medium, image
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(152)
+    path = {name: _sd3_plain(name, shape, gen) for name, shape in SD3_PATH.items()}
+    return launches, path
+
+
+def _small_qwen_configs():
+    from goal_force_tpu_torch.models import qwen_image_controlnet as qcn
+    from goal_force_tpu_torch.models import qwen_image_dit as qd
+    from goal_force_tpu_torch.models import qwen_vl as qv
+
+    dit = qd.QwenImageDiTConfig(dim=256, num_heads=2, head_dim=128, num_layers=2, text_dim=64)
+    return (dit, qcn.QwenImageControlNetConfig(num_layers=2, dim=256),
+            qv.QwenVLTextConfig(hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+                                intermediate_size=96, vocab=1000, mrope_section=(2, 3, 3)),
+            qv.QwenVLVisionConfig(hidden_size=64, depth=2, num_heads=4, intermediate_size=96,
+                                  out_hidden_size=64, fullatt_block_indexes=(1,)))
+
+
+def phase_small_qwen_image():
+    """Qwen-Image's modules at small sizes on the card: the DiT forward at head_dim 128 (2
+    heads, 2 blocks, a 32x32 latent: 256 image tokens and a 16x16 extra image's 64 behind
+    20 text tokens) with the blockwise ControlNet, "auto" (K1 through the runtime bound, 2
+    launches) against "plain" on the same inputs, float32 (within 1e-4 of the output's
+    scale) and bf16 (within 3e-2 of it); the tiny text tower (M-RoPE over an image span),
+    the vision tower (two images, windows and full attention) and the tiny VAE's encode
+    and decode on the card against the CPU, float32 with TF32 off (1e-4 of the scale)."""
+    import copy
+
+    from goal_force_tpu_torch.models import qwen_image_controlnet as qcn
+    from goal_force_tpu_torch.models import qwen_image_dit as qd
+    from goal_force_tpu_torch.models import qwen_vl as qv
+    from goal_force_tpu_torch.models import vae as vm
+    from goal_force_tpu_torch.pipelines import qwen_image as qp
+
+    cfg, cn_cfg, txt_cfg, vis_cfg = _small_qwen_configs()
+    gen = torch.Generator("cuda").manual_seed(161)
+    rec, launches = {}, {}
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        tag = str(dtype).split(".")[-1]
+        dit = qd.init_qwen_image_dit(cfg, gen, dtype, device="cuda")
+        cn = qcn.init_qwen_image_controlnet(cn_cfg, gen, dtype, device="cuda")
+        for blk in cn.controlnet_blocks:
+            blk.output_proj.weight.normal_(generator=gen).mul_(0.02)   # residuals not zero
+        lat, extra = _rand((1, 32, 32, 16), gen, dtype), _rand((1, 16, 16, 16), gen, dtype)
+        txt, cond = _rand((1, 20, cfg.text_dim), gen, dtype), _rand((1, 256, 64), gen, dtype)
+        t = torch.tensor([0.7], dtype=dtype, device="cuda")
+        rec[f"dit_{tag}"], launches[f"dit_{tag}"] = _auto_vs_plain(
+            "small_qwen_image", f"DiT forward {tag}",
+            lambda impl: qd.qwen_image_dit_forward(dit, cfg, lat, t, txt, attn_impl=impl,
+                                                   controlnet=cn, controlnet_cond=cond,
+                                                   extra_latents=[extra]),
+            rel, only(K1=2))
+        del dit, cn
+
+    cpu_gen = torch.Generator().manual_seed(162)
+    text = qv.init_qwen_vl_text(txt_cfg, cpu_gen, torch.float32, device="cpu")
+    vis = qv.init_qwen_vl_vision(vis_cfg, cpu_gen, torch.float32, device="cpu")
+    vae_cfg = qp.tiny_qwen_image_configs()[2]
+    vae = vm.init_vae(vae_cfg, cpu_gen, device="cpu")
+    for mod in vae.modules():
+        if isinstance(mod, vm.AttentionBlock):
+            mod.proj.weight.normal_(generator=cpu_gen).mul_(0.02)
+    ids = torch.tensor([[3, 4, 101] + [100] * 6 + [5, 6, 7]])
+    pos = torch.as_tensor(qv.get_rope_index(ids.numpy(), [(1, 4, 6)], 100, 101))
+    feats = torch.randn((6, 64), generator=cpu_gen)
+    pixels = torch.randn((24 + 32, 3 * 2 * 14 * 14), generator=cpu_gen)
+    img = torch.rand((1, 1, 32, 32, 3), generator=cpu_gen) * 2 - 1
+    z = torch.randn((1, 1, 16, 16, 16), generator=cpu_gen)
+    cases = {
+        "text tower": lambda m, d: qv.qwen_vl_text_forward(
+            m["text"], txt_cfg, qv.qwen_vl_embed(m["text"], ids.to(d), feats.to(d), 100),
+            torch.ones_like(ids).to(d), pos.to(d)),
+        "vision tower": lambda m, d: qv.qwen_vl_vision_forward(
+            m["vis"], vis_cfg, pixels.to(d), ((1, 4, 6), (1, 8, 4))),
+        "VAE encode": lambda m, d: vm.encode_video(m["vae"], vae_cfg, img.to(d)),
+        "VAE decode": lambda m, d: vm.decode_video(m["vae"], vae_cfg, z.to(d)),
+    }
+    mods = {"text": text, "vis": vis, "vae": vae}
+    gpu = {k: copy.deepcopy(v).to("cuda") for k, v in mods.items()}
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, fn in cases.items():
+            want = fn(mods, "cpu")
+            got = fn(gpu, "cuda")
+            scale = float(want.abs().max())
+            rec[name.replace(" ", "_")] = compare(
+                f"small_qwen_image {name} float32 cuda vs cpu", got.cpu(), want,
+                atol=1e-4 * scale, rtol=0.0, phase="small_qwen_image")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    log("small_qwen_image", image_tokens=256, extra_tokens=64, text_tokens=20,
+        launches=launches, **rec)
+    del gpu
+    torch.cuda.empty_cache()
+    return {k: sum(v[k] for v in launches.values()) for k in launches["dit_float32"]}
+
+
+QWEN_SPECIAL_IDS = {"<|im_start|>": 151644, "<|im_end|>": 151645,
+                    "<|vision_start|>": 151652, "<|vision_end|>": 151653,
+                    "<|image_pad|>": 151655}
+
+
+# Qwen-Image's prompts (no Qwen2.5-VL tokenizer ships with the repo): the chat template's
+# special tokens at their Qwen2.5-VL ids, every other word or punctuation mark at a crc32
+# hash in [1000, 151000).
+qwen_hash_tokenizer = hash_encoder(QWEN_SPECIAL_IDS, 150000)
+
+
+# Qwen-Image at its released configuration and full depth: 60 blocks of 3072, 24 x 128
+# heads, so 60 K1 per DiT forward at 1328x1328 (6,889 image tokens behind the 14 of the 48
+# hash ids left after the template's 34: 6,903); the edit request's 1024x1024 edit image
+# adds 4,096 tokens and its template 1,225 vision tokens to the text.
+QWEN_HW = 1328
+QWEN_K1 = 60
+QWEN_TOKENS = 14 + (QWEN_HW // 16) ** 2
+QWEN_PROMPT = FLUX_PROMPT
+QWEN_EDIT = "make the ball green and move the cup to the left"
+
+
+def phase_qwen_image():
+    """Qwen-Image at its released configuration and full depth (dim 3072, 24x128 heads, 60
+    blocks, in 64, text 3584, axes (16, 56, 56)), Qwen2.5-VL-7B's text tower (28 layers)
+    and vision tower (32 layers) whole, the Wan-architecture VAE (float32) and the
+    60-block ControlNet, random bf16 weights from a seed: at 1328x1328 (a) text-to-image,
+    2 of 30 steps, CFG 4.0 as two forwards a step, on JAX's hash ids; (b) the ControlNet
+    on (a)'s image; (c) Qwen-Image-Edit with (a)'s image as the edit image (auto-resized
+    to 1024x1024, read by the vision tower, appended as 4,096 tokens; the prompt through
+    ``qwen_hash_tokenizer``), each 2 steps (Qwen's schedule of one step is 0 / 0 at its
+    terminal shift, in JAX too): 60 K1 per forward, one bound sync each, 0 K2,
+    finite (1328, 1328, 3) images; the text, vision, step, encode and decode seconds and
+    the peaks. Then (d) one forward with every q-norm weight x8 (60 K2) against the plain
+    path, the bound's cost per forward, and K1 at the path's two shapes against its plain
+    version on every head, timed beside its bound, the bound's sync and SDPA."""
+    from goal_force_tpu_torch.models import qwen_image_controlnet as qcn
+    from goal_force_tpu_torch.models import qwen_image_dit as qd
+    from goal_force_tpu_torch.models import qwen_vl as qv
+    from goal_force_tpu_torch.models import vae as vm
+    from goal_force_tpu_torch.models.qwen_image_vae import QWEN_IMAGE_VAE_CONFIG
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import qwen_image as qp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(171)
+    bf16 = torch.bfloat16
+    cfg = qd.QwenImageDiTConfig()
+
+    def build():
+        cn = qcn.init_qwen_image_controlnet(qcn.QwenImageControlNetConfig(), gen, bf16,
+                                            device="cuda")
+        for blk in cn.controlnet_blocks:
+            blk.output_proj.weight.normal_(generator=gen).mul_(1e-3)   # residuals not zero
+        return (qd.init_qwen_image_dit(cfg, gen, bf16, device="cuda"),
+                qv.init_qwen_vl_text(qv.QwenVLTextConfig(), gen, bf16, device="cuda"),
+                qv.init_qwen_vl_vision(qv.QwenVLVisionConfig(), gen, bf16, device="cuda"),
+                vm.init_vae(QWEN_IMAGE_VAE_CONFIG, gen, torch.float32, device="cuda"), cn)
+
+    (dit, text, vision, vae, cn), init_s = sync_time(build)
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("qwen_image", stage="init", seconds=init_s, dit_params=count(dit),
+        text_params=count(text), vision_params=count(vision), vae_params=count(vae),
+        controlnet_params=count(cn), gib=torch.cuda.memory_allocated() / 2**30)
+    pipe = qp.QwenImagePipeline(dit=dit, text_encoder=text, vae_encoder=vae, vae_decoder=vae,
+                                dit_cfg=cfg, text_cfg=qv.QwenVLTextConfig(),
+                                vae_cfg=QWEN_IMAGE_VAE_CONFIG, dtype=bf16, vae_factor=8,
+                                vision_encoder=vision, vision_cfg=qv.QwenVLVisionConfig())
+    stages, joint = {}, []
+    _time_stages(pipe, stages, _encode_prompt="text_s", _encode_image_prompt="vision_s",
+                 _denoise="step_s", _enc="encode_s", _decode="decode_s")
+    forward = pipe._forward
+
+    def recording(latents, t, ctx, **kw):
+        # the joint length of each forward: text, the main image and the extra images
+        extra = kw.get("extra_latents") or ()
+        joint.append(ctx.shape[1] + sum(z.shape[1] * z.shape[2] // 4
+                                        for z in (latents, *extra)))
+        return forward(latents, t, ctx, **kw)
+
+    pipe._forward = recording
+    common = dict(negative_prompt=FLUX_NEGATIVE, cfg_scale=4.0, height=QWEN_HW, width=QWEN_HW,
+                  seed=23)
+    launches, image, path = {}, None, {}
+    for name, kw, k1 in (
+            ("a_t2i", dict(num_inference_steps=2), 4 * QWEN_K1),
+            ("b_controlnet", dict(num_inference_steps=2, controlnet=cn), 4 * QWEN_K1),
+            ("c_edit", dict(num_inference_steps=2), 4 * QWEN_K1)):
+        stages.clear()
+        joint.clear()
+        prompt = QWEN_PROMPT
+        if name == "b_controlnet":
+            kw["controlnet_image"] = image
+        elif name == "c_edit":
+            kw["edit_image"], prompt = image, QWEN_EDIT
+            pipe.tokenize = qwen_hash_tokenizer
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with BoundRecorder() as bounds:
+            out, secs = sync_time(lambda: pipe(prompt, **kw, **common))
+        launched = dict(fa.launch_counts)
+        pipe.tokenize = None
+        finite = bool(np.isfinite(out).all())
+        log("qwen_image", stage="request", request=name, seconds=secs, **stages,
+            launches=launched, bound_syncs=bounds.calls, want_k1=k1, joint_tokens=joint,
+            image_shape=list(out.shape), finite=finite, image_mean=float(out.mean()),
+            image_std=float(out.std()), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        check(launched == only(K1=k1) and bounds.calls == k1,
+              f"qwen_image {name} launched {launched}, {bounds.calls} bound syncs")
+        check(out.shape == (QWEN_HW, QWEN_HW, 3) and finite,
+              f"qwen_image {name} image {out.shape}, finite {finite}")
+        if name == "a_t2i":
+            check(set(joint) == {QWEN_TOKENS}, f"qwen_image t2i joint lengths {joint}")
+        path[name] = max(joint)
+        for key, n in launched.items():
+            launches[key] = launches.get(key, 0) + n
+        if image is None:
+            image = out
+    pipe._forward = forward
+    emb = pipe._encode_prompt(QWEN_PROMPT).to(bf16)
+    del pipe, forward, recording, text, vision, vae, cn, image
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the runtime bound's cost at (a)'s shapes: one forward with the bound and with it
+    # replaced by a host constant (the same kernels, no reductions and no host sync)
+    lat = _rand((1, QWEN_HW // 8, QWEN_HW // 8, 16), gen, bf16)
+    t = torch.tensor([0.5], dtype=bf16, device="cuda")
+    fwd = lambda impl="auto": qd.qwen_image_dit_forward(dit, cfg, lat, t, emb, attn_impl=impl)
+    bound_sync_cost("qwen_image", "forward", fwd, only(K1=QWEN_K1))
+
+    # (d) one forward past the bound: every q-norm weight x8
+    norms = [w for blk in dit.transformer_blocks
+             for w in (blk.attn.norm_q.weight, blk.attn.norm_added_q.weight)]
+    for w in norms:
+        w.mul_(8)
+    try:
+        fa.reset_launch_counts()
+        with BoundRecorder(values=True) as bounds:
+            got, secs = sync_time(fwd)
+        unb = dict(fa.launch_counts)
+        ref, plain_s = sync_time(lambda: fwd("plain"))
+    finally:
+        for w in norms:
+            w.div_(8)
+    scale = float(ref.float().abs().max())
+    d = got.float() - ref.float()
+    err = float(d.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= 5e-2 * scale
+    log("qwen_image", stage="unbounded_forward", seconds=secs, plain_seconds=plain_s,
+        launches=unb, bounds_min=min(bounds.bounds, default=None),
+        bounds_max=max(bounds.bounds, default=None),
+        max_abs_err=err, atol=5e-2 * scale, out_max=scale, mean_abs_err=float(d.abs().mean()),
+        rel_bias=float((d * ref.float().sign()).mean() / ref.float().abs().mean()), ok=ok)
+    check(unb == only(K2=QWEN_K1) and min(bounds.bounds, default=0) >= fa.NOMAX_BOUND,
+          f"qwen_image unbounded forward launched {unb}, bounds {bounds.bounds}")
+    check(ok, f"qwen_image unbounded forward: kernels vs plain differ by {err}")
+    del dit, got, ref, lat, emb, d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(172)
+    k1 = {"t2i": _flux_k1("t2i", (1, path["a_t2i"], 24, 128), gen, phase="qwen_image"),
+          "edit": _flux_k1("edit", (1, path["c_edit"], 24, 128), gen, phase="qwen_image")}
+    return launches, unb, k1
+
+
 def main() -> int:
     try:
         return _main()
@@ -4804,7 +5306,10 @@ def started(phase, fn, *args):
 
 def _main() -> int:
     card = phase_device()
-    started("build", phase_build)
+    build = started("build", start_build)
+    started("vae38", phase_vae38)            # no kernel: on the card while nvcc runs
+    cog_launches, cog_rec = started("cog", phase_cog)
+    phase_build(build)
     measured = started("kernels", phase_kernels)
     ring_launches, ring_rec = started("ring", phase_ring, measured)
     pp_launches, pp_rec = started("pp", phase_pp)
@@ -4816,6 +5321,8 @@ def _main() -> int:
     started("small_cog", phase_small_cog)
     small_sv_launches = started("small_stepvideo", phase_small_stepvideo)
     small_flux_launches = started("small_flux", phase_small_flux)
+    small_sd3_launches = started("small_sd3", phase_small_sd3)
+    small_qwen_launches = started("small_qwen_image", phase_small_qwen_image)
     pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
     sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
     started("tools", phase_tools)
@@ -4831,13 +5338,13 @@ def _main() -> int:
     fun_control_launches = started("fun_control", phase_fun_control)
     s2v_launches, sharded_s2v_launches = started("s2v", phase_s2v)
     image_launches = started("image_branch", phase_image_branch)
-    started("vae38", phase_vae38)
     hy_launches, hy_rec, hy_models = started("hunyuan", phase_hunyuan)
     i2v_launches, i2v_rec = started("hunyuan_i2v", phase_hunyuan_i2v, hy_models)
     del hy_models
-    cog_launches, cog_rec = started("cog", phase_cog)
     sv_launches, sv_unbounded, sv_path = started("stepvideo", phase_stepvideo)
     flux_launches, flux_unbounded, flux_path = started("flux", phase_flux)
+    sd3_launches, sd3_plain = started("sd3", phase_sd3)
+    qwen_launches, qwen_unbounded, qwen_path = started("qwen_image", phase_qwen_image)
     train_launches, train_run = started("train", phase_train)
     sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
@@ -4878,7 +5385,11 @@ def _main() -> int:
               "small_stepvideo_launches": small_sv_launches["K1"],
               "stepvideo_launches": sv_launches["K1"], "stepvideo_path": sv_path,
               "small_flux_launches": small_flux_launches["K1"],
-              "flux_launches": flux_launches["K1"], "flux_path": flux_path}),
+              "flux_launches": flux_launches["K1"], "flux_path": flux_path,
+              "small_sd3_launches": small_sd3_launches["K1"],
+              "sd3_launches": sd3_launches["K1"], "sd3_plain_attention": sd3_plain,
+              "small_qwen_image_launches": small_qwen_launches["K1"],
+              "qwen_image_launches": qwen_launches["K1"], "qwen_image_path": qwen_path}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],
@@ -4887,7 +5398,9 @@ def _main() -> int:
               "small_stepvideo_launches": small_sv_launches["K2"],
               "stepvideo_launches": sv_unbounded["K2"],
               "small_flux_launches": small_flux_launches["K2"],
-              "flux_launches": flux_launches["K2"] + flux_unbounded["K2"]}),
+              "flux_launches": flux_launches["K2"] + flux_unbounded["K2"],
+              "small_qwen_image_launches": small_qwen_launches["K2"],
+              "qwen_image_launches": qwen_launches["K2"] + qwen_unbounded["K2"]}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K3"],

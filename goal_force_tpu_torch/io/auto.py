@@ -11,7 +11,7 @@ or a shape that does not fit, raises. The kinds:
     encoder half, the decoder half, or both as {"encoder", "decoder"}), ``llama``
     (``infer_llama_config``; keys with or without ``model.``), ``llava``
     (``infer_llava_config``; either key layout, the ``lm_head`` dropped) and ``clip_text``
-    (its SD branch: ``infer_clip_config``);
+    (``infer_clip_config``);
   - ``cog_dit`` (``infer_cog_config``), ``cog_vae`` (one half in the reference layout:
     its decoder or its encoder; the config from ``config=`` or ``vae_cfg=``, else the
     released one) and ``t5_encoder`` (T5 v1.1: ``infer_t5_v11_config``);
@@ -27,6 +27,16 @@ or a shape that does not fit, raises. The kinds:
     config {"plan": ...} from ``plan=``, else the released plan) and
     ``step1x_connector`` (JAX's config, ``config=`` or the released one; the module
     built from the file's widths and depth);
+  - ``sd3_dit`` (``infer_sd3_config``) and ``clip_text`` with SDXL's variants: bigG
+    with its projection (the module's projection as wide as the file's) and CLIP-L cut
+    without a final LayerNorm;
+  - ``qwen_image_dit`` (``infer_qwen_image_config``), ``qwen_vl_text``
+    (``infer_qwen_vl_text_config``; keys with or without ``model.``; a whole Qwen2.5-VL
+    file's ``visual.*`` and ``lm_head`` keys dropped), ``qwen_image_vae`` (the
+    diffusers-style names renamed into ``WanVAE``'s; JAX's config, ``config=`` or
+    ``vae_cfg=``, None where neither is given, the module at Wan2.1's geometry then;
+    JAX's detection names such a file otherwise, so the caller passes the kind) and
+    ``qwen_image_controlnet`` (JAX's config of the shapes);
   - the Wan kinds, through the port's own loaders (``io/detect.py::convert_detected``).
 
 Every other detected kind raises ``NotImplementedError`` naming its ROADMAP item.
@@ -49,9 +59,7 @@ WAN_KINDS = ("wan_dit", "umt5_xxl", "wan_vae", "wan_vae38", "wan_image_encoder",
 
 # The ROADMAP item that ports each detected kind not ported yet.
 ROADMAP_ITEMS = {
-    **{k: "M14c (SD3, Qwen-Image, Nexus-Gen, HunyuanDiT, OmniGen)" for k in (
-        "sd3_dit", "qwen_image_dit", "qwen_image_controlnet", "qwen_image_vae",
-        "qwen_vl_text", "qwen_vl_vision", "hunyuan_dit", "omnigen")},
+    **{k: "M14c (Nexus-Gen, HunyuanDiT, OmniGen)" for k in ("hunyuan_dit", "omnigen")},
     **{k: "M14d (SD, SDXL, Kolors, SVD, AnimateDiff)" for k in (
         "sd_civitai", "sd_unet", "sdxl_civitai", "sdxl_unet", "svd_unet", "svd_vae",
         "sd_motion", "sd_controlnet", "sdxl_controlnet", "ipadapter", "chatglm",
@@ -271,6 +279,40 @@ def infer_step1_config(sd, num_heads: Optional[int] = None):
     )
 
 
+def infer_qwen_image_config(sd, axes_dim=None):
+    from goal_force_tpu_torch.models.qwen_image_dit import QwenImageDiTConfig
+
+    dim, in_dim = _shape(sd, "img_in.weight")
+    head_dim = _shape(sd, "transformer_blocks.0.attn.norm_added_q.weight")[0]
+    return QwenImageDiTConfig(
+        dim=dim, head_dim=head_dim,
+        num_heads=_shape(sd, "transformer_blocks.0.attn.to_q.weight")[0] // head_dim,
+        num_layers=_max_index(sd, "transformer_blocks."),
+        in_dim=in_dim, text_dim=_shape(sd, "txt_in.weight")[1],
+        freq_dim=_shape(sd, "time_text_embed.timestep_embedder.linear_1.weight")[1],
+        axes_dim=tuple(axes_dim) if axes_dim else _default_axes(head_dim),
+    )
+
+
+def infer_qwen_vl_text_config(sd, num_heads: Optional[int] = None, prefix: str = "model."):
+    """QwenVLTextConfig of the shapes: heads hidden / 128 unless given, the M-RoPE
+    sections scaled with head_dim ((16, 24, 24) at the released 128)."""
+    from goal_force_tpu_torch.models.qwen_vl import QwenVLTextConfig
+
+    vocab, hidden = _shape(sd, prefix + "embed_tokens.weight")
+    heads = num_heads or max(1, hidden // 128)
+    head_dim = hidden // heads
+    a = max(1, head_dim // 8)
+    b = (head_dim // 2 - a) // 2
+    return QwenVLTextConfig(
+        hidden_size=hidden, vocab=vocab, num_heads=heads,
+        num_layers=_max_index(sd, prefix + "layers."),
+        num_kv_heads=_shape(sd, prefix + "layers.0.self_attn.k_proj.weight")[0] // head_dim,
+        intermediate_size=_shape(sd, prefix + "layers.0.mlp.gate_proj.weight")[0],
+        mrope_section=(a, b, head_dim // 2 - a - b),
+    )
+
+
 def _is_cog_vae(sd) -> bool:
     """A Cog VAE half in the reference layout: 3D ``conv_in`` and ``blocks.0.conv1``."""
     return all(k in sd and len(_shape(sd, k)) == 5
@@ -278,16 +320,36 @@ def _is_cog_vae(sd) -> bool:
 
 
 def infer_clip_config(sd, num_heads: Optional[int] = None):
-    """CLIPConfig of a CLIP text tower without a projection, in the reference naming."""
+    """CLIPConfig of a CLIP text tower in the reference naming: with a projection (SDXL's
+    and SD3's bigG) exact GELU and argmax pooling, else quick GELU (JAX's config; its
+    ``proj_dim`` stays the default whatever the projection's width)."""
     from goal_force_tpu_torch.models.clip import CLIPConfig
 
     vocab, dim = _shape(sd, "token_embedding.weight")
+    with_projection = "text_projection.weight" in sd
     return CLIPConfig(
         vocab_size=vocab, text_dim=dim,
         text_heads=num_heads or max(1, dim // 64),
         text_layers=_max_index(sd, "encoders."),
         max_positions=_shape(sd, "position_embeds")[1],
-        hidden_act="quick_gelu",
+        hidden_act="gelu" if with_projection else "quick_gelu",
+        **({"text_pooling": "argmax"} if with_projection else {}),
+    )
+
+
+def infer_sd3_config(sd):
+    from goal_force_tpu_torch.models.sd3_dit import SD3DiTConfig
+
+    w = _shape(sd, "pos_embedder.proj.weight")
+    n = _max_index(sd, "blocks.")
+    return SD3DiTConfig(
+        dim=w[0], in_channels=w[1], patch=w[2], num_layers=n,
+        num_dual_blocks=sum(1 for i in range(n) if f"blocks.{i}.attn2.a_to_qkv.weight" in sd),
+        use_rms_norm="blocks.0.attn.norm_q_a.weight" in sd,
+        pos_embed_max_size=_shape(sd, "pos_embedder.pos_embed")[1],
+        text_dim=_shape(sd, "context_embedder.weight")[1],
+        pooled_dim=_shape(sd, "pooled_text_embedder.0.weight")[1],
+        freq_dim=_shape(sd, "time_embedder.timestep_embedder.0.weight")[1],
     )
 
 
@@ -400,14 +462,22 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
         sd = {k: v for k, v in sd.items() if not k.startswith(BERT_UNUSED)}
         return out(cfg, _strict(BertModel, cfg, sd, kind, dtype, device))
     if kind == "clip_text":
+        import functools
+
         from goal_force_tpu_torch.models.clip import CLIPTextModel
 
-        if "text_projection.weight" in sd or "final_layer_norm.weight" not in sd:
-            raise NotImplementedError(
-                f"{kind}: the SDXL CLIP towers are not ported yet (ROADMAP "
-                f"{ROADMAP_ITEMS['sdxl_unet']})")
         cfg = config or infer_clip_config(sd, **infer_kw)
-        return out(cfg, _strict(CLIPTextModel, cfg, sd, kind, dtype, device))
+        proj = "text_projection.weight" in sd
+        cls = functools.partial(CLIPTextModel, projection=proj,
+                                final_norm="final_layer_norm.weight" in sd,
+                                proj_dim=_shape(sd, "text_projection.weight")[0] if proj
+                                else None)
+        return out(cfg, _strict(cls, cfg, sd, kind, dtype, device))
+    if kind == "sd3_dit":
+        from goal_force_tpu_torch.models.sd3_dit import SD3DiT
+
+        cfg = config or infer_sd3_config(sd)
+        return out(cfg, _strict(SD3DiT, cfg, sd, kind, dtype, device))
     if kind == "flux_dit":
         from goal_force_tpu_torch.models.flux_dit import FluxDiT
 
@@ -445,6 +515,45 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
             depth=_max_index(sd, "S.individual_token_refiner.blocks."),
             mlp_ratio=_shape(sd, "S.individual_token_refiner.blocks.0.mlp.fc1.weight")[0] / d)
         return out(cfg, _strict(Step1xConnector, build, sd, kind, dtype, device))
+    if kind == "qwen_image_dit":
+        from goal_force_tpu_torch.models.qwen_image_dit import QwenImageDiT
+
+        cfg = config or infer_qwen_image_config(sd, **infer_kw)
+        return out(cfg, _strict(QwenImageDiT, cfg, sd, kind, dtype, device))
+    if kind == "qwen_vl_text":
+        from goal_force_tpu_torch.models.qwen_vl import QwenVLTextModel
+
+        prefix = "model." if "model.embed_tokens.weight" in sd else ""
+        cfg = config or infer_qwen_vl_text_config(sd, prefix=prefix, **infer_kw)
+        # a whole Qwen2.5-VL file also holds the vision tower and the LM head, which the
+        # prompt tower never reads
+        sd = {k[len(prefix):]: v for k, v in sd.items()
+              if k.startswith(prefix) and "visual." not in k and not k.startswith("lm_head.")}
+        return out(cfg, _strict(QwenVLTextModel, cfg, sd, kind, dtype, device))
+    if kind == "qwen_image_vae":
+        from goal_force_tpu_torch.models import qwen_image_vae as qiv
+        from goal_force_tpu_torch.models.vae import WanVAE
+
+        cfg = config or infer_kw.get("vae_cfg")
+        return out(cfg, _strict(WanVAE, cfg or qiv.QWEN_IMAGE_VAE_CONFIG,
+                                qiv.qwen_image_vae_state_dict(sd), kind, dtype, device))
+    if kind == "qwen_image_controlnet":
+        import dataclasses
+
+        from goal_force_tpu_torch.models import qwen_image_controlnet as qcn
+
+        cfg = config or qcn.QwenImageControlNetConfig(
+            dim=_shape(sd, "controlnet_blocks.0.input_proj.weight")[1],
+            num_layers=_max_index(sd, "controlnet_blocks."))
+        # the module takes the file's img_in width, whatever the config's split says
+        build = dataclasses.replace(cfg, additional_in_dim=_shape(sd, "img_in.weight")[1]
+                                    - cfg.in_dim)
+        return out(cfg, _strict(qcn.QwenImageControlNet, build, sd, kind, dtype, device))
+    if kind == "qwen_vl_vision":
+        raise NotImplementedError(
+            f"{kind}: load_model has no branch for the vision tower (as in JAX); "
+            "QwenImagePipeline.from_pretrained(load_vision=True) reads it from the "
+            "Qwen2.5-VL file")
     if kind in WAN_KINDS:
         return convert_detected(sd, kind=kind, dtype=dtype, device=device,
                                 **({"config": config} if config else {}))

@@ -39,6 +39,11 @@ the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) 
     projector, ``language_model.model.*`` with the final norm), ``cog_dit``,
     ``cog_vae_encoder`` / ``cog_vae_decoder`` (a resample's (kh, kw, C, C) conv ->
     ``blocks.{i}.conv``) and ``t5_v1_1`` (the one shared ``pos_embedding``);
+  - SD3's and Qwen-Image's trees (in ``FLUX_CONVERTERS`` too): ``sd3_dit`` (dual, plain
+    and final blocks renumbered in order), ``qwen_image_dit``, ``qwen_image_controlnet``,
+    ``qwen_vl_text`` and ``qwen_vl_vision`` (HF names without the ``model.`` /
+    ``visual.`` prefixes) and ``qwen_image_vae`` (the Wan layout, as ``vae``); a
+    ``clip_text`` tree without ``ln_final`` (SDXL's first tower) gives no final norm;
   - the Flux path's trees (``FLUX_CONVERTERS``): ``flux_dit`` and ``flux_controlnet``
     (stacked joint / single blocks -> ``blocks.{i}`` / ``single_blocks.{i}``, the fused
     projections as they are), the SD / SD3 VAE halves (``sd_vae_encoder``, ...: HWIO
@@ -455,7 +460,8 @@ def clip_text_state_dict(p: Mapping) -> StateDict:
                                              "b": b["attn"][proj + "_b"]})
         for fc in ("fc1", "fc2"):
             _lin(sd, f"{pre}.{fc}", {"w": b[fc + "_w"], "b": b[fc + "_b"]})
-    _ln(sd, "final_layer_norm", t["ln_final"])
+    if "ln_final" in t:           # SDXL's first tower has none
+        _ln(sd, "final_layer_norm", t["ln_final"])
     if "text_proj" in p:
         sd["text_projection.weight"] = _t(np.asarray(p["text_proj"]).T)
     return sd
@@ -931,6 +937,134 @@ def flux_ipadapter_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------------
+# SD3 and Qwen-Image: the SD3 MMDiT, the Qwen-Image DiT, its blockwise ControlNet, the
+# Qwen2.5-VL text and vision towers
+# ---------------------------------------------------------------------------
+
+def _sd3_attn(sd: StateDict, prefix: str, a: Mapping) -> None:
+    for jax_name, ref in (("a_qkv", "a_to_qkv"), ("a_out", "a_to_out"),
+                          ("b_qkv", "b_to_qkv"), ("b_out", "b_to_out")):
+        if jax_name in a:
+            _lin(sd, f"{prefix}.{ref}", a[jax_name])
+    for norm in ("norm_q_a", "norm_k_a", "norm_q_b", "norm_k_b"):
+        if norm in a:
+            sd[f"{prefix}.{norm}.weight"] = _t(a[norm]["w"])
+
+
+def _sd3_block(sd: StateDict, prefix: str, q: Mapping) -> None:
+    for name in ("norm1_a", "norm1_b"):
+        _lin(sd, f"{prefix}.{name}.linear", q[name])
+    _sd3_attn(sd, prefix + ".attn", q["attn"])
+    if "attn2" in q:
+        _sd3_attn(sd, prefix + ".attn2", q["attn2"])
+    for ff in ("ff_a", "ff_b"):
+        if ff in q:
+            _mlp01(sd, f"{prefix}.{ff}", q[ff])
+
+
+def sd3_dit_state_dict(p: Mapping, patch: int = 2) -> StateDict:
+    """JAX ``sd3_dit_params_from_torch``'s tree (stacked dual and plain blocks, the final
+    block apart) -> the reference SD3DiT keys: the blocks renumbered dual first, the
+    (C*P*P, D) patch matmul -> Conv2d (D, C, P, P), the (M, M, D) table -> (1, M, M, D)."""
+    pe = p["pos_embedder"]
+    w = np.asarray(pe["proj"]["w"])
+    sd: StateDict = {"pos_embedder.proj.weight": _t(w.T.reshape(w.shape[1], -1, patch, patch)),
+                     "pos_embedder.proj.bias": _t(pe["proj"]["b"]),
+                     "pos_embedder.pos_embed": _t(np.asarray(pe["pos_embed"])[None])}
+    _mlp01(sd, "time_embedder.timestep_embedder", p["time_in"])
+    _mlp01(sd, "pooled_text_embedder", p["vector_in"])
+    _lin(sd, "context_embedder", p["context_embedder"])
+    i = 0
+    for name in ("dual_blocks", "blocks"):
+        if name in p:
+            for j in range(np.asarray(p[name]["norm1_a"]["w"]).shape[0]):
+                _sd3_block(sd, f"blocks.{i}", _layer(p[name], j))
+                i += 1
+    _sd3_block(sd, f"blocks.{i}", p["final_block"])
+    _lin(sd, "norm_out.linear", p["norm_out"])
+    _lin(sd, "proj_out", p["proj_out"])
+    return sd
+
+
+def qwen_image_dit_state_dict(p: Mapping) -> StateDict:
+    """JAX ``qwen_image_dit_params_from_torch``'s tree -> the reference QwenImageDiT
+    keys."""
+    sd: StateDict = {"txt_norm.weight": _t(p["txt_norm"]["w"])}
+    for name in ("img_in", "txt_in", "proj_out"):
+        _lin(sd, name, p[name])
+    _lin(sd, "norm_out.linear", p["norm_out"])
+    _lin(sd, "time_text_embed.timestep_embedder.linear_1", p["time_in"]["fc0"])
+    _lin(sd, "time_text_embed.timestep_embedder.linear_2", p["time_in"]["fc2"])
+    names = {"to_q": "to_q", "to_k": "to_k", "to_v": "to_v", "add_q": "add_q_proj",
+             "add_k": "add_k_proj", "add_v": "add_v_proj", "to_out": "to_out.0",
+             "to_add_out": "to_add_out"}
+    for i in range(np.asarray(p["blocks"]["img_mod"]["w"]).shape[0]):
+        q, pre = _layer(p["blocks"], i), f"transformer_blocks.{i}"
+        _lin(sd, pre + ".img_mod.1", q["img_mod"])
+        _lin(sd, pre + ".txt_mod.1", q["txt_mod"])
+        for jax_name, ref in names.items():
+            _lin(sd, f"{pre}.attn.{ref}", q["attn"][jax_name])
+        for norm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            sd[f"{pre}.attn.{norm}.weight"] = _t(q["attn"][norm]["w"])
+        for mlp in ("img_mlp", "txt_mlp"):
+            _lin(sd, f"{pre}.{mlp}.net.0.proj", q[mlp]["fc0"])
+            _lin(sd, f"{pre}.{mlp}.net.2", q[mlp]["fc2"])
+    return sd
+
+
+def qwen_image_controlnet_state_dict(p: Mapping) -> StateDict:
+    """JAX ``qwen_image_controlnet_params_from_torch``'s tree -> the reference
+    blockwise ControlNet keys."""
+    sd: StateDict = {}
+    _lin(sd, "img_in", p["img_in"])
+    for i in range(np.asarray(p["blocks"]["in"]["w"]).shape[0]):
+        q, pre = _layer(p["blocks"], i), f"controlnet_blocks.{i}"
+        sd[pre + ".x_rms.weight"] = _t(q["x_rms"]["w"])
+        sd[pre + ".y_rms.weight"] = _t(q["y_rms"]["w"])
+        _lin(sd, pre + ".input_proj", q["in"])
+        _lin(sd, pre + ".output_proj", q["out"])
+    return sd
+
+
+def qwen_vl_text_state_dict(p: Mapping) -> StateDict:
+    """JAX ``qwen_vl_text_params_from_torch``'s tree -> the HF Qwen2.5-VL text keys
+    without the ``model.`` prefix (q/k/v with biases; the LM head, which the prompt tower
+    never reads, is left out)."""
+    sd: StateDict = {"embed_tokens.weight": _t(p["wte"]),
+                     "norm.weight": _t(p["final_norm"]["w"])}
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+             "down": "mlp.down_proj"}
+    for i in range(np.asarray(p["blocks"]["q"]["w"]).shape[0]):
+        b, pre = _layer(p["blocks"], i), f"layers.{i}"
+        sd[pre + ".input_layernorm.weight"] = _t(b["norm1"]["w"])
+        sd[pre + ".post_attention_layernorm.weight"] = _t(b["norm2"]["w"])
+        for k, name in names.items():
+            _lin(sd, f"{pre}.{name}", b[k], bias="b" in b[k])
+    return sd
+
+
+def qwen_vl_vision_state_dict(p: Mapping, patch=(2, 14, 14)) -> StateDict:
+    """JAX ``qwen_vl_vision_params_from_torch``'s tree -> the HF Qwen2.5-VL vision keys
+    without the ``visual.`` prefix (the (C*T*P*P, D) patch matmul -> a bias-free Conv3d
+    (D, C, T, P, P))."""
+    w = np.asarray(p["patch_embed"]["w"])
+    sd: StateDict = {"patch_embed.proj.weight": _t(w.T.reshape(w.shape[1], -1, *patch)),
+                     "merger.ln_q.weight": _t(p["merger"]["ln_q"]["w"])}
+    _lin(sd, "merger.mlp.0", p["merger"]["fc0"])
+    _lin(sd, "merger.mlp.2", p["merger"]["fc2"])
+    for i in range(np.asarray(p["blocks"]["norm1"]["w"]).shape[0]):
+        b, pre = _layer(p["blocks"], i), f"blocks.{i}"
+        sd[pre + ".norm1.weight"] = _t(b["norm1"]["w"])
+        sd[pre + ".norm2.weight"] = _t(b["norm2"]["w"])
+        _lin(sd, pre + ".attn.qkv", b["attn"]["qkv"])
+        _lin(sd, pre + ".attn.proj", b["attn"]["proj"])
+        for name in ("gate", "up", "down"):
+            _lin(sd, f"{pre}.mlp.{name}_proj", b[name])
+    return sd
+
+
 FLUX_CONVERTERS = {
     "flux_dit": flux_dit_state_dict, "flux_controlnet": flux_controlnet_state_dict,
     "sd_vae_encoder": sd_vae_state_dict, "sd_vae_decoder": sd_vae_state_dict,
@@ -938,6 +1072,10 @@ FLUX_CONVERTERS = {
     "step1x_connector": step1x_connector_state_dict, "infiniteyou": infiniteyou_state_dict,
     "value_encoder": value_encoder_state_dict, "flux_lora_encoder": flux_lora_encoder_state_dict,
     "flux_ipadapter": flux_ipadapter_state_dict,
+    "sd3_dit": sd3_dit_state_dict, "qwen_image_dit": qwen_image_dit_state_dict,
+    "qwen_image_controlnet": qwen_image_controlnet_state_dict,
+    "qwen_vl_text": qwen_vl_text_state_dict, "qwen_vl_vision": qwen_vl_vision_state_dict,
+    "qwen_image_vae": vae_state_dict,
 }
 
 

@@ -84,18 +84,23 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """projection: add the bias-free ``text_projection`` (text_dim -> proj_dim)."""
+    """projection: add the bias-free ``text_projection`` (text_dim -> proj_dim, or
+    `proj_dim` where given: SDXL's bigG projects 1280 -> 1280 whatever the config's
+    proj_dim says). final_norm=False leaves out ``final_layer_norm`` (SDXL's first tower,
+    CLIP-L cut to 11 layers, has none)."""
 
-    def __init__(self, cfg: CLIPConfig, projection: bool = False):
+    def __init__(self, cfg: CLIPConfig, projection: bool = False, final_norm: bool = True,
+                 proj_dim: int | None = None):
         super().__init__()
         d = cfg.text_dim
         self.token_embedding = nn.Embedding(cfg.vocab_size, d)
         self.position_embeds = nn.Parameter(torch.zeros(1, cfg.max_positions, d))
         self.encoders = nn.ModuleList(CLIPEncoderLayer(d, d * cfg.mlp_ratio)
                                       for _ in range(cfg.text_layers))
-        self.final_layer_norm = LayerNormAffine(d)
+        if final_norm:
+            self.final_layer_norm = LayerNormAffine(d)
         if projection:
-            self.text_projection = nn.Linear(d, cfg.proj_dim, bias=False)
+            self.text_projection = nn.Linear(d, proj_dim or cfg.proj_dim, bias=False)
 
 
 def _ln(p: LayerNormAffine, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -294,10 +299,12 @@ def clip_encode_text(model: CLIPTextModel, cfg: CLIPConfig, input_ids: torch.Ten
 
 @torch.no_grad()
 def init_clip_text(cfg: CLIPConfig, gen: torch.Generator, dtype=torch.float32, *,
-                   device, projection: bool = False) -> CLIPTextModel:
+                   device, projection: bool = False, final_norm: bool = True,
+                   proj_dim: int | None = None) -> CLIPTextModel:
     """Random weights for tests and the smoke, drawn from `gen`: N(0, 0.02**2) token and
     position embeddings, uniform +-1/sqrt(fan_in) linears, zero biases, unit norms."""
-    model = empty_module(CLIPTextModel, cfg, projection, dtype=dtype, device=device)
+    model = empty_module(CLIPTextModel, cfg, projection, final_norm, proj_dim, dtype=dtype,
+                         device=device)
     model.token_embedding.weight.normal_(generator=gen).mul_(0.02)
     model.position_embeds.normal_(generator=gen).mul_(0.02)
     for m in model.modules():

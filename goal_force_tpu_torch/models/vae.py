@@ -164,22 +164,27 @@ def causal_conv3d(conv: nn.Conv3d, x, t_stride: int = 1, causal_pad: bool = True
 
 
 def spatial_norm(p: RMSNormC, x, eps: float = 1e-12):
-    """F.normalize over channels * sqrt(C) * gamma (in float32, cast back first)."""
+    """F.normalize over channels * sqrt(C) * gamma (in float32, cast back first). The
+    scale sqrt(C) / |x| is formed per pixel, so the activation is read and written twice."""
     xf = x.float()
-    n = torch.clamp(torch.sqrt(xf.square().sum(dim=1, keepdim=True)), min=eps)
-    out = (xf / n * math.sqrt(x.shape[1])).to(x.dtype)
-    return out * p.gamma.to(x.dtype)
+    r = math.sqrt(x.shape[1]) / torch.linalg.vector_norm(xf, dim=1, keepdim=True).clamp_min(eps)
+    return (xf * r).to(x.dtype) * p.gamma.to(x.dtype)
 
 
-def silu(x):
-    return F.silu(x.float()).to(x.dtype)
+def norm_silu(p: RMSNormC, x):
+    """silu(spatial_norm(p, x)) in float32; in place on the norm's output where that is
+    float32 and outside autograd."""
+    h = spatial_norm(p, x)
+    if h.dtype == torch.float32 and not h.requires_grad:
+        return F.silu(h, inplace=True)
+    return F.silu(h.float()).to(h.dtype)
 
 
 def residual_block(p: ResidualBlock, x, split=None):
     h = x if p.shortcut is None else causal_conv3d(p.shortcut, x, split=split)
     r = p.residual
-    y = causal_conv3d(r[2], silu(spatial_norm(r[0], x)), split=split)
-    y = causal_conv3d(r[6], silu(spatial_norm(r[3], y)), split=split)
+    y = causal_conv3d(r[2], norm_silu(r[0], x), split=split)
+    y = causal_conv3d(r[6], norm_silu(r[3], y), split=split)
     return y + h
 
 
@@ -318,7 +323,7 @@ def encode(vae: WanVAE, cfg: VAEConfig, video, split=None):
     x = residual_block(enc.middle[0], x, split)
     x = attention_block(enc.middle[1], x, split)
     x = residual_block(enc.middle[2], x, split)
-    x = causal_conv3d(enc.head[2], silu(spatial_norm(enc.head[0], x)), split=split)
+    x = causal_conv3d(enc.head[2], norm_silu(enc.head[0], x), split=split)
     moments = causal_conv3d(vae.conv1, x, split=split)
     return _to_cl(moments[:, : cfg.z_dim])
 
@@ -332,7 +337,7 @@ def decode(vae: WanVAE, cfg: VAEConfig, z):
     x = attention_block(dec.middle[1], x)
     x = residual_block(dec.middle[2], x)
     x = _run_plan(decoder_plan(cfg), dec.upsamples, x)
-    x = causal_conv3d(dec.head[2], silu(spatial_norm(dec.head[0], x)))
+    x = causal_conv3d(dec.head[2], norm_silu(dec.head[0], x))
     return _to_cl(x)
 
 

@@ -37,9 +37,8 @@ from goal_force_tpu_torch.models.vae import (
     causal_conv3d,
     downsample3d_time,
     downsample_spatial,
+    norm_silu,
     residual_block,
-    silu,
-    spatial_norm,
     upsample3d_time,
     upsample_spatial,
 )
@@ -234,7 +233,7 @@ def encode(vae: WanVAE38, cfg: VAE38Config, video: torch.Tensor) -> torch.Tensor
     x = residual_block(enc.middle[0], x)
     x = attention_block(enc.middle[1], x)
     x = residual_block(enc.middle[2], x)
-    x = causal_conv3d(enc.head[2], silu(spatial_norm(enc.head[0], x)))
+    x = causal_conv3d(enc.head[2], norm_silu(enc.head[0], x))
     moments = causal_conv3d(vae.conv1, x)
     return _to_cl(moments[:, : cfg.z_dim])
 
@@ -258,7 +257,7 @@ def decode(vae: WanVAE38, cfg: VAE38Config, z: torch.Tensor) -> torch.Tensor:
                 x = upsample3d_time(mods[-1].time_conv, x)
             x = upsample_spatial(mods[-1], x) + shortcut
         del shortcut
-    x = causal_conv3d(dec.head[2], silu(spatial_norm(dec.head[0], x)))
+    x = causal_conv3d(dec.head[2], norm_silu(dec.head[0], x))
     return pixel_unpatchify(_to_cl(x), cfg.patch_size)
 
 

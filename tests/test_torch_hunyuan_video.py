@@ -303,14 +303,16 @@ def test_unported_kinds_and_llava_raise(files):
         tpipe.HunyuanVideoPipeline.from_pretrained(paths["dit"], llama_path=llava,
                                                    device="cpu", num_heads=24,
                                                    rope_dims=(2, 2, 2))
-    # StepVideo (M14b) and Flux (M14c) load since their slices (tests/test_torch_stepvideo.py,
-    # tests/test_torch_flux.py); SDXL and SD3 wait
+    # StepVideo (M14b), Flux, SD3 and Qwen-Image (M14c) load since their slices
+    # (tests/test_torch_stepvideo.py, test_torch_flux.py, test_torch_sd3.py,
+    # test_torch_qwen_image.py); SDXL and HunyuanDiT wait
     sdxl = {"add_time_embedding.0.weight": torch.zeros(2), "conv_in.weight": torch.zeros(2)}
     with pytest.raises(NotImplementedError, match="M14d"):
         tauto.load_model(sdxl, device="cpu")
-    sd3 = {"pos_embedder.proj.weight": torch.zeros(2), "blocks.0.attn.a_to_qkv.weight": torch.zeros(2)}
+    hunyuan_dit = {"patch_embedder.proj.weight": torch.zeros(2),
+                   "t5_pooler.q_proj.weight": torch.zeros(2)}
     with pytest.raises(NotImplementedError, match="M14c"):
-        tauto.load_model(sd3, device="cpu")
+        tauto.load_model(hunyuan_dit, device="cpu")
     with pytest.raises(ValueError, match="dedicated loader"):
         tauto.load_model({"vace_blocks.0.x": torch.zeros(2)}, device="cpu")
 
