@@ -85,6 +85,14 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              "auto" (K1 through the runtime bound, 2 launches) against "plain", float32 and
              bf16; the tiny Qwen2.5-VL text and vision towers and the tiny VAE's encode and
              decode on the card against the CPU (float32).
+6i. small_nexus_gen - Nexus-Gen's pipeline over a small Flux at head_dim 128 (2 heads, 1
+             joint + 1 single block) with a tiny Qwen2.5-VL text stack, heads, adapter and
+             merger, float32 on the card (K1 behind the runtime bound) against the CPU: a
+             64x64 request and an edit, 2 steps each (8 K1), images within 1e-4; the
+             cached AR loop against the teacher-forced forward; greedy tokens.
+6j. small_hunyuan_dit, small_omnigen - the tiny HunyuanDiT (CFG with a regional prompt)
+             and OmniGen (a reference image, three branches, the condition cache)
+             pipelines on the card against the CPU (1e-4); no kernel launch.
 7. main    - GoalForcePipeline at full A14B width (depth cut to 3 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
@@ -196,6 +204,15 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              x8 (57 K2) against the plain path, the bound's cost per forward, and K1 at the
              path's (1, 4,608), (2, 4,608) and (1, 8,704) x 24 x 128 against its plain
              version on every head, timed beside its bound, the bound's sync and SDPA.
+15h'. nexus_gen - Nexus-Gen at full width and depth (after flux): Qwen2.5-VL-7B's text
+             stack (28 layers, LM head), vision head, 81-entry prefill table, adapter,
+             one-layer merger and vision tower over FLUX.1-dev (19 + 38 blocks), CLIP-L,
+             T5 at 2 of 24 layers and the VAE, random bf16 weights: (a) a 1024x1024
+             request, 2 steps (4,177 joint tokens: 57 K1 per forward, one bound sync
+             each); (b) the cached AR loop against the teacher-forced forward; (c) an edit
+             with the vision tower's 324 tokens of a 504x504 image (4,501 joint tokens),
+             2 steps; (d) 16 greedy tokens; the bound's cost, 57 K2 past it against the
+             plain path, K1 at both path shapes timed beside its bound and SDPA.
 15i. sd3   - SD3.5-Large at its released widths and full depth (38 blocks of 2432,
              38x64 heads, RMS q/k norms, pos-embed 192, bf16, 16.2 GB), CLIP-L and bigG
              whole, T5 v1.1 XXL at 2 of 24 layers on the vendored tokenizers, the
@@ -216,6 +233,16 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              K2) against the plain path, the bound's cost per forward, and K1 at the
              path's t2i and edit shapes against its plain version on every head, timed
              beside its bound, the bound's sync and SDPA.
+15k. hunyuan_dit - HunyuanDiT at its released configuration (40 blocks of 1,408, 16x88
+             heads), its BERT tower and mT5-XL's encoder whole, the SD VAE in float32:
+             a 1024x1024 merged-CFG request (2 DDIM steps) and an image-to-image step, no
+             kernel launch (head_dim 88); the plain attention at (2, 4,096, 16, 88)^2
+             beside SDPA.
+15l. omnigen - OmniGen-v1 (Phi-3: 32 layers of 3,072, 32x96 heads) with the SD VAE in
+             float32: a 1024x1024 request (two branches, the condition cache) and one
+             with a 512x512 reference image (three branches), 2 steps each, no kernel
+             launch (head_dim 96); a cached step against the same step uncached; the
+             plain attention at (1, 4,121, 32, 96)^2 beside SDPA.
 16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (2 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
@@ -4914,10 +4941,11 @@ SD3_TOKENS = (SD3_HW // 16) ** 2 + 77 + 128
 SD3_PATH = {"large": (2, SD3_TOKENS, 38, 64), "medium": (2, SD3_TOKENS, 24, 64)}
 
 
-def _sd3_plain(name, shape, gen):
-    """The plain attention (float32 logits in row blocks of <= 2 GiB) at one of SD3's
-    path shapes, bf16 q = k = v at the qk-normed scale, timed with CUDA events (1 warm-up,
-    3 calls) beside SDPA on the same tensors (a yardstick) and the call's bound."""
+def _sd3_plain(name, shape, gen, phase="sd3"):
+    """The plain attention (float32 logits in row blocks of <= 2 GiB) at one of the path
+    shapes of `phase` (SD3's, HunyuanDiT's or OmniGen's), bf16 q = k = v at the qk-normed
+    scale, timed with CUDA events (1 warm-up, 3 calls) beside SDPA on the same tensors (a
+    yardstick) and the call's bound."""
     from goal_force_tpu_torch.ops.attention import plain_attention
 
     b, s, n, h = shape
@@ -4933,8 +4961,8 @@ def _sd3_plain(name, shape, gen):
                library_ms=event_ms(lambda: sdpa(qt, kt, vt)), bound_ms=bound, bound_by=by,
                max_abs_err_vs_sdpa=err)
     rec["fraction_of_bound"] = rec["bound_ms"] / rec["plain_ms"]
-    log("sd3", case=f"plain attention {name} timing", **rec)
-    check(err <= 4 * bf16_limit(ref), f"sd3 plain attention {name}: {err} from SDPA")
+    log(phase, case=f"plain attention {name} timing", **rec)
+    check(err <= 4 * bf16_limit(ref), f"{phase} plain attention {name}: {err} from SDPA")
     del q, k, v, qt, kt, vt, out, ref
     torch.cuda.empty_cache()
     return rec
@@ -5289,6 +5317,649 @@ def phase_qwen_image():
     return launches, unb, k1
 
 
+def _small_nexus_configs():
+    import dataclasses as dc
+
+    from goal_force_tpu_torch.models import nexus_gen as ng
+    from goal_force_tpu_torch.models import qwen_vl as qv
+    from goal_force_tpu_torch.models.sd_text_encoder import SD_TEXT_CONFIG
+    from goal_force_tpu_torch.pipelines import flux as fp
+
+    dit, _ = _small_flux_configs()
+    text = qv.QwenVLTextConfig(hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+                               intermediate_size=96, vocab=1000, mrope_section=(2, 3, 3))
+    clip = dc.replace(SD_TEXT_CONFIG, text_dim=dit.pooled_dim, text_heads=4, text_layers=2)
+    return (dit, fp.tiny_flux_configs()[1], clip, text,
+            ng.NexusGenMergerConfig(text=text, num_layers=1, out_channel=dit.text_dim,
+                                    expand_ratio=2))
+
+
+def _cuda_copy(pipe, names):
+    """The pipeline with deep copies of the named modules on the card."""
+    import copy
+
+    return dataclasses.replace(pipe, **{n: copy.deepcopy(getattr(pipe, n)).to("cuda")
+                                        for n in names})
+
+
+def _card_vs_cpu(phase, name, cpu_fn, gpu_fn, atol, want_launches):
+    """gpu_fn() on the card against cpu_fn() (numpy images), cudnn TF32 off: finite,
+    within atol, launching want_launches (each K1/K2 behind one bound sync)."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = cpu_fn()
+        fa.reset_launch_counts()
+        with BoundRecorder() as bounds:
+            got, secs = sync_time(gpu_fn)
+        launches = dict(fa.launch_counts)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
+    err = float(np.abs(got - want).max())
+    ok = got.shape == want.shape and bool(np.isfinite(got).all()) and err <= atol
+    log(phase, case=f"{name} cuda vs cpu", seconds=secs, max_abs_err=err, atol=atol,
+        launches=launches, bound_syncs=bounds.calls, ok=ok)
+    check(ok, f"{phase} {name}: the card's output differs from the CPU's by {err}")
+    check(launches == want_launches and bounds.calls == sum(want_launches.values()),
+          f"{phase} {name} launched {launches}, {bounds.calls} bound syncs")
+    return err, launches
+
+
+# A cached route (Nexus-Gen's AR loop, OmniGen's condition cache) against the uncached one
+# at full width: in float32 (the weights converted) the two may differ only by float32's
+# rounding in another summation order (limit CACHE_F32_REL of the scale); in bf16 the
+# cached route may differ from the uncached one by no more than twice the uncached bf16
+# route's own distance from the float32 one (bf16 noise, amplified alike by the random
+# layers).
+CACHE_F32_REL = 1e-4
+
+
+def _cached_vs_full(phase, name, cached, full, cached32, full32, **fields):
+    """Logs and checks both comparisons (the rule above); without `cached32` the bf16 one
+    only."""
+    dist = lambda a, b: float((a.float() - b.float()).abs().max())
+    scale = float(full32.abs().max())
+    err, own = dist(cached, full), dist(full, full32)
+    err32 = None if cached32 is None else dist(cached32, full32)
+    ok = (cached.shape == full.shape and bool(torch.isfinite(cached).all())
+          and (err32 is None or err32 <= CACHE_F32_REL * scale) and err <= 2 * own)
+    log(phase, stage="cached_vs_full", case=name, **fields, float32_max_abs_err=err32,
+        float32_atol=CACHE_F32_REL * scale, bf16_max_abs_err=err,
+        bf16_full_vs_float32=own, bf16_cached_vs_float32=dist(cached, full32),
+        bf16_atol=2 * own, out_max=scale,
+        bf16_mean_abs_err=float((cached.float() - full.float()).abs().mean()),
+        mean_abs=float(full32.abs().mean()), ok=ok)
+    check(ok, f"{phase} {name}: float32 {err32}, bf16 {err} (bf16's own {own})")
+
+
+def _phase_summary(phase, t0, launches, peaks=()):
+    """A phase's last line: its seconds, its peak memory (the largest of its requests'
+    peaks and the allocator's since the last reset) and its launches per kernel."""
+    log(phase, stage="done", seconds=time.perf_counter() - t0,
+        peak_gib=max([torch.cuda.max_memory_allocated() / 2**30, *peaks]),
+        launches={k: v for k, v in launches.items() if v})
+
+
+def phase_small_nexus_gen():
+    """Nexus-Gen's tiny pipeline over a small Flux at head_dim 128 (2 heads, 1 joint + 1
+    single block, the tiny T5, CLIP-L and VAE) with a tiny Qwen2.5-VL text stack (LM
+    head), heads (a 6x6 target grid: 9 image tokens), adapter and merger, float32 on the
+    card (the kernels behind the runtime bound) against the CPU (plain attention), cudnn
+    TF32 off: a 64x64 request and an edit (4 reference embeddings on a 4x4 grid), 2
+    steps each (265 and 269 joint tokens: 2 K1 per forward, one bound sync each), images
+    within 1e-4; the AR loop against the teacher-forced forward on the card (float32,
+    1e-5 of the scale) and greedy generation's 8 tokens equal to the CPU's."""
+    import copy
+
+    from goal_force_tpu_torch.models import clip as clipm
+    from goal_force_tpu_torch.models import flux_dit as fd
+    from goal_force_tpu_torch.models import nexus_gen as ng
+    from goal_force_tpu_torch.models import qwen_vl as qv
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.pipelines import flux as fp
+    from goal_force_tpu_torch.pipelines import nexus_gen as npipe
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dit_cfg, t5_cfg, clip_cfg, text_cfg, merger_cfg = _small_nexus_configs()
+    gen = torch.Generator().manual_seed(181)
+    f32 = torch.float32
+    enc_plan, dec_plan, groups = fp.tiny_sd3_vae_plans()
+    flux = fp.FluxPipeline(
+        dit=fd.init_flux_dit(dit_cfg, gen, f32, device="cpu"),
+        clip=clipm.init_clip_text(clip_cfg, gen, f32, device="cpu"),
+        t5=t5m.init_t5(t5_cfg, gen, f32, device="cpu"),
+        vae_encoder=sv.init_sd_vae(sv.SDVAEEncoder, enc_plan, gen, f32, device="cpu"),
+        vae_decoder=sv.init_sd_vae(sv.SDVAEDecoder, dec_plan, gen, f32, device="cpu"),
+        dit_cfg=dit_cfg, t5_cfg=t5_cfg, clip_cfg=clip_cfg, vae_groups=groups, vae_factor=2,
+        dtype=f32)
+    h = text_cfg.hidden_size
+    cpu = npipe.NexusGenPipeline(
+        ar_model=qv.init_qwen_vl_text(text_cfg, gen, f32, device="cpu", lm_head=True),
+        ar_cfg=text_cfg, heads=ng.init_nexus_gen_heads(h, 9, gen, f32, device="cpu"),
+        adapter=ng.init_nexus_gen_adapter(h, dit_cfg.text_dim, gen, f32, device="cpu"),
+        flux=flux, grid_thw=(1, 6, 6))
+    merger = ng.init_nexus_gen_merger(merger_cfg, gen, f32, device="cpu")
+    gpu = _cuda_copy(cpu, ("ar_model", "heads", "adapter"))
+    gpu.flux = _cuda_copy(flux, ("dit", "clip", "t5", "vae_encoder", "vae_decoder"))
+    gpu_merger = copy.deepcopy(merger).to("cuda")
+    noise = np.random.default_rng(182).standard_normal((1, 32, 32, 16)).astype(np.float32)
+    ref = np.random.default_rng(183).standard_normal((1, 4, h)).astype(np.float32)
+    req = dict(height=64, width=64, num_inference_steps=2, noise=noise)
+    rec, launches = {}, {}
+    rec["call"], launches["call"] = _card_vs_cpu(
+        "small_nexus_gen", "request", lambda: cpu("a lighthouse at dusk", **req),
+        lambda: gpu("a lighthouse at dusk", **req), 1e-4, only(K1=4))
+    rec["edit"], launches["edit"] = _card_vs_cpu(
+        "small_nexus_gen", "edit", lambda: cpu.edit("make it night", ref, (1, 4, 4), merger,
+                                                    merger_cfg, **req),
+        lambda: gpu.edit("make it night", ref, (1, 4, 4), gpu_merger, merger_cfg, **req),
+        1e-4, only(K1=4))
+
+    embeds, pos, n = gpu._prompt_embeds("a lighthouse at dusk")
+    with torch.no_grad():
+        tf = ng.nexus_gen_target_embeddings(gpu.ar_model, text_cfg, gpu.heads, embeds, pos, n)
+        ar = ng.nexus_gen_ar_generate(gpu.ar_model, text_cfg, gpu.heads, embeds[:, :-n],
+                                      pos[..., :-n], (1, 6, 6), 2)
+    scale = float(tf.abs().max())
+    rec["ar_vs_teacher_forced"] = compare(
+        "small_nexus_gen AR loop vs teacher-forced forward float32", ar, tf,
+        atol=1e-5 * scale, rtol=0.0, phase="small_nexus_gen")
+    ids = np.array([[3, 17, 420, 8, 29, 911]])
+    toks = {d: qv.qwen_vl_text_generate(p.ar_model, text_cfg, ids, 8)
+            for d, p in (("cpu", cpu), ("cuda", gpu))}
+    log("small_nexus_gen", case="greedy tokens cuda vs cpu", **toks,
+        ok=toks["cpu"] == toks["cuda"])
+    check(toks["cpu"] == toks["cuda"] and len(toks["cpu"]) == 8,
+          f"small_nexus_gen generate: {toks}")
+    log("small_nexus_gen", launches=launches, **rec)
+    total = {k: sum(v[k] for v in launches.values()) for k in launches["call"]}
+    _phase_summary("small_nexus_gen", t0, total)
+    del gpu, gpu_merger
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_small_hunyuan_dit():
+    """HunyuanDiT's tiny pipeline (init_random: dim 16, 2 heads of 8, 4 down + 2 up
+    blocks, the tiny SD VAE) on the card against the CPU over the same float32 weights
+    and noise, cudnn TF32 off: a 64x64 request, 2 DDIM steps, CFG 5.0 merged with one
+    regional prompt (B = 3), images within 1e-4. Head_dim 8: the plain attention, no
+    kernel launch."""
+    from goal_force_tpu_torch.pipelines import hunyuan_image as hp
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cpu = hp.HunyuanImagePipeline.init_random(seed=191, device="cpu")
+    gpu = _cuda_copy(cpu, ("dit", "vae_encoder", "vae_decoder"))
+    mask = np.zeros((64, 64), np.float32)
+    mask[:, :32] = 1.0
+    req = dict(prompt="a red ball", negative_prompt="blurry", cfg_scale=5.0, height=64,
+               width=64, num_inference_steps=2, local_prompts=["a ball"], masks=[mask],
+               mask_scales=[0.5], local_blur_kernel_size=3, local_blur_sigma=1.0,
+               noise=np.random.default_rng(192).standard_normal((1, 8, 8, 4)).astype(
+                   np.float32))
+    err, launches = _card_vs_cpu("small_hunyuan_dit", "request", lambda: cpu(**req),
+                                 lambda: gpu(**req), 1e-4, only())
+    _phase_summary("small_hunyuan_dit", t0, launches)
+    del gpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_small_omnigen():
+    """OmniGen's tiny pipeline (init_random: Phi-3 at 32 wide, 4 heads of 8, 2 layers, the
+    tiny SD VAE) on the card against the CPU over the same float32 weights and noise,
+    cudnn TF32 off: a 64x64 request with one 32x32 reference image (three branches, the
+    condition cache on), 2 steps, images within 1e-4. Head_dim 8: the plain attention,
+    no kernel launch."""
+    from goal_force_tpu_torch.pipelines import omnigen_image as op
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cpu = op.OmniGenImagePipeline.init_random(seed=201, device="cpu")
+    gpu = _cuda_copy(cpu, ("transformer", "vae_encoder", "vae_decoder"))
+    rng = np.random.default_rng(202)
+    req = dict(prompt="a red ball", reference_images=[
+        rng.uniform(-1, 1, size=(32, 32, 3)).astype(np.float32)], height=64, width=64,
+        num_inference_steps=2, noise=rng.standard_normal((1, 8, 8, 4)).astype(np.float32))
+    err, launches = _card_vs_cpu("small_omnigen", "request", lambda: cpu(**req),
+                                 lambda: gpu(**req), 1e-4, only())
+    _phase_summary("small_omnigen", t0, launches)
+    del gpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+# Nexus-Gen over FLUX.1-dev at full depth: the AR prompt is 12 hash ids and the 81-entry
+# prefill table; Flux's joint sequence puts the 81 adapted image embeddings in the text
+# slot before the 4,096 image tokens at 1024x1024 (4,177); the edit's text slot holds the
+# merger's 81 + 324 reference embeddings (a 504x504 image: grid (1, 36, 36)): 4,501.
+NEXUS_HW = 1024
+NEXUS_REF_HW = 504
+NEXUS_IMG_TOKENS = 81
+NEXUS_REF_TOKENS = (NEXUS_REF_HW // 28) ** 2
+NEXUS_TOKENS = NEXUS_IMG_TOKENS + (NEXUS_HW // 16) ** 2
+NEXUS_EDIT_TOKENS = NEXUS_TOKENS + NEXUS_REF_TOKENS
+NEXUS_EDIT = "make the ball green and the cup red"
+NEXUS_NEW_TOKENS = 16
+
+
+def phase_nexus_gen():
+    """Nexus-Gen at full width and depth, random bf16 weights from a seed: Qwen2.5-VL-7B's
+    text stack (28 layers of 3,584, 28 query and 4 KV heads, FFN 18,944, vocab 152,064)
+    with its LM head, the vision head, the 81-entry prefill table, the adapter (3,584 ->
+    4,096), the one-layer editing merger and the vision tower (32 layers), over
+    FLUX.1-dev (19 + 38 blocks), CLIP-L, T5 v1.1 XXL at 2 of 24 layers and the 16-channel
+    VAE. (a) a 1024x1024 text-to-image request, 2 steps (57 K1 per forward behind one
+    bound sync each at (1, 4,177, 24, 128)^2); (c) an edit, 2 steps: the reference
+    embeddings from the vision tower on (a)'s image at 504x504 (grid (1, 36, 36): 324
+    tokens), the merger, the editing rope tables (4,501 joint tokens). Then the bound's
+    cost per forward at (a)'s shapes and one forward with every q-norm weight x8 (57 K2)
+    against the plain path; with Flux freed, (d) qwen_vl_text_generate with 16 new
+    tokens: its tokens per second; (b) nexus_gen_ar_generate (prefill + 80 cached steps)
+    against nexus_gen_target_embeddings on the same prompt in bf16, held to the forward's
+    own bf16 error against the stack converted to float32 (``_cached_vs_full``); K1 at
+    both path shapes against its plain version on every head, timed beside its bound,
+    the bound's sync and SDPA."""
+    from PIL import Image
+
+    from goal_force_tpu_torch.configs import FLUX_DEV, T5_V1_1_XXL
+    from goal_force_tpu_torch.models import clip as clipm
+    from goal_force_tpu_torch.models import flux_dit as fd
+    from goal_force_tpu_torch.models import nexus_gen as ng
+    from goal_force_tpu_torch.models import qwen_vl as qv
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models.sd_text_encoder import SD_TEXT_CONFIG
+    from goal_force_tpu_torch.models.tokenizer import hash_ids
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import flux as fp
+    from goal_force_tpu_torch.pipelines import nexus_gen as npipe
+    from goal_force_tpu_torch.prompters import flux_tokenizers
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(211)
+    bf16 = torch.bfloat16
+    t5_cfg = dataclasses.replace(T5_V1_1_XXL, num_layers=FLUX_T5_LAYERS, text_len=512)
+    text_cfg, vis_cfg = qv.QwenVLTextConfig(), qv.QwenVLVisionConfig()
+    hid = text_cfg.hidden_size
+    merger_cfg = ng.NexusGenMergerConfig(text=text_cfg, num_layers=1,
+                                         out_channel=FLUX_DEV.text_dim)
+
+    def build():
+        return (fd.init_flux_dit(FLUX_DEV, gen, bf16, device="cuda"),
+                clipm.init_clip_text(SD_TEXT_CONFIG, gen, bf16, device="cuda"),
+                t5m.init_t5(t5_cfg, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEEncoder, sv.SD_VAE_ENCODER_PLAN, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEDecoder, sv.SD_VAE_DECODER_PLAN, gen, bf16, device="cuda"),
+                qv.init_qwen_vl_text(text_cfg, gen, bf16, device="cuda", lm_head=True),
+                qv.init_qwen_vl_vision(vis_cfg, gen, bf16, device="cuda"),
+                ng.init_nexus_gen_heads(hid, NEXUS_IMG_TOKENS, gen, bf16, device="cuda"),
+                ng.init_nexus_gen_adapter(hid, FLUX_DEV.text_dim, gen, bf16, device="cuda"),
+                ng.init_nexus_gen_merger(merger_cfg, gen, bf16, device="cuda"))
+
+    (dit, clip, t5, enc, dec, text, vision, heads, adapter, merger), init_s = sync_time(build)
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("nexus_gen", stage="init", seconds=init_s, dit_params=count(dit),
+        text_params=count(text), vision_params=count(vision),
+        heads_adapter_merger_params=count(heads) + count(adapter) + count(merger),
+        flux_towers_vae_params=count(clip) + count(t5) + count(enc) + count(dec),
+        gib=torch.cuda.memory_allocated() / 2**30)
+    tok_clip, tok_t5 = flux_tokenizers(t5_length=512)
+    flux = fp.FluxPipeline(dit=dit, clip=clip, t5=t5, vae_encoder=enc, vae_decoder=dec,
+                           dit_cfg=FLUX_DEV, t5_cfg=t5_cfg, tokenize_clip=tok_clip,
+                           tokenize_t5=tok_t5, dtype=bf16)
+    pipe = npipe.NexusGenPipeline(ar_model=text, ar_cfg=text_cfg, heads=heads,
+                                  adapter=adapter, flux=flux)
+    stages, joint = {}, []
+    _time_stages(flux, stages, _encode_text="text_s", _velocity="step_s", _decode="decode_s")
+    real = _time_stages(ng, stages, nexus_gen_target_embeddings="ar_s",
+                        nexus_gen_merger_forward="merger_s")
+    velocity = flux._velocity
+
+    def recording(model_in, timestep, prompt_emb, *a, **kw):
+        joint.append(prompt_emb.shape[1] + model_in.shape[1] * model_in.shape[2] // 4)
+        return velocity(model_in, timestep, prompt_emb, *a, **kw)
+
+    flux._velocity = recording
+    common = dict(height=NEXUS_HW, width=NEXUS_HW, num_inference_steps=2)
+    launches, image, path, peaks = {}, None, {}, []
+    try:
+        for name, tokens in (("a_t2i", NEXUS_TOKENS), ("c_edit", NEXUS_EDIT_TOKENS)):
+            stages.clear()
+            joint.clear()
+            if name == "a_t2i":
+                fn = lambda: pipe(FLUX_PROMPT, seed=29, **common)
+            else:
+                small = np.asarray(Image.fromarray((image * 255).astype(np.uint8)).resize(
+                    (NEXUS_REF_HW, NEXUS_REF_HW), Image.BICUBIC), np.float32) / 255.0
+                pixels, grid = qv.preprocess_image_for_vision(small, vis_cfg)
+                feats, vision_s = sync_time(lambda: qv.qwen_vl_vision_forward(
+                    vision, vis_cfg, torch.as_tensor(pixels, device="cuda"), (grid,)))
+                stages["vision_s"] = [vision_s]
+                check(tuple(grid) == (1, 36, 36) and feats.shape == (NEXUS_REF_TOKENS, hid),
+                      f"nexus_gen reference grid {grid}, features {tuple(feats.shape)}")
+                fn = lambda: pipe.edit(NEXUS_EDIT, feats[None], grid, merger, merger_cfg,
+                                       seed=31, **common)
+            fa.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with BoundRecorder() as bounds:
+                out, secs = sync_time(fn)
+            launched = dict(fa.launch_counts)
+            finite = bool(np.isfinite(out).all())
+            log("nexus_gen", stage="request", request=name, seconds=secs, **stages,
+                launches=launched, bound_syncs=bounds.calls, want_k1=2 * FLUX_K1,
+                joint_tokens=joint, image_shape=list(out.shape), finite=finite,
+                image_mean=float(out.mean()), image_std=float(out.std()),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            check(launched == only(K1=2 * FLUX_K1) and bounds.calls == 2 * FLUX_K1,
+                  f"nexus_gen {name} launched {launched}, {bounds.calls} bound syncs")
+            check(out.shape == (NEXUS_HW, NEXUS_HW, 3) and finite,
+                  f"nexus_gen {name} image {out.shape}, finite {finite}")
+            check(set(joint) == {tokens}, f"nexus_gen {name} joint lengths {joint}")
+            path[name] = tokens
+            for key, n in launched.items():
+                launches[key] = launches.get(key, 0) + n
+            if image is None:
+                image = out
+    finally:
+        flux._velocity = velocity
+        for attr, fn in real.items():
+            setattr(ng, attr, fn)
+
+    embeds, pos, n = pipe._prompt_embeds(FLUX_PROMPT)
+    with torch.no_grad():
+        tf, tf_s = sync_time(lambda: ng.nexus_gen_target_embeddings(text, text_cfg, heads,
+                                                                    embeds, pos, n))
+        ctx = ng.nexus_gen_adapter_forward(adapter, tf)
+        _, pooled = flux._encode_text([FLUX_PROMPT])
+    del pipe, flux, clip, t5, enc, dec, vision, adapter, merger, image, out, fn, feats
+    del recording, velocity
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the runtime bound's cost at (a)'s shapes, then one forward past the bound
+    lat = _rand((1, NEXUS_HW // 8, NEXUS_HW // 8, 16), gen, bf16)
+    t = torch.tensor([500.0], dtype=bf16, device="cuda")
+    g = torch.tensor([3.5], dtype=bf16, device="cuda")
+    forward = lambda impl="auto": fd.flux_dit_forward(dit, FLUX_DEV, lat, t, ctx, pooled, g,
+                                                      attn_impl=impl)
+    bound_sync_cost("nexus_gen", "forward", forward, only(K1=FLUX_K1))
+    norms = [m.weight for blk in dit.blocks for m in (blk.attn.norm_q_a, blk.attn.norm_q_b)]
+    norms += [blk.norm_q_a.weight for blk in dit.single_blocks]
+    for w in norms:
+        w.mul_(8)
+    try:
+        fa.reset_launch_counts()
+        with BoundRecorder(values=True) as bounds:
+            got, secs = sync_time(forward)
+        unb = dict(fa.launch_counts)
+        ref, plain_s = sync_time(lambda: forward("plain"))
+    finally:
+        for w in norms:
+            w.div_(8)
+    scale = float(ref.float().abs().max())
+    d = got.float() - ref.float()
+    err = float(d.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= 5e-2 * scale
+    log("nexus_gen", stage="unbounded_forward", seconds=secs, plain_seconds=plain_s,
+        launches=unb, bounds_min=min(bounds.bounds), bounds_max=max(bounds.bounds),
+        max_abs_err=err, atol=5e-2 * scale, out_max=scale, mean_abs_err=float(d.abs().mean()),
+        ok=ok)
+    check(unb == only(K2=FLUX_K1) and min(bounds.bounds) >= fa.NOMAX_BOUND,
+          f"nexus_gen unbounded forward launched {unb}, bounds {bounds.bounds}")
+    check(ok, f"nexus_gen unbounded forward: kernels vs plain differ by {err}")
+    del dit, got, ref, lat, ctx, pooled, d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) greedy generation at full depth
+    ids = hash_ids(FLUX_PROMPT, text_cfg.vocab, 12)[None]
+    prefill_pos = torch.arange(12, device="cuda")[None, None].expand(3, 1, 12)
+    with torch.no_grad():
+        _, prefill_s = sync_time(lambda: qv.qwen_vl_text_prefill(
+            text, text_cfg, text.embed_tokens.weight[torch.as_tensor(ids, device="cuda")],
+            prefill_pos, 12 + NEXUS_NEW_TOKENS))
+    toks, gen_s = sync_time(lambda: qv.qwen_vl_text_generate(text, text_cfg, ids,
+                                                             NEXUS_NEW_TOKENS))
+    ok = len(toks) == NEXUS_NEW_TOKENS and all(0 <= t < text_cfg.vocab for t in toks)
+    log("nexus_gen", stage="generate", new_tokens=len(toks), seconds=gen_s,
+        tokens_per_s=len(toks) / gen_s, prefill_seconds=prefill_s,
+        decode_tokens_per_s=(len(toks) - 1) / max(gen_s - prefill_s, 1e-9), tokens=toks, ok=ok)
+    check(ok, f"nexus_gen generate gave {toks}")
+
+    # (b) the cached AR loop against the teacher-forced forward on the same prompt, in
+    # bf16, held to the forward's own bf16 error against the stack converted to float32
+    with torch.no_grad():
+        ar, ar_s = sync_time(lambda: ng.nexus_gen_ar_generate(
+            text, text_cfg, heads, embeds[:, :-n], pos[..., :-n], (1, 18, 18)))
+        tf32 = ng.nexus_gen_target_embeddings(text.float(), text_cfg, heads.float(),
+                                              embeds.float(), pos, n)
+    _cached_vs_full("nexus_gen", "AR loop vs teacher-forced embeddings", ar, tf, None, tf32,
+                    cached_seconds=ar_s, full_seconds=tf_s)
+    del text, heads, embeds, pos, tf, ar, tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(212)
+    k1 = {name: _flux_k1(name, (1, tokens, 24, 128), gen, phase="nexus_gen")
+          for name, tokens in path.items()}
+    launches["K2"] = launches.get("K2", 0) + unb.get("K2", 0)
+    _phase_summary("nexus_gen", t0, launches, peaks)
+    return launches, k1
+
+
+# HunyuanDiT at its released widths and depth (40 blocks of 1,408, 16 heads of 88), its
+# BERT tower (24 layers of 1,024) and mT5-XL's encoder (24 layers of 2,048, 32 heads, FFN
+# 5,120, vocab 250,112) whole, the SD VAE in float32; 1024x1024 is 4,096 image tokens.
+HYDIT_HW = 1024
+HYDIT_SELF = (2, (HYDIT_HW // 16) ** 2, 16, 88)
+
+
+def phase_hunyuan_dit():
+    """HunyuanDiT at its released configuration, random bf16 weights from a seed (the VAE
+    float32): (a) a 1024x1024 request, 2 DDIM steps, CFG 6.0 as one merged batch of 2, the
+    prompt through the vendored BERT tokenizer and hash ids for mT5; (b) image-to-image
+    from (a)'s image at strength 0.5, 1 step. Finite (1024, 1024, 3) images and no kernel
+    launch (head_dim 88: every attention is the plain one); the text, step, encode and
+    decode seconds and the peaks. Then the plain attention at the self-attention's shape
+    (2, 4,096, 16, 88)^2, timed beside SDPA and its bound."""
+    from goal_force_tpu_torch.configs import T5Config
+    from goal_force_tpu_torch.models import hunyuan_dit as hd
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.models import t5 as t5m
+    from goal_force_tpu_torch.models import text_encoders as te
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import hunyuan_image as hp
+    from goal_force_tpu_torch.prompters import hunyuan_dit_tokenizers
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(221)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg, bert_cfg = hd.HunyuanDiTConfig(), te.BertConfig()
+    mt5_cfg = T5Config(vocab=250112, dim=2048, dim_attn=2048, dim_ffn=5120, num_heads=32,
+                       num_layers=24, shared_pos=True, text_len=cfg.t5_len)
+
+    def build():
+        return (hd.init_hunyuan_dit(cfg, gen, bf16, device="cuda"),
+                te.init_bert(bert_cfg, gen, bf16, device="cuda"),
+                t5m.init_t5(mt5_cfg, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEEncoder, sv.SD_VAE_ENCODER_PLAN, gen, f32, device="cuda",
+                               latent_channels=4, quant=True),
+                sv.init_sd_vae(sv.SDVAEDecoder, sv.SD_VAE_DECODER_PLAN, gen, f32, device="cuda",
+                               latent_channels=4, quant=True))
+
+    (dit, bert, mt5, enc, dec), init_s = sync_time(build)
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("hunyuan_dit", stage="init", seconds=init_s, dit_params=count(dit),
+        bert_params=count(bert), mt5_params=count(mt5), vae_params=count(enc) + count(dec),
+        gib=torch.cuda.memory_allocated() / 2**30)
+    tok = hunyuan_dit_tokenizers()[0].with_length(cfg.text_len)
+    pipe = hp.HunyuanImagePipeline(
+        dit=dit, vae_decoder=dec, cfg=cfg, vae_encoder=enc, dtype=bf16,
+        encode_prompt=hp.make_prompt_encoder(cfg, bert, bert_cfg, tok, mt5, mt5_cfg))
+    stages = {}
+    _time_stages(pipe, stages, _embeds="text_s", _velocity="step_s", _encode="encode_s",
+                 _decode="decode_s")
+    common = dict(negative_prompt=FLUX_NEGATIVE, cfg_scale=6.0, height=HYDIT_HW,
+                  width=HYDIT_HW, seed=41)
+    launches, image, peaks = {}, None, []
+    for name, kw in (("a_t2i", dict(num_inference_steps=2)),
+                     ("b_i2i", dict(num_inference_steps=1, denoising_strength=0.5))):
+        stages.clear()
+        if name == "b_i2i":
+            kw["input_image"] = image
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = sync_time(lambda: pipe(FLUX_PROMPT, **kw, **common))
+        launched = dict(fa.launch_counts)
+        finite = bool(np.isfinite(out).all())
+        log("hunyuan_dit", stage="request", request=name, seconds=secs, **stages,
+            launches=launched, image_shape=list(out.shape), finite=finite,
+            image_mean=float(out.mean()), image_std=float(out.std()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        check(launched == only(), f"hunyuan_dit {name} launched {launched} (head_dim 88)")
+        for key, n in launched.items():
+            launches[key] = launches.get(key, 0) + n
+        check(out.shape == (HYDIT_HW, HYDIT_HW, 3) and finite,
+              f"hunyuan_dit {name} image {out.shape}, finite {finite}")
+        if image is None:
+            image = out
+    del pipe, dit, bert, mt5, enc, dec, image
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = _sd3_plain("self", HYDIT_SELF, torch.Generator("cuda").manual_seed(222),
+                       phase="hunyuan_dit")
+    _phase_summary("hunyuan_dit", t0, launches, peaks)
+    return launches, plain
+
+
+# OmniGen-v1 at its released widths and depth (Phi-3: 32 layers of 3,072, 32 heads of 96,
+# FFN 8,192, vocab 32,064) with the SD VAE in float32, without the released checkpoint's
+# LongRoPE factor lists (its config.json is not in the repository): OmniGenConfig's
+# defaults, whose amplitude sqrt(1 + ln 32 / ln 4096) still applies. 1024x1024 is 4,096
+# image tokens behind 24 hash ids and the time token (4,121 > 4,096: the long side).
+OMNI_HW = 1024
+OMNI_REF_HW = 512
+OMNI_SELF = (1, 24 + 1 + (OMNI_HW // 16) ** 2, 32, 96)
+
+
+def phase_omnigen():
+    """OmniGen-v1 at full width and depth, random bf16 weights from a seed (the VAE
+    float32): (a) a 1024x1024 request, 2 steps, the condition cache on (two branches: a
+    full forward each at the first step, a cached one after); (b) with one 512x512
+    reference image ((a)'s image: 1,024 spliced tokens, three branches), 2 steps; finite
+    (1024, 1024, 3) images and no kernel launch (head_dim 96: the plain attention); the
+    forward, encode and decode seconds and the peaks. (c) one cached step of (b)'s text
+    branch against the same step uncached, in bf16 and with the model converted to
+    float32 (``_cached_vs_full``). Then the plain attention at the full forward's shape
+    (1, 4,121, 32, 96)^2 beside SDPA and its bound."""
+    from PIL import Image
+
+    from goal_force_tpu_torch.models import omnigen as om
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.ops import flash_attention as fa
+    from goal_force_tpu_torch.pipelines import omnigen_image as op
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(231)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = om.OmniGenConfig()
+
+    def build():
+        return (om.init_omnigen(cfg, gen, bf16, device="cuda"),
+                sv.init_sd_vae(sv.SDVAEEncoder, sv.SD_VAE_ENCODER_PLAN, gen, f32, device="cuda",
+                               latent_channels=4, quant=True),
+                sv.init_sd_vae(sv.SDVAEDecoder, sv.SD_VAE_DECODER_PLAN, gen, f32, device="cuda",
+                               latent_channels=4, quant=True))
+
+    (tf, enc, dec), init_s = sync_time(build)
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log("omnigen", stage="init", seconds=init_s, transformer_params=count(tf),
+        vae_params=count(enc) + count(dec), gib=torch.cuda.memory_allocated() / 2**30)
+    pipe = op.OmniGenImagePipeline(transformer=tf, vae_encoder=enc, vae_decoder=dec, cfg=cfg,
+                                   dtype=bf16)
+    stages = {}
+    _time_stages(pipe, stages, _encode="encode_s", _decode="decode_s")
+    real = _time_stages(op, stages, omnigen_forward="forward_s")
+    common = dict(height=OMNI_HW, width=OMNI_HW, num_inference_steps=2)
+    launches, image, peaks = {}, None, []
+    try:
+        for name, forwards in (("a_t2i", 4), ("b_reference", 6)):
+            stages.clear()
+            kw = dict(seed=43)
+            if name == "b_reference":
+                small = np.asarray(Image.fromarray((image * 255).astype(np.uint8)).resize(
+                    (OMNI_REF_HW, OMNI_REF_HW), Image.BICUBIC), np.float32) / 127.5 - 1.0
+                kw["reference_images"] = [small]
+                ref_image = small
+            fa.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            out, secs = sync_time(lambda: pipe(FLUX_PROMPT, **kw, **common))
+            launched = dict(fa.launch_counts)
+            finite = bool(np.isfinite(out).all())
+            log("omnigen", stage="request", request=name, seconds=secs, **stages,
+                launches=launched, image_shape=list(out.shape), finite=finite,
+                image_mean=float(out.mean()), image_std=float(out.std()),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            check(launched == only(), f"omnigen {name} launched {launched} (head_dim 96)")
+            for key, n in launched.items():
+                launches[key] = launches.get(key, 0) + n
+            check(len(stages["forward_s"]) == forwards,
+                  f"omnigen {name} ran {len(stages['forward_s'])} forwards")
+            check(out.shape == (OMNI_HW, OMNI_HW, 3) and finite,
+                  f"omnigen {name} image {out.shape}, finite {finite}")
+            if image is None:
+                image = out
+    finally:
+        for attr, fn in real.items():
+            setattr(op, attr, fn)
+
+    # (c) one cached step of (b)'s text branch (its 1,048-token prefix holds the
+    # reference's span) against the same step uncached, in bf16 and on a float32 copy
+    n_img = (OMNI_HW // 16) ** 2
+    lat1, lat2 = (_rand((1, OMNI_HW // 8, OMNI_HW // 8, 4), gen, f32) for _ in range(2))
+    t1, t2 = (torch.tensor([v], device="cuda") for v in (0.25, 0.75))
+    outs = {}
+    with torch.no_grad():
+        for dtype in (bf16, f32):       # the float32 pass on the model converted in place
+            p = dataclasses.replace(pipe, transformer=tf.to(dtype), dtype=dtype)
+            full, cached = p._branches(FLUX_PROMPT, [ref_image], n_img)[0]
+            args = lambda lat, t: (lat.to(dtype), t.to(dtype))
+            _, kv = full(*args(lat1, t1), True)
+            outs[dtype] = (sync_time(lambda: cached(*args(lat2, t2), kv)),
+                           sync_time(lambda: full(*args(lat2, t2), False)),
+                           kv[0][0].shape[1])
+            del p, full, cached, kv
+    ((got, cached_s), (ref, full_s), prefix), ((got32, _), (ref32, _), _) = outs[bf16], outs[f32]
+    del outs
+    _cached_vs_full("omnigen", "cached step vs uncached", got, ref, got32, ref32,
+                    cached_seconds=cached_s, full_seconds=full_s, prefix_tokens=prefix)
+    del pipe, tf, enc, dec, image, got, ref, got32, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = _sd3_plain("self", OMNI_SELF, torch.Generator("cuda").manual_seed(232),
+                       phase="omnigen")
+    _phase_summary("omnigen", t0, launches, peaks)
+    return launches, plain
+
+
 def main() -> int:
     try:
         return _main()
@@ -5323,6 +5994,9 @@ def _main() -> int:
     small_flux_launches = started("small_flux", phase_small_flux)
     small_sd3_launches = started("small_sd3", phase_small_sd3)
     small_qwen_launches = started("small_qwen_image", phase_small_qwen_image)
+    small_nexus_launches = started("small_nexus_gen", phase_small_nexus_gen)
+    started("small_hunyuan_dit", phase_small_hunyuan_dit)
+    started("small_omnigen", phase_small_omnigen)
     pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
     sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
     started("tools", phase_tools)
@@ -5343,8 +6017,11 @@ def _main() -> int:
     del hy_models
     sv_launches, sv_unbounded, sv_path = started("stepvideo", phase_stepvideo)
     flux_launches, flux_unbounded, flux_path = started("flux", phase_flux)
+    nexus_launches, nexus_path = started("nexus_gen", phase_nexus_gen)
     sd3_launches, sd3_plain = started("sd3", phase_sd3)
     qwen_launches, qwen_unbounded, qwen_path = started("qwen_image", phase_qwen_image)
+    hydit_launches, hydit_plain = started("hunyuan_dit", phase_hunyuan_dit)
+    omni_launches, omni_plain = started("omnigen", phase_omnigen)
     train_launches, train_run = started("train", phase_train)
     sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
@@ -5389,7 +6066,13 @@ def _main() -> int:
               "small_sd3_launches": small_sd3_launches["K1"],
               "sd3_launches": sd3_launches["K1"], "sd3_plain_attention": sd3_plain,
               "small_qwen_image_launches": small_qwen_launches["K1"],
-              "qwen_image_launches": qwen_launches["K1"], "qwen_image_path": qwen_path}),
+              "qwen_image_launches": qwen_launches["K1"], "qwen_image_path": qwen_path,
+              "small_nexus_gen_launches": small_nexus_launches["K1"],
+              "nexus_gen_launches": nexus_launches["K1"], "nexus_gen_path": nexus_path,
+              "hunyuan_dit_launches": hydit_launches.get("K1", 0),
+              "hunyuan_dit_plain_attention": hydit_plain,
+              "omnigen_launches": omni_launches.get("K1", 0),
+              "omnigen_plain_attention": omni_plain}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],
@@ -5400,7 +6083,8 @@ def _main() -> int:
               "small_flux_launches": small_flux_launches["K2"],
               "flux_launches": flux_launches["K2"] + flux_unbounded["K2"],
               "small_qwen_image_launches": small_qwen_launches["K2"],
-              "qwen_image_launches": qwen_launches["K2"] + qwen_unbounded["K2"]}),
+              "qwen_image_launches": qwen_launches["K2"] + qwen_unbounded["K2"],
+              "nexus_gen_launches": nexus_launches.get("K2", 0)}),
             ("K3 flash_attention_fwd_lse", train_src, 29, train_launches["K3"],
              {"cross": measured["K3"]["cross"], "path": "train",
               "train_cli_launches": train_cli_launches["K3"],

@@ -36,7 +36,12 @@ or a shape that does not fit, raises. The kinds:
     diffusers-style names renamed into ``WanVAE``'s; JAX's config, ``config=`` or
     ``vae_cfg=``, None where neither is given, the module at Wan2.1's geometry then;
     JAX's detection names such a file otherwise, so the caller passes the kind) and
-    ``qwen_image_controlnet`` (JAX's config of the shapes);
+    ``qwen_image_controlnet`` (JAX's config of the shapes); with ``lm_head=True`` the
+    ``qwen_vl_text`` module keeps the file's LM head (Nexus-Gen's generation), and q/k/v
+    without biases (a Llama-style stack) build a module without them;
+  - ``hunyuan_dit`` (``infer_hunyuan_dit_config``) and ``omnigen``
+    (``infer_omnigen_config``; the LongRoPE factors, which weights cannot show, as
+    keywords);
   - the Wan kinds, through the port's own loaders (``io/detect.py::convert_detected``).
 
 Every other detected kind raises ``NotImplementedError`` naming its ROADMAP item.
@@ -59,7 +64,6 @@ WAN_KINDS = ("wan_dit", "umt5_xxl", "wan_vae", "wan_vae38", "wan_image_encoder",
 
 # The ROADMAP item that ports each detected kind not ported yet.
 ROADMAP_ITEMS = {
-    **{k: "M14c (Nexus-Gen, HunyuanDiT, OmniGen)" for k in ("hunyuan_dit", "omnigen")},
     **{k: "M14d (SD, SDXL, Kolors, SVD, AnimateDiff)" for k in (
         "sd_civitai", "sd_unet", "sdxl_civitai", "sdxl_unet", "svd_unet", "svd_vae",
         "sd_motion", "sd_controlnet", "sdxl_controlnet", "ipadapter", "chatglm",
@@ -313,6 +317,47 @@ def infer_qwen_vl_text_config(sd, num_heads: Optional[int] = None, prefix: str =
     )
 
 
+def infer_hunyuan_dit_config(sd, num_heads: Optional[int] = None):
+    """HunyuanDiTConfig of the shapes: heads dim / 88 unless given, the up blocks those
+    with a skip linear."""
+    from goal_force_tpu_torch.models.hunyuan_dit import HunyuanDiTConfig
+
+    dim = _shape(sd, "patch_embedder.proj.weight")[0]
+    t5_len = _shape(sd, "t5_pooler.positional_embedding")[0] - 1
+    pad = _shape(sd, "text_emb_padding")
+    n = _max_index(sd, "blocks.")
+    n_up = sum(1 for i in range(n) if f"blocks.{i}.skip_linear.weight" in sd)
+    return HunyuanDiTConfig(
+        dim=dim, num_heads=num_heads or max(1, dim // 88),
+        num_layers_down=n - n_up, num_layers_up=n_up,
+        text_dim=pad[1], t5_dim=_shape(sd, "t5_embedder.0.weight")[1],
+        text_len=pad[0] - t5_len, t5_len=t5_len,
+        mlp_ratio=_shape(sd, "blocks.0.mlp.0.weight")[0] / dim,
+    )
+
+
+def infer_omnigen_config(sd, num_heads: Optional[int] = None, **kw):
+    """OmniGenConfig of the shapes: heads hidden / 96 unless given (the released Phi-3:
+    3072 / 32); `kw` carries what weights cannot show (the LongRoPE factors and
+    windows)."""
+    from goal_force_tpu_torch.models.omnigen import OmniGenConfig
+
+    vocab, hidden = _shape(sd, "llm.embed_tokens.weight")
+    heads = num_heads or max(1, hidden // 96)
+    head_dim = hidden // heads
+    qkv_out = _shape(sd, "llm.layers.0.self_attn.qkv_proj.weight")[0]
+    xw = _shape(sd, "x_embedder.proj.weight")
+    return OmniGenConfig(
+        hidden_size=hidden, vocab=vocab,
+        num_layers=_max_index(sd, "llm.layers."),
+        num_heads=heads,
+        num_kv_heads=(qkv_out - hidden) // (2 * head_dim),
+        intermediate_size=_shape(sd, "llm.layers.0.mlp.gate_up_proj.weight")[0] // 2,
+        in_channels=xw[1], patch_size=xw[2],
+        **kw,
+    )
+
+
 def _is_cog_vae(sd) -> bool:
     """A Cog VAE half in the reference layout: 3D ``conv_in`` and ``blocks.0.conv1``."""
     return all(k in sd and len(_shape(sd, k)) == 5
@@ -521,15 +566,34 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
         cfg = config or infer_qwen_image_config(sd, **infer_kw)
         return out(cfg, _strict(QwenImageDiT, cfg, sd, kind, dtype, device))
     if kind == "qwen_vl_text":
+        import functools
+
         from goal_force_tpu_torch.models.qwen_vl import QwenVLTextModel
 
+        lm_head = infer_kw.pop("lm_head", False) and "lm_head.weight" in sd
         prefix = "model." if "model.embed_tokens.weight" in sd else ""
         cfg = config or infer_qwen_vl_text_config(sd, prefix=prefix, **infer_kw)
-        # a whole Qwen2.5-VL file also holds the vision tower and the LM head, which the
-        # prompt tower never reads
-        sd = {k[len(prefix):]: v for k, v in sd.items()
-              if k.startswith(prefix) and "visual." not in k and not k.startswith("lm_head.")}
-        return out(cfg, _strict(QwenVLTextModel, cfg, sd, kind, dtype, device))
+        # a whole Qwen2.5-VL file also holds the vision tower (and Nexus-Gen's heads),
+        # which the text stack never reads; its LM head (outside the prefix) is kept only
+        # with lm_head=True (generation)
+        body = {k[len(prefix):]: v for k, v in sd.items()
+                if k.startswith(prefix) and "visual." not in k
+                and not k.startswith("lm_head.")}
+        if lm_head:
+            body["lm_head.weight"] = sd["lm_head.weight"]
+        cls = functools.partial(QwenVLTextModel, lm_head=lm_head,
+                                qkv_bias="layers.0.self_attn.q_proj.bias" in body)
+        return out(cfg, _strict(cls, cfg, body, kind, dtype, device))
+    if kind == "hunyuan_dit":
+        from goal_force_tpu_torch.models.hunyuan_dit import HunyuanDiT
+
+        cfg = config or infer_hunyuan_dit_config(sd, **infer_kw)
+        return out(cfg, _strict(HunyuanDiT, cfg, sd, kind, dtype, device))
+    if kind == "omnigen":
+        from goal_force_tpu_torch.models.omnigen import OmniGen
+
+        cfg = config or infer_omnigen_config(sd, **infer_kw)
+        return out(cfg, _strict(OmniGen, cfg, sd, kind, dtype, device))
     if kind == "qwen_image_vae":
         from goal_force_tpu_torch.models import qwen_image_vae as qiv
         from goal_force_tpu_torch.models.vae import WanVAE

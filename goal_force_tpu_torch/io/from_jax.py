@@ -41,9 +41,14 @@ the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) 
     ``blocks.{i}.conv``) and ``t5_v1_1`` (the one shared ``pos_embedding``);
   - SD3's and Qwen-Image's trees (in ``FLUX_CONVERTERS`` too): ``sd3_dit`` (dual, plain
     and final blocks renumbered in order), ``qwen_image_dit``, ``qwen_image_controlnet``,
-    ``qwen_vl_text`` and ``qwen_vl_vision`` (HF names without the ``model.`` /
-    ``visual.`` prefixes) and ``qwen_image_vae`` (the Wan layout, as ``vae``); a
-    ``clip_text`` tree without ``ln_final`` (SDXL's first tower) gives no final norm;
+    ``qwen_vl_text`` (with its ``lm_head`` where the tree has one) and ``qwen_vl_vision``
+    (HF names without the ``model.`` / ``visual.`` prefixes) and ``qwen_image_vae`` (the
+    Wan layout, as ``vae``); a ``clip_text`` tree without ``ln_final`` (SDXL's first
+    tower) gives no final norm;
+  - Nexus-Gen's ``nexus_gen_heads``, ``nexus_gen_adapter`` and ``nexus_gen_merger``,
+    ``hunyuan_dit`` (stacked ``down_blocks`` then ``up_blocks`` -> ``blocks.{i}``) and
+    ``omnigen`` (``llm.layers.{i}``, the patch matmuls -> Conv2d) (in
+    ``FLUX_CONVERTERS`` too);
   - the Flux path's trees (``FLUX_CONVERTERS``): ``flux_dit`` and ``flux_controlnet``
     (stacked joint / single blocks -> ``blocks.{i}`` / ``single_blocks.{i}``, the fused
     projections as they are), the SD / SD3 VAE halves (``sd_vae_encoder``, ...: HWIO
@@ -1027,21 +1032,122 @@ def qwen_image_controlnet_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
-def qwen_vl_text_state_dict(p: Mapping) -> StateDict:
-    """JAX ``qwen_vl_text_params_from_torch``'s tree -> the HF Qwen2.5-VL text keys
-    without the ``model.`` prefix (q/k/v with biases; the LM head, which the prompt tower
-    never reads, is left out)."""
-    sd: StateDict = {"embed_tokens.weight": _t(p["wte"]),
-                     "norm.weight": _t(p["final_norm"]["w"])}
+def _qwen_layers(sd: StateDict, blocks: Mapping) -> None:
+    """Stacked Qwen2 decoder blocks -> ``layers.{i}.*`` (q/k/v biases where present)."""
     names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
              "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
              "down": "mlp.down_proj"}
-    for i in range(np.asarray(p["blocks"]["q"]["w"]).shape[0]):
-        b, pre = _layer(p["blocks"], i), f"layers.{i}"
+    for i in range(np.asarray(blocks["q"]["w"]).shape[0]):
+        b, pre = _layer(blocks, i), f"layers.{i}"
         sd[pre + ".input_layernorm.weight"] = _t(b["norm1"]["w"])
         sd[pre + ".post_attention_layernorm.weight"] = _t(b["norm2"]["w"])
         for k, name in names.items():
             _lin(sd, f"{pre}.{name}", b[k], bias="b" in b[k])
+
+
+def qwen_vl_text_state_dict(p: Mapping) -> StateDict:
+    """JAX ``qwen_vl_text_params_from_torch``'s tree -> the HF Qwen2.5-VL text keys
+    without the ``model.`` prefix, and ``lm_head`` where the tree has one."""
+    sd: StateDict = {"embed_tokens.weight": _t(p["wte"]),
+                     "norm.weight": _t(p["final_norm"]["w"])}
+    _qwen_layers(sd, p["blocks"])
+    if "lm_head" in p:
+        _w(sd, "lm_head", p["lm_head"]["w"])
+    return sd
+
+
+def nexus_gen_heads_state_dict(p: Mapping) -> StateDict:
+    """JAX ``nexus_gen_ar_heads_from_torch``'s tree -> ``vision_head`` and
+    ``image_prefill_embeds``."""
+    sd: StateDict = {"image_prefill_embeds.weight": _t(p["image_prefill"])}
+    _w(sd, "vision_head", p["vision_head"]["w"])
+    return sd
+
+
+def nexus_gen_adapter_state_dict(p: Mapping) -> StateDict:
+    """JAX ``nexus_gen_adapter_params_from_torch``'s tree -> ``adapter.{0,1,3,4}``."""
+    sd: StateDict = {}
+    _lin(sd, "adapter.0", p["fc0"])
+    _lin(sd, "adapter.3", p["fc1"])
+    for i, name in (("1", "ln0"), ("4", "ln1")):
+        sd[f"adapter.{i}.weight"] = _t(p[name]["scale"])
+        sd[f"adapter.{i}.bias"] = _t(p[name]["bias"])
+    return sd
+
+
+def nexus_gen_merger_state_dict(p: Mapping) -> StateDict:
+    """JAX ``nexus_gen_merger_params_from_torch``'s tree -> ``layers.{i}.*`` and
+    ``projector.{0,1,2,4,5}``."""
+    sd: StateDict = {}
+    _qwen_layers(sd, p["blocks"])
+    for i, name in (("0", "proj_norm0"), ("2", "proj_norm1"), ("5", "proj_norm2")):
+        sd[f"projector.{i}.weight"] = _t(p[name]["w"])
+    _lin(sd, "projector.1", p["proj_fc0"])
+    _lin(sd, "projector.4", p["proj_fc1"])
+    return sd
+
+
+def hunyuan_dit_state_dict(p: Mapping) -> StateDict:
+    """JAX ``hunyuan_dit_params_from_torch``'s tree (stacked ``down_blocks`` and
+    ``up_blocks``) -> the reference HunyuanDiT keys, the up blocks numbered after the
+    down blocks; the (C*2*2, D) patch matmul -> a Conv2d (D, C, 2, 2)."""
+    sd: StateDict = {"text_emb_padding": _t(p["text_emb_padding"]),
+                     "style_embedder": _t(p["style"])}
+    _lin(sd, "t5_embedder.0", p["t5_embedder"]["fc0"])
+    _lin(sd, "t5_embedder.2", p["t5_embedder"]["fc2"])
+    pool = p["t5_pooler"]
+    sd["t5_pooler.positional_embedding"] = _t(pool["pos"])
+    for name in ("q", "k", "v", "c"):      # the pool's weights are in torch's layout
+        sd[f"t5_pooler.{name}_proj.weight"] = _t(pool[f"{name}_w"])
+        sd[f"t5_pooler.{name}_proj.bias"] = _t(pool[f"{name}_b"])
+    w = np.asarray(p["patch_embedder"]["w"])
+    sd["patch_embedder.proj.weight"] = _t(w.T.reshape(w.shape[1], -1, 2, 2))
+    sd["patch_embedder.proj.bias"] = _t(p["patch_embedder"]["b"])
+    _mlp01(sd, "timestep_embedder.mlp", p["time_emb"])
+    _mlp01(sd, "extra_embedder", p["extra_emb"])
+    n_down = int(np.asarray(p["down_blocks"]["norm1"]["w"]).shape[0])
+    for stack, base in (("down_blocks", 0), ("up_blocks", n_down)):
+        for i in range(np.asarray(p[stack]["norm1"]["w"]).shape[0]):
+            b, pre = _layer(p[stack], i), f"blocks.{base + i}"
+            norms = {name: b[name] for name in ("norm1", "norm2", "norm3", "skip_norm")
+                     if name in b}
+            norms.update({f"{r}.{n}": b[r][n] for r in ("rota1", "rota2")
+                          for n in ("q_norm", "k_norm")})
+            for name, q in norms.items():
+                sd[f"{pre}.{name}.weight"], sd[f"{pre}.{name}.bias"] = _t(q["w"]), _t(q["b"])
+            for attn in ("attn1", "attn2"):
+                for proj, ref in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out")):
+                    _lin(sd, f"{pre}.{attn}.{ref}", {"w": b[attn][f"{proj}_w"],
+                                                     "b": b[attn][f"{proj}_b"]})
+            _lin(sd, f"{pre}.modulation.1", b["modulation"])
+            _mlp01(sd, f"{pre}.mlp", b["mlp"])
+            if "skip_linear" in b:
+                _lin(sd, f"{pre}.skip_linear", b["skip_linear"])
+    _lin(sd, "final_layer.linear", p["final"]["linear"])
+    _lin(sd, "final_layer.adaLN_modulation.1", p["final"]["ada"])
+    return sd
+
+
+def omnigen_state_dict(p: Mapping, patch: int = 2) -> StateDict:
+    """JAX ``omnigen_params_from_torch``'s tree -> the OmniGen checkpoint keys (``llm.*``,
+    the patch matmuls -> Conv2d (D, C, p, p))."""
+    sd: StateDict = {"llm.embed_tokens.weight": _t(p["wte"]),
+                     "llm.norm.weight": _t(p["final_norm"]["w"])}
+    for i in range(np.asarray(p["blocks"]["qkv"]["w"]).shape[0]):
+        b, pre = _layer(p["blocks"], i), f"llm.layers.{i}"
+        sd[pre + ".input_layernorm.weight"] = _t(b["norm1"]["w"])
+        sd[pre + ".post_attention_layernorm.weight"] = _t(b["norm2"]["w"])
+        for k, name in (("qkv", "self_attn.qkv_proj"), ("o", "self_attn.o_proj"),
+                        ("gate_up", "mlp.gate_up_proj"), ("down", "mlp.down_proj")):
+            _w(sd, f"{pre}.{name}", b[k]["w"])
+    for name in ("x_embedder", "input_x_embedder"):
+        w = np.asarray(p[name]["w"])
+        sd[f"{name}.proj.weight"] = _t(w.T.reshape(w.shape[1], -1, patch, patch))
+        sd[f"{name}.proj.bias"] = _t(p[name]["b"])
+    for name in ("time_token", "t_embedder"):
+        _mlp01(sd, f"{name}.mlp", p[name])
+    _lin(sd, "final_layer.adaLN_modulation.1", p["final_ada"])
+    _lin(sd, "final_layer.linear", p["final_linear"])
     return sd
 
 
@@ -1076,6 +1182,10 @@ FLUX_CONVERTERS = {
     "qwen_image_controlnet": qwen_image_controlnet_state_dict,
     "qwen_vl_text": qwen_vl_text_state_dict, "qwen_vl_vision": qwen_vl_vision_state_dict,
     "qwen_image_vae": vae_state_dict,
+    "nexus_gen_heads": nexus_gen_heads_state_dict,
+    "nexus_gen_adapter": nexus_gen_adapter_state_dict,
+    "nexus_gen_merger": nexus_gen_merger_state_dict,
+    "hunyuan_dit": hunyuan_dit_state_dict, "omnigen": omnigen_state_dict,
 }
 
 

@@ -1,8 +1,7 @@
 """Qwen2.5-VL's text decoder (M-RoPE, GQA) and windowed vision tower in PyTorch: the
 Qwen-Image prompt tower and Qwen-Image-Edit's image reader.
 
-Port of the prompt-encoding side of ``goal_force_tpu/models/qwen_vl.py`` (its KV-cached
-prefill, decode and generate serve Nexus-Gen and the prompt refiners, and are not here):
+Port of ``goal_force_tpu/models/qwen_vl.py``:
 
   - the text side: ``QwenVLTextConfig``, ``mrope_tables`` (the per-(t, h, w) angle
     tables in float32, channel sections (16, 24, 24) over the duplicated half-dims),
@@ -12,6 +11,15 @@ prefill, decode and generate serve Nexus-Gen and the prompt refiners, and are no
     norm), ``get_rope_index`` (host numpy: 3D positions for image spans, text positions
     running on from the largest so far) and ``qwen_vl_embed`` (image features in place of
     the image tokens, in order);
+  - KV-cached decoding (Nexus-Gen's image tokens, greedy text generation):
+    ``qwen_vl_text_prefill`` (the causal forward that also returns every layer's rope'd
+    keys and values in caches (L, B, cache_len, nk, hd), zero past the prompt),
+    ``qwen_vl_text_decode_step`` (one token at index ``pos``: its keys and values written
+    into the caches in place, where JAX's ``dynamic_update_slice`` returns new ones, the
+    keys past ``pos`` hidden by finfo.min) and ``qwen_vl_text_generate`` (greedy argmax
+    through ``lm_head`` or the tied embedding, stopping at, and dropping, an id of
+    ``eos_ids``). The three share ``_block_qkv`` and ``_block_finish`` with
+    ``qwen_vl_text_forward``; q/k/v biases are optional, so a Llama stack runs here too;
   - the vision side: ``QwenVLVisionConfig``, ``vision_rot_tables`` (the (h, w) rotary
     angles in the within-merge-block order), ``vision_window_index`` (the window order
     over merge units and the segment ids of windows and images), ``qwen_vl_vision_forward``
@@ -29,7 +37,8 @@ the logits in bf16.
 
 ``QwenVLTextModel`` holds the text parameters under the HF Qwen2.5-VL names without the
 ``model.`` prefix (``embed_tokens``, ``layers.{i}.{input_layernorm, self_attn.{q,k,v,o}
-_proj, post_attention_layernorm, mlp.{gate,up,down}_proj}``, ``norm``);
+_proj, post_attention_layernorm, mlp.{gate,up,down}_proj}``, ``norm``; ``lm_head`` where
+built with ``lm_head=True``);
 ``QwenVLVisionModel`` the vision parameters under the HF names without ``visual.``
 (``patch_embed.proj``, ``blocks.{i}.{norm1, norm2, attn.qkv, attn.proj, mlp.{gate,up,
 down}_proj}``, ``merger.{ln_q, mlp.0, mlp.2}``).
@@ -99,12 +108,12 @@ class QwenVLVisionConfig:
 # ---------------------------------------------------------------------------
 
 class QwenVLAttention(nn.Module):
-    def __init__(self, cfg: QwenVLTextConfig):
+    def __init__(self, cfg: QwenVLTextConfig, qkv_bias: bool = True):
         super().__init__()
         d, hd = cfg.hidden_size, cfg.head_dim
-        self.q_proj = nn.Linear(d, cfg.num_heads * hd)
-        self.k_proj = nn.Linear(d, cfg.num_kv_heads * hd)
-        self.v_proj = nn.Linear(d, cfg.num_kv_heads * hd)
+        self.q_proj = nn.Linear(d, cfg.num_heads * hd, bias=qkv_bias)
+        self.k_proj = nn.Linear(d, cfg.num_kv_heads * hd, bias=qkv_bias)
+        self.v_proj = nn.Linear(d, cfg.num_kv_heads * hd, bias=qkv_bias)
         self.o_proj = nn.Linear(cfg.num_heads * hd, d, bias=False)
 
 
@@ -117,20 +126,23 @@ class QwenVLMLP(nn.Module):
 
 
 class QwenVLLayer(nn.Module):
-    def __init__(self, cfg: QwenVLTextConfig):
+    def __init__(self, cfg: QwenVLTextConfig, qkv_bias: bool = True):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size)
-        self.self_attn = QwenVLAttention(cfg)
+        self.self_attn = QwenVLAttention(cfg, qkv_bias)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size)
         self.mlp = QwenVLMLP(cfg.hidden_size, cfg.intermediate_size)
 
 
 class QwenVLTextModel(nn.Module):
-    def __init__(self, cfg: QwenVLTextConfig):
+    def __init__(self, cfg: QwenVLTextConfig, lm_head: bool = False, qkv_bias: bool = True):
         super().__init__()
         self.embed_tokens = nn.Embedding(cfg.vocab, cfg.hidden_size)
-        self.layers = nn.ModuleList(QwenVLLayer(cfg) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(QwenVLLayer(cfg, qkv_bias)
+                                    for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size)
+        if lm_head:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab, bias=False)
 
 
 class QwenVLVisionAttention(nn.Module):
@@ -209,30 +221,136 @@ def _mlp(p: QwenVLMLP, h: torch.Tensor) -> torch.Tensor:
     return linear(p.down_proj, g * linear(p.up_proj, h))
 
 
+def _causal_bias(s: int, device) -> torch.Tensor:
+    """(S, S) float32: 0 on and below the diagonal, finfo.min above."""
+    causal = torch.ones((s, s), dtype=torch.bool, device=device).tril()
+    return torch.zeros((s, s), dtype=torch.float32, device=device).masked_fill(
+        ~causal, torch.finfo(torch.float32).min)
+
+
+def _block_qkv(p: QwenVLLayer, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               cfg: QwenVLTextConfig):
+    """x (B, S, H), cos/sin (B, S, 1, head_dim) -> rope'd q (B, S, n, hd) and k, and v
+    (B, S, nk, hd)."""
+    b, s, _ = x.shape
+    n, nk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm(x, p.input_layernorm.weight, cfg.eps)
+    a = p.self_attn
+    q = _rotary(linear(a.q_proj, h).reshape(b, s, n, hd), cos, sin)
+    k = _rotary(linear(a.k_proj, h).reshape(b, s, nk, hd), cos, sin)
+    return q, k, linear(a.v_proj, h).reshape(b, s, nk, hd)
+
+
+def _attend(q, k, v, bias, cfg: QwenVLTextConfig) -> torch.Tensor:
+    """GQA (each kv head repeated) under an additive float32 bias -> (B, S, n * hd)."""
+    b, s, n, hd = q.shape
+    k, v = (t.repeat_interleave(n // cfg.num_kv_heads, dim=2) for t in (k, v))
+    return plain_attention(q, k, v, 1.0 / math.sqrt(hd), bias=bias).reshape(b, s, n * hd)
+
+
+def _block_finish(p: QwenVLLayer, x: torch.Tensor, att: torch.Tensor,
+                  cfg: QwenVLTextConfig) -> torch.Tensor:
+    x = x + linear(p.self_attn.o_proj, att)
+    return x + _mlp(p.mlp, rms_norm(x, p.post_attention_layernorm.weight, cfg.eps))
+
+
+def text_layer(p: QwenVLLayer, x: torch.Tensor, bias, cos: torch.Tensor, sin: torch.Tensor,
+               cfg: QwenVLTextConfig) -> torch.Tensor:
+    """One decoder layer under an additive bias (None: every key visible), cos/sin
+    (B, S, 1, head_dim)."""
+    return _block_finish(p, x, _attend(*_block_qkv(p, x, cos, sin, cfg), bias, cfg), cfg)
+
+
 def qwen_vl_text_forward(model: QwenVLTextModel, cfg: QwenVLTextConfig,
                          embeds: torch.Tensor, attn_mask: torch.Tensor,
                          position_ids: torch.Tensor) -> torch.Tensor:
     """embeds (B, S, H), attn_mask (B, S) 0/1 padding mask, position_ids (3, B, S) ->
     final-norm hidden states (B, S, H)."""
-    b, s, _ = embeds.shape
-    n, nk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = embeds.shape[1]
     cos, sin = (t[:, :, None, :] for t in mrope_tables(cfg, position_ids))
-    causal = torch.ones((s, s), dtype=torch.bool, device=embeds.device).tril()
-    ok = causal[None] & (attn_mask[:, None, :] > 0)
-    bias = torch.zeros(ok.shape, dtype=torch.float32, device=embeds.device).masked_fill(
-        ~ok, torch.finfo(torch.float32).min)[:, None]
+    bias = _causal_bias(s, embeds.device)[None].masked_fill(
+        attn_mask[:, None, :] <= 0, torch.finfo(torch.float32).min)[:, None]
     x = embeds
     for p in model.layers:
-        h = rms_norm(x, p.input_layernorm.weight, cfg.eps)
-        a = p.self_attn
-        q = _rotary(linear(a.q_proj, h).reshape(b, s, n, hd), cos, sin)
-        k = _rotary(linear(a.k_proj, h).reshape(b, s, nk, hd), cos, sin)
-        v = linear(a.v_proj, h).reshape(b, s, nk, hd)
-        k, v = (t.repeat_interleave(n // nk, dim=2) for t in (k, v))
-        att = plain_attention(q, k, v, 1.0 / math.sqrt(hd), bias=bias)
-        x = x + linear(a.o_proj, att.reshape(b, s, n * hd))
-        x = x + _mlp(p.mlp, rms_norm(x, p.post_attention_layernorm.weight, cfg.eps))
+        x = text_layer(p, x, bias, cos, sin, cfg)
     return rms_norm(x, model.norm.weight, cfg.eps)
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decoding
+# ---------------------------------------------------------------------------
+
+def qwen_vl_text_prefill(model: QwenVLTextModel, cfg: QwenVLTextConfig,
+                         embeds: torch.Tensor, position_ids: torch.Tensor, cache_len: int):
+    """Causal prefill: (hidden (B, S, H), kcache, vcache), the caches (L, B, cache_len,
+    nk, hd) holding each layer's rope'd keys and values in their first S rows, zeros
+    after, for ``qwen_vl_text_decode_step``."""
+    b, s, _ = embeds.shape
+    cos, sin = (t[:, :, None, :] for t in mrope_tables(cfg, position_ids))
+    bias = _causal_bias(s, embeds.device)
+    shape = (cfg.num_layers, b, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    kcache, vcache = (embeds.new_zeros(shape) for _ in range(2))
+    x = embeds
+    for i, p in enumerate(model.layers):
+        q, k, v = _block_qkv(p, x, cos, sin, cfg)
+        kcache[i, :, :s], vcache[i, :, :s] = k, v
+        x = _block_finish(p, x, _attend(q, k, v, bias, cfg), cfg)
+    return rms_norm(x, model.norm.weight, cfg.eps), kcache, vcache
+
+
+def qwen_vl_text_decode_step(model: QwenVLTextModel, cfg: QwenVLTextConfig,
+                             emb: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                             kcache: torch.Tensor, vcache: torch.Tensor, pos: int):
+    """One cached step: emb (B, 1, H) is the input embedding of the token at sequence
+    index `pos`, cos/sin (B, 1, head_dim) its rope tables. Its keys and values go into
+    row `pos` of the caches, in place; it attends to rows <= pos. Returns (hidden (B, 1,
+    H), kcache, vcache)."""
+    cache_len = kcache.shape[2]
+    bias = torch.zeros(cache_len, dtype=torch.float32, device=emb.device).masked_fill(
+        torch.arange(cache_len, device=emb.device) > pos, torch.finfo(torch.float32).min)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x = emb
+    for i, p in enumerate(model.layers):
+        q, k, v = _block_qkv(p, x, cos, sin, cfg)
+        kcache[i, :, pos:pos + 1], vcache[i, :, pos:pos + 1] = k, v
+        x = _block_finish(p, x, _attend(q, kcache[i], vcache[i], bias, cfg), cfg)
+    return rms_norm(x, model.norm.weight, cfg.eps), kcache, vcache
+
+
+def _lm_logits(model: QwenVLTextModel, h: torch.Tensor) -> torch.Tensor:
+    """The LM head, or the tied token embedding where the model has none."""
+    head = getattr(model, "lm_head", None)
+    return F.linear(h, head.weight if head is not None else model.embed_tokens.weight)
+
+
+@torch.no_grad()
+def qwen_vl_text_generate(model: QwenVLTextModel, cfg: QwenVLTextConfig, input_ids,
+                          max_new_tokens: int, eos_ids=(), cache_len: int = 0):
+    """Greedy KV-cached generation (Qwen2's ``generate`` with do_sample=False).
+    input_ids (B, S) host ints; returns the first row's generated ids, stopping at, and
+    dropping, any id in `eos_ids`. Text positions: the three M-RoPE streams carry the
+    same index, which is plain 1D RoPE, so the stack doubles as a Qwen2 LM."""
+    ids = np.asarray(input_ids)
+    b, s = ids.shape
+    wte = model.embed_tokens.weight
+    dev = wte.device
+    cache_len = cache_len or s + max_new_tokens
+    pos = torch.arange(s, device=dev)[None, None].expand(3, b, s)
+    hidden, kc, vc = qwen_vl_text_prefill(model, cfg, wte[torch.as_tensor(ids, device=dev)],
+                                          pos, cache_len)
+    cur = _lm_logits(model, hidden[:, -1]).argmax(-1)
+    toks = [int(cur[0])]
+    for i in range(max_new_tokens - 1):
+        if toks[-1] in eos_ids:
+            break
+        cos, sin = mrope_tables(cfg, torch.full((3, b, 1), s + i, device=dev))
+        hh, kc, vc = qwen_vl_text_decode_step(model, cfg, wte[cur][:, None], cos, sin, kc, vc,
+                                              s + i)
+        cur = _lm_logits(model, hh[:, 0]).argmax(-1)
+        toks.append(int(cur[0]))
+    if toks and toks[-1] in eos_ids:
+        toks.pop()
+    return toks
 
 
 def get_rope_index(input_ids: np.ndarray, image_grid_thw: Sequence[Tuple[int, int, int]],
@@ -445,10 +563,11 @@ def _init_normal_(model: nn.Module, gen: torch.Generator) -> nn.Module:
 
 
 def init_qwen_vl_text(cfg: QwenVLTextConfig, gen: torch.Generator, dtype=torch.bfloat16, *,
-                      device) -> QwenVLTextModel:
+                      device, lm_head: bool = False, qkv_bias: bool = True) -> QwenVLTextModel:
     """Random text-tower weights drawn from `gen` on `device` (Qwen2.5-VL-7B's tower is
-    7.6 B parameters: 15.2 GB in bf16)."""
-    return _init_normal_(empty_module(QwenVLTextModel, cfg, dtype=dtype, device=device), gen)
+    7.6 B parameters: 15.2 GB in bf16; its LM head 0.55 B more)."""
+    return _init_normal_(empty_module(QwenVLTextModel, cfg, lm_head, qkv_bias, dtype=dtype,
+                                      device=device), gen)
 
 
 def init_qwen_vl_vision(cfg: QwenVLVisionConfig, gen: torch.Generator, dtype=torch.bfloat16,

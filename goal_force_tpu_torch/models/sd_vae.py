@@ -264,3 +264,22 @@ def init_sd_vae(cls, plan, gen: torch.Generator, dtype=torch.float32, *, device,
             m.weight.fill_(1.0)
             m.bias.zero_()
     return model.eval().requires_grad_(False)
+
+
+# the JAX pipelines' tiny SD VAE (8 channels, 3 levels: factor 8, 4 groups) for tests
+TINY_SD_VAE_ENCODER_PLAN: Tuple[Tuple, ...] = (
+    ("res", 8, 8), ("downe", 8), ("res", 8, 8), ("downe", 8), ("res", 8, 8), ("downe", 8),
+    ("vattn", 8))
+TINY_SD_VAE_DECODER_PLAN: Tuple[Tuple, ...] = (
+    ("vattn", 8), ("res", 8, 8), ("up", 8), ("res", 8, 8), ("up", 8), ("res", 8, 8),
+    ("up", 8))
+TINY_SD_VAE_GROUPS = 4
+
+
+def init_tiny_sd_vae(gen: torch.Generator, dtype=torch.float32, *, device):
+    """(encoder, decoder) of JAX ``pipelines/sd.py::_init_tiny_vae``'s plans with SD's
+    4-channel head and quant convs, drawn from `gen`."""
+    return tuple(init_sd_vae(cls, plan, gen, dtype, device=device, latent_channels=4,
+                             quant=True)
+                 for cls, plan in ((SDVAEEncoder, TINY_SD_VAE_ENCODER_PLAN),
+                                   (SDVAEDecoder, TINY_SD_VAE_DECODER_PLAN)))

@@ -274,7 +274,7 @@ class FluxPipeline:
         eligen_entity_prompts=None,                 # list[str]
         eligen_entity_masks=None,                   # (M, H, W) float [0, 1]
         eligen_enable_on_negative: bool = False,
-        prompt_emb_override=None,                   # (B, S, text_dim)
+        prompt_emb_override=None,                   # (B, S, text_dim) array or tensor
         tea_cache_thresh: float = 0.0,              # > 0 enables TeaCache
         ipadapter=None,                             # FluxIpAdapter
         ipadapter_image_emb: Optional[np.ndarray] = None,   # (B, siglip_dim)
@@ -300,7 +300,9 @@ class FluxPipeline:
         use_cfg = cfg_scale != 1.0
         prompt_emb, pooled = self._encode_text([prompt, negative_prompt] if use_cfg else [prompt])
         if prompt_emb_override is not None:
-            ov = torch.as_tensor(np.asarray(prompt_emb_override), device=dev).to(dtype)
+            ov = prompt_emb_override if torch.is_tensor(prompt_emb_override) \
+                else torch.as_tensor(np.asarray(prompt_emb_override))
+            ov = ov.to(dev, dtype)
             prompt_emb = ov.expand((prompt_emb.shape[0],) + tuple(ov.shape[1:]))
 
         # extra conditioning tokens on the positive prompt only

@@ -303,16 +303,17 @@ def test_unported_kinds_and_llava_raise(files):
         tpipe.HunyuanVideoPipeline.from_pretrained(paths["dit"], llama_path=llava,
                                                    device="cpu", num_heads=24,
                                                    rope_dims=(2, 2, 2))
-    # StepVideo (M14b), Flux, SD3 and Qwen-Image (M14c) load since their slices
+    # StepVideo (M14b) and every M14c family load since their slices
     # (tests/test_torch_stepvideo.py, test_torch_flux.py, test_torch_sd3.py,
-    # test_torch_qwen_image.py); SDXL and HunyuanDiT wait
+    # test_torch_qwen_image.py, test_torch_hunyuan_dit.py, test_torch_omnigen.py); SDXL
+    # (M14d) and ESRGAN (M14e) wait
     sdxl = {"add_time_embedding.0.weight": torch.zeros(2), "conv_in.weight": torch.zeros(2)}
     with pytest.raises(NotImplementedError, match="M14d"):
         tauto.load_model(sdxl, device="cpu")
-    hunyuan_dit = {"patch_embedder.proj.weight": torch.zeros(2),
-                   "t5_pooler.q_proj.weight": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match="M14c"):
-        tauto.load_model(hunyuan_dit, device="cpu")
+    esrgan = {"body.0.rdb1.conv1.weight": torch.zeros(2)}
+    assert tdetect.detect_model_kind(esrgan) == "esrgan"
+    with pytest.raises(NotImplementedError, match="M14e"):
+        tauto.load_model(esrgan, device="cpu")
     with pytest.raises(ValueError, match="dedicated loader"):
         tauto.load_model({"vace_blocks.0.x": torch.zeros(2)}, device="cpu")
 
