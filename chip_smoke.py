@@ -93,6 +93,10 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
 6j. small_hunyuan_dit, small_omnigen - the tiny HunyuanDiT (CFG with a regional prompt)
              and OmniGen (a reference image, three branches, the condition cache)
              pipelines on the card against the CPU (1e-4); no kernel launch.
+6k. small_sd, small_sdxl, small_kolors - the tiny SD 1.5, SDXL and Kolors pipelines
+             (ChatGLM 32 wide) on the card against the CPU (1e-4): a CFG request each, and
+             for SD and SDXL a ControlNet (the SD one; the union one at task 3) and an
+             IP-Adapter request; no kernel launch (every attention is the plain one).
 7. main    - GoalForcePipeline at full A14B width (depth cut to 3 DiT + 2 ControlNet
              layers per expert, 2 umt5 layers, full Wan2.1 VAE), random weights from a
              seed, answering two 81x480x832 requests of 4 steps each; launch counts
@@ -243,6 +247,19 @@ Phases, each printed on its own line; any failure exits non-zero with no result 
              with a 512x512 reference image (three branches), 2 steps each, no kernel
              launch (head_dim 96); a cached step against the same step uncached; the
              plain attention at (1, 4,121, 32, 96)^2 beside SDPA.
+15m. sd15, sdxl, kolors - the UNet families at their released widths and full depth,
+             random bf16 weights, no kernel launch (heads of 40-160 and 64, ChatGLM causal:
+             the plain attention). sd15: SD15_PLAN, CLIP-L, the SD VAE, the SD ControlNet
+             and an IP-Adapter: at 512x512 (a) 2 merged-CFG steps on a prompt of two 77-token
+             sentences against a one-sentence negative (the key mask), (b) the same with the
+             ControlNet and the IP-Adapter, (c) image-to-image, tiled (tiles of 32 at stride
+             16) with a regional prompt. sdxl: SDXL_PLAN, CLIP-L and bigG, the VAE, the union
+             ControlNet and an IP-Adapter: at 1024x1024 (a) 2 steps, (b) one union task with
+             the IP-Adapter, (c) one CFG step under utils/profiling.py's torch.profiler trace:
+             top_ops(k=10) and the device's busy share of the window. kolors: ChatGLM3-6B
+             whole (256 tokens), the Kolors UNet and the VAE: a 1024x1024 request, 2 steps,
+             ChatGLM's encode seconds. Each logs its stages, seconds and peak, and the plain
+             attention at its largest shape beside SDPA and the bound.
 16. train  - frees the serving pipeline and trains the ControlNet at full A14B width
              (2 DiT + 2 ControlNet layers, bf16, B = 1, 81x480x832 synthetic clips): 2
              steps, a checkpoint, a full-state resume and a 3rd step; checks the loss,
@@ -4941,24 +4958,33 @@ SD3_TOKENS = (SD3_HW // 16) ** 2 + 77 + 128
 SD3_PATH = {"large": (2, SD3_TOKENS, 38, 64), "medium": (2, SD3_TOKENS, 24, 64)}
 
 
-def _sd3_plain(name, shape, gen, phase="sd3"):
+def _sd3_plain(name, shape, gen, phase="sd3", causal=False):
     """The plain attention (float32 logits in row blocks of <= 2 GiB) at one of the path
-    shapes of `phase` (SD3's, HunyuanDiT's or OmniGen's), bf16 q = k = v at the qk-normed
-    scale, timed with CUDA events (1 warm-up, 3 calls) beside SDPA on the same tensors (a
-    yardstick) and the call's bound."""
+    shapes of `phase` (SD3's, HunyuanDiT's, OmniGen's or a UNet family's), bf16 q = k = v
+    at the qk-normed scale, timed with CUDA events (1 warm-up, 3 calls) beside SDPA on the
+    same tensors (a yardstick) and the call's bound. causal: ChatGLM's mask, an additive
+    bias of float32's lowest value above the diagonal (SDPA with is_causal; the bound
+    counts the key pairs the mask keeps)."""
     from goal_force_tpu_torch.ops.attention import plain_attention
 
     b, s, n, h = shape
     q, k, v = (_rand(shape, gen, torch.bfloat16) for _ in range(3))
     scale = h ** -0.5
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bias = None
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+        bias = torch.where(keep, 0.0, torch.finfo(torch.float32).min)[None, None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    out = plain_attention(q, k, v, scale)
-    ref = sdpa(qt, kt, vt).transpose(1, 2)
+    out = plain_attention(q, k, v, scale, bias)
+    ref = sdpa().transpose(1, 2)
     err = float((out.float() - ref.float()).abs().max())
-    bound, by = kernel_bound_ms(4 * b * n * s * s * h, 2 * 4 * b * s * n * h)
-    rec = dict(shape=f"{shape}^2", plain_ms=event_ms(lambda: plain_attention(q, k, v, scale)),
-               library_ms=event_ms(lambda: sdpa(qt, kt, vt)), bound_ms=bound, bound_by=by,
+    pairs = s * (s + 1) // 2 if causal else s * s
+    bound, by = kernel_bound_ms(4 * b * n * pairs * h, 2 * 4 * b * s * n * h)
+    rec = dict(shape=f"{shape}^2" + (" causal" if causal else ""),
+               plain_ms=event_ms(lambda: plain_attention(q, k, v, scale, bias)),
+               library_ms=event_ms(sdpa), bound_ms=bound, bound_by=by,
                max_abs_err_vs_sdpa=err)
     rec["fraction_of_bound"] = rec["bound_ms"] / rec["plain_ms"]
     log(phase, case=f"plain attention {name} timing", **rec)
@@ -5960,6 +5986,350 @@ def phase_omnigen():
     return launches, plain
 
 
+# ---------------------------------------------------------------------------
+# The UNet families (M14d): SD 1.5, SDXL and Kolors, their ControlNets and IP-Adapters
+# ---------------------------------------------------------------------------
+
+def _perturb_unet_zero_convs(cn, seed):
+    """A trained-looking SD / SDXL ControlNet: its zero-initialised 1x1 convs drawn
+    N(0, 0.02²) from `seed` (a fresh one adds nothing)."""
+    gen = torch.Generator(cn.conv_in.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for m in cn.controlnet_blocks:
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen, device=m.weight.device)
+                           * 0.02)
+
+
+def _small_unet_family(phase, cpu, names, requests, adapters=None):
+    """One tiny pipeline of the UNet families on the card against the CPU over the same
+    float32 weights and noise (cudnn TF32 off), each request within 1e-4; every attention
+    is the plain one (head_dim 4 or 8), so nothing launches. adapters: {request kwarg:
+    CPU module} copied to the card for the card's call."""
+    import copy
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = _cuda_copy(cpu, names)
+    on_card = {k: copy.deepcopy(m).to("cuda") for k, m in (adapters or {}).items()}
+    launches = only()
+    for name, req, kw in requests:
+        card = {k: ({**v, "model": on_card[k]} if isinstance(v, dict) else on_card[k])
+                for k, v in kw.items()}
+        _, got = _card_vs_cpu(phase, name, lambda: cpu(**req, **kw), lambda: gpu(**req, **card),
+                              1e-4, only())
+        launches = {k: launches[k] + got[k] for k in launches}
+    _phase_summary(phase, t0, launches)
+    del gpu, on_card
+    torch.cuda.empty_cache()
+    return launches
+
+
+SMALL_UNET_REQ = dict(prompt="a red ball", negative_prompt="blurry", cfg_scale=4.0,
+                      height=64, width=64, num_inference_steps=2)
+
+
+def _small_noise(seed):
+    return np.random.default_rng(seed).standard_normal((1, 8, 8, 4)).astype(np.float32)
+
+
+def phase_small_sd():
+    """SD 1.5's tiny pipeline (init_random: tiny_sd_plan at ctx 32, CLIP 32 wide, the tiny
+    VAE) with a tiny ControlNet and IP-Adapter: a CFG request, a ControlNet request and an
+    IP-Adapter request at 64x64, 2 steps each, the card against the CPU."""
+    from goal_force_tpu_torch.models import ipadapter as ipm
+    from goal_force_tpu_torch.models import sd_controlnet as scn
+    from goal_force_tpu_torch.pipelines import sd as sdp
+
+    cpu = sdp.SDPipeline.init_random(seed=231, device="cpu")
+    gen = torch.Generator().manual_seed(232)
+    cn_plan = (("res", 8, 8), ("attn", 2, 4, 8, 32), ("push",), ("down", 8), ("push",),
+               ("res", 8, 16), ("push",), ("res", 16, 16), ("attn", 2, 8, 16, 32),
+               ("res", 16, 16), ("push",))
+    cn = scn.init_sd_controlnet(cn_plan, gen, device="cpu", model_dim=8, time_dim=16,
+                                cond_channels=(3, 4, 4, 6, 6))
+    _perturb_unet_zero_convs(cn, 233)
+    ip = ipm.init_ip_adapter(cpu.plan, 32, 12, gen, device="cpu")
+    req = dict(SMALL_UNET_REQ, noise=_small_noise(234))
+    rng = np.random.default_rng(235)
+    return _small_unet_family("small_sd", cpu, ("unet", "text_encoder", "vae_encoder",
+                                                "vae_decoder"), (
+        ("cfg", req, {}),
+        ("controlnet", dict(req, controlnet_image=rng.uniform(size=(64, 64, 3))),
+         {"controlnet": {"model": cn}}),
+        ("ipadapter", dict(req, ipadapter_image_emb=rng.standard_normal((1, 12))),
+         {"ipadapter": ip})), adapters={"controlnet": cn, "ipadapter": ip})
+
+
+def phase_small_sdxl():
+    """SDXL's tiny pipeline (init_random: the tiny plan with depth-2 stacks, CLIP-L 8 and
+    bigG 16 wide, the tiny VAE) with a tiny union ControlNet (task 3) and IP-Adapter: a CFG
+    request, a ControlNet request and an IP-Adapter request, the card against the CPU."""
+    from goal_force_tpu_torch.models import ipadapter as ipm
+    from goal_force_tpu_torch.models import sd_controlnet as scn
+    from goal_force_tpu_torch.pipelines import sdxl as sxp
+
+    cpu = sxp.SDXLPipeline.init_random(seed=241, device="cpu")
+    gen = torch.Generator().manual_seed(242)
+    cn_plan = (("res", 8, 8), ("push",), ("down", 8), ("push",), ("res", 8, 16),
+               ("attn", 2, 8, 16, 24, 2), ("res", 16, 16), ("push",))
+    cn = scn.init_sdxl_controlnet(cn_plan, gen, device="cpu", model_dim=8, time_dim=16,
+                                  add_text_dim=16, cond_channels=(3, 4, 4, 6, 6))
+    _perturb_unet_zero_convs(cn, 243)
+    ip = ipm.init_ip_adapter(cpu.plan, 24, 12, gen, device="cpu")
+    req = dict(SMALL_UNET_REQ, noise=_small_noise(244))
+    rng = np.random.default_rng(245)
+    return _small_unet_family("small_sdxl", cpu, ("unet", "text_encoder", "text_encoder_2",
+                                                  "vae_encoder", "vae_decoder"), (
+        ("cfg", req, {}),
+        ("controlnet", dict(req, controlnet_image=rng.uniform(size=(64, 64, 3))),
+         {"controlnet": {"model": cn, "task_id": 3}}),
+        ("ipadapter", dict(req, ipadapter_image_emb=rng.standard_normal((1, 12))),
+         {"ipadapter": ip})), adapters={"controlnet": cn, "ipadapter": ip})
+
+
+def phase_small_kolors():
+    """Kolors' tiny pipeline (init_random: ChatGLM 32 wide with 4 heads over 2 K/V groups,
+    the tiny SDXL plan with text_intermediate_proj, the tiny VAE): a CFG request on hash
+    ids, the card against the CPU."""
+    from goal_force_tpu_torch.pipelines import kolors as kp
+
+    cpu = kp.KolorsPipeline.init_random(seed=251, device="cpu")
+    return _small_unet_family("small_kolors", cpu, ("unet", "glm", "vae_encoder",
+                                                    "vae_decoder"),
+                              (("cfg", dict(SMALL_UNET_REQ, noise=_small_noise(252)), {}),))
+
+
+# The UNet families at their released widths and full depth, random bf16 weights. SD 1.5 at
+# 512x512 (64x64 latents: 4,096 tokens at the first level, heads of 40 there); SDXL and
+# Kolors at 1024x1024 (128x128 latents: 4,096 tokens at the first attention level, heads
+# of 64). ChatGLM3-6B reads 256 tokens (causal, 32 heads of 128).
+SD15_HW, SDXL_HW = 512, 1024
+UNET_PLAIN = {"sd15": (2, (SD15_HW // 8) ** 2, 8, 40), "sdxl": (2, (SDXL_HW // 16) ** 2, 10, 64),
+              "kolors": (2, 256, 32, 128)}
+# two 77-token sentences of the CLIP tokenizer against a one-sentence negative prompt
+LONG_PROMPT = ("a red ball rolls across a long wooden table in a bright kitchen, hits a small "
+               "blue ceramic cup, and the cup tips over and spills coffee onto a folded white "
+               "napkin, while morning light comes through a tall window behind a green plant "
+               "and a striped cat sleeps on a chair next to an open book, a vase of yellow "
+               "tulips and a bowl of oranges, photographed from a low angle with a shallow "
+               "depth of field and warm colours, highly detailed")
+
+
+def _unet_request(phase, pipe, name, stages, fn, hw, peaks, launches):
+    """One request: finite (hw, hw, 3), no kernel launch; logs its seconds, stage split
+    and peak."""
+    from goal_force_tpu_torch.ops import flash_attention as fa
+
+    stages.clear()
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = sync_time(fn)
+    launched = dict(fa.launch_counts)
+    finite = bool(np.isfinite(out).all())
+    peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+    log(phase, stage="request", request=name, seconds=secs, **stages, launches=launched,
+        image_shape=list(out.shape), finite=finite, image_mean=float(out.mean()),
+        image_std=float(out.std()), peak_gib=peaks[-1])
+    check(launched == only(), f"{phase} {name} launched {launched} (the plain attention)")
+    check(out.shape == (hw, hw, 3) and finite, f"{phase} {name} image {out.shape}, {finite}")
+    for key, n in launched.items():
+        launches[key] = launches.get(key, 0) + n
+    return out
+
+
+def _unet_params(phase, t0, **models):
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log(phase, stage="init", seconds=time.perf_counter() - t0,
+        **{f"{k}_params": count(m) for k, m in models.items()},
+        gib=torch.cuda.memory_allocated() / 2**30)
+
+
+def _free_phase():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_sd15():
+    """SD 1.5 at its released widths and full depth (SD15_PLAN: 0.86 B, heads of 40, 80
+    and 160), CLIP-L (12 layers of 768) on the vendored tokenizer, the SD VAE, the SD
+    ControlNet (SD_CONTROLNET_PLAN) and an SD IP-Adapter (1,024-wide image embedding -> 4
+    tokens of 768 into the 16 units), random bf16 weights: at 512x512 (a) a merged-CFG
+    request of 2 DDIM steps whose prompt is two 77-token sentences against a one-sentence
+    negative (the ctx_len key mask); (b) the same with the ControlNet and the IP-Adapter;
+    (c) image-to-image from (a)'s image at strength 0.5, tiled (tiles of 32 at stride 16)
+    with one regional prompt. Finite images, no kernel launch; then the plain attention at
+    (2, 4,096, 8, 40)^2 beside SDPA and its bound."""
+    from goal_force_tpu_torch.models import ipadapter as ipm
+    from goal_force_tpu_torch.models import sd_controlnet as scn
+    from goal_force_tpu_torch.pipelines import sd as sdp
+    from goal_force_tpu_torch.prompters import sd_clip_tokenizer
+
+    t0 = time.perf_counter()
+    _free_phase()
+    bf16 = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(261)
+    pipe = sdp.SDPipeline.init_random(seed=261, tiny=False, dtype=bf16, device="cuda")
+    cn = scn.init_sd_controlnet(scn.SD_CONTROLNET_PLAN, gen, bf16, device="cuda")
+    _perturb_unet_zero_convs(cn, 262)
+    ip = ipm.init_ip_adapter(pipe.plan, 768, 1024, gen, 4, bf16, device="cuda")
+    pipe.tokenize = sd_clip_tokenizer()
+    torch.cuda.synchronize()
+    _unet_params("sd15", t0, unet=pipe.unet, text=pipe.text_encoder, controlnet=cn,
+                 ipadapter=ip, vae=pipe.vae_encoder)
+    ids, nat_len = pipe._long_ids([LONG_PROMPT, FLUX_NEGATIVE])
+    check([i.shape[0] for i in ids] == [2, 2] and nat_len == [154, 77],
+          f"sd15: the long prompt's sentences {[i.shape for i in ids]}, lengths {nat_len}")
+    stages, peaks, launches = {}, [], {}
+    _time_stages(pipe, stages, _encode_text="text_s", _denoise_cfg="step_s",
+                 _encode_img="encode_s", _decode="decode_s")
+    rng = np.random.default_rng(263)
+    common = dict(negative_prompt=FLUX_NEGATIVE, cfg_scale=7.5, height=SD15_HW,
+                  width=SD15_HW, num_inference_steps=2, seed=43)
+    image = _unet_request("sd15", pipe, "a_long_prompt", stages,
+                          lambda: pipe(LONG_PROMPT, **common), SD15_HW, peaks, launches)
+    cond = rng.uniform(size=(SD15_HW, SD15_HW, 3)).astype(np.float32)
+    emb = rng.standard_normal((1, 1024)).astype(np.float32)
+    _unet_request("sd15", pipe, "b_controlnet_ipadapter", stages, lambda: pipe(
+        LONG_PROMPT, **common, controlnet={"model": cn}, controlnet_image=cond, ipadapter=ip,
+        ipadapter_image_emb=emb), SD15_HW, peaks, launches)
+    mask = np.zeros((SD15_HW, SD15_HW), np.float32)
+    mask[:, SD15_HW // 2:] = 1.0
+    _unet_request("sd15", pipe, "c_i2i_tiled_regional", stages, lambda: pipe(
+        FLUX_PROMPT, **dict(common, input_image=image * 255.0, denoising_strength=0.5,
+                            tiled=True, tile_size=32, tile_stride=16,
+                            local_prompts=["a blue cup"], masks=[mask], mask_scales=[0.8])),
+        SD15_HW, peaks, launches)
+    del pipe, cn, ip, image
+    _free_phase()
+    plain = _sd3_plain("self", UNET_PLAIN["sd15"], torch.Generator("cuda").manual_seed(264),
+                       phase="sd15")
+    _phase_summary("sd15", t0, launches, peaks)
+    return launches, plain
+
+
+def phase_sdxl():
+    """SDXL at its released widths and full depth (SDXL_PLAN: 2.6 B, depth-2 and depth-10
+    stacks of heads of 64), CLIP-L (11 layers, no final LN) and bigG (32 layers of 1,280,
+    its projection) on the vendored tokenizers, the SD VAE at SDXL's scaling, the union
+    ControlNet (SDXL_CONTROLNET_PLAN) and an SDXL IP-Adapter (1,280-wide image embedding ->
+    4 tokens of 2,048 into the 70 units), random bf16 weights: at 1024x1024 (a) a merged-CFG
+    request of 2 steps; (b) one union-ControlNet task (depth) with the IP-Adapter, 2 steps;
+    (c) one CFG step (with its text encode) under utils/profiling.py's trace: top_ops(k=10)
+    and the device's busy share of the traced window, the port's first trace. Finite images,
+    no kernel launch; then the plain attention at (2, 4,096, 10, 64)^2 beside SDPA and its
+    bound."""
+    import shutil
+    import tempfile
+
+    from goal_force_tpu_torch.models import ipadapter as ipm
+    from goal_force_tpu_torch.models import sd_controlnet as scn
+    from goal_force_tpu_torch.pipelines import sdxl as sxp
+    from goal_force_tpu_torch.prompters import sdxl_tokenizers
+    from goal_force_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    _free_phase()
+    bf16 = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(271)
+    pipe = sxp.SDXLPipeline.init_random(seed=271, tiny=False, dtype=bf16, device="cuda")
+    cn = scn.init_sdxl_controlnet(scn.SDXL_CONTROLNET_PLAN, gen, bf16, device="cuda")
+    _perturb_unet_zero_convs(cn, 272)
+    ip = ipm.init_ip_adapter(pipe.plan, 2048, 1280, gen, 4, bf16, device="cuda")
+    pipe.tokenize, pipe.tokenize_2 = sdxl_tokenizers()
+    torch.cuda.synchronize()
+    _unet_params("sdxl", t0, unet=pipe.unet, text=pipe.text_encoder, text_2=pipe.text_encoder_2,
+                 controlnet=cn, ipadapter=ip, vae=pipe.vae_decoder)
+    stages, peaks, launches = {}, [], {}
+    _time_stages(pipe, stages, _encode_prompt="text_s", _denoise_cfg="step_s",
+                 _decode="decode_s")
+    rng = np.random.default_rng(273)
+    common = dict(negative_prompt=FLUX_NEGATIVE, cfg_scale=6.0, height=SDXL_HW, width=SDXL_HW,
+                  num_inference_steps=2, seed=47)
+    _unet_request("sdxl", pipe, "a_t2i", stages, lambda: pipe(FLUX_PROMPT, **common), SDXL_HW,
+                  peaks, launches)
+    cond = rng.uniform(size=(SDXL_HW, SDXL_HW, 3)).astype(np.float32)
+    emb = rng.standard_normal((1, 1280)).astype(np.float32)
+    _unet_request("sdxl", pipe, "b_union_controlnet_ipadapter", stages, lambda: pipe(
+        FLUX_PROMPT, **common, controlnet={"model": cn, "task_id": scn.SDXL_UNION_TASK_ID["depth"]},
+        controlnet_image=cond, ipadapter=ip, ipadapter_image_emb=emb), SDXL_HW, peaks, launches)
+    del cn, ip
+    log_dir = tempfile.mkdtemp(prefix="gf_trace_")
+    try:
+        step = dict(common, num_inference_steps=1, return_latents=True)   # (a) warmed it
+        t_wall = time.perf_counter()
+        with profiling.trace(log_dir):
+            latents = pipe(FLUX_PROMPT, **step)
+        traced_s = time.perf_counter() - t_wall
+        ops = profiling.top_ops(log_dir, k=10**6)
+        top = ops[:10]                                   # top_ops(k=10)
+        busy_ms, window_ms = profiling.device_share(log_dir)
+        kernel_ms = sum(ms for _, ms, _ in ops)
+        log("sdxl", stage="trace", request="one CFG step with its text encode",
+            top_ops=[{"name": n, "ms": ms, "count": c} for n, ms, c in top],
+            device_busy_ms=busy_ms, trace_window_ms=window_ms,
+            device_busy_share=busy_ms / window_ms if window_ms else None,
+            device_kernel_ms=kernel_ms, traced_seconds_with_export=traced_s,
+            latents_finite=bool(np.isfinite(latents).all()))
+        check(bool(top) and window_ms > 0 and 0 < busy_ms <= window_ms,
+              f"sdxl: the trace holds no device time ({busy_ms} of {window_ms} ms)")
+    finally:
+        shutil.rmtree(log_dir, True)
+    del pipe
+    _free_phase()
+    plain = _sd3_plain("self", UNET_PLAIN["sdxl"], torch.Generator("cuda").manual_seed(274),
+                       phase="sdxl")
+    _phase_summary("sdxl", t0, launches, peaks)
+    return launches, plain, dict(top_ops=top, busy_ms=busy_ms, window_ms=window_ms)
+
+
+def phase_kolors():
+    """Kolors at its released widths and full depth: ChatGLM3-6B (28 layers of 4,096, 32
+    heads of 128 over 2 K/V groups, FFN 13,696, vocab 65,024) on the vendored tokenizer (256
+    tokens), the Kolors UNet (SDXL_PLAN with text_intermediate_proj 4,096 -> 2,048 and an add
+    embedding of 5,632 inputs) and the SD VAE (encode and decode in float32 over bf16
+    weights), random bf16 weights: a 1024x1024 merged-CFG request, 2 steps (the Kolors DDIM
+    schedule). Finite, no kernel launch; ChatGLM's encode seconds; then the causal plain
+    attention at (2, 256, 32, 128)^2 beside SDPA and its bound."""
+    from goal_force_tpu_torch.models import kolors_text_encoder as glm
+    from goal_force_tpu_torch.models import sd_vae as sv
+    from goal_force_tpu_torch.models import sdxl_unet as sxu
+    from goal_force_tpu_torch.pipelines import kolors as kp
+    from goal_force_tpu_torch.prompters import kolors_tokenizer
+
+    t0 = time.perf_counter()
+    _free_phase()
+    bf16 = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(281)
+    cfg = glm.ChatGLMConfig()
+    pipe = kp.KolorsPipeline(
+        unet=sxu.init_sdxl_unet(sxu.SDXL_PLAN, gen, bf16, device="cuda",
+                                add_embed_in=cfg.hidden_size + 6 * 256,
+                                text_proj=(cfg.hidden_size, sxu.SDXL_CTX_DIM)),
+        glm=glm.init_chatglm(cfg, gen, bf16, device="cuda"),
+        vae_encoder=sv.init_sd_vae(sv.SDVAEEncoder, sv.SD_VAE_ENCODER_PLAN, gen, bf16,
+                                   device="cuda", latent_channels=4, quant=True),
+        vae_decoder=sv.init_sd_vae(sv.SDVAEDecoder, sv.SD_VAE_DECODER_PLAN, gen, bf16,
+                                   device="cuda", latent_channels=4, quant=True),
+        glm_cfg=cfg, tokenize=kolors_tokenizer(256), dtype=bf16)
+    torch.cuda.synchronize()
+    _unet_params("kolors", t0, unet=pipe.unet, chatglm=pipe.glm, vae=pipe.vae_decoder)
+    stages, peaks, launches = {}, [], {}
+    _time_stages(pipe, stages, _encode_text="chatglm_encode_s", _denoise_cfg="step_s",
+                 _decode="decode_s")
+    ids = pipe._ids([FLUX_PROMPT])
+    check(tuple(ids.shape) == (1, 256), f"kolors: ChatGLM ids {tuple(ids.shape)}")
+    _unet_request("kolors", pipe, "a_t2i", stages, lambda: pipe(
+        FLUX_PROMPT, negative_prompt=FLUX_NEGATIVE, cfg_scale=5.0, height=SDXL_HW,
+        width=SDXL_HW, num_inference_steps=2, seed=53), SDXL_HW, peaks, launches)
+    del pipe
+    _free_phase()
+    plain = _sd3_plain("chatglm", UNET_PLAIN["kolors"], torch.Generator("cuda").manual_seed(282),
+                       phase="kolors", causal=True)
+    _phase_summary("kolors", t0, launches, peaks)
+    return launches, plain
+
+
 def main() -> int:
     try:
         return _main()
@@ -5997,6 +6367,9 @@ def _main() -> int:
     small_nexus_launches = started("small_nexus_gen", phase_small_nexus_gen)
     started("small_hunyuan_dit", phase_small_hunyuan_dit)
     started("small_omnigen", phase_small_omnigen)
+    small_unet_launches = {name: started(name, fn) for name, fn in (
+        ("small_sd", phase_small_sd), ("small_sdxl", phase_small_sdxl),
+        ("small_kolors", phase_small_kolors))}
     pipe, main_launches, bf16_frames, main_stages = started("main", phase_main)
     sharded_launches = started("sharded", phase_sharded, pipe, bf16_frames[0], main_stages)
     started("tools", phase_tools)
@@ -6022,6 +6395,9 @@ def _main() -> int:
     qwen_launches, qwen_unbounded, qwen_path = started("qwen_image", phase_qwen_image)
     hydit_launches, hydit_plain = started("hunyuan_dit", phase_hunyuan_dit)
     omni_launches, omni_plain = started("omnigen", phase_omnigen)
+    sd15_launches, sd15_plain = started("sd15", phase_sd15)
+    sdxl_launches, sdxl_plain, sdxl_trace = started("sdxl", phase_sdxl)
+    kolors_launches, kolors_plain = started("kolors", phase_kolors)
     train_launches, train_run = started("train", phase_train)
     sharded_train_launches = started("sharded_train", phase_sharded_train, train_run)
     del train_run
@@ -6072,7 +6448,13 @@ def _main() -> int:
               "hunyuan_dit_launches": hydit_launches.get("K1", 0),
               "hunyuan_dit_plain_attention": hydit_plain,
               "omnigen_launches": omni_launches.get("K1", 0),
-              "omnigen_plain_attention": omni_plain}),
+              "omnigen_plain_attention": omni_plain,
+              **{f"{k}_launches": v["K1"] for k, v in small_unet_launches.items()},
+              "sd15_launches": sd15_launches.get("K1", 0), "sd15_plain_attention": sd15_plain,
+              "sdxl_launches": sdxl_launches.get("K1", 0), "sdxl_plain_attention": sdxl_plain,
+              "sdxl_trace_device_busy_share": sdxl_trace["busy_ms"] / sdxl_trace["window_ms"],
+              "kolors_launches": kolors_launches.get("K1", 0),
+              "kolors_plain_attention": kolors_plain}),
             ("K2 flash_attention_max", fwd, 154, unb_launches["K2"],
              {"cross": measured["K2"]["cross"], "path": "unbounded (qk_bounded=False, q-norm x8)",
               "s2v_launches": s2v_launches["K2"],

@@ -42,6 +42,14 @@ or a shape that does not fit, raises. The kinds:
   - ``hunyuan_dit`` (``infer_hunyuan_dit_config``) and ``omnigen``
     (``infer_omnigen_config``; the LongRoPE factors, which weights cannot show, as
     keywords);
+  - the UNet families: ``sd_unet`` and ``sdxl_unet`` (SDXL's add embedding and Kolors'
+    ``text_intermediate_proj`` where the file has them; the config {"plan": ...} from
+    ``plan=``, else the released plan), ``sd_controlnet`` and ``sdxl_controlnet`` (the
+    same), ``ipadapter`` (config None; a raw diffusers bundle renamed by ``load_weights``)
+    and ``chatglm`` (``infer_chatglm_config``; an HF file's ``transformer.`` prefix, rotary
+    buffer and LM head dropped). ``sd_civitai``, ``sdxl_civitai`` and
+    ``sd_vae_diffusers`` raise JAX's ValueError: their pipelines read them by prefix
+    (``pipelines/sd.py::sd_pipeline_from_civitai``);
   - the Wan kinds, through the port's own loaders (``io/detect.py::convert_detected``).
 
 Every other detected kind raises ``NotImplementedError`` naming its ROADMAP item.
@@ -64,10 +72,7 @@ WAN_KINDS = ("wan_dit", "umt5_xxl", "wan_vae", "wan_vae38", "wan_image_encoder",
 
 # The ROADMAP item that ports each detected kind not ported yet.
 ROADMAP_ITEMS = {
-    **{k: "M14d (SD, SDXL, Kolors, SVD, AnimateDiff)" for k in (
-        "sd_civitai", "sd_unet", "sdxl_civitai", "sdxl_unet", "svd_unet", "svd_vae",
-        "sd_motion", "sd_controlnet", "sdxl_controlnet", "ipadapter", "chatglm",
-        "sd_vae_diffusers")},
+    **{k: "M14d (AnimateDiff, SVD)" for k in ("svd_unet", "svd_vae", "sd_motion")},
     **{k: "M14e (the extensions)" for k in (
         "hf_clip", "open_clip", "image_reward", "esrgan", "rife")},
     **{k: "M14f (prompt refiners)" for k in ("bloom", "marian")},
@@ -76,14 +81,22 @@ ROADMAP_ITEMS = {
 
 def load_weights(path: Union[str, Mapping]) -> Dict[str, torch.Tensor]:
     """A state dict from safetensors (file, glob or list), a ``.pth``/``.pt``/``.bin``/
-    ``.ckpt`` pickle, or a mapping (its values as tensors)."""
-    if isinstance(path, Mapping):
-        return {k: torch.as_tensor(v) for k, v in path.items()}
+    ``.ckpt`` pickle, or a mapping (its values as tensors). A raw diffusers IP-Adapter
+    bundle ({"ip_adapter": {...}, "image_proj": {...}}) comes back under the reference
+    names."""
     from goal_force_tpu_torch.io.safetensors_io import load_safetensors, load_torch_pth
 
-    if str(path).endswith((".pth", ".pt", ".bin", ".ckpt")):
-        return load_torch_pth(path)
-    return load_safetensors(path)
+    if isinstance(path, Mapping):
+        sd = path
+    elif str(path).endswith((".pth", ".pt", ".bin", ".ckpt")):
+        sd = load_torch_pth(path)
+    else:
+        return load_safetensors(path)
+    if isinstance(sd.get("ip_adapter"), Mapping):
+        from goal_force_tpu_torch.models.ipadapter import flatten_diffusers_bundle
+
+        return flatten_diffusers_bundle(sd)
+    return {k: torch.as_tensor(v) for k, v in sd.items()}
 
 
 def _max_index(sd, prefix: str) -> int:
@@ -358,6 +371,22 @@ def infer_omnigen_config(sd, num_heads: Optional[int] = None, **kw):
     )
 
 
+def infer_chatglm_config(sd, num_heads: Optional[int] = None):
+    from goal_force_tpu_torch.models.kolors_text_encoder import ChatGLMConfig
+
+    vocab, hidden = _shape(sd, "embedding.word_embeddings.weight")
+    heads = num_heads or max(1, hidden // 128)
+    kv_ch = hidden // heads
+    qkv_out = _shape(sd, "encoder.layers.0.self_attention.query_key_value.weight")[0]
+    return ChatGLMConfig(
+        hidden_size=hidden, vocab=vocab,
+        num_layers=_max_index(sd, "encoder.layers."),
+        num_heads=heads, kv_channels=kv_ch,
+        kv_groups=(qkv_out - hidden) // (2 * kv_ch),
+        ffn_hidden_size=_shape(sd, "encoder.layers.0.mlp.dense_h_to_4h.weight")[0] // 2,
+    )
+
+
 def _is_cog_vae(sd) -> bool:
     """A Cog VAE half in the reference layout: 3D ``conv_in`` and ``blocks.0.conv1``."""
     return all(k in sd and len(_shape(sd, k)) == 5
@@ -618,7 +647,32 @@ def load_model(path_or_sd, kind: Optional[str] = None, config=None, dtype=None,
             f"{kind}: load_model has no branch for the vision tower (as in JAX); "
             "QwenImagePipeline.from_pretrained(load_vision=True) reads it from the "
             "Qwen2.5-VL file")
-    if kind in WAN_KINDS:
+    if kind == "chatglm":
+        from goal_force_tpu_torch.models.kolors_text_encoder import ChatGLMModel, chatglm_state_dict
+
+        sd = chatglm_state_dict(sd)
+        cfg = config or infer_chatglm_config(sd, **infer_kw)
+        return out(cfg, _strict(ChatGLMModel, cfg, sd, kind, dtype, device))
+    if kind in ("sd_unet", "sdxl_unet"):
+        from goal_force_tpu_torch.models.sd_unet import SD15_PLAN, unet_from_state_dict
+        from goal_force_tpu_torch.models.sdxl_unet import SDXL_PLAN
+
+        plan = tuple(infer_kw.get("plan") or (SD15_PLAN if kind == "sd_unet" else SDXL_PLAN))
+        return out({"plan": plan}, unet_from_state_dict(sd, plan, kind, dtype, device))
+    if kind in ("sd_controlnet", "sdxl_controlnet"):
+        from goal_force_tpu_torch.models import sd_controlnet as scn
+
+        sd_kind = kind == "sd_controlnet"
+        plan = tuple(infer_kw.get("plan") or (scn.SD_CONTROLNET_PLAN if sd_kind
+                                              else scn.SDXL_CONTROLNET_PLAN))
+        load = scn.sd_controlnet_from_state_dict if sd_kind else scn.sdxl_controlnet_from_state_dict
+        return out({"plan": plan}, load(sd, plan, dtype=dtype, device=device))
+    if kind == "ipadapter":
+        from goal_force_tpu_torch.models.ipadapter import ipadapter_from_state_dict
+
+        return out(None, ipadapter_from_state_dict(sd, dtype=dtype, device=device))
+    if kind in WAN_KINDS or kind in ("sd_civitai", "sdxl_civitai", "sd_vae_diffusers"):
+        # the last three raise as in JAX: they are read by their pipelines, not here
         return convert_detected(sd, kind=kind, dtype=dtype, device=device,
                                 **({"config": config} if config else {}))
     raise NotImplementedError(

@@ -49,6 +49,10 @@ the adapters ``vace``, ``motion_controller``, ``camera_adapter`` where present) 
     ``hunyuan_dit`` (stacked ``down_blocks`` then ``up_blocks`` -> ``blocks.{i}``) and
     ``omnigen`` (``llm.layers.{i}``, the patch matmuls -> Conv2d) (in
     ``FLUX_CONVERTERS`` too);
+  - the UNet families' trees (in ``FLUX_CONVERTERS`` too): ``sd_unet`` and ``sdxl_unet``
+    (``blocks`` by plan index, the add embedding, Kolors' ``text_intermediate_proj``),
+    ``sd_controlnet`` and ``sdxl_controlnet`` (with ``task_embedding``, the fusing
+    ``controlnet_transformer`` and ``spatial_ch_projs``), ``ipadapter`` and ``chatglm``;
   - the Flux path's trees (``FLUX_CONVERTERS``): ``flux_dit`` and ``flux_controlnet``
     (stacked joint / single blocks -> ``blocks.{i}`` / ``single_blocks.{i}``, the fused
     projections as they are), the SD / SD3 VAE halves (``sd_vae_encoder``, ...: HWIO
@@ -1171,6 +1175,124 @@ def qwen_vl_vision_state_dict(p: Mapping, patch=(2, 14, 14)) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------------
+# The UNet families (SD 1.5, SDXL, Kolors): UNets, ControlNets, IP-Adapter, ChatGLM
+# ---------------------------------------------------------------------------
+
+def _unet_blocks(sd: StateDict, blocks) -> None:
+    """A plan's ``blocks`` list (a resnet, an attention block, a sampler or {} per plan
+    entry) -> ``blocks.{i}.*``."""
+    for i, b in enumerate(blocks):
+        pre = f"blocks.{i}"
+        if "norm1" in b:
+            _ln(sd, pre + ".norm1", b["norm1"])
+            _conv2d(sd, pre + ".conv1", b["conv1"])
+            _lin(sd, pre + ".time_emb_proj", {"w": b["temb_w"], "b": b["temb_b"]})
+            _ln(sd, pre + ".norm2", b["norm2"])
+            _conv2d(sd, pre + ".conv2", b["conv2"])
+            if "shortcut" in b:
+                _conv2d(sd, pre + ".conv_shortcut", b["shortcut"])
+        elif "transformer_blocks" in b:
+            _ln(sd, pre + ".norm", b["norm"])
+            _lin(sd, pre + ".proj_in", {"w": b["proj_in_w"], "b": b["proj_in_b"]})
+            _lin(sd, pre + ".proj_out", {"w": b["proj_out_w"], "b": b["proj_out_b"]})
+            for j, t in enumerate(b["transformer_blocks"]):
+                tb = f"{pre}.transformer_blocks.{j}"
+                for n in ("norm1", "norm2", "norm3"):
+                    _ln(sd, f"{tb}.{n}", t[n])
+                for a in ("attn1", "attn2"):
+                    for x, ref in (("q", "to_q"), ("k", "to_k"), ("v", "to_v")):
+                        _w(sd, f"{tb}.{a}.{ref}", t[a][x + "_w"])
+                    _lin(sd, f"{tb}.{a}.to_out", {"w": t[a]["o_w"], "b": t[a]["o_b"]})
+                _lin(sd, tb + ".act_fn.proj", {"w": t["geglu_w"], "b": t["geglu_b"]})
+                _lin(sd, tb + ".ff", {"w": t["ff_w"], "b": t["ff_b"]})
+        elif "conv" in b:
+            _conv2d(sd, pre + ".conv", b["conv"])
+
+
+def _mlp_wb(sd: StateDict, prefix: str, p: Mapping, name: str) -> None:
+    """``{name}_w1/b1/w2/b2`` (in, out) -> ``{prefix}.0`` and ``{prefix}.2``."""
+    for i, k in ((0, "1"), (2, "2")):
+        _lin(sd, f"{prefix}.{i}", {"w": p[f"{name}_w{k}"], "b": p[f"{name}_b{k}"]})
+
+
+def sd_unet_state_dict(p: Mapping) -> StateDict:
+    """JAX ``sd_unet_params_from_torch`` / ``sdxl_unet_params_from_torch``'s tree (SDXL's
+    add embedding and Kolors' ``text_intermediate_proj`` where present) -> the reference
+    SDUNet / SDXLUNet keys."""
+    sd: StateDict = {}
+    _mlp_wb(sd, "time_embedding", p, "time")
+    if "add_time_w1" in p:
+        _mlp_wb(sd, "add_time_embedding", p, "add_time")
+    if "text_intermediate_proj" in p:
+        _lin(sd, "text_intermediate_proj", p["text_intermediate_proj"])
+    _conv2d(sd, "conv_in", p["conv_in"])
+    _unet_blocks(sd, p["blocks"])
+    _ln(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv2d(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+def sd_controlnet_state_dict(p: Mapping) -> StateDict:
+    """JAX ``sd[xl]_controlnet_params_from_torch``'s tree -> the reference SDControlNet /
+    SDXLControlNetUnion keys: the conditioning convs at the even indices of
+    ``controlnet_conv_in.blocks``, the zero convs with their biases; the union network's
+    fused attention, MLP and ``spatial_ch_projs`` kept in torch's (out, in) layout, as
+    JAX keeps them."""
+    sd: StateDict = {}
+    _mlp_wb(sd, "time_embedding", p, "time")
+    _conv2d(sd, "conv_in", p["conv_in"])
+    for i, c in enumerate(p["cond_in"]["convs"]):
+        _conv2d(sd, f"controlnet_conv_in.blocks.{2 * i}", c)
+    _unet_blocks(sd, p["blocks"])
+    for i, c in enumerate(p["controlnet_blocks"]):
+        _conv2d(sd, f"controlnet_blocks.{i}", c)
+    if "cn_transformer" in p:
+        _mlp_wb(sd, "add_time_embedding", p, "add_time")
+        _mlp_wb(sd, "control_type_embedding", p, "ct")
+        sd["task_embedding"] = _t(p["task_embedding"])
+        sd["spatial_ch_projs.weight"] = _t(p["spatial_w"])
+        sd["spatial_ch_projs.bias"] = _t(p["spatial_b"])
+        t, pre = p["cn_transformer"], "controlnet_transformer."
+        sd[pre + "attn.in_proj_weight"] = _t(t["in_w"])
+        sd[pre + "attn.in_proj_bias"] = _t(t["in_b"])
+        for name, w, b in (("attn.out_proj", "out_w", "out_b"), ("mlp.c_fc", "fc_w", "fc_b"),
+                           ("mlp.c_proj", "proj_w", "proj_b")):
+            sd[f"{pre}{name}.weight"] = _t(t[w])
+            sd[f"{pre}{name}.bias"] = _t(t[b])
+        _ln(sd, pre + "ln_1", t["ln1"])
+        _ln(sd, pre + "ln_2", t["ln2"])
+    return sd
+
+
+def ipadapter_state_dict(p: Mapping) -> StateDict:
+    """JAX ``ip_adapter_params_from_torch``'s tree -> the reference SD / SDXL IP-Adapter
+    keys."""
+    sd: StateDict = {}
+    for i, m in enumerate(p["modules"]):
+        _w(sd, f"ipadapter_modules.{i}.to_k_ip", m["k_w"])
+        _w(sd, f"ipadapter_modules.{i}.to_v_ip", m["v_w"])
+    _lin(sd, "image_proj.proj", p["image_proj"]["proj"])
+    _ln(sd, "image_proj.norm", p["image_proj"]["norm"])
+    return sd
+
+
+def chatglm_state_dict(p: Mapping) -> StateDict:
+    """JAX ``chatglm_params_from_torch``'s tree (stacked ``blocks``) -> the reference
+    ChatGLMModel keys."""
+    sd: StateDict = {"embedding.word_embeddings.weight": _t(p["word_embeddings"]),
+                     "encoder.final_layernorm.weight": _t(p["final_norm"]["w"])}
+    for i in range(int(np.asarray(p["blocks"]["qkv"]["w"]).shape[0])):
+        b, pre = _layer(p["blocks"], i), f"encoder.layers.{i}."
+        sd[pre + "input_layernorm.weight"] = _t(b["norm1"]["w"])
+        sd[pre + "post_attention_layernorm.weight"] = _t(b["norm2"]["w"])
+        _lin(sd, pre + "self_attention.query_key_value", b["qkv"])
+        _w(sd, pre + "self_attention.dense", b["dense"]["w"])
+        _w(sd, pre + "mlp.dense_h_to_4h", b["h_to_4h"]["w"])
+        _w(sd, pre + "mlp.dense_4h_to_h", b["4h_to_h"]["w"])
+    return sd
+
+
 FLUX_CONVERTERS = {
     "flux_dit": flux_dit_state_dict, "flux_controlnet": flux_controlnet_state_dict,
     "sd_vae_encoder": sd_vae_state_dict, "sd_vae_decoder": sd_vae_state_dict,
@@ -1186,6 +1308,9 @@ FLUX_CONVERTERS = {
     "nexus_gen_adapter": nexus_gen_adapter_state_dict,
     "nexus_gen_merger": nexus_gen_merger_state_dict,
     "hunyuan_dit": hunyuan_dit_state_dict, "omnigen": omnigen_state_dict,
+    "sd_unet": sd_unet_state_dict, "sdxl_unet": sd_unet_state_dict,
+    "sd_controlnet": sd_controlnet_state_dict, "sdxl_controlnet": sd_controlnet_state_dict,
+    "ipadapter": ipadapter_state_dict, "chatglm": chatglm_state_dict,
 }
 
 

@@ -56,11 +56,12 @@ def _count(sd, fmt: str) -> int:
     return i
 
 
-def _load(cls, sd, what: str, *args):
+def _load(cls, sd, what: str, *args, dtype=None, device=None):
+    """cls(*args) read strictly from sd, in `dtype` on `device` (default: the file's)."""
     from goal_force_tpu_torch.io.auto import _strict
 
-    dtype = next(v.dtype for v in sd.values() if v.is_floating_point())
-    device = next(iter(sd.values())).device
+    dtype = dtype or next(v.dtype for v in sd.values() if v.is_floating_point())
+    device = device or next(iter(sd.values())).device
     return _strict(lambda _cfg: cls(*args), None, sd, what, dtype, device)
 
 
@@ -287,15 +288,20 @@ class FluxIpAdapter(nn.Module):
         self.image_proj = MLPProjModel(ctx_dim, id_dim, num_tokens)
 
 
-def flux_ip_image_proj(p: MLPProjModel, image_embeds: torch.Tensor) -> torch.Tensor:
-    """(B, id_dim) -> (1, B·tokens, ctx_dim): linear, exact GELU, linear, then a
-    LayerNorm in the embeddings' dtype."""
-    x = linear(p.proj[2], F.gelu(linear(p.proj[0], image_embeds)))
-    x = x.reshape(-1, p.norm.weight.shape[0])
+def image_tokens(norm: LayerNormAffine, x: torch.Tensor) -> torch.Tensor:
+    """(B, tokens·ctx) -> (1, B·tokens, ctx): the batch folded into tokens, then a
+    LayerNorm (eps 1e-5) in x's dtype; the IP-Adapters' image projections end so."""
+    x = x.reshape(-1, norm.weight.shape[0])
     mu = x.mean(-1, keepdim=True)
     var = (x - mu).square().mean(-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + 1e-5)
-    return (x * p.norm.weight.to(x.dtype) + p.norm.bias.to(x.dtype))[None]
+    return (x * norm.weight.to(x.dtype) + norm.bias.to(x.dtype))[None]
+
+
+def flux_ip_image_proj(p: MLPProjModel, image_embeds: torch.Tensor) -> torch.Tensor:
+    """(B, id_dim) -> (1, B·tokens, ctx_dim): linear, exact GELU, linear, then
+    ``image_tokens``."""
+    return image_tokens(p.norm, linear(p.proj[2], F.gelu(linear(p.proj[0], image_embeds))))
 
 
 def flux_ip_kwargs(model: FluxIpAdapter, image_embeds: torch.Tensor, num_heads: int = 24,

@@ -21,7 +21,8 @@ loads as it is (``io/auto.py``); the bundled civitai checkpoints' towers are ren
 ``conditioner.embedders.0.transformer.text_model.``) and
 ``sdxl_text2_state_dict_from_civitai`` (OpenCLIP names under
 ``conditioner.embedders.1.model.``: the fused ``in_proj`` split into q, k, v, and the
-(in, out) ``text_projection`` transposed into a Linear weight).
+(in, out) ``text_projection`` transposed into a Linear weight); an SD 1.5 bundle's tower
+(under ``cond_stage_model.transformer.text_model.``) by ``sd_text_state_dict_from_civitai``.
 """
 
 from __future__ import annotations
@@ -114,6 +115,24 @@ def _hf_layer(sd: Dict[str, torch.Tensor], out: Dict[str, torch.Tensor], src: st
     for hf, ref in names:
         for w in ("weight", "bias"):
             out[f"encoders.{i}.{ref}.{w}"] = sd[f"{src}encoder.layers.{i}.{hf}.{w}"]
+
+
+def sd_text_state_dict_from_civitai(sd: Mapping[str, torch.Tensor],
+                                    cfg: CLIPConfig = SD_TEXT_CONFIG
+                                    ) -> Dict[str, torch.Tensor]:
+    """A bundled SD checkpoint's text tower (HF CLIP names under
+    ``cond_stage_model.transformer.text_model.``, or ``text_model.``) -> this module's
+    names with the final LN (JAX ``sd_text_params_from_civitai``)."""
+    pre = "cond_stage_model.transformer.text_model."
+    if not any(k.startswith(pre) for k in sd):
+        pre = "text_model."
+    out = {"token_embedding.weight": sd[pre + "embeddings.token_embedding.weight"],
+           "position_embeds": sd[pre + "embeddings.position_embedding.weight"][None],
+           "final_layer_norm.weight": sd[pre + "final_layer_norm.weight"],
+           "final_layer_norm.bias": sd[pre + "final_layer_norm.bias"]}
+    for i in range(cfg.text_layers):
+        _hf_layer(sd, out, pre, i)
+    return out
 
 
 def sdxl_text_state_dict_from_civitai(sd: Mapping[str, torch.Tensor],

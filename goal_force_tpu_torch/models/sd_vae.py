@@ -31,11 +31,14 @@ from torch import nn
 
 from goal_force_tpu_torch.models.sd_unet import (
     Attention,
+    Resample,
     ResnetBlock,
     _attention,
     _resnet,
     conv2d,
     group_norm,
+    normal_init_,
+    upsample_nearest2x,
 )
 from goal_force_tpu_torch.models.wan_dit import LayerNormAffine, empty_module
 
@@ -66,12 +69,6 @@ class VAEAttentionBlock(nn.Module):
         super().__init__()
         self.norm = LayerNormAffine(ch)
         self.transformer_blocks = nn.ModuleList([Attention(ch)])
-
-
-class Resample(nn.Module):
-    def __init__(self, ch: int):
-        super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3)
 
 
 def _plan_blocks(plan) -> nn.ModuleList:
@@ -130,9 +127,7 @@ def _run_plan(model: nn.Module, x: torch.Tensor, groups: int) -> torch.Tensor:
         elif kind == "downe":
             x = conv2d(p.conv, F.pad(x, (0, 0, 0, 1, 0, 1)), stride=2, padding="VALID")
         elif kind == "up":
-            b, h, w, c = x.shape
-            x = x[:, :, None, :, None].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
-            x = conv2d(p.conv, x)
+            x = conv2d(p.conv, upsample_nearest2x(x))
         else:
             raise ValueError(spec)
     return x
@@ -255,15 +250,8 @@ def init_sd_vae(cls, plan, gen: torch.Generator, dtype=torch.float32, *, device,
     """Random weights from `gen` with the JAX pipelines' VAE distributions: convs and
     attention linears N(0, 0.02²), zero biases, unit norms. The defaults are the SD3 /
     Flux head (16 latent channels, no quant convs)."""
-    model = empty_module(cls, plan, latent_channels, quant, dtype=dtype, device=device)
-    for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            m.weight.normal_(generator=gen).mul_(0.02)
-            m.bias.zero_()
-        elif isinstance(m, LayerNormAffine):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-    return model.eval().requires_grad_(False)
+    return normal_init_(empty_module(cls, plan, latent_channels, quant, dtype=dtype,
+                                     device=device), gen)
 
 
 # the JAX pipelines' tiny SD VAE (8 channels, 3 levels: factor 8, 4 groups) for tests

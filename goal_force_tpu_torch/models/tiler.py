@@ -83,18 +83,22 @@ def _mask_tensor(mask: np.ndarray, device) -> torch.Tensor:
 
 
 def tiled_forward_2d(fn, x: torch.Tensor, tile_size: int, tile_stride: int,
-                     border_width=None) -> torch.Tensor:
+                     border_width=None, batch: int = 1) -> torch.Tensor:
     """fn over overlapping (tile_size, tile_size) tiles of x (B, H, W, C), blended by the
     ramp mask. fn maps (B, t, t, C) to (B, t·s, t·s, C') for one io scale s, read from the
-    first tile's output. Returns (B, H·s, W·s, C') float32 on x's device."""
+    first tile's output. batch: up to this many tiles go through one call of fn, stacked
+    on the batch axis (only for an fn that maps each row on its own, such as a VAE half).
+    Returns (B, H·s, W·s, C') float32 on x's device."""
     B, H, W, _ = x.shape
     border_width = int(tile_stride * 0.5) if border_width is None else border_width
-    hs = _unfold_positions(H, tile_size, tile_stride)
-    ws = _unfold_positions(W, tile_size, tile_stride)
+    origins = [(h0, w0) for h0 in _unfold_positions(H, tile_size, tile_stride)
+               for w0 in _unfold_positions(W, tile_size, tile_stride)]
     values = weight = mask = None
-    for h0 in hs:
-        for w0 in ws:
-            out = fn(x[:, h0:h0 + tile_size, w0:w0 + tile_size, :]).float()
+    for i in range(0, len(origins), batch):
+        chunk = origins[i:i + batch]
+        tiles = [x[:, h0:h0 + tile_size, w0:w0 + tile_size, :] for h0, w0 in chunk]
+        outs = fn(torch.cat(tiles) if len(tiles) > 1 else tiles[0]).float().split(B)
+        for (h0, w0), out in zip(chunk, outs):
             if values is None:
                 io_scale = out.shape[1] / tile_size
                 oth = int(tile_size * io_scale)
@@ -107,7 +111,7 @@ def tiled_forward_2d(fn, x: torch.Tensor, tile_size: int, tile_stride: int,
             th, tw = int(h0 * io_scale), int(w0 * io_scale)
             values[:, th:th + oth, tw:tw + oth] += out * mask
             weight[:, th:th + oth, tw:tw + oth] += mask
-            del out
+        del outs
     return values / weight
 
 

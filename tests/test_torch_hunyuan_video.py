@@ -303,13 +303,15 @@ def test_unported_kinds_and_llava_raise(files):
         tpipe.HunyuanVideoPipeline.from_pretrained(paths["dit"], llama_path=llava,
                                                    device="cpu", num_heads=24,
                                                    rope_dims=(2, 2, 2))
-    # StepVideo (M14b) and every M14c family load since their slices
-    # (tests/test_torch_stepvideo.py, test_torch_flux.py, test_torch_sd3.py,
-    # test_torch_qwen_image.py, test_torch_hunyuan_dit.py, test_torch_omnigen.py); SDXL
-    # (M14d) and ESRGAN (M14e) wait
-    sdxl = {"add_time_embedding.0.weight": torch.zeros(2), "conv_in.weight": torch.zeros(2)}
+    # StepVideo (M14b), every M14c family and SD / SDXL / Kolors (M14d) load since their
+    # slices (tests/test_torch_stepvideo.py, test_torch_flux.py, test_torch_sd3.py,
+    # test_torch_qwen_image.py, test_torch_hunyuan_dit.py, test_torch_omnigen.py,
+    # test_torch_sd_unet.py, test_torch_kolors.py); SVD (M14d) and ESRGAN (M14e) wait
+    svd = {"add_time_embedding.0.weight": torch.zeros(2), "conv_in.weight": torch.zeros(2),
+           "blocks.1.mix_factor": torch.zeros(1)}
+    assert tdetect.detect_model_kind(svd) == "svd_unet"
     with pytest.raises(NotImplementedError, match="M14d"):
-        tauto.load_model(sdxl, device="cpu")
+        tauto.load_model(svd, device="cpu")
     esrgan = {"body.0.rdb1.conv1.weight": torch.zeros(2)}
     assert tdetect.detect_model_kind(esrgan) == "esrgan"
     with pytest.raises(NotImplementedError, match="M14e"):
